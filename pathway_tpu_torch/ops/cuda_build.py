@@ -28,15 +28,17 @@ class KernelBuildError(RuntimeError):
     pass
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): under
+    ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``), else on ``PATH``."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
+    path = os.path.join(cuda_home, "bin", name)
     if os.path.exists(path):
         return path
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
         raise KernelBuildError(
-            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the "
+            f"{name} not found (looked in $CUDA_HOME/bin and on PATH): the "
             "port's CUDA kernels are compiled on the machine with the card")
     return found
 
@@ -70,7 +72,8 @@ class CudaLibrary:
             return
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.tmp{os.getpid()}"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+        proc = subprocess.run([cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp,
+                               self.source],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
         self.build_log = proc.stdout

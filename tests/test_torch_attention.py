@@ -11,7 +11,8 @@ import torch
 
 from pathway_tpu.models.encoder import _dense_attention
 from pathway_tpu.ops.attention import flash_attention as jax_flash
-from pathway_tpu_torch.ops.attention import (ATTENTION, attention_reference,
+from pathway_tpu_torch.ops.attention import (ATTENTION, _check,
+                                             attention_reference,
                                              flash_attention, make_attn_fn)
 
 # f32 on both sides; the only differences are summation order and exp
@@ -23,6 +24,11 @@ CASES = [
     (2, 128, 6, 64, "random"),
     (1, 64, 2, 32, "all_valid"),
     (2, 32, 2, 16, "row_fully_masked"),
+    # the edges of the card kernel's tiling: S not a multiple of 16 with a
+    # fully masked row (tile padding must not dilute it), D not a multiple
+    # of 16 (zero-padded head dim)
+    (2, 40, 2, 24, "row_fully_masked"),
+    (2, 48, 2, 40, "random"),
 ]
 
 
@@ -81,14 +87,94 @@ def test_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
     assert ATTENTION.launches == before
 
 
+def _qkv(shape, dtype=torch.bfloat16):
+    return [torch.zeros(shape, dtype=dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 96, 6, 64), torch.bfloat16),   # encoder main path
+    ((2, 96, 6, 64), torch.float32),
+    ((1, 1, 1, 8), torch.bfloat16),     # smallest S and D
+    ((1, 1024, 1, 128), torch.bfloat16),  # largest S and D
+    ((3, 40, 2, 24), torch.bfloat16),   # D not a multiple of 16
+])
+def test_check_accepts_the_kernels_shapes(shape, dtype):
+    q, k, v = _qkv(shape, dtype)
+    _check(q, k, v, torch.ones(shape[:2], dtype=torch.bool))
+
+
+def test_check_accepts_strided_head_views_of_a_packed_projection():
+    """The encoder hands K1 (B, S, H, D) views; rows of a packed (B, S, 3,
+    H, D) projection have 16-byte multiple strides and pass."""
+    qkv = torch.zeros((2, 32, 3, 4, 16), dtype=torch.bfloat16)
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    _check(q, k, v, torch.ones((2, 32), dtype=torch.bool))
+
+
+def _bad_inputs():
+    ok = (2, 32, 2, 16)
+    mask = torch.ones(ok[:2], dtype=torch.bool)
+    q, k, v = _qkv(ok)
+    buf = torch.zeros(2 * 32 * 2 * 16 + 8, dtype=torch.bfloat16)
+    unaligned = buf[1:1 + q.numel()].view(ok)  # start 2 bytes off 16
+    wide = torch.zeros((2, 32, 2, 20), dtype=torch.bfloat16)[..., :16]
+    return [
+        (TypeError, (q.half(), k.half(), v.half(), mask)),
+        (TypeError, (q, k.float(), v, mask)),
+        (ValueError, (q[0], k[0], v[0], mask)),                 # 3-d
+        (ValueError, (q, k[:, :16], v, mask)),                  # shapes
+        (ValueError, (q, k, v, mask.int())),                    # mask dtype
+        (ValueError, (q, k, v, mask[:, :16])),                  # mask shape
+        (ValueError, (q, k, v,
+                      torch.ones((32, 2), dtype=torch.bool).t())),  # strided
+        (ValueError, (*_qkv((2, 32, 2, 12)),
+                      mask)),                                   # D % 8
+        (ValueError, (*_qkv((1, 8, 1, 136)),
+                      torch.ones((1, 8), dtype=torch.bool))),   # D > 128
+        (ValueError, (*_qkv((1, 1025, 1, 8)),
+                      torch.ones((1, 1025), dtype=torch.bool))),  # S > 1024
+        (ValueError, (q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+                      mask)),                                   # last dim
+        (ValueError, (unaligned, k, v, mask)),                  # start
+        (ValueError, (wide, k, v, mask)),                       # row stride
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_bad_inputs())))
+def test_check_rejects_what_the_kernel_does_not_take(case):
+    exc, args = _bad_inputs()[case]
+    with pytest.raises(exc):
+        _check(*args)
+
+
+# chip_smoke.py phase 3's edge shapes: (B, S, H, D, mask kind, dtype, tol)
+CARD_CASES = [
+    (4, 96, 6, 64, "row_fully_masked", torch.bfloat16, 2e-2),
+    (4, 96, 6, 64, "row_fully_masked", torch.float32, 1e-4),
+    (1, 16, 6, 64, "random", torch.bfloat16, 2e-2),
+    (1, 96, 6, 64, "random", torch.bfloat16, 2e-2),
+    (8, 100, 6, 64, "row_fully_masked", torch.bfloat16, 2e-2),
+    (8, 1000, 6, 64, "row_fully_masked", torch.bfloat16, 2e-2),
+    (4, 1024, 6, 64, "random", torch.bfloat16, 2e-2),
+    (16, 96, 6, 40, "random", torch.bfloat16, 2e-2),
+    (16, 96, 6, 128, "random", torch.bfloat16, 2e-2),
+    (2, 1000, 6, 64, "row_fully_masked", torch.float32, 1e-4),
+]
+
+
 @pytest.mark.cuda
-def test_kernel_matches_reference_on_card():
+@pytest.mark.parametrize("B,S,H,D,kind,dtype,tol", CARD_CASES)
+def test_kernel_matches_reference_on_card(B, S, H, D, kind, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the attention kernel is CUDA-only")
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        q, k, v, mask = (torch.from_numpy(a).cuda()
-                         for a in _inputs(4, 96, 6, 64, "row_fully_masked"))
-        q, k, v = (t.to(dtype) for t in (q, k, v))
-        got = flash_attention(q, k, v, mask).float()
-        ref = attention_reference(q, k, v, mask).float()
-        assert float((got - ref).abs().max()) <= tol
+    q, k, v, mask = (torch.from_numpy(a).cuda()
+                     for a in _inputs(B, S, H, D, kind))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    got = flash_attention(q, k, v, mask).float()
+    torch.cuda.synchronize()
+    ref = attention_reference(q, k, v, mask).float()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= tol
+    if kind == "row_fully_masked":
+        mean_v = v[0].float().mean(dim=0, keepdim=True)
+        assert float((got[0] - mean_v).abs().max()) <= tol
