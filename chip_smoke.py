@@ -3,23 +3,33 @@
 
     python3 chip_smoke.py [--docs N] [--seed S]
 
-Drives the port's live-RAG device path at BGE-small's full width with
-random weights from a seed, and checks every kernel of that path against
-its plain PyTorch version on the card. Phases (each failure exits
+Drives the port's two live-RAG device paths at BGE-small's full width
+with random weights from a seed, and checks every kernel of those paths
+against its plain PyTorch version on the card. Phases (each failure exits
 non-zero, and no result line is printed):
 
 1. device: CUDA version, card name and capability (9, 0 required), the
    card's name and power limit as nvidia-smi reports them;
-2. build: every kernel of the path compiled from the sources in this
-   checkout, with the build time, registers and spills (ptxas), and a
-   count of tensor-core instructions in the bf16 kernels (cuobjdump);
+2. build: every kernel source compiled from this checkout (one nvcc per
+   source, all started together), with the build time, registers and
+   spills (ptxas), and a count of tensor-core instructions in the bf16
+   kernels (cuobjdump);
 3. K1 (the encoder attention kernel) against ``attention_reference`` on
    the card: bf16 at the ingest shape, at S=512 and at the edges of its
    tensor-core tiling (S=16, S=100, S=1000, S=1024, D=40, D=128), f32,
    batch rows with every key masked; times of the kernel, the plain
    version and PyTorch's scaled_dot_product_attention at the main-path
    shape and at B=64 S=512, beside the bound;
-4. the slice: ``DeviceEmbeddingKnnIndex(EncoderEmbedder(bge_small),
+4. K1 with segment ids against ``segment_attention_reference``: chunks of
+   ``pack_ragged`` at B=8 S=512, ``ragged_warmup_operands(8)``, one
+   document per row, padding rows (against mean(V)), S=96 and S=1000, bf16
+   and f32; time at B=8 S=512 beside SDPA with the same boolean mask;
+5. K4 (quantizing scatter) bit for bit against its plain version, with
+   zero rows, exact halves and sentinel slots that must leave the extent
+   untouched; K3 (int8 score) against its plain version at B=1 and B=64,
+   cos and l2sq; times, K3 over 10,000,000 x 384 int8 rows in the index's
+   chunks beside torch.matmul of a bf16 copy of one chunk;
+6. path 1: ``DeviceEmbeddingKnnIndex(EncoderEmbedder(bge_small),
    BruteForceKnnIndex(384, bf16 paged))`` ingests ``--docs`` synthetic
    documents in batches of 512 through the fused path, then answers 64
    single-query text searches (32 copies of ingested documents, 32 fresh
@@ -27,9 +37,18 @@ non-zero, and no result line is printed):
    dispatches of that run, every query's top 10 against a brute-force
    scan of the same rows on the card, every copy finding its document,
    and card-vs-CPU embeddings;
-5. profile: torch.profiler over three encoder forwards at the ingest
-   shape, device time by kernel group (K1, GEMM, other) and the device's
-   busy share.
+7. path 2: the same 100,000 documents and 64 queries through the ragged
+   embedder into ``BruteForceKnnIndex(384, dtype="int8", metric="cos")``
+   (K1 with segment ids, K4 in the fused write, K3 in the search).
+   Checks: K1 launches = 12 x encoder dispatches, K3 and K4 launched,
+   every top 10 against a plain scan of the same int8 rows, every copy
+   found, ragged vs padded embeddings;
+8. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
+   on the flush path, K3 over two chunks): query times at B=1 and B=64,
+   every top 10 against the plain scan;
+9. profile: torch.profiler over three encoder forwards of each path's
+   dispatch, device time by kernel group (K1, GEMM, other) and the
+   device's busy share.
 
 The second-to-last line is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -50,6 +69,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 INGEST_BATCH = 512
 N_LAYERS = 12
+RAGGED_DOCS = 100_000  # path 2's documents, never cut
+K3_ROWS = 10_000_000   # the README's 10M x 384 deployment
 WORDS_PER_DOC = 90  # bench.py make_docs: 90 words + CLS/SEP -> bucket 96
 
 
@@ -142,15 +163,35 @@ def sass_mma_counts(lib_path: str) -> dict:
     return counts
 
 
-def phase_build():
-    from pathway_tpu_torch.ops.attention import ATTENTION
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take, and what sets it."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
-    libs = [ATTENTION]
+
+def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.ops.knn_kernels import KNN_I8
+
+    libs = [ATTENTION, KNN_I8]
     t0 = time.perf_counter()
-    for lib in libs:
-        lib.load()
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
+        list(pool.map(lambda lib: lib.load(), libs))
     print(f"[build] {len(libs)} kernel source(s) built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for fn, (regs, spill) in sorted(ptxas_report(KNN_I8.build_log).items()):
+        print(f"[build] ptxas {fn}: {regs} registers, {spill} bytes spill "
+              "stores", flush=True)
+    # K3 multiplies on the tensor cores too
+    counts = {f: c for f, c in sass_mma_counts(KNN_I8.path()).items()
+              if "knn_score_i8" in f}
+    for f, c in sorted(counts.items()):
+        print(f"[build] SASS {f}: {c} HMMA/HGMMA instructions", flush=True)
+    if not counts or 0 in counts.values():
+        fail("K3 (knn_score_i8_kernel) has no tensor-core instruction")
     # ptxas -v: registers and spills per instantiation; D = 64 is the
     # encoder's head dim (mangled template argument Li64E)
     report = ptxas_report(ATTENTION.build_log)
@@ -290,6 +331,279 @@ def phase_attention(card: str) -> dict:
             "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms, "library_ms": library_ms}
+
+
+def phase_segments(card: str) -> dict:
+    """K1 with segment ids (the ragged path's attention) against
+    ``segment_attention_reference`` on the card, then its time at the
+    ragged dispatch shape B=8 S=512."""
+    import torch
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.engine.profiler import attention_cost
+    from pathway_tpu_torch.models.encoder import EncoderConfig
+    from pathway_tpu_torch.ops.attention import (ATTENTION, flash_attention,
+                                                 segment_attention_reference)
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    H, D = 6, 64
+    emb = EncoderEmbedder(config=EncoderConfig.bge_small(), ragged=True,
+                          device="cuda")
+    chunks = emb.pack_ragged(make_docs(12 * 40 + 12, seed=3))
+    full = chunks[0][0][1]                # 8 x 512, ~5 documents a row
+    tail = chunks[-1][0][1]               # 12 docs: 3 rows + 1 padding row
+    warm = emb.ragged_warmup_operands(8)[0][1]
+    single = np.full((4, 512), -1, np.int32)
+    single[:, :300] = 0                   # one document, then padding
+    s96 = np.full((4, 96), -1, np.int32)
+    s96[:, :40], s96[:, 40:90] = 0, 1
+    s96[3] = -1
+    s1000 = np.repeat(np.arange(10, dtype=np.int32), 95)[None].repeat(2, 0)
+    s1000 = np.pad(s1000, ((0, 0), (0, 50)), constant_values=-1)
+    docs_a_row = len(np.unique(full[full >= 0])) / full.shape[0]
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol16 = 2 * 2**-8  # as the dense checks at the ingest shape
+    cases = [  # (label, seg, dtype, tolerance)
+        (f"pack_ragged chunk B=8 S=512 ({docs_a_row:.1f} docs a row)", full,
+         bf16, tol16),
+        ("pack_ragged chunk B=8 S=512", full, f32, 1e-4),
+        ("ragged_warmup_operands(8) B=8 S=512", warm, bf16, tol16),
+        ("last chunk B=4 S=512 with a padding row", tail, bf16, tol16),
+        ("last chunk B=4 S=512 with a padding row", tail, f32, 1e-4),
+        ("one document a row B=4 S=512", single, bf16, tol16),
+        ("S=96, a padding row", s96, bf16, tol16),
+        ("S=1000, 10 documents a row", s1000, bf16, tol16),
+        ("S=1000, 10 documents a row", s1000, f32, 1e-4),
+    ]
+    errs = []
+    for label, seg_np, dtype, tol in cases:
+        B, S = seg_np.shape
+        seg = torch.from_numpy(np.ascontiguousarray(seg_np)).cuda()
+        q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        got = flash_attention(q, k, v, seg >= 0, seg)
+        torch.cuda.synchronize()
+        ref = segment_attention_reference(q, k, v, seg)
+        diff = (got.float() - ref.float()).abs()
+        err = float(diff.max())
+        pad_err = 0.0
+        rows = (seg < 0).nonzero().tolist()
+        for b, i in rows:  # padding rows average V over all S rows
+            pad_err = max(pad_err, float((got[b, i].float() - v[b].float()
+                                          .mean(dim=0)).abs().max()))
+        print(f"[K1 seg] {label} {str(dtype)[6:]}: max_abs_err {err:.3e}, "
+              f"mean_abs_err {float(diff.mean()):.3e} (tolerance {tol:g}); "
+              f"{len(rows)} padding rows vs mean(V): {pad_err:.3e}",
+              flush=True)
+        if not bool(torch.isfinite(got.float()).all()) or not err <= tol \
+                or not pad_err <= tol:
+            fail(f"K1 with segments, {label}: {err} / {pad_err} > {tol}")
+        errs.append(err)
+
+    # time at the ragged dispatch shape (bf16, the pack_ragged chunk)
+    seg = torch.from_numpy(full).cuda()
+    B, S = seg.shape
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+               .to(bf16) for _ in range(3))
+    mask = seg >= 0
+    launches_before = ATTENTION.launches
+    ms = cuda_ms(lambda: flash_attention(q, k, v, mask, seg), 50)
+    plain_ms = cuda_ms(lambda: segment_attention_reference(q, k, v, seg), 10)
+    same = (seg[:, :, None] == seg[:, None, :]) & (seg >= 0)[:, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=same[:, None]), 50)
+    ATTENTION.launches = launches_before  # comparisons don't count
+    flops, nbytes = attention_cost(B, S, H, D, itemsize=2)
+    nbytes += 3 * B * S  # int32 segment ids in place of the byte mask
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[K1 seg] B={B} S={S} H={H} D={D} bf16 with segment ids: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (boolean (B, 1, S, S)"
+          f" mask) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by};"
+          f" {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), share of "
+          f"bound {bound_ms / ms:.3f} [{card}]", flush=True)
+    return {"name": "attention (segment ids)", "route": "cuda",
+            "source": "pathway_tpu_torch/ops/csrc/attention.cu",
+            "replaces": "pathway_tpu/ops/attention.py:33",
+            "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "library_ms": library_ms}
+
+
+def hard_rows(n: int, dim: int, gen) -> "torch.Tensor":
+    """Normal f32 rows on the card with the quantizer's edge cases: zero
+    rows, rows of exact halves (v / scale = k + 1/2, which must round to
+    even), a row whose largest magnitude is negative, tiny rows."""
+    import torch
+
+    v = torch.randn((n, dim), generator=gen, device="cuda")
+    v[0] = 0.0
+    v[n // 2] = 0.0
+    s = 2.0**-3
+    half = (torch.arange(dim, device="cuda") % 40 + 0.5) * s
+    v[1] = torch.where(torch.arange(dim, device="cuda") % 2 == 0, half,
+                       -half)
+    v[1, 0] = 127 * s
+    v[2] *= -1e-3
+    v[2, 0] = -5.0
+    v[3] *= 1e-30
+    return v
+
+
+def phase_knn_i8(card: str) -> tuple[dict, dict]:
+    """K4 bit for bit and K3 within its tolerance against their plain
+    versions; their times beside their bounds."""
+    import torch
+
+    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS
+    from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
+                                                   SCORE_I8,
+                                                   quantize_scatter,
+                                                   quantize_scatter_reference,
+                                                   score_i8,
+                                                   score_i8_reference)
+
+    from pathway_tpu_torch.engine.profiler import ingest_scatter_cost
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    D = 384
+    k4_before, k3_before = QUANTIZE_SCATTER.launches, SCORE_I8.launches
+
+    def extent(R):
+        """An extent's four tensors filled with arbitrary bytes."""
+        return (torch.randint(-127, 128, (R, D), generator=gen,
+                              device="cuda", dtype=torch.int8),
+                torch.rand(R, generator=gen, device="cuda"),
+                torch.rand(R, generator=gen, device="cuda"),
+                torch.rand(R, generator=gen, device="cuda") > 0.5)
+
+    # K4: bit for bit, sentinels untouched
+    for n, R in ((256, 1024), (512, 1024), (65_536, 100_352)):
+        rows = hard_rows(n, D, gen)
+        slots = torch.randperm(R, generator=gen, device="cuda")[:n]
+        slots[n // 4::5] = R + 1  # sentinel slots: dropped
+        vv = torch.rand(n, generator=gen, device="cuda") > 0.1
+        ext = extent(R)
+        got, ref = [t.clone() for t in ext], [t.clone() for t in ext]
+        quantize_scatter(rows, slots, vv, *got)
+        torch.cuda.synchronize()
+        quantize_scatter_reference(rows, slots, vv, *ref)
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        hit = torch.zeros(R, dtype=torch.bool, device="cuda")
+        hit[slots[slots < R]] = True
+        kept = all(torch.equal(a[~hit], b[~hit]) for a, b in zip(got, ext))
+        print(f"[K4] n={n} rows into R={R}: bit-identical to the plain "
+              f"version {same}; {int((slots >= R).sum())} sentinel rows, "
+              f"untouched rows unchanged {kept}", flush=True)
+        if not (same and kept):
+            fail(f"K4 n={n}: codes/scales/vsq/valid differ from the plain "
+                 "version or a row outside the slots changed")
+
+    # K3 over one _CHUNK_ROWS chunk, cos and l2sq, B = 1 and 64
+    slab, scales, vsq, valid = extent(_CHUNK_ROWS)
+    vsq = (slab.int() ** 2).sum(1).float()
+    k3_err = 0.0
+    for B in (1, 64):
+        q = torch.randn((B, D), generator=gen, device="cuda")
+        q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        for metric in ("cos", "l2sq"):
+            got = score_i8(q, slab, scales, vsq, valid, metric)
+            torch.cuda.synchronize()
+            ref = score_i8_reference(q, slab, scales, vsq, valid, metric)
+            fin = torch.isfinite(ref)
+            # exact products; f32 sums in another order: f32-sized
+            tol = 1e-5 * max(1.0, float(ref[fin].abs().max()))
+            err = float((got[fin] - ref[fin]).abs().max())
+            same_inf = torch.equal(fin, torch.isfinite(got))
+            print(f"[K3] B={B} N={_CHUNK_ROWS} {metric}: max_abs_err "
+                  f"{err:.3e} (tolerance {tol:.3e}), -inf rows agree "
+                  f"{same_inf}", flush=True)
+            if not same_inf or not err <= tol:
+                fail(f"K3 B={B} {metric}: {err} > {tol}")
+            if B == 1 and metric == "cos":
+                k3_err = err
+    del slab, scales, vsq, valid
+
+    # K4's time at path 2's write (a ragged chunk: 8 x 32 rows, ~40 real)
+    R = 100_352
+    ext = extent(R)
+    rows = torch.randn((256, D), generator=gen, device="cuda")
+    slots = torch.full((256,), R, dtype=torch.int64, device="cuda")
+    slots[:40] = torch.randperm(R, generator=gen, device="cuda")[:40]
+    k4_ms = cuda_ms(lambda: quantize_scatter(rows, slots, None, *ext), 200)
+    k4_plain = cuda_ms(lambda: quantize_scatter_reference(
+        rows, slots, None, *ext), 20)
+    real = 40
+    k4_bytes = 256 * 8 + real * (4 * D + D + 4 + 4 + 1)
+    k4_bound, k4_by = bound(2.0 * real * D, k4_bytes)
+    print(f"[K4] path 2's write, 256 rows (40 real) of D={D}: kernel "
+          f"{k4_ms:.4f} ms, plain {k4_plain:.4f} ms, bound {k4_bound:.5f} ms"
+          f" ({k4_by}; {k4_bytes / 1e3:.1f} kB) [{card}]", flush=True)
+    rows = torch.randn((65_536, D), generator=gen, device="cuda")
+    slots = torch.randperm(R, generator=gen, device="cuda")[:65_536]
+    bulk_ms = cuda_ms(lambda: quantize_scatter(rows, slots, None, *ext), 50)
+    bulk_bytes = 65_536 * (8 + 4 * D + D + 9)
+    bulk_bound, _ = bound(2.0 * 65_536 * D, bulk_bytes)
+    _, model_bytes = ingest_scatter_cost(65_536, D, itemsize=1)
+    print(f"[K4] bulk flush, 65,536 rows: kernel {bulk_ms:.4f} ms, bound "
+          f"{bulk_bound:.4f} ms ({bulk_bytes / 1e6:.1f} MB), share of bound "
+          f"{bulk_bound / bulk_ms:.3f}; the cost model's ingest_scatter_cost"
+          f" {model_bytes / 1e6:.1f} MB -> {model_bytes / bulk_ms / 1e6:.1f} "
+          f"GB/s [{card}]", flush=True)
+    del ext, rows
+
+    # K3 over 10M x 384 int8 rows (3.84 GB), scored chunk by chunk as the
+    # index scans an extent
+    N = K3_ROWS
+    slab = torch.randint(-127, 128, (N, D), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    scales = torch.rand(N, generator=gen, device="cuda") + 0.01
+    vsq = torch.rand(N, generator=gen, device="cuda") * 1e6
+    valid = torch.ones(N, dtype=torch.bool, device="cuda")
+    chunk_bf16 = slab[:_CHUNK_ROWS].to(torch.bfloat16)
+    n_chunks = N / _CHUNK_ROWS
+    k3 = {}
+    for B in (1, 64):
+        q = torch.randn((B, D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+        def scan(fn):
+            for c0 in range(0, N, _CHUNK_ROWS):
+                c1 = min(c0 + _CHUNK_ROWS, N)
+                fn(q, slab[c0:c1], scales[c0:c1], vsq[c0:c1], valid[c0:c1],
+                   "cos")
+
+        ms = cuda_ms(lambda: scan(score_i8), 5)
+        plain_ms = cuda_ms(lambda: scan(score_i8_reference), 2)
+        mm_ms = cuda_ms(lambda: torch.matmul(q, chunk_bf16.T), 20) * n_chunks
+        # cos reads codes, vsq and valid; writes the (B, N) scores
+        nbytes = N * (D + 4 + 1) + B * D * 2 + B * N * 4
+        bound_ms, bound_by = bound(2.0 * B * N * D, nbytes)
+        print(f"[K3] B={B} over {N:,} x {D} int8 rows in {n_chunks:.2f} "
+              f"chunks (cos): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.matmul of a bf16 copy of one chunk x {n_chunks:.2f} "
+              f"{mm_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{nbytes / 1e9:.3f} GB, {2.0 * B * N * D / 1e9:.1f} GFLOP), "
+              f"share of bound {bound_ms / ms:.3f} [{card}]", flush=True)
+        k3[B] = (ms, plain_ms, mm_ms, bound_ms, bound_by)
+    del slab, scales, vsq, valid, chunk_bf16
+    torch.cuda.empty_cache()
+    QUANTIZE_SCATTER.launches, SCORE_I8.launches = k4_before, k3_before
+    ms, plain_ms, mm_ms, bound_ms, bound_by = k3[1]
+    k3_rec = {"name": "knn_score_i8", "route": "cuda",
+              "source": "pathway_tpu_torch/ops/csrc/knn_i8.cu",
+              "replaces": "pathway_tpu/ops/knn.py:211",
+              "max_abs_err": k3_err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "bound_share": bound_ms / ms, "library_ms": mm_ms}
+    k4_rec = {"name": "knn_quantize_scatter", "route": "cuda",
+              "source": "pathway_tpu_torch/ops/csrc/knn_i8.cu",
+              "replaces": "pathway_tpu/ops/knn.py:241",
+              "max_abs_err": 0.0, "ms": k4_ms, "plain_ms": k4_plain,
+              "bound_ms": k4_bound, "bound_by": k4_by,
+              "bound_share": k4_bound / k4_ms, "library_ms": None}
+    return k3_rec, k4_rec
 
 
 def phase_slice(n_docs: int, seed: int, card: str) -> int:
@@ -438,9 +752,229 @@ def phase_slice(n_docs: int, seed: int, card: str) -> int:
     return launches
 
 
+def check_top10(results, scan_scores, keys_of, label: str) -> int:
+    """Each query's top 10 keys against a plain scan's scores (B, N) on
+    the card, whose column j holds key ``keys_of[j]``: equal, except that
+    where they differ the index's key must score within 1e-6 of the scan's
+    key at that rank (a rounding tie). Returns how many rank-1 keys are
+    identical."""
+    import torch
+
+    top_s, top_j = torch.sort(scan_scores, dim=1, descending=True,
+                              stable=True)
+    top_s, top_j = top_s[:, :10].cpu().numpy(), top_j[:, :10].cpu().numpy()
+    col = {int(k): j for j, k in enumerate(keys_of)}
+    scores = scan_scores.cpu().numpy()
+    rank1 = 0
+    for qi, res in enumerate(results):
+        got = [int(k) for k, _ in res]
+        ref = [int(keys_of[j]) for j in top_j[qi]]
+        if len(got) != 10:
+            fail(f"{label} query {qi}: {len(got)} results")
+        rank1 += got[0] == ref[0]
+        for r, (g, w) in enumerate(zip(got, ref)):
+            gap = float(top_s[qi, r] - scores[qi, col[g]])
+            if g != w and abs(gap) > 1e-6:
+                fail(f"{label} query {qi} rank {r}: key {g} != scan's {w} "
+                     f"(score gap {gap:.3e})")
+    return rank1
+
+
+def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int]:
+    """Path 2: ragged BGE-small (K1 with segment ids) -> fused int8 write
+    (K4) -> int8 search (K3), at path 1's documents and queries."""
+    import torch
+
+    from pathway_tpu_torch.internals.keys import Pointer
+    from pathway_tpu_torch.models.encoder import (EncoderConfig,
+                                                  init_params_host)
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
+                                           DeviceEmbeddingKnnIndex)
+    from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
+                                                   SCORE_I8,
+                                                   score_i8_reference)
+    from pathway_tpu_torch.engine.profiler import segment_attention_cost
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+
+    n_docs = RAGGED_DOCS
+    cfg = EncoderConfig.bge_small()
+    params = init_params_host(seed, cfg)
+    emb = EncoderEmbedder(config=cfg, params=params, ragged=True,
+                          device="cuda")
+    index = DeviceEmbeddingKnnIndex(emb, BruteForceKnnIndex(
+        cfg.hidden, reserved_space=100_064, dtype="int8", metric="cos",
+        device="cuda"))
+    docs = make_docs(n_docs, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    dup_ids = sorted(rng.choice(n_docs, size=32, replace=False).tolist())
+    queries = [docs[i] for i in dup_ids] + make_docs(32, seed=seed + 1)
+
+    # layer times at the ragged dispatch shape (not part of the counted run)
+    chunks = emb.pack_ragged(docs[:INGEST_BATCH])
+    args = chunks[0][0]
+    t0 = time.perf_counter()
+    for b in range(4):
+        emb.pack_ragged(docs[b * INGEST_BATCH:(b + 1) * INGEST_BATCH])
+    pack_ms = (time.perf_counter() - t0) / 4 * 1e3
+    fwd_ms = cuda_ms(lambda: emb.ragged_device_producer(emb.model, *args),
+                     20)
+    B, W = args[0].shape
+    flops, _ = segment_attention_cost(B, W, hidden=cfg.hidden,
+                                      intermediate=cfg.intermediate,
+                                      layers=cfg.layers)
+    print(f"[ragged] per {INGEST_BATCH}-doc batch: tokenize + pack "
+          f"{pack_ms:.2f} ms (host) into {len(chunks)} chunks of up to "
+          f"{B} x {W} ({chunks[0][1]} docs in the first); encoder forward "
+          f"per chunk {fwd_ms:.2f} ms ({flops / fwd_ms / 1e9:.1f} TFLOP/s) "
+          f"[{card}]", flush=True)
+
+    # the counted run: ingest, then single-query searches
+    ATTENTION.launches = SCORE_I8.launches = QUANTIZE_SCATTER.launches = 0
+    emb.dispatches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b0 in range(0, n_docs, INGEST_BATCH):
+        sl = range(b0, min(b0 + INGEST_BATCH, n_docs))
+        index.add_batch([Pointer(i) for i in sl], [docs[i] for i in sl])
+    index.drain()
+    ingest_s = time.perf_counter() - t0
+    ingest_dispatches = emb.dispatches
+    index.search([(Pointer(10**9), queries[0], 10, None)])  # warm-up
+    lat_ms, results = [], []
+    for qi, text in enumerate(queries):
+        t1 = time.perf_counter()
+        res = index.search([(Pointer(10**9 + qi), text, 10, None)])
+        lat_ms.append((time.perf_counter() - t1) * 1e3)
+        results.append(res[0])
+    launches = (ATTENTION.launches, SCORE_I8.launches,
+                QUANTIZE_SCATTER.launches)
+    dispatches = emb.dispatches
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+    batches = -(-n_docs // INGEST_BATCH)
+    print(f"[ragged] ingested {len(index)} docs into "
+          f"{index.inner.page_stats()['extents']} int8 extent(s) in "
+          f"{ingest_s:.2f} s: {len(index) / ingest_s:.1f} docs/s, "
+          f"{ingest_dispatches / batches:.2f} chunks per {INGEST_BATCH}-doc "
+          f"batch; query p50 {np.percentile(lat_ms, 50):.3f} ms p99 "
+          f"{np.percentile(lat_ms, 99):.3f} ms over {len(lat_ms)} "
+          f"single-query searches; peak device memory {peak_mb:.1f} MiB "
+          f"[{card}]", flush=True)
+    print(f"[ragged] launches: K1 {launches[0]}, K3 {launches[1]}, K4 "
+          f"{launches[2]}; encoder dispatches {dispatches} (x{N_LAYERS} = "
+          f"{N_LAYERS * dispatches}), {ingest_dispatches} of them ingest",
+          flush=True)
+    if len(index) != n_docs:
+        fail(f"index holds {len(index)} docs, expected {n_docs}")
+    if dispatches == 0 or launches[0] != N_LAYERS * dispatches:
+        fail("K1 did not run on every encoder layer of path 2")
+    if launches[2] != ingest_dispatches:
+        fail("K4 did not write every ragged chunk of path 2")
+    if launches[1] < len(queries):
+        fail("K3 did not score every search of path 2")
+
+    # the index against a plain scan of the same int8 rows on the card
+    inner = index.inner
+    exts = [e for e in inner._pool.extents if e.established]
+    cat = [torch.cat([getattr(e, a) for e in exts])
+           for a in ("vectors", "scales", "vsq", "valid")]
+    base = np.concatenate([e.base + np.arange(e.rows) for e in exts])
+    keys_of = np.array([int(inner._slot_to_key.get(int(s), -1))
+                        for s in base])
+    qv = torch.from_numpy(np.stack([emb.embed_batch([t])[0]
+                                    for t in queries])).cuda()
+    qv = (qv / (qv.norm(dim=1, keepdim=True) + 1e-12)).to(torch.bfloat16)
+    scan = score_i8_reference(qv, *cat, "cos")
+    rank1 = check_top10(results, scan, keys_of, "path 2")
+    print(f"[ragged] top-10 vs a plain scan of the int8 rows: all 64 "
+          f"queries pass, rank 1 identical on {rank1}/64 (the rest within a"
+          f" 1e-6 score tie)", flush=True)
+    own_rank1 = 0
+    for qi, doc_id in enumerate(dup_ids):
+        got = [int(k) for k, _ in results[qi]]
+        if doc_id not in got:
+            fail(f"path 2: the copy of doc {doc_id} missed it in its top 10")
+        own_rank1 += got[0] == doc_id
+    print(f"[ragged] duplicate queries: 32/32 find their document in the "
+          f"top 10, {own_rank1}/32 at rank 1", flush=True)
+
+    # ragged vs padded embeddings on the card, same weights
+    padded = EncoderEmbedder(config=cfg, params=params, ragged=False,
+                             device="cuda")
+    a = emb.embed_batch(docs[:16]).astype(np.float64)
+    b = padded.embed_batch(docs[:16]).astype(np.float64)
+    cos = np.sum(a * b, 1) / (np.linalg.norm(a, axis=1)
+                              * np.linalg.norm(b, axis=1))
+    print(f"[ragged] ragged vs padded embeddings of 16 docs on the card: min"
+          f" row cosine {cos.min():.6f} (required >= 0.999)", flush=True)
+    if not np.all(np.isfinite(a)) or cos.min() < 0.999:
+        fail("ragged embeddings disagree with padded ones")
+    return launches
+
+
+def phase_int8_million(seed: int, card: str) -> None:
+    """An int8 index of 1,000,000 random rows fed by add_batch_device (K4
+    on the flush path) and searched over two chunks (K3)."""
+    import torch
+
+    from pathway_tpu_torch.internals.keys import Pointer
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+    from pathway_tpu_torch.ops.knn_kernels import score_i8_reference
+
+    n, D, batch = 1_000_000, 384, 65_536
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    index = BruteForceKnnIndex(D, reserved_space=n, dtype="int8",
+                               metric="cos", device="cuda")
+    t0 = time.perf_counter()
+    for b0 in range(0, n, batch):
+        b1 = min(b0 + batch, n)
+        index.add_batch_device([Pointer(i) for i in range(b0, b1)],
+                               torch.randn((b1 - b0, D), generator=gen,
+                                           device="cuda"))
+    index.drain()
+    add_s = time.perf_counter() - t0
+    qs = torch.randn((64, D), generator=gen, device="cuda").cpu().numpy()
+    lat1, results = [], []
+    index.search([(Pointer(10**9), qs[0], 10, None)])  # warm-up
+    for qi in range(64):
+        t1 = time.perf_counter()
+        results.append(index.search([(Pointer(10**9 + qi), qs[qi], 10,
+                                      None)])[0])
+        lat1.append((time.perf_counter() - t1) * 1e3)
+    lat64 = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        batch_res = index.search([(Pointer(10**9 + i), qs[i], 10, None)
+                                  for i in range(64)])
+        lat64.append((time.perf_counter() - t1) * 1e3)
+    ext = index._pool.extents[0]
+    print(f"[int8 1M] {len(index):,} rows added in {add_s:.2f} s through "
+          f"add_batch_device ({index._pool.stats()['extents']} extent of "
+          f"{ext.rows:,} rows); query p50 at B=1 "
+          f"{np.percentile(lat1, 50):.3f} ms, at B=64 "
+          f"{np.percentile(lat64, 50):.3f} ms per call [{card}]", flush=True)
+    keys_of = np.array([int(index._slot_to_key.get(s, -1))
+                        for s in range(ext.rows)])
+    q = torch.from_numpy(qs).cuda()
+    q = (q / (q.norm(dim=1, keepdim=True) + 1e-12)).to(torch.bfloat16)
+    scan = score_i8_reference(q, ext.vectors, ext.scales, ext.vsq,
+                              ext.valid, "cos")
+    rank1 = check_top10(results, scan, keys_of, "int8 1M")
+    if [[int(k) for k, _ in r] for r in batch_res] != \
+            [[int(k) for k, _ in r] for r in results]:
+        fail("int8 1M: a B=64 search differs from the 64 B=1 searches")
+    print(f"[int8 1M] top-10 vs a plain scan: all 64 queries pass (rank 1 "
+          f"identical on {rank1}/64); the B=64 search returns the same "
+          "keys", flush=True)
+
+
 def phase_profile(card: str) -> None:
-    """torch.profiler over three encoder forwards at the ingest shape:
-    device time by kernel group and the device's busy share."""
+    """torch.profiler over three encoder forwards of each path's dispatch
+    (path 1: 512 x 96 padded; path 2: one ragged chunk of 8 x 512 with
+    segment ids): device time by kernel group and the device's busy
+    share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -448,43 +982,56 @@ def phase_profile(card: str) -> None:
     from pathway_tpu_torch.models.encoder import EncoderConfig
     from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
 
-    emb = EncoderEmbedder(config=EncoderConfig.bge_small(), device="cuda")
+    cfg = EncoderConfig.bge_small()
+    emb = EncoderEmbedder(config=cfg, device="cuda")
     ids, lens = emb.pack_tokens(make_docs(INGEST_BATCH, seed=7))
+    remb = EncoderEmbedder(config=cfg, ragged=True, device="cuda")
+    args = remb.pack_ragged(make_docs(INGEST_BATCH, seed=7))[0][0]
+    runs = [(f"path 1 forward {INGEST_BATCH}x{ids.shape[1]}",
+             lambda: emb.device_producer(emb.model, ids, lens)),
+            (f"path 2 forward {args[0].shape[0]}x{args[0].shape[1]} "
+             "(segment ids)",
+             lambda: remb.ragged_device_producer(remb.model, *args))]
     reps = 3
-    emb.device_producer(emb.model, ids, lens)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            emb.device_producer(emb.model, ids, lens)
+    for label, fwd in runs:
+        fwd()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    # device-side kernel records only (the aten ops above them carry the
-    # same time again)
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    if not events:
-        print("[profile] torch.profiler recorded no device time", flush=True)
-        return
-    groups = {"K1 attention": 0.0, "GEMM": 0.0, "other": 0.0}
-    for e in events:
-        name = e.key.lower()
-        g = ("K1 attention" if any(k in name for k in K1_KERNELS)
-             else "GEMM"
-             if any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet"))
-             else "other")
-        groups[g] += e.self_device_time_total / reps / 1e3
-    busy = sum(groups.values())
-    print(f"[profile] encoder forward {INGEST_BATCH}x{ids.shape[1]} "
-          f"(profiler on): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms"
-          f" ({100 * busy / wall_ms:.1f}%): " + ", ".join(
-              f"{g} {v:.2f} ms" for g, v in groups.items()) + f" [{card}]",
-          flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"[profile]   {e.self_device_time_total / reps / 1e3:8.3f} ms"
-              f" x{e.count // reps:<4d} {e.key[:90]}", flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fwd()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        # device-side kernel records only (the aten ops above them carry
+        # the same time again)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if not events:
+            print("[profile] torch.profiler recorded no device time",
+                  flush=True)
+            return
+        groups = {"K1 attention": 0.0, "GEMM": 0.0, "other": 0.0}
+        launches = 0
+        for e in events:
+            name = e.key.lower()
+            g = ("K1 attention" if any(k in name for k in K1_KERNELS)
+                 else "GEMM"
+                 if any(t in name for t in ("gemm", "xmma", "cutlass",
+                                            "nvjet"))
+                 else "other")
+            groups[g] += e.self_device_time_total / reps / 1e3
+            launches += e.count
+        busy = sum(groups.values())
+        print(f"[profile] {label} (profiler on): wall {wall_ms:.2f} ms, "
+              f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
+              f"{launches / reps:.0f} kernels: " + ", ".join(
+                  f"{g} {v:.2f} ms" for g, v in groups.items())
+              + f" [{card}]", flush=True)
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"[profile]   {e.self_device_time_total / reps / 1e3:8.3f}"
+                  f" ms x{e.count // reps:<4d} {e.key[:90]}", flush=True)
 
 
 def main() -> None:
@@ -498,11 +1045,19 @@ def main() -> None:
     name, card = phase_device()
     import torch
 
+    from pathway_tpu_torch._device import resolve_device
+
     phase_build()
-    kernel = phase_attention(card)
-    kernel["launches"] = phase_slice(args.docs, args.seed, card)
+    resolve_device("cuda")  # f32 products of the plain versions: no TF32
+    k1 = phase_attention(card)
+    k1_seg = phase_segments(card)
+    k3, k4 = phase_knn_i8(card)
+    k1["launches"] = phase_slice(args.docs, args.seed, card)
+    (k1_seg["launches"], k3["launches"],
+     k4["launches"]) = phase_ragged_int8(args.seed, card)
+    phase_int8_million(args.seed, card)
     phase_profile(card)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": [k1, k1_seg, k3, k4]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -188,15 +188,19 @@ class Extent:
     """One device allocation of the pool: ``rows`` vector slots starting at
     global row ``base``. Device tensors are established lazily by the
     owning index (ops/knn.py); once established they are only updated in
-    place — never copied or re-uploaded on growth."""
+    place — never copied or re-uploaded on growth. An int8 index also
+    keeps each row's quantization ``scales`` and int-domain squared norm
+    ``vsq`` (float32, one per row)."""
 
-    __slots__ = ("base", "rows", "vectors", "valid")
+    __slots__ = ("base", "rows", "vectors", "valid", "scales", "vsq")
 
     def __init__(self, base: int, rows: int):
         self.base = base
         self.rows = rows
         self.vectors = None
         self.valid = None
+        self.scales = None
+        self.vsq = None
 
     @property
     def established(self) -> bool:

@@ -70,3 +70,31 @@ def attention_cost(batch: int, seq: int, heads: int, head_dim: int,
     bytes_moved = 4.0 * batch * seq * heads * head_dim * itemsize \
         + batch * seq
     return flops, float(bytes_moved)
+
+
+def segment_attention_cost(batch: int, seq: int, *, hidden: int,
+                           intermediate: int,
+                           layers: int) -> tuple[float, float]:
+    """(flops, bytes_moved) for one ragged-packed forward
+    (models/encoder.py encode_ragged): the dense encoder's matmul tree —
+    the block-diagonal segment mask changes which scores survive, not how
+    many are computed — plus the (B, H_heads, S, S) score tensor the
+    reference's segment-attention softmax materialises twice per layer
+    (write + read). K1 keeps scores on chip, so for the port that term is
+    an upper bound."""
+    flops, base_bytes = encoder_cost(batch, seq, hidden=hidden,
+                                     intermediate=intermediate,
+                                     layers=layers)
+    score_bytes = 2.0 * layers * 2 * batch * seq * seq  # bf16, write+read
+    return flops, base_bytes + score_bytes
+
+
+def ingest_scatter_cost(rows: int, dim: int,
+                        itemsize: int = 4) -> tuple[float, float]:
+    """(flops, bytes_moved) for one slab scatter / fused-ingest write
+    (ops/knn.py _scatter): per row, read the incoming f32 vector and write
+    the row at its storage width; ~2*D FLOPs a row (int8's max and
+    divide), counted for every width."""
+    flops = 2.0 * rows * dim
+    bytes_moved = rows * dim * (4.0 + itemsize)
+    return flops, float(bytes_moved)

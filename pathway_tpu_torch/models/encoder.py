@@ -13,8 +13,12 @@ Weights live in ``nn.Linear`` modules, whose weight is ``(out, in)``; the
 JAX tree stores ``(in, out)`` and computes ``x @ w``.
 models/convert.py transposes between the two.
 
-Not ported yet: the mixture-of-experts MLP, the ragged (packed) forward and
-tensor-parallel partition specs (ROADMAP).
+``encode_ragged`` is the ragged-packed forward: documents packed back to
+back into fixed-width sequences, with K1 given the per-token document
+ids as segment ids.
+
+Not ported yet: the mixture-of-experts MLP and tensor-parallel partition
+specs (ROADMAP).
 """
 
 from __future__ import annotations
@@ -250,15 +254,20 @@ def _mlp_block(x, p: MlpBlock, config: EncoderConfig):
 
 
 def _forward(model: Encoder, token_ids, mask, *, attn_fn: Callable,
-             token_type_ids=None):
-    """Embedding + transformer stack -> (B, S, H) final hidden states."""
+             position_ids=None, token_type_ids=None):
+    """Embedding + transformer stack -> (B, S, H) final hidden states.
+    ``position_ids=None`` keeps positions 0..S-1; the ragged path passes
+    per-token positions that restart at 0 for each packed document."""
     config = model.config
     emb = model.embeddings
     S = token_ids.shape[1]
     cd = config.compute_dtype
     # gather float32 rows, then cast only what was read
     x = emb.token.weight[token_ids].to(cd)
-    x = x + emb.position.weight[:S][None].to(cd)
+    if position_ids is None:
+        x = x + emb.position.weight[:S][None].to(cd)
+    else:
+        x = x + emb.position.weight[position_ids].to(cd)
     if token_type_ids is None:
         x = x + emb.token_type.weight[0][None, None].to(cd)
     else:
@@ -315,8 +324,59 @@ def encoder_cost(config: EncoderConfig, batch: int,
                  intermediate=config.intermediate, layers=config.layers)
 
 
-def encode_ragged(*args, **kwargs):
-    """The ragged-packed forward (segment-id attention) is a later slice."""
-    raise NotImplementedError(
-        "encode_ragged is not ported to pathway_tpu_torch yet (ROADMAP.md, "
-        "PyTorch/CUDA port queue: the ragged encoder path)")
+def _segment_attention(q, k, v, seg):
+    """Plain twin of the JAX encoder's ``_segment_attention``: dense
+    attention with a block-diagonal (same-segment) mask, scores in the
+    compute dtype with a -1e9 bias on other segments' and padding keys.
+    The ragged forward runs K1 with ``seg`` instead
+    (ops/attention.py flash_attention); this stays as an oracle."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    same = (seg[:, :, None] == seg[:, None, :]) & (seg >= 0)[:, None, :]
+    bias = torch.where(same[:, None], 0.0, -1e9).to(scores.dtype)
+    scores = scores + bias
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp((scores - m).float()).to(scores.dtype)
+    probs = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+@torch.no_grad()
+def encode_ragged(model: Encoder, token_ids, doc_map, position_ids,
+                  doc_seq, doc_off):
+    """Ragged-packed forward -> (N, H) pooled, (optionally) L2-normalised
+    float32 embeddings, one row per entry of ``doc_seq``.
+
+    token_ids (B, W): packed tokens, many documents per row; doc_map (B, W)
+    int32: each token's output row, -1 for padding — also K1's segment id,
+    so documents sharing a row never attend to each other; position_ids
+    (B, W): positions restarting at 0 for each document; doc_seq, doc_off
+    (N,): each output row's (sequence, first-token offset), where cls
+    pooling reads. Mean pooling sums each document's valid tokens in
+    float32 (``index_add_``) and divides by max(count, 1). All tensors on
+    the model's device. Attention is ops.attention.flash_attention with
+    ``seg = doc_map``."""
+    from pathway_tpu_torch.ops.attention import flash_attention
+
+    config = model.config
+    seg = doc_map.to(torch.int32).contiguous()
+    mask = seg >= 0
+
+    def attn(q, k, v, m):
+        return flash_attention(q, k, v, m, seg)
+
+    x = _forward(model, token_ids, mask, attn_fn=attn,
+                 position_ids=position_ids)
+    n_docs = doc_seq.shape[0]
+    if config.pooling == "cls":
+        pooled = x[doc_seq.long(), doc_off.long()].float()
+    else:  # per-document mean over the packed tokens
+        B, W = token_ids.shape
+        flat = x.reshape(B * W, -1).float()
+        rows = torch.where(mask, seg, n_docs).reshape(B * W).long()
+        sums = flat.new_zeros((n_docs + 1, flat.shape[1])).index_add_(
+            0, rows, flat)
+        cnt = flat.new_zeros((n_docs + 1,)).index_add_(
+            0, rows, mask.reshape(B * W).float())
+        pooled = sums[:n_docs] / torch.clamp_min(cnt[:n_docs, None], 1.0)
+    return _normalized(pooled, config)

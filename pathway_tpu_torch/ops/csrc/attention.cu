@@ -12,6 +12,16 @@
 // (B, S) bytes; the output is a contiguous (B, S, H, D) tensor in q's
 // dtype. S <= 1024, D a multiple of 8 up to 128.
 //
+// Segment ids (the ragged encoder path; replaces the block-diagonal mask
+// of pathway_tpu/models/encoder.py::_segment_attention): with a (B, S)
+// int32 `seg`, key j is valid for query i iff seg[j] >= 0 and seg[j] ==
+// seg[i] (mask is then not read). Each query row keeps its segment id in
+// registers, each key's is staged in shared memory beside its limit, and
+// a mismatch gives the same -FLT_MAX fill as a masked key, so a padding
+// row (seg -1: no key is valid for it) averages V over all S rows. The
+// bf16 kernels take it as a template flag, so the unsegmented main path
+// pays nothing for it.
+//
 // What bounds it: bytes. At the encoder's main-path shape (B=512, S=96,
 // H=6, D=64, bf16) the function moves ~151 MB (q, k, v read once, O
 // written once) for ~7.2 GFLOP, ~48 FLOP/byte, far below the H100's bf16
@@ -54,8 +64,8 @@
 //     probability exactly 0 (never the -FLT_MAX mask fill, which would
 //     spread a fully masked row over the padding). Key validity and
 //     padding are one per-key limit staged in shared memory, applied by
-//     one min per (query, key) in `logit`, where a per-token segment id
-//     can join later. Padded K/V rows and head-dim columns past D are
+//     one min per (query, key) in `logit`; segment ids add a second min
+//     there. Padded K/V rows and head-dim columns past D are
 //     zero-filled by cp.async; query rows past S are computed and not
 //     stored.
 //   - O goes out through the warp's own Q rows in shared memory, so each
@@ -88,6 +98,7 @@ struct Params {
   const void* k;
   const void* v;
   const uint8_t* mask;
+  const int* seg;  // (B, S) segment ids, or null
   void* out;
   int S, H, D;
   long long q_sb, q_ss, q_sh;
@@ -179,20 +190,29 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Per-key upper limit of a log2-domain score, staged once per block for
-// keys [0, n): +inf for a valid key, -FLT_MAX (the mask fill) for a masked
-// one, -inf (probability exactly 0) for tile padding past S.
-__device__ __forceinline__ void stage_limits(float* lim, const uint8_t* mask,
-                                             int S, int n) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x)
-    lim[j] = j >= S ? -INFINITY : mask[j] ? INFINITY : -FLT_MAX;
+// keys [0, n) of one batch row: +inf for a valid key, -FLT_MAX (the mask
+// fill) for a masked one (mask 0, or a negative segment id when seg is
+// given), -inf (probability exactly 0) for tile padding past S. With seg,
+// each key's segment id goes to kseg too.
+__device__ __forceinline__ void stage_limits(float* lim, int* kseg,
+                                             const uint8_t* mask,
+                                             const int* seg, int S, int n) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const bool pad = j >= S;
+    const bool ok = pad ? false : seg ? seg[j] >= 0 : mask[j] != 0;
+    lim[j] = pad ? -INFINITY : ok ? INFINITY : -FLT_MAX;
+    if (seg) kseg[j] = pad ? 0 : seg[j];
+  }
 }
 
-// The masked log2-domain score of query qi against key kj (one min
-// applies key validity and padding); a per-token segment id (same
-// segment, else -FLT_MAX) joins here later.
+// The masked log2-domain score of one (query, key): one min applies key
+// validity and padding; with segments a second min gives -FLT_MAX to a
+// key of another segment (padding keeps its -inf).
+template <bool SEG>
 __device__ __forceinline__ float logit(float acc, float scale2, float limit,
-                                      int /*qi*/, int /*kj*/) {
-  return fminf(acc * scale2, limit);
+                                      int qseg, int kseg) {
+  const float x = fminf(acc * scale2, limit);
+  return SEG ? fminf(x, qseg == kseg ? INFINITY : -FLT_MAX) : x;
 }
 
 // Rows [r0, r0 + n) of a (S, D) bf16 matrix with row stride ld into shared
@@ -214,16 +234,27 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
 // g and g + 8; in a chunk's score fragment s[n] its keys are 8n + 2t and
 // 8n + 2t + 1. Scores are kept in the log2 domain (QK^T * D^-1/2 *
 // log2(e)), so each exp(s - m) of the softmax is one ex2 of a difference.
-template <int DP>
+// With SEG, qseg holds the segment ids of rows g and g + 8.
+template <int DP, bool SEG>
 struct WarpRows {
   static constexpr int kLd = DP + 8;
   int lane, row0;
+  int qseg[2];
   uint32_t qa[DP / 16][4];  // Q A-fragments, one per 16 head-dim columns
   float o[DP / 8][4];       // O C-fragments, one per 8 head-dim columns
 
-  __device__ void init(const bf16* qs, int lane_, int row0_) {
+  // seg: this batch row's segment ids (SEG only); rows past S get 0
+  __device__ void init(const bf16* qs, int lane_, int row0_, const int* seg,
+                       int S) {
     lane = lane_;
     row0 = row0_;
+    if (SEG) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + (lane >> 2) + 8 * r;
+        qseg[r] = row < S ? seg[row] : 0;
+      }
+    }
 #pragma unroll
     for (int ks = 0; ks < DP / 16; ++ks)
       ldsm_x4(qa[ks], qs + (lane & 15) * kLd + ks * 16 + (lane >> 4) * 8);
@@ -235,7 +266,8 @@ struct WarpRows {
 
   // Masked log2-domain scores of keys [key0, key0 + 32) (kc: their K rows)
   __device__ void scores(float (&s)[kChunk / 8][4], const bf16* kc, int key0,
-                         float scale2, const float* lim) const {
+                         float scale2, const float* lim,
+                         const int* kseg) const {
 #pragma unroll
     for (int n = 0; n < kChunk / 8; ++n)
 #pragma unroll
@@ -255,10 +287,12 @@ struct WarpRows {
     for (int n = 0; n < kChunk / 8; ++n) {
       const int kj = key0 + n * 8 + 2 * t;
       const float2 lk = *reinterpret_cast<const float2*>(lim + kj);
+      int2 kg = make_int2(0, 0);
+      if (SEG) kg = *reinterpret_cast<const int2*>(kseg + kj);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[n][e] = logit(s[n][e], scale2, e & 1 ? lk.y : lk.x,
-                        row0 + g + (e >> 1) * 8, kj + (e & 1));
+        s[n][e] = logit<SEG>(s[n][e], scale2, e & 1 ? lk.y : lk.x,
+                             qseg[e >> 1], e & 1 ? kg.y : kg.x);
     }
   }
 
@@ -314,21 +348,22 @@ __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
+// Q, K, V rows, then per key its limit (float) and segment id (int)
 __host__ __device__ constexpr size_t resident_smem(int S, int DP) {
   return sizeof(bf16) * (round_up(S, 16) + 2 * round_up(S, kChunk)) *
-             (DP + 8) + sizeof(float) * round_up(S, kChunk);
+             (DP + 8) + (sizeof(float) + sizeof(int)) * round_up(S, kChunk);
 }
 
 __host__ __device__ constexpr size_t streamed_smem(int DP) {
   return sizeof(bf16) * (kStreamQ + 4 * kStreamK) * (DP + 8) +
-         sizeof(float) * kMaxSeq;
+         (sizeof(float) + sizeof(int)) * kMaxSeq;
 }
 
 // S <= 128 (NC = ceil(S / 32) chunks of keys): one block per (head,
 // batch), one warp per 16 query rows. Q, K and V are read once into
 // shared memory; each warp keeps its rows' whole scores in registers, so
 // QK^T runs once and the max and sum are exact before P is formed.
-template <int DP, int NC>
+template <int DP, int NC, bool SEG>
 __global__ void __launch_bounds__(NC * 64)
 attention_mma_resident(const Params p) {
   constexpr int kLd = DP + 8;
@@ -339,6 +374,7 @@ attention_mma_resident(const Params p) {
   bf16* ks = qs + nq * kLd;
   bf16* vs = ks + NC * kChunk * kLd;
   float* lim = reinterpret_cast<float*>(vs + NC * kChunk * kLd);
+  int* kseg = reinterpret_cast<int*>(lim + NC * kChunk);
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -350,17 +386,19 @@ attention_mma_resident(const Params p) {
   cp_async_commit();
   load_rows<DP>(vs, vp, p.v_ss, 0, NC * kChunk, S, D);
   cp_async_commit();
-  stage_limits(lim, p.mask + static_cast<long long>(b) * S, S, NC * kChunk);
+  const int* seg = SEG ? p.seg + static_cast<long long>(b) * S : nullptr;
+  stage_limits(lim, kseg, p.mask + static_cast<long long>(b) * S, seg, S,
+               NC * kChunk);
   cp_async_wait<1>();  // Q and K landed; V may still be in flight
   __syncthreads();
 
-  WarpRows<DP> w;
+  WarpRows<DP, SEG> w;
   bf16* wq = qs + warp * 16 * kLd;
-  w.init(wq, lane, warp * 16);
+  w.init(wq, lane, warp * 16, seg, S);
   float s[NC][kChunk / 8][4];
 #pragma unroll
   for (int c = 0; c < NC; ++c)
-    w.scores(s[c], ks + c * kChunk * kLd, c * kChunk, p.scale2, lim);
+    w.scores(s[c], ks + c * kChunk * kLd, c * kChunk, p.scale2, lim, kseg);
   float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, rinv[2];
 #pragma unroll
   for (int c = 0; c < NC; ++c)
@@ -397,7 +435,7 @@ attention_mma_resident(const Params p) {
 // max m and sum l), the rest pass 2 (K and V: scores recomputed, P formed
 // with the final m and l, O += P V); step i + 1's tile loads while step i
 // computes.
-template <int DP>
+template <int DP, bool SEG>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_mma_streamed(const Params p) {
   constexpr int kLd = DP + 8;
@@ -407,6 +445,7 @@ attention_mma_streamed(const Params p) {
   bf16* kbuf = qs + kStreamQ * kLd;       // [2][kStreamK][kLd]
   bf16* vbuf = kbuf + 2 * kStreamK * kLd; // [2][kStreamK][kLd]
   float* lim = reinterpret_cast<float*>(vbuf + 2 * kStreamK * kLd);
+  int* kseg = reinterpret_cast<int*>(lim + kMaxSeq);
   const int q0 = blockIdx.x * kStreamQ, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -426,10 +465,11 @@ attention_mma_streamed(const Params p) {
   load_rows<DP>(qs, qp + q0 * p.q_ss, p.q_ss, 0, kStreamQ, S - q0, D);
   cp_async_commit();
   issue(0);
-  stage_limits(lim, p.mask + static_cast<long long>(b) * S, S,
+  const int* seg = SEG ? p.seg + static_cast<long long>(b) * S : nullptr;
+  stage_limits(lim, kseg, p.mask + static_cast<long long>(b) * S, seg, S,
                nt * kStreamK);
 
-  WarpRows<DP> w;
+  WarpRows<DP, SEG> w;
   bf16* wq = qs + warp * 16 * kLd;
   // this lane's running max and sum (rows g, g + 8), combined across the
   // quad after pass 1
@@ -442,7 +482,7 @@ attention_mma_streamed(const Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (step == 0) w.init(wq, lane, q0 + warp * 16);
+    if (step == 0) w.init(wq, lane, q0 + warp * 16, seg, S);
     if (step == nt) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -459,7 +499,7 @@ attention_mma_streamed(const Params p) {
       const int key0 = t * kStreamK + c;
       if (key0 >= S) break;
       float s[kChunk / 8][4];
-      w.scores(s, kt + c * kLd, key0, p.scale2, lim);
+      w.scores(s, kt + c * kLd, key0, p.scale2, lim, kseg);
       if (step < nt) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -504,33 +544,40 @@ cudaError_t opt_in(Kernel kernel, size_t smem, size_t most) {
                               static_cast<int>(most));
 }
 
-template <int DP, int NC>
+template <int DP, int NC, bool SEG>
 cudaError_t launch_resident(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = resident_smem(p.S, DP);
-  const cudaError_t e = opt_in(attention_mma_resident<DP, NC>, smem,
+  const cudaError_t e = opt_in(attention_mma_resident<DP, NC, SEG>, smem,
                                resident_smem(NC * kChunk, DP));
   if (e != cudaSuccess) return e;
   const int threads = round_up(p.S, 16) / 16 * 32;
-  attention_mma_resident<DP, NC><<<dim3(p.H, B), threads, smem, stream>>>(p);
+  attention_mma_resident<DP, NC, SEG>
+      <<<dim3(p.H, B), threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DP, bool SEG>
+cudaError_t launch_mma(const Params& p, int B, cudaStream_t stream) {
+  static_assert(kResidentSeq == 4 * kChunk, "resident NC is 1..4");
+  switch ((p.S + kChunk - 1) / kChunk) {
+    case 1: return launch_resident<DP, 1, SEG>(p, B, stream);
+    case 2: return launch_resident<DP, 2, SEG>(p, B, stream);
+    case 3: return launch_resident<DP, 3, SEG>(p, B, stream);
+    case 4: return launch_resident<DP, 4, SEG>(p, B, stream);
+    default: break;
+  }
+  const size_t smem = streamed_smem(DP);
+  const cudaError_t e = opt_in(attention_mma_streamed<DP, SEG>, smem, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.S + kStreamQ - 1) / kStreamQ, p.H, B);
+  attention_mma_streamed<DP, SEG><<<grid, kMmaThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int DP>
 cudaError_t launch_mma(const Params& p, int B, cudaStream_t stream) {
-  static_assert(kResidentSeq == 4 * kChunk, "resident NC is 1..4");
-  switch ((p.S + kChunk - 1) / kChunk) {
-    case 1: return launch_resident<DP, 1>(p, B, stream);
-    case 2: return launch_resident<DP, 2>(p, B, stream);
-    case 3: return launch_resident<DP, 3>(p, B, stream);
-    case 4: return launch_resident<DP, 4>(p, B, stream);
-    default: break;
-  }
-  const size_t smem = streamed_smem(DP);
-  const cudaError_t e = opt_in(attention_mma_streamed<DP>, smem, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.S + kStreamQ - 1) / kStreamQ, p.H, B);
-  attention_mma_streamed<DP><<<grid, kMmaThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  return p.seg ? launch_mma<DP, true>(p, B, stream)
+               : launch_mma<DP, false>(p, B, stream);
 }
 
 cudaError_t dispatch_mma(const Params& p, int B, cudaStream_t stream) {
@@ -613,17 +660,22 @@ attention_fma_kernel(const Params p) {
   const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
   const uint8_t* mk = p.mask + static_cast<long long>(b) * S;
+  const int* sg = p.seg ? p.seg + static_cast<long long>(b) * S : nullptr;
+  __shared__ int qseg[kBlockQ];  // the tile's query segment ids (seg only)
 
   // 1. scores
   stage_rows<D>(stage, qp + q0 * p.q_ss, p.q_ss, nq, kBlockQ);
+  if (sg && tid < nq) qseg[tid] = sg[q0 + tid];
   __syncthreads();
   for (int j = tid; j < S; j += kThreads) {
     float kr[D];
     const float* krow = kp + j * p.k_ss;
 #pragma unroll
     for (int c = 0; c < D; c += 8) load8(krow + c, kr + c);
-    const bool valid = mk[j] != 0;
+    const int ks = sg ? sg[j] : 0;
+    const bool key_ok = sg ? ks >= 0 : mk[j] != 0;
     for (int r = 0; r < nq; ++r) {
+      const bool valid = key_ok && (!sg || ks == qseg[r]);
       const float4* qr = reinterpret_cast<const float4*>(stage + r * D);
       float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll
@@ -748,10 +800,11 @@ cudaError_t dispatch_fma(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// cudaError_t of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; seg is null or (B, S) int32. Strides
+// are in elements. Returns the cudaError_t of the launch (0 on success).
 extern "C" int pt_attention_forward(
-    const void* q, const void* k, const void* v, const void* mask, void* out,
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* seg, void* out,
     int dtype, int B, int S, int H, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, void* stream) {
@@ -760,6 +813,7 @@ extern "C" int pt_attention_forward(
   Params p;
   p.q = q; p.k = k; p.v = v;
   p.mask = static_cast<const uint8_t*>(mask);
+  p.seg = static_cast<const int*>(seg);
   p.out = out;
   p.S = S; p.H = H; p.D = D;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;

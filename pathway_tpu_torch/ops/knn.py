@@ -14,16 +14,21 @@ Numerics held to the JAX package:
   chunk by chunk before the product (bf16 values are exact in f32), where
   JAX asks the MXU for f32 outputs of bf16 inputs. Queries are rounded to
   the slab dtype first, as JAX casts them;
+- ``dtype="int8"`` keeps rows quantized per row (scale = max|v| / 127)
+  with an int-domain squared norm ``vsq`` beside each, written by K4, the
+  quantizing scatter, and scored by K3 against bf16 queries
+  (ops/knn_kernels.py); the host mirror stays exact float32, as in the
+  JAX package;
 - top-k keeps equal scores lowest slot first (``lax.top_k``'s order, which
   the host merge relies on): a stable descending sort, then a slice.
 
-The score product stays ``torch.matmul`` in this slice, as the JAX
-package leaves it to XLA (ROADMAP: a fused score + top-k kernel).
+The float slabs' score product stays ``torch.matmul``, as the JAX package
+leaves it to XLA (ROADMAP: a fused score + top-k kernel, K2).
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the contiguous slab (``paged=False``), ``dtype="int8"``, string
-(jmespath) filters, tenants/quotas. The semantic result cache, operator
-snapshots and ``latency_probe`` are absent.
+item: the contiguous slab (``paged=False``), string (jmespath) filters,
+tenants/quotas. The semantic result cache, operator snapshots and
+``latency_probe`` are absent.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from pathway_tpu_torch.engine.locking import create_rlock
 from pathway_tpu_torch.engine.paged_store import (DevicePagePool,
                                                   paged_store_enabled)
 from pathway_tpu_torch.internals.keys import Pointer
+from pathway_tpu_torch.ops.knn_kernels import quantize_scatter, score_i8
 
 
 class KnnMetric(enum.Enum):
@@ -88,9 +94,10 @@ def _slab_dtype(dtype: str) -> torch.dtype:
     if dtype == "bfloat16":
         return torch.bfloat16
     if dtype == "int8":
-        raise _not_ported('the int8 slab (dtype="int8")')
+        return torch.int8
     raise ValueError(f"unsupported knn dtype {dtype!r} "
-                     "(use 'float32' or 'bfloat16')")
+                     "(use 'float32', 'bfloat16' or 'int8')")
+
 
 
 def _topk(scores: torch.Tensor, k: int):
@@ -114,39 +121,72 @@ def _score_block(q, vectors, valid, metric: KnnMetric):
     return scores.masked_fill(~valid[None, :], -math.inf)
 
 
-def search_extent(queries, vectors, valid, k: int, metric: KnnMetric):
+def search_extent(queries, vectors, valid, k: int, metric: KnnMetric,
+                  extras: tuple = ()):
     """(scores, local slots) of the ``k`` best rows of one extent for each
     query: (B, k) f32 and int64 tensors on the extent's device. Extents
     above ``_CHUNK_ROWS`` rows are scored chunk by chunk, with a top-k per
-    chunk and a merge that keeps lowest-slot-first tie order."""
+    chunk and a merge that keeps lowest-slot-first tie order. An int8
+    extent passes ``extras = (scales, vsq)`` and is scored by K3 against
+    the queries cast to bf16 (the JAX package's ``_prep_queries(cast_dtype
+    =bf16)``)."""
     q = queries
     if metric == KnnMetric.COS:
         q = q / (torch.linalg.vector_norm(q, dim=1, keepdim=True) + 1e-12)
-    q = q.to(vectors.dtype).float()
+    if vectors.dtype == torch.int8:
+        q = q.to(torch.bfloat16).contiguous()
+        scales, vsq = extras
+
+        def score(c0, c1):
+            return score_i8(q, vectors[c0:c1], scales[c0:c1], vsq[c0:c1],
+                            valid[c0:c1], metric.value)
+    else:
+        q = q.to(vectors.dtype).float()
+
+        def score(c0, c1):
+            return _score_block(q, vectors[c0:c1], valid[c0:c1], metric)
     n = vectors.shape[0]
     if n <= _CHUNK_ROWS:
-        return _topk(_score_block(q, vectors, valid, metric), k)
+        return _topk(score(0, n), k)
     cand_s, cand_i = [], []
     for c0 in range(0, n, _CHUNK_ROWS):
-        ts, ti = _topk(_score_block(q, vectors[c0:c0 + _CHUNK_ROWS],
-                                    valid[c0:c0 + _CHUNK_ROWS], metric), k)
+        ts, ti = _topk(score(c0, c0 + _CHUNK_ROWS), k)
         cand_s.append(ts)
         cand_i.append(ti + c0)
     top_s, pos = _topk(torch.cat(cand_s, dim=1), k)
     return top_s, torch.gather(torch.cat(cand_i, dim=1), 1, pos)
 
 
-def _fused_step_fn(producer: Callable):
+def _fused_step_fn(producer: Callable, dtype: str):
     """The producer + scatter step of a fused ingest: the producer's rows
-    are written straight into one extent's device tensors. ``index_copy_``
-    into the preallocated extent stands in for JAX's donated
-    ``.at[].set``: the update is in place, with no second copy of the
-    extent and nothing returned to the host."""
+    are written straight into one extent's device tensors, in place (the
+    port's form of JAX's donated ``.at[].set``), with nothing returned to
+    the host. ``step(ext, slots, *args)`` takes the extent and its local
+    slots as a host int64 array; a slot >= the extent's rows is the
+    sentinel of a ragged padding row and is dropped (JAX's
+    ``mode="drop"``). int8 quantizes and writes through K4, which drops
+    sentinels itself; the float slabs select the in-range rows and
+    ``index_copy_`` them."""
 
-    def step(vectors, valid, slots, *args) -> None:
+    if dtype == "int8":
+        def step_i8(ext, slots, *args) -> None:
+            out = producer(*args)
+            quantize_scatter(out.float().contiguous(),
+                             torch.from_numpy(slots).to(out.device), None,
+                             ext.vectors, ext.scales, ext.vsq, ext.valid)
+
+        return step_i8
+
+    def step(ext, slots, *args) -> None:
         out = producer(*args)
-        vectors.index_copy_(0, slots, out.to(vectors.dtype))
-        valid.index_fill_(0, slots, True)
+        keep = slots < ext.rows
+        if not keep.all():
+            idx = np.flatnonzero(keep)
+            out = out[torch.from_numpy(idx).to(out.device)]
+            slots = slots[idx]
+        loc = torch.from_numpy(slots).to(ext.vectors.device)
+        ext.vectors.index_copy_(0, loc, out.to(ext.vectors.dtype))
+        ext.valid.index_fill_(0, loc, True)
 
     return step
 
@@ -183,6 +223,11 @@ class BruteForceKnnIndex:
         self.metric = metric
         self.dtype = dtype
         self._slab_dtype = _slab_dtype(dtype)
+        self._is_int8 = dtype == "int8"
+        # int8 quantizes on the device; its host mirror stays exact
+        # float32 (authoritative for re-upload and exact host reads)
+        self._mirror_dtype = torch.float32 if self._is_int8 \
+            else self._slab_dtype
         self.device = resolve_device(device)
         self._lock = create_rlock("BruteForceKnnIndex._lock")
         self._key_to_slot: dict[Pointer, int] = {}
@@ -236,10 +281,10 @@ class BruteForceKnnIndex:
         with self._lock:
             slots = self._alloc_slots(keys)
             idx = torch.from_numpy(slots)
-            # the mirror holds rows at the slab's precision, as the JAX
-            # package's host mirror does
+            # the mirror holds rows at the slab's precision (exact f32 for
+            # int8), as the JAX package's host mirror does
             self._host_vectors[idx] = torch.from_numpy(vecs).to(
-                self._slab_dtype)
+                self._mirror_dtype)
             self._host_valid[idx] = True
             slot_list = slots.tolist()
             self._dirty.update(slot_list)
@@ -279,16 +324,19 @@ class BruteForceKnnIndex:
         device extent, never to the host.
 
         ``producer(*args) -> (n, dim)`` tensor on the index's device.
-        Returns ``ingest(keys, *args) -> bool``: False, with nothing done,
-        when the batch cannot be placed in one extent (it updates rows
-        spread over several) — the caller then takes the two-step
-        ``add_batch_device`` path. New keys allocate pages in one extent,
-        or a fresh extent."""
-        step = _fused_step_fn(producer)
+        Returns ``ingest(keys, *args, n_rows=None) -> bool``: False, with
+        nothing done, when the batch cannot be placed in one extent (it
+        updates rows spread over several) — the caller then takes the
+        two-step ``add_batch_device`` path. ``n_rows`` is the producer's
+        row count when it exceeds ``len(keys)`` (a ragged chunk pads its
+        documents): the padding rows get sentinel slots and are dropped.
+        New keys allocate pages in one extent, or a fresh extent."""
+        step = _fused_step_fn(producer, self.dtype)
 
-        def ingest(keys: list[Pointer], *args) -> bool:
+        def ingest(keys: list[Pointer], *args,
+                   n_rows: int | None = None) -> bool:
             with self._lock:
-                return self._fused_ingest(step, keys, args)
+                return self._fused_ingest(step, keys, args, n_rows)
 
         return ingest
 
@@ -306,6 +354,17 @@ class BruteForceKnnIndex:
                 k2s[key] = slot
                 s2k[slot] = key
             slots[i] = slot
+        return slots
+
+    @staticmethod
+    def _pad_slots(slots: np.ndarray, n_rows: int | None,
+                   sentinel: int) -> np.ndarray:
+        """Slots for a producer of ``n_rows`` rows: ragged chunks pad
+        their documents, and the padding rows get ``sentinel`` (out of
+        range: the fused step drops them)."""
+        if n_rows is not None and n_rows > len(slots):
+            slots = np.concatenate([
+                slots, np.full(n_rows - len(slots), sentinel, np.int64)])
         return slots
 
     def remove(self, key: Pointer) -> None:
@@ -444,7 +503,7 @@ class PagedKnnIndex(BruteForceKnnIndex):
             self.dim, reserved_space=reserved_space,
             rows_per_page=page_rows, lock=self._lock)
         self._host_vectors = torch.zeros((self._pool.capacity, self.dim),
-                                         dtype=self._slab_dtype)
+                                         dtype=self._mirror_dtype)
         self._host_valid = torch.zeros((self._pool.capacity,),
                                        dtype=torch.bool)
 
@@ -474,7 +533,7 @@ class PagedKnnIndex(BruteForceKnnIndex):
         old = self._host_vectors.shape[0]
         if cap <= old:
             return
-        new_vec = torch.zeros((cap, self.dim), dtype=self._slab_dtype)
+        new_vec = torch.zeros((cap, self.dim), dtype=self._mirror_dtype)
         new_vec[:old] = self._host_vectors
         self._host_vectors = new_vec
         new_valid = torch.zeros((cap,), dtype=torch.bool)
@@ -484,17 +543,24 @@ class PagedKnnIndex(BruteForceKnnIndex):
     # -- device state per extent ----------------------------------------
     def _establish_extent(self, ext) -> None:
         """Zero device tensors for one extent (allocated on the device, no
-        host transfer); rows arrive by in-place writes only."""
+        host transfer); rows arrive by in-place writes only. int8 extents
+        also carry per-row ``scales`` and ``vsq`` (float32)."""
         if ext.established:
             return
         ext.vectors = torch.zeros((ext.rows, self.dim),
                                   dtype=self._slab_dtype, device=self.device)
         ext.valid = torch.zeros((ext.rows,), dtype=torch.bool,
                                 device=self.device)
+        if self._is_int8:
+            ext.scales = torch.zeros((ext.rows,), dtype=torch.float32,
+                                     device=self.device)
+            ext.vsq = torch.zeros((ext.rows,), dtype=torch.float32,
+                                  device=self.device)
 
     def _scatter(self, idxs: np.ndarray, vals: torch.Tensor,
                  valid_vals: torch.Tensor) -> None:
-        """Write rows (device tensors) at global slots ``idxs``, in place."""
+        """Write rows (device tensors) at global slots ``idxs``, in place;
+        int8 quantizes them through K4."""
         groups = list(self._pool.split_by_extent(idxs))
         for ext, local, pos in groups:
             self._establish_extent(ext)
@@ -504,6 +570,10 @@ class PagedKnnIndex(BruteForceKnnIndex):
                 p = torch.from_numpy(pos).to(self.device)
                 vsub, valsub = vals[p], valid_vals[p]
             loc = torch.from_numpy(local).to(self.device)
+            if self._is_int8:
+                quantize_scatter(vsub.float().contiguous(), loc, valsub,
+                                 ext.vectors, ext.scales, ext.vsq, ext.valid)
+                continue
             ext.vectors.index_copy_(0, loc, vsub.to(self._slab_dtype))
             ext.valid.index_copy_(0, loc, valsub)
 
@@ -514,10 +584,12 @@ class PagedKnnIndex(BruteForceKnnIndex):
         self._dirty.clear()
         scatter_rows: list[np.ndarray] = []
         for ext, local, pos in self._pool.split_by_extent(idxs):
-            if not ext.established and len(pos) * 2 >= ext.rows:
+            if not ext.established and not self._is_int8 \
+                    and len(pos) * 2 >= ext.rows:
                 # bulk load of a fresh extent: one dense upload of its
                 # mirror range — rows outside the dirty set are zeros with
-                # valid False
+                # valid False (int8 rows are quantized on the device, so
+                # they always take the scatter)
                 rng = slice(ext.base, ext.base + ext.rows)
                 ext.vectors = self._host_vectors[rng].to(self.device)
                 ext.valid = self._host_valid[rng].to(self.device)
@@ -540,12 +612,19 @@ class PagedKnnIndex(BruteForceKnnIndex):
             if not ext.established:
                 continue
             loc = torch.from_numpy(local).to(self.device)
-            self._host_vectors[torch.from_numpy(idxs[pos])] = \
-                ext.vectors[loc].cpu()
+            rows = ext.vectors[loc]
+            if self._is_int8:  # dequantize: codes x scale, in float32
+                rows = rows.float() * ext.scales[loc][:, None]
+            self._host_vectors[torch.from_numpy(idxs[pos])] = rows.cpu()
 
     # -- search over the page table --------------------------------------
     def _fetch_cap(self) -> int:
         return min(self.capacity, _CHUNK_ROWS)
+
+    def _extent_extras(self, ext) -> tuple:
+        if self._is_int8:
+            return (ext.scales, ext.vsq)
+        return ()
 
     def _device_topk_parts(self, qmat, fetch_k: int):
         """(scores, global slots) as host arrays, exactly ``fetch_k``
@@ -556,7 +635,7 @@ class PagedKnnIndex(BruteForceKnnIndex):
                 continue  # never written → no valid rows to score
             k_e = min(fetch_k, ext.rows, _CHUNK_ROWS)
             ts, ti = search_extent(qmat, ext.vectors, ext.valid, k_e,
-                                   self.metric)
+                                   self.metric, self._extent_extras(ext))
             parts.append((ts.cpu().numpy(), ti.cpu().numpy() + ext.base))
         if not parts:
             B = int(qmat.shape[0])
@@ -590,7 +669,8 @@ class PagedKnnIndex(BruteForceKnnIndex):
                     ext.valid[:1].cpu()
 
     # -- fused ingest: grow by allocating pages/extents -------------------
-    def _fused_ingest(self, step, keys: list[Pointer], args) -> bool:
+    def _fused_ingest(self, step, keys: list[Pointer], args,
+                      n_rows: int | None) -> bool:
         alloc = self._pool.allocator
         n_new = len({k for k in keys if k not in self._key_to_slot})
         ext_ids = {self._pool.extent_index_of(self._key_to_slot[k])
@@ -619,8 +699,7 @@ class PagedKnnIndex(BruteForceKnnIndex):
         self._establish_extent(ext)
         slots = self._fused_take_slots(
             keys, take=lambda: alloc.take_slot(regions=[eidx]))
-        local = torch.from_numpy(slots - ext.base).to(self.device)
-        step(ext.vectors, ext.valid, local, *args)
+        step(ext, self._pad_slots(slots - ext.base, n_rows, ext.rows), *args)
         self._host_valid[torch.from_numpy(slots)] = True
         slot_list = slots.tolist()
         self._stale.update(slot_list)
@@ -637,31 +716,50 @@ class DeviceEmbeddingKnnIndex:
     ``embedder`` must expose ``encode_batch_device(texts) -> (B, dim)``
     tensor on the index's device; with ``pack_tokens`` and
     ``device_producer`` too (EncoderEmbedder has them) ingest takes the
-    fused encode + write path.
+    fused encode + write path. A ragged embedder (``ragged`` true, with
+    ``pack_ragged`` and ``ragged_device_producer``) takes one fused call
+    per packed chunk, whose padding rows are dropped.
     """
 
     def __init__(self, embedder, inner: BruteForceKnnIndex):
-        if getattr(embedder, "ragged", False):
-            raise _not_ported("the ragged (packed) encoder path")
         dev = getattr(embedder, "device", inner.device)
         if torch.device(dev) != inner.device:
             raise ValueError(f"embedder on {dev}, index on {inner.device}")
         self.embedder = embedder
         self.inner = inner
         self._fused = None
-        if hasattr(embedder, "pack_tokens") and \
+        self._ragged = bool(getattr(embedder, "ragged", False))
+        if self._ragged and hasattr(embedder, "ragged_device_producer"):
+            self._fused = inner.make_fused_ingest(
+                embedder.ragged_device_producer)
+        elif hasattr(embedder, "pack_tokens") and \
                 hasattr(embedder, "device_producer"):
             self._fused = inner.make_fused_ingest(embedder.device_producer)
+
+    def _add_fused(self, keys: list[Pointer], texts: list[str]) -> bool:
+        """The fused ingest; False when a batch (or, ragged, one of its
+        chunks) cannot be placed in one extent."""
+        emb = self.embedder
+        if not self._ragged:
+            ids, lens = emb.pack_tokens(texts)
+            return self._fused(keys, emb.model, ids, lens)
+        d0 = 0
+        for args, n_docs, n_pad in emb.pack_ragged(texts):
+            if not self._fused(keys[d0:d0 + n_docs], emb.model, *args,
+                               n_rows=n_pad):
+                return False
+            d0 += n_docs
+        return True
 
     def add_batch(self, keys: list[Pointer], texts,
                   filter_data: list[Any] | None = None) -> None:
         texts = [str(t) for t in texts]
-        if self._fused is not None:
-            ids, lens = self.embedder.pack_tokens(texts)
-            if self._fused(keys, self.embedder.model, ids, lens):
-                self.inner.set_filter_data(keys, filter_data)
-                return
+        if self._fused is not None and self._add_fused(keys, texts):
+            self.inner.set_filter_data(keys, filter_data)
+            return
         # the batch spans extents: encode, then the growable device add
+        # (it re-adds every key, so a partly fused ragged batch ends
+        # consistent)
         vecs = self.embedder.encode_batch_device(texts)
         self.inner.add_batch_device(keys, vecs, filter_data)
 

@@ -1,0 +1,223 @@
+"""The int8 slab's kernels — K3, the int8 score, and K4, the quantizing
+scatter (ops/csrc/knn_i8.cu) — with their plain PyTorch versions.
+
+They replace two XLA functions of pathway_tpu/ops/knn.py: the score block
+of ``_shared_search_i8_fn`` (K3) and ``_quantize_i8`` inside
+``_shared_scatter_i8_fn`` and the int8 fused-ingest step (K4). On a CUDA
+tensor each wrapper launches its kernel (or raises) and counts the launch;
+on a CPU tensor it runs the plain version, which is also the kernels'
+oracle on the card (chip_smoke.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from pathway_tpu_torch.ops.cuda_build import CudaLibrary
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+KNN_I8 = CudaLibrary("knn_i8", {
+    # (q, slab, scales, vsq, valid, out, B, N, D, metric, stream)
+    "pt_knn_score_i8": (_I, [_P] * 6 + [_I, _L, _I, _I, _P]),
+    # (rows, ld, slots, valid_vals, n, D, R, slab, scales, vsq, valid,
+    #  stream)
+    "pt_knn_quantize_scatter": (_I, [_P, _L, _P, _P, _I, _I, _L]
+                                + [_P] * 5),
+    "pt_knn_error_string": (ctypes.c_char_p, [_I]),
+})
+_METRICS = {"cos": 0, "l2sq": 1}
+
+
+class LaunchCount:
+    """Launches of one kernel: incremented by its wrapper where it
+    launches the kernel, and nowhere else; a caller may reset it to 0."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
+SCORE_I8 = LaunchCount("knn_score_i8")
+QUANTIZE_SCATTER = LaunchCount("knn_quantize_scatter")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        msg = KNN_I8.load().pt_knn_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def _on_card(t: torch.Tensor, what: str) -> bool:
+    """False for a CPU tensor (take the plain version), True for CUDA."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{what}: unsupported device {t.device}")
+    return True
+
+
+def _need(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+# ---------------------------------------------------------------------------
+# K4: quantizing scatter
+# ---------------------------------------------------------------------------
+
+# 1/127 rounded to float32: the JAX package's ``m / 127.0`` as XLA
+# compiles it (division by a constant becomes a multiply by its reciprocal)
+INV_127 = 0.007874015718698502
+
+
+def quantize_i8_reference(vals: torch.Tensor):
+    """Per-row symmetric int8 quantization as the JAX package's index
+    stores it (``_quantize_i8`` under jit, in its scatter and fused step):
+    (q int8, scale f32, vsq f32) with scale = max(max|v| * f32(1/127),
+    1e-30), q = clamp(round-half-even(v / scale), -127, 127) with a true
+    division, and vsq the int-domain squared norm summed in int32.
+
+    XLA turns ``m / 127.0`` into ``m * f32(1/127)``, so this is bit for bit
+    what the JAX index holds; the eager ``_quantize_i8`` and numpy's
+    ``_quantize_i8_np`` divide, and their scales differ from it by one ulp
+    in ~5% of rows (codes in about one value per million)."""
+    v = vals.float()
+    m = v.abs().amax(dim=1)
+    scale = torch.clamp_min(m * m.new_tensor(INV_127), 1e-30)
+    q = torch.clamp(torch.round(v / scale[:, None]), -127, 127).to(
+        torch.int8)
+    qi = q.to(torch.int32)
+    vsq = (qi * qi).sum(dim=1, dtype=torch.int32).float()
+    return q, scale, vsq
+
+
+def quantize_scatter_reference(rows, slots, valid_vals, slab, scales, vsq,
+                               valid) -> None:
+    """Plain version of ``quantize_scatter``: quantize ``rows`` and write
+    codes, scale, vsq and validity at ``slots``, in place; slots outside
+    the extent's rows are dropped."""
+    keep = (slots >= 0) & (slots < slab.shape[0])
+    loc = slots[keep]
+    q, sc, vs = quantize_i8_reference(rows[keep])
+    slab.index_copy_(0, loc, q)
+    scales.index_copy_(0, loc, sc)
+    vsq.index_copy_(0, loc, vs)
+    if valid_vals is None:
+        valid.index_fill_(0, loc, True)
+    else:
+        valid.index_copy_(0, loc, valid_vals[keep])
+
+
+def quantize_scatter(rows, slots, valid_vals, slab, scales, vsq,
+                     valid) -> None:
+    """K4: rows (n, D) float32 -> int8 codes, scale, vsq and validity
+    written in place into one extent's (R, D) int8 ``slab`` and (R,)
+    ``scales``, ``vsq`` (f32) and ``valid`` (bool) at local ``slots``
+    (n,) int64. ``valid_vals`` (n,) bool, or None for all valid. A slot
+    outside [0, R) — a ragged padding row's sentinel — is a no-op.
+
+    CUDA tensors launch the kernel on the current stream (counted in
+    ``QUANTIZE_SCATTER.launches``); CPU tensors take
+    ``quantize_scatter_reference``."""
+    if not _on_card(rows, "quantize_scatter"):
+        return quantize_scatter_reference(rows, slots, valid_vals, slab,
+                                          scales, vsq, valid)
+    n, D = rows.shape
+    R = slab.shape[0]
+    _need(rows.dtype == torch.float32 and rows.stride(1) == 1,
+          "rows must be float32 with a contiguous last dim")
+    _need(slots.shape == (n,) and slots.dtype == torch.int64
+          and slots.is_contiguous(), "slots must be a contiguous (n,) int64")
+    _need(valid_vals is None or (valid_vals.shape == (n,) and
+                                 valid_vals.dtype == torch.bool and
+                                 valid_vals.is_contiguous()),
+          "valid_vals must be None or a contiguous (n,) bool")
+    _need(slab.dtype == torch.int8 and slab.shape == (R, D)
+          and slab.is_contiguous(), "slab must be a contiguous (R, D) int8")
+    for name, t, dt in (("scales", scales, torch.float32),
+                        ("vsq", vsq, torch.float32),
+                        ("valid", valid, torch.bool)):
+        _need(t.shape == (R,) and t.dtype == dt and t.is_contiguous(),
+              f"{name} must be a contiguous ({R},) {dt}")
+    for t in (slots, slab, scales, vsq, valid) + (
+            () if valid_vals is None else (valid_vals,)):
+        _need(t.device == rows.device, f"a tensor is on {t.device}, rows "
+              f"on {rows.device}")
+    if n == 0:
+        return None
+    lib = KNN_I8.load()
+    with torch.cuda.device(rows.device):
+        err = lib.pt_knn_quantize_scatter(
+            rows.data_ptr(), rows.stride(0), slots.data_ptr(),
+            None if valid_vals is None else valid_vals.data_ptr(), n, D, R,
+            slab.data_ptr(), scales.data_ptr(), vsq.data_ptr(),
+            valid.data_ptr(),
+            torch.cuda.current_stream(rows.device).cuda_stream)
+    _raise_on(err, "quantize_scatter")
+    QUANTIZE_SCATTER.launches += 1
+    return None
+
+
+# ---------------------------------------------------------------------------
+# K3: int8 score
+# ---------------------------------------------------------------------------
+
+def score_i8_reference(q, slab, scales, vsq, valid, metric: str):
+    """Plain version of ``score_i8``: the int8 rows widened to float32
+    (exact), one f32 product with the bf16 queries (exact products, f32
+    sums), then the score block of the JAX package's
+    ``_shared_search_i8_fn``."""
+    dots = q.float() @ slab.float().T
+    if metric == "cos":
+        scores = dots * torch.rsqrt(vsq + 1e-12)[None, :]
+    else:
+        scores = (2.0 * dots * scales[None, :]
+                  - vsq[None, :] * (scales * scales)[None, :])
+    return scores.masked_fill(~valid[None, :], -math.inf)
+
+
+def score_i8(q, slab, scales, vsq, valid, metric: str) -> torch.Tensor:
+    """K3: queries q (B, D) bfloat16 (normalised for cos, then cast), an
+    int8 chunk ``slab`` (N, D) with its (N,) ``scales``, ``vsq`` (f32) and
+    ``valid`` (bool) -> (B, N) float32 scores: ``dots * rsqrt(vsq +
+    1e-12)`` for cos, ``2 dots scale - vsq scale^2`` for l2sq, -inf on
+    invalid rows.
+
+    CUDA tensors launch the kernel on the current stream (counted in
+    ``SCORE_I8.launches``); CPU tensors take ``score_i8_reference``."""
+    if metric not in _METRICS:
+        raise ValueError(f"metric must be 'cos' or 'l2sq'; got {metric!r}")
+    if not _on_card(q, "score_i8"):
+        return score_i8_reference(q, slab, scales, vsq, valid, metric)
+    _need(q.dim() == 2 and q.dtype == torch.bfloat16 and q.is_contiguous(),
+          "q must be a contiguous (B, D) bfloat16")
+    B, D = q.shape
+    N = slab.shape[0]
+    _need(slab.dtype == torch.int8 and slab.shape == (N, D)
+          and slab.is_contiguous(), f"slab must be a contiguous (N, {D}) "
+          "int8")
+    for name, t, dt in (("scales", scales, torch.float32),
+                        ("vsq", vsq, torch.float32),
+                        ("valid", valid, torch.bool)):
+        _need(t.shape == (N,) and t.dtype == dt and t.is_contiguous(),
+              f"{name} must be a contiguous ({N},) {dt}")
+    for t in (slab, scales, vsq, valid):
+        _need(t.device == q.device, f"a tensor is on {t.device}, q on "
+              f"{q.device}")
+    _need(B <= 65535 * 64, f"B = {B} queries exceed the kernel's grid")
+    out = torch.empty((B, N), dtype=torch.float32, device=q.device)
+    if B == 0 or N == 0:
+        return out
+    lib = KNN_I8.load()
+    with torch.cuda.device(q.device):
+        err = lib.pt_knn_score_i8(
+            q.data_ptr(), slab.data_ptr(), scales.data_ptr(),
+            vsq.data_ptr(), valid.data_ptr(), out.data_ptr(), B, N, D,
+            _METRICS[metric],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "score_i8")
+    SCORE_I8.launches += 1
+    return out

@@ -1,20 +1,25 @@
 """Encoder embedder — port of pathway_tpu/xpacks/llm/embedders.py
 ``JaxEncoderEmbedder``.
 
-``EncoderEmbedder`` tokenizes on the host (HashTokenizer by default),
-pads each batch to a width bucket, and runs the encoder
-(models/encoder.py) on the device. It is a plain class until the engine's
-UDF machinery is ported; the ragged (packed) path and checkpoint loading
-by model name are later slices (ROADMAP).
+``EncoderEmbedder`` tokenizes on the host (HashTokenizer by default) and
+runs the encoder (models/encoder.py) on the device, either padding each
+batch to a width bucket or, with ``ragged``, packing documents back to
+back into ``max_len``-wide sequences (``encode_ragged``). It is a plain
+class until the engine's UDF machinery is ported; checkpoint loading by
+model name is a later slice (ROADMAP).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.internals.config import _env_int
 from pathway_tpu_torch.models.encoder import (Encoder, EncoderConfig, encode,
+                                              encode_ragged,
                                               init_params_host)
 from pathway_tpu_torch.models.tokenizer import HashTokenizer
 
@@ -25,19 +30,20 @@ class EncoderEmbedder:
     ``params`` is a JAX-layout numpy tree (e.g. ``init_params_host``
     output or the JAX package's parameters fetched to the host); without
     it the weights are ``init_params_host(seed, config)``. Runs on
-    ``device`` ("cuda" unless the caller passes "cpu")."""
+    ``device`` ("cuda" unless the caller passes "cpu"). ``ragged=None``
+    reads ``PATHWAY_RAGGED_ENCODER`` (off unless 1/true/on/yes), as the
+    JAX embedder does."""
 
     _BUCKETS = (32, 64, 128, 256, 512)
 
     def __init__(self, *, config: EncoderConfig | None = None,
                  params: dict | None = None, tokenizer=None, seed: int = 0,
-                 max_len: int = 512, ragged: bool = False,
+                 max_len: int = 512, ragged: bool | None = None,
                  device: str | torch.device = "cuda"):
-        if ragged:
-            raise NotImplementedError(
-                "the ragged (packed) encoder path is not ported to "
-                "pathway_tpu_torch yet (ROADMAP.md, PyTorch/CUDA port queue)")
-        self.ragged = False
+        if ragged is None:
+            ragged = os.environ.get("PATHWAY_RAGGED_ENCODER", "0").lower() \
+                in ("1", "true", "on", "yes")
+        self.ragged = bool(ragged)
         self.device = resolve_device(device)
         self.config = config or EncoderConfig.bge_small()
         if params is None:
@@ -50,6 +56,11 @@ class EncoderEmbedder:
         # packed ids: int16 when the vocab fits (BGE's 30522 does) — half
         # the host→device bytes of int32; the mask is rebuilt on device
         self._pack_ids = self.config.vocab_size <= 32767
+        # ragged packing: sequences per dispatch, and documents per
+        # sequence (W // 16: a document is never shorter than CLS + token
+        # + SEP), which bounds a chunk's padded document count
+        self._ragged_max_seqs = max(1, _env_int("PATHWAY_RAGGED_MAX_SEQS", 8))
+        self._ragged_doc_cap = max(1, self.max_len // 16)
         # encoder forwards run (ingest and query), for launch accounting
         self.dispatches = 0
 
@@ -104,9 +115,112 @@ class EncoderEmbedder:
         self.dispatches += 1
         return encode(model, ids_d, mask)
 
+    def ragged_device_producer(self, model: Encoder, ids, doc_map, pos_ids,
+                               doc_seq, doc_off) -> torch.Tensor:
+        """Forward over one ragged-packed chunk (host arrays from
+        :meth:`pack_ragged`) -> (n_docs_padded, hidden) f32 embeddings on
+        the device; the fused ingest of the ragged path."""
+        dev = self.device
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in (ids, doc_map, pos_ids, doc_seq, doc_off)]
+        self.dispatches += 1
+        return encode_ragged(model, t[0].long(), t[1], t[2].long(), t[3],
+                             t[4])
+
+    def ragged_buckets(self) -> list[int]:
+        """Sequence-count buckets the ragged path dispatches: powers of two
+        up to the per-chunk cap (full chunks all share one shape)."""
+        out, b = [], 1
+        while b < self._ragged_max_seqs:
+            out.append(b)
+            b *= 2
+        out.append(self._ragged_max_seqs)
+        return out
+
+    def pack_ragged(self, texts: list[str]) -> list[tuple]:
+        """Greedy first-fit packing of tokenized documents into
+        ``max_len``-wide sequences, chunked at ``_ragged_max_seqs``
+        sequences per dispatch.
+
+        Returns ``[(args, n_docs, n_docs_padded), ...]`` per chunk, docs in
+        input order, where ``args = (ids, doc_map, pos_ids, doc_seq,
+        doc_off)`` feed :meth:`ragged_device_producer` and
+        ``n_docs_padded`` is its output row count (padding rows carry
+        doc_map -1 and are dropped by the caller / the fused write).
+        Document ids are local to a chunk."""
+        ids, mask = self.tokenizer.batch(
+            [t or "." for t in texts], max_len=self.max_len)
+        lens = mask.sum(axis=1).astype(np.int64)
+        W, cap = self.max_len, self._ragged_doc_cap
+        # each document's (sequence, offset), first fit in input order
+        seq_of = np.empty(len(texts), np.int64)
+        off_of = np.empty(len(texts), np.int64)
+        seq, fill, docs_in_seq = 0, 0, 0
+        for d, n in enumerate(lens):
+            n = int(n)
+            if fill + n > W or docs_in_seq >= cap:
+                seq, fill, docs_in_seq = seq + 1, 0, 0
+            seq_of[d], off_of[d] = seq, fill
+            fill += n
+            docs_in_seq += 1
+        n_seqs_total = seq + 1
+        chunks: list[tuple] = []
+        max_seqs = self._ragged_max_seqs
+        buckets = self.ragged_buckets()
+        d0 = 0
+        for s0 in range(0, n_seqs_total, max_seqs):
+            s1 = min(s0 + max_seqs, n_seqs_total)
+            n_seqs = next(b for b in buckets if b >= s1 - s0)
+            d1 = d0
+            while d1 < len(texts) and seq_of[d1] < s1:
+                d1 += 1
+            n_docs = d1 - d0
+            n_pad = n_seqs * cap
+            c_ids = np.zeros((n_seqs, W), np.int32)
+            c_map = np.full((n_seqs, W), -1, np.int32)
+            c_pos = np.zeros((n_seqs, W), np.int32)
+            c_dseq = np.zeros((n_pad,), np.int32)
+            c_doff = np.zeros((n_pad,), np.int32)
+            for j, d in enumerate(range(d0, d1)):
+                n = int(lens[d])
+                s, o = int(seq_of[d]) - s0, int(off_of[d])
+                c_ids[s, o:o + n] = ids[d, :n]
+                c_map[s, o:o + n] = j
+                c_pos[s, o:o + n] = np.arange(n)
+                c_dseq[j], c_doff[j] = s, o
+            chunks.append(((c_ids, c_map, c_pos, c_dseq, c_doff),
+                           n_docs, n_pad))
+            d0 = d1
+        return chunks
+
+    def ragged_warmup_operands(self, n_seqs: int) -> tuple[tuple, int]:
+        """A synthetic ragged chunk at bucket ``n_seqs`` with every padded
+        document slot real (``cap`` documents of ``W // cap`` tokens per
+        sequence): the dispatch shape, whatever the content."""
+        W, cap = self.max_len, self._ragged_doc_cap
+        tok = W // cap
+        n_docs = n_seqs * cap
+        ids = np.zeros((n_seqs, W), np.int32)
+        doc_map = np.repeat(np.arange(n_docs, dtype=np.int32),
+                            tok).reshape(n_seqs, cap * tok)
+        if cap * tok < W:
+            doc_map = np.pad(doc_map, ((0, 0), (0, W - cap * tok)),
+                             constant_values=-1)
+        pos = np.tile(np.arange(tok, dtype=np.int32), cap)[None, :]
+        pos = np.pad(np.repeat(pos, n_seqs, 0),
+                     ((0, 0), (0, W - cap * tok)))
+        dseq = np.repeat(np.arange(n_seqs, dtype=np.int32), cap)
+        doff = np.tile(np.arange(cap, dtype=np.int32) * tok, n_seqs)
+        return (ids, doc_map, pos, dseq, doff), n_docs
+
     def encode_batch_device(self, texts: list[str]) -> torch.Tensor:
         """Tokenize + encoder forward, returning the (B, hidden) embeddings
-        still on the device."""
+        still on the device. The ragged path runs one forward per packed
+        chunk and keeps each chunk's real documents."""
+        if self.ragged:
+            outs = [self.ragged_device_producer(self.model, *args)[:n_docs]
+                    for args, n_docs, _n_pad in self.pack_ragged(texts)]
+            return outs[0] if len(outs) == 1 else torch.cat(outs, 0)
         ids, lens = self.pack_tokens(texts)
         return self.device_producer(self.model, ids, lens)
 
@@ -118,11 +232,6 @@ class EncoderEmbedder:
         """Row views of one host transfer for the whole batch (the UDF
         contract of the JAX embedder's batch call)."""
         return list(self.embed_batch(list(texts)))
-
-    def pack_ragged(self, texts: list[str]):
-        raise NotImplementedError(
-            "pack_ragged is not ported to pathway_tpu_torch yet (ROADMAP.md,"
-            " PyTorch/CUDA port queue)")
 
     def get_embedding_dimension(self, **kwargs) -> int:
         return int(self.config.hidden)

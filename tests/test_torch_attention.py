@@ -9,11 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from pathway_tpu.models.encoder import _dense_attention
+from pathway_tpu.models.encoder import _dense_attention, _segment_attention
 from pathway_tpu.ops.attention import flash_attention as jax_flash
 from pathway_tpu_torch.ops.attention import (ATTENTION, _check,
                                              attention_reference,
-                                             flash_attention, make_attn_fn)
+                                             flash_attention, make_attn_fn,
+                                             segment_attention_reference)
 
 # f32 on both sides; the only differences are summation order and exp
 # rounding, far below 1e-5 at these magnitudes
@@ -178,3 +179,106 @@ def test_kernel_matches_reference_on_card(B, S, H, D, kind, dtype, tol):
     if kind == "row_fully_masked":
         mean_v = v[0].float().mean(dim=0, keepdim=True)
         assert float((got[0] - mean_v).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# segment ids (the ragged encoder path)
+# ---------------------------------------------------------------------------
+
+def _segments(B, S, kind, seed=0):
+    """(B, S) int32 segment ids as pack_ragged lays them out: documents of
+    random lengths back to back, then -1 padding. ``padding_row``: batch
+    row 0 is all padding; ``single``: one document per row."""
+    rng = np.random.default_rng(seed)
+    seg = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        pos, doc = 0, 0
+        while pos < S:
+            n = S if kind == "single" else int(rng.integers(3, max(4, S // 3)))
+            if pos + n > S - (0 if kind == "single" else S // 8):
+                break
+            seg[b, pos:pos + n] = doc
+            pos, doc = pos + n, doc + 1
+    if kind == "padding_row":
+        seg[0] = -1
+    return seg
+
+
+SEG_CASES = [  # (B, S, H, D, kind)
+    (2, 64, 2, 16, "packed"),
+    (3, 40, 2, 24, "padding_row"),
+    (1, 32, 3, 32, "single"),
+    (2, 100, 2, 16, "padding_row"),
+]
+
+
+@pytest.mark.parametrize("B,S,H,D,kind", SEG_CASES)
+def test_segment_reference_matches_jax_segment_attention(B, S, H, D, kind):
+    """f32 on both sides: summation order only. A padding row (no valid
+    key) averages V over all S rows in both."""
+    q, k, v, _ = _inputs(B, S, H, D, "all_valid", seed=3)
+    seg = _segments(B, S, kind)
+    got = segment_attention_reference(
+        *(torch.from_numpy(a) for a in (q, k, v, seg)))
+    ref = np.asarray(_segment_attention(*(jnp.asarray(a)
+                                          for a in (q, k, v, seg))))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=TOL_F32)
+    for b, i in zip(*np.nonzero(seg < 0)):
+        mean_v = v[b].mean(axis=0)
+        np.testing.assert_allclose(got[b, i].numpy(), mean_v, rtol=0,
+                                   atol=TOL_F32)
+    # the wrapper on a CPU tensor is the plain version, mask unread
+    out = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          torch.zeros((B, S), dtype=torch.bool),
+                          torch.from_numpy(seg))
+    assert torch.equal(out, got)
+
+
+def test_segments_of_one_document_equal_the_plain_mask():
+    """A row holding one document then padding is ordinary masked
+    attention for the document's queries."""
+    q, k, v, _ = _inputs(2, 48, 2, 16, "all_valid", seed=4)
+    seg = np.full((2, 48), -1, np.int32)
+    seg[:, :30] = 0
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    a = segment_attention_reference(*t, torch.from_numpy(seg))
+    b = attention_reference(*t, torch.from_numpy(seg >= 0))
+    torch.testing.assert_close(a[:, :30], b[:, :30], rtol=0, atol=0)
+
+
+def test_check_rejects_bad_segment_ids():
+    q, k, v = _qkv((2, 32, 2, 16))
+    mask = torch.ones((2, 32), dtype=torch.bool)
+    _check(q, k, v, mask, torch.zeros((2, 32), dtype=torch.int32))
+    for seg in (torch.zeros((2, 32), dtype=torch.int64),
+                torch.zeros((2, 16), dtype=torch.int32),
+                torch.zeros((32, 2), dtype=torch.int32).t()):
+        with pytest.raises(ValueError):
+            _check(q, k, v, mask, seg)
+
+
+# chip_smoke.py's segment shapes: (B, S, H, D, kind, dtype, tol)
+CARD_SEG_CASES = [
+    (8, 512, 6, 64, "packed", torch.bfloat16, 2e-2),
+    (8, 512, 6, 64, "padding_row", torch.float32, 1e-4),
+    (2, 96, 6, 64, "padding_row", torch.bfloat16, 2e-2),
+    (2, 1000, 6, 64, "single", torch.bfloat16, 2e-2),
+    (4, 100, 6, 40, "packed", torch.bfloat16, 2e-2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D,kind,dtype,tol", CARD_SEG_CASES)
+def test_kernel_with_segments_matches_reference_on_card(B, S, H, D, kind,
+                                                        dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the attention kernel is CUDA-only")
+    q, k, v, _ = (torch.from_numpy(a).cuda()
+                  for a in _inputs(B, S, H, D, "all_valid"))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    seg = torch.from_numpy(_segments(B, S, kind)).cuda()
+    got = flash_attention(q, k, v, seg >= 0, seg).float()
+    torch.cuda.synchronize()
+    ref = segment_attention_reference(q, k, v, seg).float()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= tol

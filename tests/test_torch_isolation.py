@@ -29,6 +29,13 @@ docs = [f"doc {i} word{i} word{i * 7}" for i in range(40)]
 idx.add_batch([Pointer(i) for i in range(40)], docs)
 res = idx.search([(Pointer(10**6), docs[5], 3, None)])
 assert len(res[0]) == 3, res
+# path 2: the ragged embedder into an int8 index
+remb = EncoderEmbedder(config=EncoderConfig.tiny(), device="cpu", ragged=True)
+ridx = DeviceEmbeddingKnnIndex(remb, BruteForceKnnIndex(
+    64, reserved_space=64, dtype="int8", metric="cos", device="cpu"))
+ridx.add_batch([Pointer(i) for i in range(40)], docs)
+res = ridx.search([(Pointer(10**6), docs[7], 3, None)])
+assert len(res[0]) == 3, res
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pathway_tpu"))
 print("FORBIDDEN", bad)
@@ -86,3 +93,15 @@ def test_entry_points_default_to_cuda():
         BruteForceKnnIndex(8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Encoder.from_params(init_params_host(0, cfg), cfg)
+
+
+def test_cuda_device_carries_its_index(monkeypatch):
+    """"cuda" resolves to "cuda:<current>", the device of the tensors made
+    on it, so the index's device checks accept the encoder's output."""
+    from pathway_tpu_torch._device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -158,8 +158,6 @@ def test_fused_ingest_grows_like_jax():
 
 def test_unported_options_raise_and_page_rows_checks():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tknn.BruteForceKnnIndex(DIM, dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tknn.BruteForceKnnIndex(DIM, paged=False, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tknn.BruteForceKnnIndex(DIM, tenant="a", device="cpu")
