@@ -26,27 +26,47 @@ non-zero, and no result line is printed):
    and f32; time at B=8 S=512 beside SDPA with the same boolean mask;
 5. K4 (quantizing scatter) bit for bit against its plain version, with
    zero rows, exact halves and sentinel slots that must leave the extent
-   untouched; K3 (int8 score) against its plain version at B=1 and B=64,
-   cos and l2sq; times, K3 over 10,000,000 x 384 int8 rows in the index's
-   chunks beside torch.matmul of a bf16 copy of one chunk;
-6. path 1: ``DeviceEmbeddingKnnIndex(EncoderEmbedder(bge_small),
+   untouched; K3's score (``score_i8``) against its plain version at B=1
+   and B=64, cos and l2sq; times, the score over 10,000,000 x 384 int8
+   rows in the index's chunks beside torch.matmul of a bf16 copy of one
+   chunk;
+6. K3 top-k (``topk_i8``, the score fused with the top-k) against
+   ``topk_i8_reference``: cos and l2sq, B in {1, 7, 9, 32, 64, 65}, N in
+   {10, 4097, 100352, 10M}, k in {1, 10, 64}, random rows with invalid
+   rows and an extent with none valid (within 1e-5 x max|score|, -inf ranks and
+   their rows exact), and exact-arithmetic rows with ties (l2sq, small
+   codes, power-of-two scales, integer queries: scores and rows equal);
+   times over 10M x 384 rows at B=1 and B=64, k=10, beside the bound, the
+   old route (``score_i8`` + a stable sort per chunk + the merge) and
+   torch.matmul + torch.topk per chunk;
+7. path 1: ``DeviceEmbeddingKnnIndex(EncoderEmbedder(bge_small),
    BruteForceKnnIndex(384, bf16 paged))`` ingests ``--docs`` synthetic
    documents in batches of 512 through the fused path, then answers 64
    single-query text searches (32 copies of ingested documents, 32 fresh
    texts). Checks: the launch count of K1 equals 12 x the encoder
    dispatches of that run, every query's top 10 against a brute-force
    scan of the same rows on the card, every copy finding its document,
-   and card-vs-CPU embeddings;
-7. path 2: the same 100,000 documents and 64 queries through the ragged
+   and card-vs-CPU embeddings; times K2 (the float extent's search:
+   torch.matmul + a stable sort) at B=1 and B=64;
+8. path 2: the same 100,000 documents and 64 queries through the ragged
    embedder into ``BruteForceKnnIndex(384, dtype="int8", metric="cos")``
-   (K1 with segment ids, K4 in the fused write, K3 in the search).
-   Checks: K1 launches = 12 x encoder dispatches, K3 and K4 launched,
-   every top 10 against a plain scan of the same int8 rows, every copy
-   found, ragged vs padded embeddings;
-8. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
-   on the flush path, K3 over two chunks): query times at B=1 and B=64,
-   every top 10 against the plain scan;
-9. profile: torch.profiler over three encoder forwards of each path's
+   (K1 with segment ids, K4 in the fused write, K3 top-k in the search),
+   and one search with limit 20 and a filter, whose fetch of 80 rows
+   takes K3's score and the sort. Checks: K1 launches = 12 x encoder
+   dispatches, K4 = ingest chunks, K3 top-k = 65 searches, K3 score = 1,
+   every top 10 (and the top 20) against a plain scan of the same int8
+   rows, every copy found, ragged vs padded embeddings, ``search_extent``
+   at k = 65 against the plain version;
+9. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
+   on the flush path, K3 top-k in the search): query times at B=1 and
+   B=64, every top 10 against the plain scan;
+10. bench_knn's int8 deployment (bench.py:2547-2579): 10,000,000 x 384
+   rows, cos, fed by ``add_batch_device`` in 65,536-row batches of
+   seeded randn on the card, searched at B=1 (64 calls) and B=64, k=10:
+   add time and p50s, every top 10 against the plain scan, B=64 equal to
+   the B=1 searches, K3 top-k launches = searches x extents, K3 score
+   launches 0;
+11. profile: torch.profiler over three encoder forwards of each path's
    dispatch, device time by kernel group (K1, GEMM, other) and the
    device's busy share.
 
@@ -185,13 +205,15 @@ def phase_build():
     for fn, (regs, spill) in sorted(ptxas_report(KNN_I8.build_log).items()):
         print(f"[build] ptxas {fn}: {regs} registers, {spill} bytes spill "
               "stores", flush=True)
-    # K3 multiplies on the tensor cores too
-    counts = {f: c for f, c in sass_mma_counts(KNN_I8.path()).items()
-              if "knn_score_i8" in f}
-    for f, c in sorted(counts.items()):
-        print(f"[build] SASS {f}: {c} HMMA/HGMMA instructions", flush=True)
-    if not counts or 0 in counts.values():
-        fail("K3 (knn_score_i8_kernel) has no tensor-core instruction")
+    # K3, score and top-k, multiplies on the tensor cores too
+    counts = sass_mma_counts(KNN_I8.path())
+    for kernel in ("knn_score_i8_kernel", "knn_topk_i8_kernel"):
+        fns = {f: c for f, c in counts.items() if kernel in f}
+        for f, c in sorted(fns.items()):
+            print(f"[build] SASS {f}: {c} HMMA/HGMMA instructions",
+                  flush=True)
+        if not fns or 0 in fns.values():
+            fail(f"K3 ({kernel}) has no tensor-core instruction")
     # ptxas -v: registers and spills per instantiation; D = 64 is the
     # encoder's head dim (mangled template argument Li64E)
     report = ptxas_report(ATTENTION.build_log)
@@ -606,6 +628,177 @@ def phase_knn_i8(card: str) -> tuple[dict, dict]:
     return k3_rec, k4_rec
 
 
+def phase_topk_i8(card: str) -> dict:
+    """K3 top-k against its plain version over random and exact-arithmetic
+    extents up to 10M rows; its times over 10M x 384 rows at B=1 and B=64
+    beside the bound, the old route and torch's matmul + topk."""
+    import torch
+
+    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS, search_chunks
+    from pathway_tpu_torch.ops.knn_kernels import (SCORE_I8, TOPK_I8,
+                                                   score_i8,
+                                                   score_i8_reference,
+                                                   topk_i8,
+                                                   topk_i8_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    D = 384
+    before = TOPK_I8.launches, SCORE_I8.launches
+
+    def extent(N, exact, valid_frac=0.9):
+        """Random codes with 10% invalid rows; or (exact) codes in [-4, 4]
+        and power-of-two scales with the first half of the rows repeated
+        (exact ties), whose l2sq scores are exact in f32."""
+        hi = 4 if exact else 127
+        slab = torch.randint(-hi, hi + 1, (N, D), generator=gen,
+                             device="cuda", dtype=torch.int8)
+        if exact:
+            scales = 2.0 ** -torch.randint(0, 4, (N,), generator=gen,
+                                           device="cuda").float()
+            half = N // 2
+            slab[N - half:] = slab[:half]
+            scales[N - half:] = scales[:half]
+        else:
+            scales = torch.rand(N, generator=gen, device="cuda") + 0.01
+        vsq = torch.cat([(slab[c:c + (1 << 20)].int() ** 2).sum(1).float()
+                         for c in range(0, N, 1 << 20)])
+        valid = torch.rand(N, generator=gen, device="cuda") < valid_frac
+        return slab, scales, vsq, valid
+
+    def queries(B, exact):
+        if exact:
+            return torch.randint(-3, 4, (B, D), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+        q = torch.randn((B, D), generator=gen, device="cuda")
+        return (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+
+    def check(ext, B, metric, k, exact) -> float:
+        """The kernel against the plain version on one case: exact, or
+        within 1e-5 x max|score| rank by rank, -inf ranks and their rows
+        exact, rows distinct, each row's plain score its rank's."""
+        q = queries(B, exact)
+        s, i = topk_i8(q, *ext, metric, k)
+        torch.cuda.synchronize()
+        rs, ri = topk_i8_reference(q, *ext, metric, k)
+        what = f"N={ext[0].shape[0]} B={B} k={k} {metric}"
+        if exact:
+            if not (torch.equal(s, rs) and torch.equal(i, ri)):
+                fail(f"K3 top-k, exact inputs, {what}: scores or rows "
+                     "differ from the plain version")
+            return 0.0
+        full = score_i8_reference(q, *ext, metric)
+        fin_all = torch.isfinite(full)
+        tol = 1e-5 * max(1.0, float(full[fin_all].abs().max())
+                         if bool(fin_all.any()) else 1.0)
+        fin = torch.isfinite(rs)
+        plain_of_got = torch.gather(full, 1, i)
+        del full, fin_all
+        err = float((s[fin] - rs[fin]).abs().max()) if bool(fin.any()) \
+            else 0.0
+        err_rows = float((plain_of_got[fin] - rs[fin]).abs().max()) \
+            if bool(fin.any()) else 0.0
+        distinct = bool((torch.sort(i, dim=1).values.diff(dim=1) != 0).all())
+        if not (torch.equal(fin, torch.isfinite(s))
+                and torch.equal(fin, torch.isfinite(plain_of_got))
+                and torch.equal(i[~fin], ri[~fin]) and distinct
+                and err <= tol and err_rows <= tol):
+            fail(f"K3 top-k {what}: score error {err:.3e}, its rows' plain "
+                 f"scores {err_rows:.3e} (tolerance {tol:.3e}), -inf ranks "
+                 f"or rows differ, or rows repeat (distinct {distinct})")
+        return err
+
+    # B = 9 and 32 take the n8-tile counts 2 and 4 (the register path)
+    Bs, ks = (1, 7, 9, 32, 64, 65), (1, 10, 64)
+    for N in (10, 4097, 100_352, K3_ROWS):
+        for exact in (True, False):
+            ext = extent(N, exact)
+            worst, cases = 0.0, 0
+            for metric in (("l2sq",) if exact else ("cos", "l2sq")):
+                for B in Bs:
+                    for k in ks:
+                        if k <= N:
+                            worst = max(worst, check(ext, B, metric, k,
+                                                     exact))
+                            cases += 1
+            print(f"[K3 top-k] N={N:,} " + (
+                "exact inputs with ties (l2sq): scores and rows equal to "
+                f"the plain version in all {cases} cases" if exact else
+                f"random rows, 10% invalid (cos, l2sq): {cases} cases, "
+                f"max_abs_err {worst:.3e} (tolerance 1e-5 x max|score|)"),
+                flush=True)
+            del ext
+    none = extent(4097, False, valid_frac=0.0)
+    cases = 0
+    for metric in ("cos", "l2sq"):
+        for B in (1, 65):
+            for k in ks:
+                check(none, B, metric, k, False)
+                cases += 1
+    print(f"[K3 top-k] an extent with no valid row, N=4,097: rows 0..k-1 at "
+          f"-inf as the plain version in all {cases} cases", flush=True)
+    del none
+    torch.cuda.empty_cache()
+
+    # times over 10M x 384 rows (all valid), cos, k = 10
+    N, k = K3_ROWS, 10
+    slab, scales, vsq, valid = extent(N, False, valid_frac=1.0)
+    chunk_bf16 = slab[:_CHUNK_ROWS].to(torch.bfloat16)
+    n_chunks = N / _CHUNK_ROWS
+    # what a plain streaming read of the codes takes on this card: torch's
+    # max over the slab's bytes seen as float32 (context for the bound)
+    read_ms = cuda_ms(lambda: slab.view(torch.float32).amax(), 10)
+    print(f"[K3 top-k] torch's read of the {N * D / 1e9:.2f} GB of codes "
+          f"(amax over them as float32): {read_ms:.4f} ms, "
+          f"{N * D / read_ms / 1e9:.3f} TB/s [{card}]", flush=True)
+    times, err1 = {}, 0.0
+    for B in (1, 64):
+        q = queries(B, False)
+        if B == 1:
+            err1 = check((slab, scales, vsq, valid), 1, "cos", k, False)
+
+        def old_route():
+            return search_chunks(lambda c0, c1: score_i8(
+                q, slab[c0:c1], scales[c0:c1], vsq[c0:c1], valid[c0:c1],
+                "cos"), N, k)
+
+        ms = cuda_ms(lambda: topk_i8(q, slab, scales, vsq, valid, "cos", k),
+                     20)
+        old_ms = cuda_ms(old_route, 5)
+        plain_ms = cuda_ms(lambda: topk_i8_reference(
+            q, slab, scales, vsq, valid, "cos", k), 2)
+        lib_ms = cuda_ms(lambda: torch.topk(torch.matmul(q, chunk_bf16.T),
+                                            k), 20) * n_chunks
+        # reads codes, vsq and valid (cos) and the queries; writes (B, k)
+        # scores and rows
+        nbytes = N * (D + 4 + 1) + B * D * 2 + B * k * (4 + 8)
+        flops = 2.0 * B * N * D
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"[K3 top-k] B={B} k={k} over {N:,} x {D} int8 rows (cos): "
+              f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP), share of "
+              f"bound {bound_ms / ms:.3f}; old route (score_i8 + stable "
+              f"sort per chunk + merge) {old_ms:.4f} ms; torch.matmul of a "
+              f"bf16 copy + torch.topk per chunk x {n_chunks:.2f} "
+              f"{lib_ms:.4f} ms; plain {plain_ms:.4f} ms [{card}]",
+              flush=True)
+        times[B] = (ms, plain_ms, lib_ms, bound_ms, bound_by, old_ms)
+    del slab, scales, vsq, valid, chunk_bf16
+    torch.cuda.empty_cache()
+    TOPK_I8.launches, SCORE_I8.launches = before
+    ms, plain_ms, lib_ms, bound_ms, bound_by, old_ms = times[1]
+    ms64, plain64, lib64, bound64, by64, old64 = times[64]
+    return {"name": "knn_topk_i8", "route": "cuda",
+            "source": "pathway_tpu_torch/ops/csrc/knn_i8.cu",
+            "replaces": "pathway_tpu/ops/knn.py:211",
+            "max_abs_err": err1, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "library_ms": lib_ms,
+            "old_route_ms": old_ms,
+            "b64": {"ms": ms64, "plain_ms": plain64, "bound_ms": bound64,
+                    "bound_by": by64, "bound_share": bound64 / ms64,
+                    "library_ms": lib64, "old_route_ms": old64}}
+
+
 def phase_slice(n_docs: int, seed: int, card: str) -> int:
     import torch
 
@@ -702,6 +895,27 @@ def phase_slice(n_docs: int, seed: int, card: str) -> int:
           f"{np.percentile(embed_ms, 50):.3f} ms, index search (score + "
           f"sort + merge over {inner.capacity} rows) "
           f"{np.percentile(search_ms, 50):.3f} ms [{card}]", flush=True)
+    # K2, the float extent's search (torch.matmul + a stable sort, not yet
+    # a kernel), at this index's shape, k = 10
+    from pathway_tpu_torch.ops.knn import search_extent
+
+    ext = exts[0]
+    N, D = ext.vectors.shape
+    for B in (1, 64):
+        qb = torch.randn((B, D), device="cuda")
+        k2_ms = cuda_ms(lambda: search_extent(qb, ext.vectors, ext.valid, 10,
+                                              inner.metric), 20)
+        qb16 = qb.to(torch.bfloat16)
+        k2_lib = cuda_ms(lambda: torch.topk(torch.matmul(qb16, ext.vectors.T),
+                                            10), 20)
+        nbytes = N * (2 * D + 1) + B * D * 4 + B * 10 * (4 + 8)
+        k2_bound, k2_by = bound(2.0 * B * N * D, nbytes)
+        print(f"[K2] B={B} k=10 over {N:,} x {D} bf16 rows ({len(exts)} "
+              f"extent): search_extent (torch.matmul + stable sort) "
+              f"{k2_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}; "
+              f"{nbytes / 1e6:.1f} MB), share of bound "
+              f"{k2_bound / k2_ms:.3f}; torch.matmul + torch.topk "
+              f"{k2_lib:.4f} ms [{card}]", flush=True)
     dist = (qv * qv).sum(1, keepdim=True) - 2.0 * qv @ rows.T \
         + (rows * rows).sum(1)[None, :]
     dist = dist.masked_fill(~valid[None, :], float("inf"))
@@ -752,37 +966,62 @@ def phase_slice(n_docs: int, seed: int, card: str) -> int:
     return launches
 
 
-def check_top10(results, scan_scores, keys_of, label: str) -> int:
-    """Each query's top 10 keys against a plain scan's scores (B, N) on
-    the card, whose column j holds key ``keys_of[j]``: equal, except that
-    where they differ the index's key must score within 1e-6 of the scan's
-    key at that rank (a rounding tie). Returns how many rank-1 keys are
-    identical."""
+def check_top10(results, scan_scores, keys_of, label: str, n: int = 10
+                ) -> int:
+    """Each query's top ``n`` keys against a plain scan's scores (B, N) on
+    the card, whose column j holds key ``keys_of[j]`` (-1: no key): equal,
+    except that where they differ the index's key must score within 1e-6
+    of the scan's key at that rank (a rounding tie). Returns how many
+    rank-1 keys are identical."""
     import torch
 
     top_s, top_j = torch.sort(scan_scores, dim=1, descending=True,
                               stable=True)
-    top_s, top_j = top_s[:, :10].cpu().numpy(), top_j[:, :10].cpu().numpy()
-    col = {int(k): j for j, k in enumerate(keys_of)}
-    scores = scan_scores.cpu().numpy()
+    top_s, top_j = top_s[:, :n].cpu().numpy(), top_j[:, :n].cpu().numpy()
+    keys_of = np.asarray(keys_of)
+    order = np.argsort(keys_of, kind="stable")
+    sorted_keys = keys_of[order]
     rank1 = 0
     for qi, res in enumerate(results):
         got = [int(k) for k, _ in res]
         ref = [int(keys_of[j]) for j in top_j[qi]]
-        if len(got) != 10:
+        if len(got) != n:
             fail(f"{label} query {qi}: {len(got)} results")
+        pos = np.searchsorted(sorted_keys, got)
+        if not np.array_equal(sorted_keys[np.minimum(pos, len(order) - 1)],
+                              got):
+            fail(f"{label} query {qi}: a key the scan does not hold")
+        cols = torch.from_numpy(order[pos]).to(scan_scores.device)
+        scores = scan_scores[qi, cols].cpu().numpy()
         rank1 += got[0] == ref[0]
         for r, (g, w) in enumerate(zip(got, ref)):
-            gap = float(top_s[qi, r] - scores[qi, col[g]])
+            gap = float(top_s[qi, r] - scores[r])
             if g != w and abs(gap) > 1e-6:
                 fail(f"{label} query {qi} rank {r}: key {g} != scan's {w} "
                      f"(score gap {gap:.3e})")
     return rank1
 
 
-def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int]:
+def plain_scan_i8(q, vectors, scales, vsq, valid, rows: int = 1 << 20):
+    """``score_i8_reference`` of every row, (B, N) f32 on the card, taken
+    ``rows`` rows at a time so that the f32 copy of the slab stays small."""
+    import torch
+
+    from pathway_tpu_torch.ops.knn_kernels import score_i8_reference
+
+    out = torch.empty((q.shape[0], vectors.shape[0]), device=q.device)
+    for c0 in range(0, vectors.shape[0], rows):
+        c1 = c0 + rows
+        out[:, c0:c1] = score_i8_reference(q, vectors[c0:c1], scales[c0:c1],
+                                           vsq[c0:c1], valid[c0:c1], "cos")
+    return out
+
+
+def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int, int]:
     """Path 2: ragged BGE-small (K1 with segment ids) -> fused int8 write
-    (K4) -> int8 search (K3), at path 1's documents and queries."""
+    (K4) -> int8 search (K3 top-k; K3's score for a filtered fetch past
+    K_MAX), at path 1's documents and queries. Returns the launches of K1,
+    K3 top-k, K3 score and K4 in the counted run."""
     import torch
 
     from pathway_tpu_torch.internals.keys import Pointer
@@ -790,10 +1029,12 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int]:
                                                   init_params_host)
     from pathway_tpu_torch.ops.attention import ATTENTION
     from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
-                                           DeviceEmbeddingKnnIndex)
+                                           DeviceEmbeddingKnnIndex,
+                                           KnnMetric, search_extent)
     from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
-                                                   SCORE_I8,
-                                                   score_i8_reference)
+                                                   SCORE_I8, TOPK_I8,
+                                                   score_i8_reference,
+                                                   topk_i8_reference)
     from pathway_tpu_torch.engine.profiler import segment_attention_cost
     from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
 
@@ -831,6 +1072,7 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int]:
 
     # the counted run: ingest, then single-query searches
     ATTENTION.launches = SCORE_I8.launches = QUANTIZE_SCATTER.launches = 0
+    TOPK_I8.launches = 0
     emb.dispatches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -848,7 +1090,11 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int]:
         res = index.search([(Pointer(10**9 + qi), text, 10, None)])
         lat_ms.append((time.perf_counter() - t1) * 1e3)
         results.append(res[0])
-    launches = (ATTENTION.launches, SCORE_I8.launches,
+    # limit 20 with a filter (one every document passes) fetches 80 rows,
+    # past K_MAX: K3's score and the stable sort
+    res20 = index.search([(Pointer(10**9 + 99), queries[40], 20,
+                           lambda data: True)])[0]
+    launches = (ATTENTION.launches, TOPK_I8.launches, SCORE_I8.launches,
                 QUANTIZE_SCATTER.launches)
     dispatches = emb.dispatches
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
@@ -862,18 +1108,23 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int]:
           f"{np.percentile(lat_ms, 99):.3f} ms over {len(lat_ms)} "
           f"single-query searches; peak device memory {peak_mb:.1f} MiB "
           f"[{card}]", flush=True)
-    print(f"[ragged] launches: K1 {launches[0]}, K3 {launches[1]}, K4 "
-          f"{launches[2]}; encoder dispatches {dispatches} (x{N_LAYERS} = "
-          f"{N_LAYERS * dispatches}), {ingest_dispatches} of them ingest",
-          flush=True)
+    n_ext = index.inner.page_stats()["extents"]
+    print(f"[ragged] launches: K1 {launches[0]}, K3 top-k {launches[1]}, K3 "
+          f"score {launches[2]}, K4 {launches[3]}; encoder dispatches "
+          f"{dispatches} (x{N_LAYERS} = {N_LAYERS * dispatches}), "
+          f"{ingest_dispatches} of them ingest", flush=True)
     if len(index) != n_docs:
         fail(f"index holds {len(index)} docs, expected {n_docs}")
     if dispatches == 0 or launches[0] != N_LAYERS * dispatches:
         fail("K1 did not run on every encoder layer of path 2")
-    if launches[2] != ingest_dispatches:
+    if launches[3] != ingest_dispatches:
         fail("K4 did not write every ragged chunk of path 2")
-    if launches[1] < len(queries):
-        fail("K3 did not score every search of path 2")
+    if launches[1] != (len(queries) + 1) * n_ext:
+        fail(f"K3 top-k ran {launches[1]} times, not once for each of the "
+             f"{len(queries) + 1} searches x {n_ext} extent(s)")
+    if launches[2] != n_ext:
+        fail("the filtered search's fetch past K_MAX did not take K3's "
+             "score once an extent")
 
     # the index against a plain scan of the same int8 rows on the card
     inner = index.inner
@@ -888,9 +1139,42 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int]:
     qv = (qv / (qv.norm(dim=1, keepdim=True) + 1e-12)).to(torch.bfloat16)
     scan = score_i8_reference(qv, *cat, "cos")
     rank1 = check_top10(results, scan, keys_of, "path 2")
+    check_top10([res20], scan[40:41], keys_of, "path 2 filtered", n=20)
     print(f"[ragged] top-10 vs a plain scan of the int8 rows: all 64 "
           f"queries pass, rank 1 identical on {rank1}/64 (the rest within a"
-          f" 1e-6 score tie)", flush=True)
+          f" 1e-6 score tie); the filtered limit-20 search's top 20 too",
+          flush=True)
+    # the large-k route once more, directly: search_extent at k = K_MAX + 1
+    # (score_i8 + stable sort) against the plain version
+    ext = exts[0]
+    qraw = qv[:8].float()
+    s65, i65 = search_extent(qraw, ext.vectors, ext.valid, 65,
+                             KnnMetric.COS, (ext.scales, ext.vsq))
+    torch.cuda.synchronize()
+    qn = (qraw / (torch.linalg.vector_norm(qraw, dim=1, keepdim=True)
+                  + 1e-12)).to(torch.bfloat16)
+    rs, ri = topk_i8_reference(qn, ext.vectors, ext.scales, ext.vsq,
+                               ext.valid, "cos", 65)
+    err65 = float((s65 - rs).abs().max())
+    same65 = float((i65 == ri).float().mean())
+    print(f"[ragged] search_extent k=65 (score_i8 + stable sort) vs the "
+          f"plain version: max_abs_err {err65:.3e} (tolerance 1e-5), rows "
+          f"equal at {100 * same65:.1f}% of ranks", flush=True)
+    if not err65 <= 1e-5:
+        fail(f"search_extent at k=65: {err65} > 1e-5")
+    # the two halves of a query on the host clock (after the counted run)
+    embed_ms, search_ms = [], []
+    for qi, text in enumerate(queries):
+        t1 = time.perf_counter()
+        vec = emb.embed_batch([text])[0]
+        t2 = time.perf_counter()
+        inner.search([(Pointer(10**9 + qi), vec, 10, None)])
+        embed_ms.append((t2 - t1) * 1e3)
+        search_ms.append((time.perf_counter() - t2) * 1e3)
+    print(f"[ragged] query halves, p50: text embed (tokenize + pack + B=1 "
+          f"forward) {np.percentile(embed_ms, 50):.3f} ms, index search (K3 "
+          f"top-k + host merge over {inner.capacity} rows) "
+          f"{np.percentile(search_ms, 50):.3f} ms [{card}]", flush=True)
     own_rank1 = 0
     for qi, doc_id in enumerate(dup_ids):
         got = [int(k) for k, _ in results[qi]]
@@ -916,7 +1200,7 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int]:
 
 def phase_int8_million(seed: int, card: str) -> None:
     """An int8 index of 1,000,000 random rows fed by add_batch_device (K4
-    on the flush path) and searched over two chunks (K3)."""
+    on the flush path) and searched by K3 top-k over its one extent."""
     import torch
 
     from pathway_tpu_torch.internals.keys import Pointer
@@ -968,6 +1252,101 @@ def phase_int8_million(seed: int, card: str) -> None:
     print(f"[int8 1M] top-10 vs a plain scan: all 64 queries pass (rank 1 "
           f"identical on {rank1}/64); the B=64 search returns the same "
           "keys", flush=True)
+
+
+def phase_int8_10m(seed: int, card: str) -> dict:
+    """bench_knn's int8 deployment (bench.py:2547-2579; README.md:1655,
+    1749): BruteForceKnnIndex(384, reserved_space=10M, int8, cos) fed by
+    add_batch_device in 65,536-row batches of seeded randn on the card,
+    searched at B=1 (64 calls after a warm-up) and B=64 (5 calls), k=10.
+    The host mirror is f32 (15.4 GB at 10M rows): where the machine's
+    memory cannot hold it, the rows are cut to the largest multiple of
+    2^19 that fits, and the cut is printed. Returns the launches of K3
+    top-k, K3 score and K4 in this run."""
+    import torch
+
+    from pathway_tpu_torch.internals.keys import Pointer
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+    from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
+                                                   SCORE_I8, TOPK_I8)
+
+    D, batch, n = 384, 65_536, K3_ROWS
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    print("[int8 10M] free -g:\n" + free, flush=True)
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable"))
+    # the f32 mirror plus ~300 bytes of key maps and sets per row
+    fits = int(0.8 * avail) // (D * 4 + 300)
+    if fits < n:
+        n = max(1 << 19, fits // (1 << 19) * (1 << 19))
+        print(f"[int8 10M] CUT: {avail / 2**30:.1f} GiB available holds "
+              f"{fits:,} rows; {n:,} rows instead of {K3_ROWS:,}",
+              flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    QUANTIZE_SCATTER.launches = SCORE_I8.launches = TOPK_I8.launches = 0
+    t0 = time.perf_counter()
+    index = BruteForceKnnIndex(D, reserved_space=n, dtype="int8",
+                               metric="cos", device="cuda")
+    for b0 in range(0, n, batch):
+        b1 = min(b0 + batch, n)
+        index.add_batch_device([Pointer(i) for i in range(b0, b1)],
+                               torch.randn((b1 - b0, D), generator=gen,
+                                           device="cuda"))
+    index.drain()
+    add_s = time.perf_counter() - t0
+    qs = torch.randn((64, D), generator=gen, device="cuda").cpu().numpy()
+    index.search([(Pointer(10**10), qs[0], 10, None)])  # warm-up
+    lat1, results = [], []
+    for qi in range(64):
+        t1 = time.perf_counter()
+        results.append(index.search([(Pointer(10**10 + qi), qs[qi], 10,
+                                      None)])[0])
+        lat1.append((time.perf_counter() - t1) * 1e3)
+    lat64 = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        batch_res = index.search([(Pointer(10**10 + i), qs[i], 10, None)
+                                  for i in range(64)])
+        lat64.append((time.perf_counter() - t1) * 1e3)
+    launches = (TOPK_I8.launches, SCORE_I8.launches,
+                QUANTIZE_SCATTER.launches)
+    stats = index.page_stats()
+    exts = [e for e in index._pool.extents if e.established]
+    searches = 1 + 64 + 5
+    print(f"[int8 10M] {len(index):,} rows added in {add_s:.2f} s through "
+          f"add_batch_device ({stats['extents']} extent(s), "
+          f"{index.capacity:,} rows); query p50 at B=1 "
+          f"{np.percentile(lat1, 50):.3f} ms (p99 "
+          f"{np.percentile(lat1, 99):.3f}), at B=64 "
+          f"{np.percentile(lat64, 50):.3f} ms per call [{card}]", flush=True)
+    print(f"[int8 10M] launches: K3 top-k {launches[0]} ({searches} searches "
+          f"x {len(exts)} extent(s)), K3 score {launches[1]}, K4 "
+          f"{launches[2]}", flush=True)
+    if len(index) != n:
+        fail(f"int8 10M: the index holds {len(index)} rows, not {n}")
+    if launches[0] != searches * len(exts) or launches[1] != 0:
+        fail("int8 10M: the search did not go through K3 top-k once an "
+             "extent, or K3's score ran")
+    if launches[2] < -(-n // batch):
+        fail("int8 10M: K4 did not write every batch")
+    keys_of = np.concatenate([
+        np.fromiter((int(index._slot_to_key.get(e.base + s, -1))
+                     for s in range(e.rows)), np.int64, e.rows)
+        for e in exts])
+    q = torch.from_numpy(qs).cuda()
+    q = (q / (q.norm(dim=1, keepdim=True) + 1e-12)).to(torch.bfloat16)
+    scan = torch.cat([plain_scan_i8(q, e.vectors, e.scales, e.vsq, e.valid)
+                      for e in exts], dim=1)
+    rank1 = check_top10(results, scan, keys_of, "int8 10M")
+    if [[int(k) for k, _ in r] for r in batch_res] != \
+            [[int(k) for k, _ in r] for r in results]:
+        fail("int8 10M: a B=64 search differs from the 64 B=1 searches")
+    print(f"[int8 10M] top-10 vs a plain scan: all 64 queries pass (rank 1 "
+          f"identical on {rank1}/64); the B=64 search returns the same keys",
+          flush=True)
+    return launches
 
 
 def phase_profile(card: str) -> None:
@@ -1049,15 +1428,29 @@ def main() -> None:
 
     phase_build()
     resolve_device("cuda")  # f32 products of the plain versions: no TF32
+    t0 = time.perf_counter()
+
+    def done(what):
+        print(f"[time] {what} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
     k1 = phase_attention(card)
     k1_seg = phase_segments(card)
     k3, k4 = phase_knn_i8(card)
+    k3_topk = phase_topk_i8(card)
+    done("kernel phases")
     k1["launches"] = phase_slice(args.docs, args.seed, card)
-    (k1_seg["launches"], k3["launches"],
+    done("path 1")
+    (k1_seg["launches"], k3_topk_path2, k3["launches"],
      k4["launches"]) = phase_ragged_int8(args.seed, card)
+    done("path 2")
     phase_int8_million(args.seed, card)
+    k3_topk["launches"], _, _ = phase_int8_10m(args.seed, card)
+    k3_topk["launches_path2"] = k3_topk_path2
+    done("int8 indexes")
     phase_profile(card)
-    print(json.dumps({"kernels": [k1, k1_seg, k3, k4]}), flush=True)
+    print(json.dumps({"kernels": [k1, k1_seg, k3_topk, k3, k4]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

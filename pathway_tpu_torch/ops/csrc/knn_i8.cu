@@ -1,4 +1,4 @@
-// The int8 KNN slab's two kernels for Hopper (sm_90a), bound to Python
+// The int8 KNN slab's kernels for Hopper (sm_90a), bound to Python
 // with ctypes (ops/knn_kernels.py).
 //
 // K3, the int8 score: replaces the score block of
@@ -11,8 +11,9 @@
 //   cos:  dots * rsqrt(vsq + 1e-12)            (the row scale cancels)
 //   l2sq: 2 dots scale - vsq scale^2           (-||q - v||^2 + ||q||^2)
 //   invalid rows: -inf.
-// Output: (B, N) f32 scores, row-major. The top-k stays a stable sort in
-// ops/knn.py::search_extent (a fused score + top-k is K2's later work).
+// Output: (B, N) f32 scores, row-major. ops/knn.py::search_extent takes it
+// (with a stable sort per chunk) only for k > 64; K3 top-k below is the
+// search for k <= 64.
 //
 // What bounds it: bytes. Each slab byte is read once; at the serving
 // batch (B <= 64) the product is far below the tensor cores' rate, and at
@@ -28,6 +29,29 @@
 // permutation, so the dot products are unchanged. Blocks loop over row
 // tiles (a grid of a few blocks per SM), so each block stages its queries
 // once.
+//
+// K3 top-k, the int8 score fused with the top-k: replaces the whole of
+// _shared_search_i8_fn (score block, lax.top_k per 2^19-row chunk and the
+// merge of _chunked_search) for one extent and k <= 64. Each row's score
+// is score_i8's formula, rounded as the plain version rounds it; the
+// result is the k best rows per query in the stable descending sort's
+// order: higher score first, equal scores lower row first, -inf (invalid)
+// rows ranked like any other. A (score, row) pair is one 64-bit key in
+// that order (score bits mapped to an unsigned order, row complemented),
+// so a plain integer comparison ranks and breaks ties. Bound: the slab
+// read, N (D + 5) bytes, since no score reaches device memory. Launch 1: a
+// persistent grid of two 8-warp blocks an SM walks 128-row block tiles,
+// each warp 16 rows (mma.sync m16n8k16 with score_i8's fragment layout;
+// at 33-64 queries a block one wgmma m64n64k16 per 4 warps); at B <= 8
+// the rows stream through a cp.async ring in shared memory, else through
+// registers (see topk_config). Codes widen to bf16 with no
+// conversion instruction (byte permutes and one bf16x2 subtraction per
+// pair). Each query keeps, in shared memory, its sorted k best and a
+// candidate buffer; a row enters the buffer only if its key beats the
+// k-th best, and a warp merges a buffer past half full with a bitonic
+// sort, between the block barriers that end each tile. Each block writes
+// its k best per query to a workspace. Launch 2: a block per query merges
+// the blocks' lists by the same key.
 //
 // K4, the quantizing scatter: replaces
 // pathway_tpu/ops/knn.py::_quantize_i8 inside _shared_scatter_i8_fn and
@@ -216,6 +240,550 @@ cudaError_t launch_score(const ScoreParams& p, cudaStream_t stream) {
 }
 
 // ------------------------------------------------------------------------
+// K3 top-k: int8 score fused with the top-k
+// ------------------------------------------------------------------------
+
+using u64 = unsigned long long;
+
+constexpr int kTopkKMax = 64;         // largest k
+constexpr int kMergeThreads = 256;    // launch 2: threads per query
+constexpr int kMergeMaxKeys = 4096;   // launch 2: keys sorted at once
+
+// a - b on bf16 pairs (as a + b * -1), exact on the integers used here
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(b), "r"(0xBF80BF80u), "r"(a));
+  return d;
+}
+
+// The four int8 codes of w -> bf16 pairs (bytes 0-1 -> lo, 2-3 -> hi),
+// exact, with no integer-to-float conversion (a quarter-rate pipe that
+// would take ~90% of its issue at HBM rate): a code c is
+// (128 + (c & 127)) - (128 + (c & 128)), two bf16 of exponent 2^7 whose
+// mantissas are byte permutes of c, and one bf16x2 subtraction.
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t m = w & 0x7F7F7F7Fu, s = w & 0x80808080u;
+  lo = bf16x2_sub(__byte_perm(m, 0x43u, 0x4140),
+                  __byte_perm(s, 0x43u, 0x4140));
+  hi = bf16x2_sub(__byte_perm(m, 0x43u, 0x4342),
+                  __byte_perm(s, 0x43u, 0x4342));
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// (score, row) -> a key ordered as the stable descending sort ranks:
+// higher score first, on equal scores the lower row. The score's bits map
+// to an unsigned order (-0 as +0; a NaN that the card produces ranks
+// first, as torch.sort puts it), the row is stored complemented. 0 is no
+// key: below every real one.
+__device__ __forceinline__ u64 topk_key(float s, long long row) {
+  uint32_t u = __float_as_uint(s == 0.f ? 0.f : s);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<u64>(u) << 32) | ~static_cast<uint32_t>(row);
+}
+
+__device__ __forceinline__ float key_score(u64 key) {
+  const uint32_t u = static_cast<uint32_t>(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
+}
+
+__device__ __forceinline__ long long key_row(u64 key) {
+  return static_cast<long long>(~static_cast<uint32_t>(key));
+}
+
+// Bitonic sort of n keys (a power of two) in shared memory, descending, by
+// the threads first, first + step, ... of a warp (kBlock false) or block.
+template <bool kBlock>
+__device__ void sort_desc(u64* a, int n, int first, int step) {
+  for (int size = 2; size <= n; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = first; i < n / 2; i += step) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const u64 x = a[lo], y = a[hi];
+        if ((x < y) == ((lo & size) == 0)) {
+          a[lo] = y;
+          a[hi] = x;
+        }
+      }
+      if (kBlock)
+        __syncthreads();
+      else
+        __syncwarp();
+    }
+}
+
+// One query's keys, by one warp: [0, k) its k best, sorted; [k, k + cnt)
+// new candidates (cnt past the buffer counts refused appends). Sorts the
+// used power-of-two prefix, so [0, k) again holds the k best.
+__device__ void merge_list(u64* a, int* cnt, int k, int S, int lane) {
+  const int n = k + min(*cnt, S - k);
+  int P = 32;
+  while (P < n) P <<= 1;
+  for (int i = n + lane; i < P; i += 32) a[i] = 0ull;
+  __syncwarp();
+  sort_desc<false>(a, P, lane, 32);
+  if (lane == 0) *cnt = 0;
+  __syncwarp();
+}
+
+struct TopkParams {
+  const bf16* q;
+  const int8_t* slab;
+  const float* scales;
+  const float* vsq;
+  const uint8_t* valid;
+  u64* ws;  // (gridDim.x, B, k): each block's k best keys per query
+  long long N;
+  int B, D, DP, metric, k;
+  bool vec;
+};
+
+constexpr int kTopkTile = kWarps * kTileRows;  // rows per block tile
+// keys a query keeps in shared memory: its k best and a buffer of 128 - k
+// candidates (a power of two, for the bitonic merge)
+constexpr int kTopkKeys = 128;
+// wgmma's B descriptor: bytes between core matrices along k (8 query
+// groups of 128 bytes) and along the queries
+constexpr uint32_t kWgLbo = 1024, kWgSbo = 128;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// wgmma m64n64k16 (f32 += bf16 x bf16): A, the warp's 16 rows, in
+// registers in mma.sync's fragment layout; B, 64 queries x 16 k, in shared
+// memory without swizzle, K-major: 8 x 8 core matrices of 128 bytes, LBO
+// bytes apart along k and SBO along the queries. The sum's layout is
+// mma.sync's m16n8 layout for each 8 queries.
+__device__ __forceinline__ u64 wg_desc(const void* p, uint32_t lbo,
+                                       uint32_t sbo) {
+  return static_cast<u64>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<u64>(lbo >> 4) << 16) |
+         (static_cast<u64>(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_64x64(float (&d)[8][4],
+                                            const uint32_t (&a)[4], u64 b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+// Shared memory of launch 1: keys [NQ][kTopkKeys], counts [NQ], queries
+// [NQ][DP] bf16, then (stg > 0) the ring: stg stages of each warp's 16
+// rows x DP
+size_t topk_smem(int nt, int DP, int stg) {
+  return static_cast<size_t>(8 * nt) *
+             (sizeof(u64) * kTopkKeys + sizeof(int) + sizeof(bf16) * DP) +
+         static_cast<size_t>(stg) * kTopkTile * DP;
+}
+
+// Launch 1. Each warp scores 16 rows of a block tile against the block's
+// NT n8 query tiles. STG = 0: a lane loads its 16-byte pieces of the rows
+// into registers, two 64-column blocks ahead (any D); STG = 2 (D % 16 ==
+// 0, 16-byte aligned slab): each warp streams its rows into a ring of STG
+// stages in shared memory with cp.async, a tile ahead, in 512-byte
+// contiguous requests that hold no registers while in flight. The
+// products are mma.sync m16n8k16, one per warp and n8 query tile, or at
+// 64 queries (WG) one wgmma m64n64k16 per 4 warps, which reads the
+// queries from shared memory once for the 4 and issues 1/32 the
+// instructions.
+template <int NT, int STG>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+knn_topk_i8_kernel(const TopkParams p) {
+  constexpr int NQ = 8 * NT;  // queries per block
+  // 64 queries from registers: one wgmma per k-step for each 4 warps
+  constexpr bool WG = NT == 8 && STG == 0;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int S = kTopkKeys;
+  u64* keys = reinterpret_cast<u64*>(smem);          // [NQ][S]
+  int* cnt = reinterpret_cast<int*>(keys + NQ * S);  // [NQ]
+  bf16* qs = reinterpret_cast<bf16*>(cnt + NQ);        // [NQ][DP]
+  int8_t* ring = reinterpret_cast<int8_t*>(qs + NQ * p.DP);
+  const int q0 = blockIdx.y * NQ;
+  const int nq = min(NQ, p.B - q0);
+  // mma.sync: the 8-byte unit u of query row r sits at unit u ^ (r & 3),
+  // so the B-fragment reads below are free of bank conflicts without
+  // padding. wgmma: column c (64 j + 16 t + 4 s + 2 hi + e) is k position
+  // 2 t + e + 8 hi of k-step 4 j + s (score_i8's permutation), stored in
+  // core matrix (k chunk 2 (4 j + s) + hi, query group r / 8) at row r % 8
+  for (int e = threadIdx.x; e < NQ * p.DP; e += blockDim.x) {
+    const int r = e / p.DP, c = e % p.DP;
+    const bf16 v = r < nq && c < p.D
+                       ? p.q[static_cast<long long>(q0 + r) * p.D + c]
+                       : __float2bfloat16(0.f);
+    if constexpr (WG) {
+      const int w = c & 63, kc = 2 * (4 * (c >> 6) + ((w >> 2) & 3)) +
+                                 ((w >> 1) & 1);
+      qs[(kc * (NQ / 8) + (r >> 3)) * 64 + (r & 7) * 8 + 2 * (w >> 4) +
+         (w & 1)] = v;
+    } else {
+      qs[r * p.DP + ((((c >> 2) ^ (r & 3))) << 2) + (c & 3)] = v;
+    }
+  }
+  for (int e = threadIdx.x; e < NQ * S; e += blockDim.x) keys[e] = 0ull;
+  for (int e = threadIdx.x; e < NQ; e += blockDim.x) cnt[e] = 0;
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nj = p.DP / 64, k = p.k;
+  const int C = S - k, hw = C / 2;  // buffer size and its merge mark
+  const bf16* qrow = qs + g * p.DP;
+  const long long stride = static_cast<long long>(gridDim.x) * kTopkTile;
+  // ring rows: the 16-byte chunk c of an odd row sits at chunk c ^ sw_odd,
+  // so that the rows g and g + 1 a quarter-warp reads fall in distinct
+  // banks (a row of 64 odd-many bytes is already offset by half the banks)
+  const int sw_odd = (p.DP / 64) & 1 ? 0 : 4;
+  const int cpr = max(p.D / 16, 1);  // the chunks of a row holding codes
+  // chunk e = lane + 32 i of a warp's 16 contiguous rows is chunk c of
+  // row r, stepped without a division
+  const int r_lane = lane / cpr, c_lane = lane % cpr;
+  const int r_step = 32 / cpr, c_step = 32 % cpr;
+  auto issue = [&](long long tile0, int stage) {
+    const long long r0w = tile0 + warp * kTileRows;
+    int8_t* dst = ring + (stage * kWarps + warp) * kTileRows * p.DP;
+    const int8_t* src = p.slab + r0w * p.D;
+    const long long rows = p.N - r0w;
+    const int n = static_cast<int>(
+        rows < kTileRows ? rows : static_cast<long long>(kTileRows)) * cpr;
+    int r = r_lane, c = c_lane;
+    for (int e = lane; e < n; e += 32) {
+      cp_async16(dst + r * p.DP + 16 * (c ^ (r & 1 ? sw_odd : 0)),
+                 src + 16 * e);
+      r += r_step;
+      c += c_step;
+      if (c >= cpr) {
+        c -= cpr;
+        ++r;
+      }
+    }
+  };
+  if constexpr (STG > 0) {
+    for (int st = 0; st + 1 < STG; ++st) {
+      const long long tile0 =
+          static_cast<long long>(blockIdx.x) * kTopkTile + st * stride;
+      if (tile0 < p.N) issue(tile0, st);
+      cp_async_commit();
+    }
+  }
+
+  // each row's vsq, scale (l2sq) and validity, loaded a tile ahead of its
+  // use (a load at the tile's start would stall every warp at the block
+  // barrier that ends the tile)
+  float vs_n[2], sc_n[2];
+  bool ok_n[2];
+  auto load_rows = [&](long long r) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = r + 8 * h;
+      const bool in = row < p.N;
+      vs_n[h] = in ? p.vsq[row] : 0.f;
+      sc_n[h] = in && p.metric ? p.scales[row] : 0.f;
+      ok_n[h] = in && p.valid[row] != 0;
+    }
+  };
+  load_rows(static_cast<long long>(blockIdx.x) * kTopkTile +
+            warp * kTileRows + g);
+  // register path: the 64-column blocks j + 1 and j + 2 load while j
+  // multiplies (two ahead measured faster than one, three or five at
+  // B = 64), and past a tile's end they are the next tile's first blocks,
+  // so loads stay in flight through the epilogue and the barrier
+  constexpr int PF = 2;
+  uint4 va[PF + 1], vb[PF + 1];
+  auto load_ahead = [&](long long r0cur, int jn, uint4& a, uint4& b) {
+    long long r = r0cur;
+    while (jn >= nj) {  // a later tile
+      jn -= nj;
+      r += stride;
+    }
+    a = load16(p.slab, r, p.N, p.D, 64 * jn + 16 * t, p.vec);
+    b = load16(p.slab, r + 8, p.N, p.D, 64 * jn + 16 * t, p.vec);
+  };
+  if constexpr (STG == 0) {
+#pragma unroll
+    for (int i = 0; i < PF; ++i)
+      load_ahead(static_cast<long long>(blockIdx.x) * kTopkTile +
+                     warp * kTileRows + g,
+                 i, va[i], vb[i]);
+  }
+  int it = 0;
+  for (long long base = static_cast<long long>(blockIdx.x) * kTopkTile;
+       base < p.N; base += stride, ++it) {
+    // the lane's rows: r0 and r0 + 8
+    const long long r0 = base + warp * kTileRows + g;
+    // their score factors, as score_i8's epilogue: cos dots * fa, fa =
+    // rsqrt(vsq + 1e-12); l2sq (dots * fa) - fb, with fa = 2 scale, fb =
+    // vsq scale^2, rounded as the plain version rounds them
+    float fa[2], fb[2];
+    bool in[2], ok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      in[h] = r0 + 8 * h < p.N;
+      ok[h] = ok_n[h];
+      fa[h] = p.metric ? 2.f * sc_n[h] : rsqrtf(vs_n[h] + 1e-12f);
+      fb[h] = p.metric ? vs_n[h] * (sc_n[h] * sc_n[h]) : 0.f;
+    }
+    load_rows(r0 + stride);
+    float acc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    // one 64-column block j: A fragments from the 16 bytes va (row r0) and
+    // vb (row r0 + 8) at columns 64 j + 16 t; k positions 2t, 2t+1 <-
+    // columns 16t + 4s, +1 and 2t+8, 2t+9 <- +2, +3 (score_i8's
+    // permutation), for the slab and the queries alike
+    auto mma_block = [&](int j, const uint4& va, const uint4& vb) {
+      if constexpr (WG) {
+        uint32_t a[4][4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          widen4(word(va, s), a[s][0], a[s][2]);
+          widen4(word(vb, s), a[s][1], a[s][3]);
+        }
+        __syncwarp();
+        wg_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)  // k chunk 2 (4 j + s), query group 0
+          wgmma_64x64(acc, a[s],
+                      wg_desc(qs + 2 * (4 * j + s) * (NQ / 8) * 64, kWgLbo,
+                              kWgSbo),
+                      j | s);
+        wg_commit();
+        wg_wait();
+      } else {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int unit = (16 * j + 4 * t + s) ^ (g & 3);
+          uint32_t a[4];
+          widen4(word(va, s), a[0], a[2]);
+          widen4(word(vb, s), a[1], a[3]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const uint2 bq = *reinterpret_cast<const uint2*>(
+                qrow + n * 8 * p.DP + 4 * unit);
+            mma_bf16(acc[n], a, bq.x, bq.y);
+          }
+        }
+      }
+    };
+    if constexpr (STG > 0) {
+      const long long next = base + (STG - 1) * stride;
+      if (next < p.N) issue(next, (it + STG - 1) % STG);
+      cp_async_commit();
+      cp_async_wait<STG - 1>();
+      __syncwarp();
+      const int8_t* src =
+          ring + ((it % STG) * kWarps + warp) * kTileRows * p.DP;
+      const int sw = g & 1 ? sw_odd : 0;  // rows g and g + 8 alike
+      for (int j = 0; j < nj; ++j) {
+        const int c = 16 * ((4 * j + t) ^ sw);
+        mma_block(j, *reinterpret_cast<const uint4*>(src + g * p.DP + c),
+                  *reinterpret_cast<const uint4*>(src + (g + 8) * p.DP + c));
+      }
+    } else {
+      for (int j = 0; j < nj; ++j) {
+        load_ahead(r0, j + PF, va[PF], vb[PF]);
+        mma_block(j, va[0], vb[0]);
+#pragma unroll
+        for (int i = 0; i < PF; ++i) {
+          va[i] = va[i + 1];
+          vb[i] = vb[i + 1];
+        }
+      }
+    }
+
+    // the k-th best score of each of the lane's queries (-inf while a
+    // list has fewer than k keys): a cheap first test before the key's
+    float ts[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const u64 th = keys[(8 * n + 2 * t + e) * S + k - 1];
+        ts[n][e] = th ? key_score(th) : -INFINITY;
+      }
+    bool crossed = false;  // a buffer this thread appended to is past hw
+    // acc[n][c] is (row r0 + 8 (c >> 1), query 8 n + 2 t + (c & 1)); false
+    // if not a candidate or appended, true if its query's buffer is full
+    auto consider = [&](int n, int c) -> bool {
+      const int h = c >> 1, qi = 8 * n + 2 * t + (c & 1);
+      if (qi >= nq || !in[h]) return false;
+      const float d = acc[n][c];
+      const float s = !ok[h] ? -INFINITY
+                      : p.metric ? __fsub_rn(__fmul_rn(d, fa[h]), fb[h])
+                                 : __fmul_rn(d, fa[h]);
+      if (s < ts[n][c & 1]) return false;
+      const u64 key = topk_key(s, r0 + 8 * h);
+      if (key <= keys[qi * S + k - 1]) return false;
+      const int pos = atomicAdd(&cnt[qi], 1);
+      if (pos >= C) return true;
+      keys[qi * S + k + pos] = key;
+      crossed |= pos + 1 >= hw;
+      return false;
+    };
+    uint32_t pend = 0;  // bit 4 n + c: waits for a merge
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (consider(n, c)) pend |= 1u << (4 * n + c);
+    bool more = pend != 0 || crossed;
+    while (__syncthreads_or(more)) {
+      for (int qi = warp; qi < nq; qi += kWarps)
+        if (cnt[qi] >= hw) merge_list(keys + qi * S, cnt + qi, k, S, lane);
+      __syncthreads();
+      crossed = false;
+      const uint32_t was = pend;
+      pend = 0;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (((was >> (4 * n + c)) & 1u) && consider(n, c))
+            pend |= 1u << (4 * n + c);
+      more = pend != 0 || crossed;
+    }
+  }
+  // every append is visible (the last barrier above): final merges
+  for (int qi = warp; qi < nq; qi += kWarps)
+    if (cnt[qi] > 0) merge_list(keys + qi * S, cnt + qi, k, S, lane);
+  __syncthreads();
+  for (int e = threadIdx.x; e < nq * k; e += blockDim.x) {
+    const int qi = e / k, r = e % k;
+    p.ws[(static_cast<long long>(blockIdx.x) * p.B + q0 + qi) * k + r] =
+        keys[qi * S + r];
+  }
+}
+
+// Launch 2: block q merges the G blocks' k best keys of query q, M keys
+// at a time ([0, k) the best so far, [k, M) the next chunk), and writes
+// scores and rows.
+__global__ void __launch_bounds__(kMergeThreads)
+knn_topk_merge_kernel(const u64* ws, int G, int B, int k, int M,
+                      float* out_s, long long* out_row) {
+  extern __shared__ u64 mk[];
+  const int q = blockIdx.x;
+  const long long total = static_cast<long long>(G) * k;
+  for (int i = threadIdx.x; i < k; i += blockDim.x) mk[i] = 0ull;
+  for (long long c0 = 0; c0 < total; c0 += M - k) {
+    for (int i = threadIdx.x; i < M - k; i += blockDim.x) {
+      const long long e = c0 + i;
+      mk[k + i] = e < total ? ws[((e / k) * B + q) * k + e % k] : 0ull;
+    }
+    __syncthreads();
+    sort_desc<true>(mk, M, threadIdx.x, blockDim.x);
+  }
+  for (int r = threadIdx.x; r < k; r += blockDim.x) {
+    out_s[static_cast<long long>(q) * k + r] = key_score(mk[r]);
+    out_row[static_cast<long long>(q) * k + r] = key_row(mk[r]);
+  }
+}
+
+struct TopkConfig {
+  int nt, stg;
+  size_t smem;
+};
+
+constexpr size_t kMaxSmemTopk = 227 * 1024;  // a block's most on sm_90
+// two blocks on one SM: 228 KB less 1 KB the runtime keeps for each
+constexpr size_t kTwoBlockSmem = (228 * 1024) / 2 - 1024;
+
+// n8 query tiles per block (enough for B, at most 8, within the shared
+// memory a block may take) and the ring's stages: 2 where two blocks of
+// the ring kernel fit on an SM (B <= 8 at D = 384), else the register
+// path, which also runs two blocks an SM. On an H100 at 10M x 384 rows,
+// two blocks (16 warps) an SM are what hides the latency of each tile's
+// load, products and merge: one block with a deeper ring was slower at
+// B = 1, and the ring at one block slower than the register path at
+// B = 32 and 64.
+TopkConfig topk_config(int B, int DP, bool vec) {
+  int nt = 1;
+  while (nt < kMaxQueryTiles && 8 * nt < B) nt *= 2;
+  for (;;) {
+    TopkConfig c;
+    c.nt = nt;
+    c.stg = vec && topk_smem(nt, DP, 2) <= kTwoBlockSmem ? 2 : 0;
+    c.smem = topk_smem(nt, DP, c.stg);
+    if (c.smem <= kMaxSmemTopk || nt == 1) return c;
+    nt /= 2;
+  }
+}
+
+// f(kernel) for the kernel instantiation of c
+template <int NT, typename F>
+cudaError_t with_stages(int stg, F f) {
+  return stg ? f(knn_topk_i8_kernel<NT, 2>) : f(knn_topk_i8_kernel<NT, 0>);
+}
+
+template <typename F>
+cudaError_t with_topk_kernel(const TopkConfig& c, F f) {
+  switch (c.nt) {
+    case 1: return with_stages<1>(c.stg, f);
+    case 2: return with_stages<2>(c.stg, f);
+    case 4: return with_stages<4>(c.stg, f);
+    default: return with_stages<8>(c.stg, f);
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// ------------------------------------------------------------------------
 // K4: quantizing scatter
 // ------------------------------------------------------------------------
 
@@ -326,6 +894,84 @@ extern "C" int pt_knn_quantize_scatter(const void* rows, long long ld,
       static_cast<const uint8_t*>(valid_vals), n, D, R,
       static_cast<int8_t*>(slab), static_cast<float*>(scales),
       static_cast<float*>(vsq), static_cast<uint8_t*>(valid));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 top-k, launch 1's grid.x for these arguments on the current device
+// (resident blocks, at most one per block tile), written to *blocks: the
+// wrapper allocates the (blocks, B, k) workspace from it.
+extern "C" int pt_knn_topk_i8_blocks(int B, long long N, int D, int k,
+                                     int* blocks) {
+  if (B < 1 || N < 1 || D < 1 || k < 1 || k > kTopkKMax || k > N ||
+      N > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // as pt_knn_topk_i8 chooses for a 16-byte aligned slab
+  const TopkConfig c = topk_config(B, (D + 63) / 64 * 64, D % 16 == 0);
+  if (c.smem > kMaxSmemTopk) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = with_topk_kernel(c, [&](auto kernel) {
+      const cudaError_t a = allow_smem(kernel, c.smem);
+      if (a != cudaSuccess) return a;
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kWarps * 32, c.smem);
+    });
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long tiles = (N + kTopkTile - 1) / kTopkTile;
+  const long long want = static_cast<long long>(per_sm) * sms;
+  *blocks = static_cast<int>(tiles < want ? tiles : want);
+  return 0;
+}
+
+// K3 top-k. q (B, D) bf16 contiguous; slab (N, D) int8 contiguous; scales,
+// vsq (N,) f32 (scales read only for l2sq); valid (N,) bytes; ws (G, B, k)
+// 64-bit scratch, G from pt_knn_topk_i8_blocks; out_s (B, k) f32 and
+// out_row (B, k) int64 rows, best first. 1 <= k <= 64, k <= N. Two
+// launches; returns the cudaError_t of the first that fails, else 0.
+extern "C" int pt_knn_topk_i8(const void* q, const void* slab,
+                              const void* scales, const void* vsq,
+                              const void* valid, void* ws, int G, void* out_s,
+                              void* out_row, int B, long long N, int D,
+                              int metric, int k, void* stream) {
+  if (B < 1 || N < 1 || D < 1 || G < 1 || k < 1 || k > kTopkKMax || k > N ||
+      N > 0x7FFFFFFFLL || (metric != 0 && metric != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TopkParams p;
+  p.q = static_cast<const bf16*>(q);
+  p.slab = static_cast<const int8_t*>(slab);
+  p.scales = static_cast<const float*>(scales);
+  p.vsq = static_cast<const float*>(vsq);
+  p.valid = static_cast<const uint8_t*>(valid);
+  p.ws = static_cast<u64*>(ws);
+  p.N = N;
+  p.B = B;
+  p.D = D;
+  p.DP = (D + 63) / 64 * 64;
+  p.metric = metric;
+  p.k = k;
+  p.vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(slab) % 16 == 0;
+  const TopkConfig c = topk_config(B, p.DP, p.vec);
+  if (c.smem > kMaxSmemTopk) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (B + 8 * c.nt - 1) / (8 * c.nt);
+  if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = with_topk_kernel(c, [&](auto kernel) {
+    const cudaError_t a = allow_smem(kernel, c.smem);
+    if (a != cudaSuccess) return a;
+    kernel<<<dim3(G, groups), kWarps * 32, c.smem, s>>>(p);
+    return cudaGetLastError();
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long total = static_cast<long long>(G) * k + k;
+  int M = 128;
+  while (M < kMergeMaxKeys && M < total) M <<= 1;
+  knn_topk_merge_kernel<<<B, kMergeThreads, sizeof(u64) * M, s>>>(
+      p.ws, G, B, k, M, static_cast<float*>(out_s),
+      static_cast<long long*>(out_row));
   return static_cast<int>(cudaGetLastError());
 }
 

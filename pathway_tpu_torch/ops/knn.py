@@ -5,8 +5,9 @@ Vectors live in page-aligned device extents (engine/paged_store.py); a
 host mirror, key maps and dirty/stale slot sets batch incremental adds
 and removes into few device writes. A search scores every established
 extent (one matrix product + a stable top-k per extent, chunked above
-``_CHUNK_ROWS`` rows) and merges the per-extent candidates on the host by
-(score desc, slot asc), exactly as the JAX package does.
+``_CHUNK_ROWS`` rows; an int8 extent in one fused score + top-k kernel)
+and merges the per-extent candidates on the host by (score desc, slot
+asc), exactly as the JAX package does.
 
 Numerics held to the JAX package:
 
@@ -16,11 +17,12 @@ Numerics held to the JAX package:
   the slab dtype first, as JAX casts them;
 - ``dtype="int8"`` keeps rows quantized per row (scale = max|v| / 127)
   with an int-domain squared norm ``vsq`` beside each, written by K4, the
-  quantizing scatter, and scored by K3 against bf16 queries
-  (ops/knn_kernels.py); the host mirror stays exact float32, as in the
-  JAX package;
+  quantizing scatter, and searched by K3 (score + top-k in one kernel
+  for k <= 64) against bf16 queries (ops/knn_kernels.py); the host mirror
+  stays exact float32, as in the JAX package;
 - top-k keeps equal scores lowest slot first (``lax.top_k``'s order, which
-  the host merge relies on): a stable descending sort, then a slice.
+  the host merge relies on): a stable descending sort, then a slice, or
+  K3 top-k's (score, slot) keys, which rank the same way.
 
 The float slabs' score product stays ``torch.matmul``, as the JAX package
 leaves it to XLA (ROADMAP: a fused score + top-k kernel, K2).
@@ -45,7 +47,8 @@ from pathway_tpu_torch.engine.locking import create_rlock
 from pathway_tpu_torch.engine.paged_store import (DevicePagePool,
                                                   paged_store_enabled)
 from pathway_tpu_torch.internals.keys import Pointer
-from pathway_tpu_torch.ops.knn_kernels import quantize_scatter, score_i8
+from pathway_tpu_torch.ops.knn_kernels import (K_MAX, quantize_scatter,
+                                               score_i8, topk_i8)
 
 
 class KnnMetric(enum.Enum):
@@ -121,31 +124,10 @@ def _score_block(q, vectors, valid, metric: KnnMetric):
     return scores.masked_fill(~valid[None, :], -math.inf)
 
 
-def search_extent(queries, vectors, valid, k: int, metric: KnnMetric,
-                  extras: tuple = ()):
-    """(scores, local slots) of the ``k`` best rows of one extent for each
-    query: (B, k) f32 and int64 tensors on the extent's device. Extents
-    above ``_CHUNK_ROWS`` rows are scored chunk by chunk, with a top-k per
-    chunk and a merge that keeps lowest-slot-first tie order. An int8
-    extent passes ``extras = (scales, vsq)`` and is scored by K3 against
-    the queries cast to bf16 (the JAX package's ``_prep_queries(cast_dtype
-    =bf16)``)."""
-    q = queries
-    if metric == KnnMetric.COS:
-        q = q / (torch.linalg.vector_norm(q, dim=1, keepdim=True) + 1e-12)
-    if vectors.dtype == torch.int8:
-        q = q.to(torch.bfloat16).contiguous()
-        scales, vsq = extras
-
-        def score(c0, c1):
-            return score_i8(q, vectors[c0:c1], scales[c0:c1], vsq[c0:c1],
-                            valid[c0:c1], metric.value)
-    else:
-        q = q.to(vectors.dtype).float()
-
-        def score(c0, c1):
-            return _score_block(q, vectors[c0:c1], valid[c0:c1], metric)
-    n = vectors.shape[0]
+def search_chunks(score: Callable, n: int, k: int):
+    """Top-k of ``n`` rows scored ``score(c0, c1) -> (B, c1 - c0)`` chunk
+    by chunk: above ``_CHUNK_ROWS`` rows a stable top-k per chunk, then a
+    merge that keeps lowest-row-first tie order (``_chunked_search``)."""
     if n <= _CHUNK_ROWS:
         return _topk(score(0, n), k)
     cand_s, cand_i = [], []
@@ -155,6 +137,36 @@ def search_extent(queries, vectors, valid, k: int, metric: KnnMetric,
         cand_i.append(ti + c0)
     top_s, pos = _topk(torch.cat(cand_s, dim=1), k)
     return top_s, torch.gather(torch.cat(cand_i, dim=1), 1, pos)
+
+
+def search_extent(queries, vectors, valid, k: int, metric: KnnMetric,
+                  extras: tuple = ()):
+    """(scores, local slots) of the ``k`` best rows of one extent for each
+    query: (B, k) f32 and int64 tensors on the extent's device, best
+    first, equal scores lowest slot first. An int8 extent passes ``extras
+    = (scales, vsq)`` and is searched against the queries cast to bf16
+    (the JAX package's ``_prep_queries(cast_dtype=bf16)``): for k <=
+    ``K_MAX`` by K3 top-k over the whole extent in one call, else (a
+    filter's escalated fetch) by K3's score and ``search_chunks``. Float
+    extents take ``search_chunks`` over ``_score_block``."""
+    q = queries
+    if metric == KnnMetric.COS:
+        q = q / (torch.linalg.vector_norm(q, dim=1, keepdim=True) + 1e-12)
+    if vectors.dtype == torch.int8:
+        q = q.to(torch.bfloat16).contiguous()
+        scales, vsq = extras
+        if k <= K_MAX:
+            return topk_i8(q, vectors, scales, vsq, valid, metric.value, k)
+
+        def score(c0, c1):
+            return score_i8(q, vectors[c0:c1], scales[c0:c1], vsq[c0:c1],
+                            valid[c0:c1], metric.value)
+    else:
+        q = q.to(vectors.dtype).float()
+
+        def score(c0, c1):
+            return _score_block(q, vectors[c0:c1], valid[c0:c1], metric)
+    return search_chunks(score, vectors.shape[0], k)
 
 
 def _fused_step_fn(producer: Callable, dtype: str):

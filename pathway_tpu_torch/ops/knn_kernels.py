@@ -1,10 +1,12 @@
-"""The int8 slab's kernels — K3, the int8 score, and K4, the quantizing
+"""The int8 slab's kernels — K3, the int8 search (``topk_i8``, score fused
+with the top-k, and ``score_i8``, the score alone), and K4, the quantizing
 scatter (ops/csrc/knn_i8.cu) — with their plain PyTorch versions.
 
-They replace two XLA functions of pathway_tpu/ops/knn.py: the score block
-of ``_shared_search_i8_fn`` (K3) and ``_quantize_i8`` inside
+They replace two XLA functions of pathway_tpu/ops/knn.py:
+``_shared_search_i8_fn`` (K3: ``topk_i8`` for k <= ``K_MAX``, its score
+block ``score_i8`` for larger k) and ``_quantize_i8`` inside
 ``_shared_scatter_i8_fn`` and the int8 fused-ingest step (K4). On a CUDA
-tensor each wrapper launches its kernel (or raises) and counts the launch;
+tensor each wrapper launches its kernel (or raises) and counts the call;
 on a CPU tensor it runs the plain version, which is also the kernels'
 oracle on the card (chip_smoke.py).
 """
@@ -22,6 +24,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KNN_I8 = CudaLibrary("knn_i8", {
     # (q, slab, scales, vsq, valid, out, B, N, D, metric, stream)
     "pt_knn_score_i8": (_I, [_P] * 6 + [_I, _L, _I, _I, _P]),
+    # (B, N, D, k, &blocks)
+    "pt_knn_topk_i8_blocks": (_I, [_I, _L, _I, _I,
+                                   ctypes.POINTER(ctypes.c_int)]),
+    # (q, slab, scales, vsq, valid, ws, G, out_s, out_row, B, N, D,
+    #  metric, k, stream)
+    "pt_knn_topk_i8": (_I, [_P] * 6 + [_I, _P, _P, _I, _L, _I, _I, _I,
+                                       _P]),
     # (rows, ld, slots, valid_vals, n, D, R, slab, scales, vsq, valid,
     #  stream)
     "pt_knn_quantize_scatter": (_I, [_P, _L, _P, _P, _I, _I, _L]
@@ -41,6 +50,10 @@ class LaunchCount:
 
 
 SCORE_I8 = LaunchCount("knn_score_i8")
+TOPK_I8 = LaunchCount("knn_topk_i8")
+# the largest k that ``topk_i8`` takes: the default limit, bench_knn's k=10
+# and the 4x over-fetch of a filtered query up to limit 16
+K_MAX = 64
 QUANTIZE_SCATTER = LaunchCount("knn_quantize_scatter")
 
 
@@ -165,6 +178,33 @@ def quantize_scatter(rows, slots, valid_vals, slab, scales, vsq,
 # K3: int8 score
 # ---------------------------------------------------------------------------
 
+def _check_metric(metric: str) -> None:
+    if metric not in _METRICS:
+        raise ValueError(f"metric must be 'cos' or 'l2sq'; got {metric!r}")
+
+
+def _check_i8_operands(q, slab, scales, vsq, valid) -> tuple[int, int, int]:
+    """(B, N, D) of K3's operands on the card, after checking what the
+    kernels take."""
+    _need(q.dim() == 2 and q.dtype == torch.bfloat16 and q.is_contiguous(),
+          "q must be a contiguous (B, D) bfloat16")
+    B, D = q.shape
+    N = slab.shape[0]
+    _need(slab.dtype == torch.int8 and slab.shape == (N, D)
+          and slab.is_contiguous(), f"slab must be a contiguous (N, {D}) "
+          "int8")
+    for name, t, dt in (("scales", scales, torch.float32),
+                        ("vsq", vsq, torch.float32),
+                        ("valid", valid, torch.bool)):
+        _need(t.shape == (N,) and t.dtype == dt and t.is_contiguous(),
+              f"{name} must be a contiguous ({N},) {dt}")
+    for t in (slab, scales, vsq, valid):
+        _need(t.device == q.device, f"a tensor is on {t.device}, q on "
+              f"{q.device}")
+    _need(B <= 65535 * 64, f"B = {B} queries exceed the kernel's grid")
+    return B, N, D
+
+
 def score_i8_reference(q, slab, scales, vsq, valid, metric: str):
     """Plain version of ``score_i8``: the int8 rows widened to float32
     (exact), one f32 product with the bf16 queries (exact products, f32
@@ -188,26 +228,10 @@ def score_i8(q, slab, scales, vsq, valid, metric: str) -> torch.Tensor:
 
     CUDA tensors launch the kernel on the current stream (counted in
     ``SCORE_I8.launches``); CPU tensors take ``score_i8_reference``."""
-    if metric not in _METRICS:
-        raise ValueError(f"metric must be 'cos' or 'l2sq'; got {metric!r}")
+    _check_metric(metric)
     if not _on_card(q, "score_i8"):
         return score_i8_reference(q, slab, scales, vsq, valid, metric)
-    _need(q.dim() == 2 and q.dtype == torch.bfloat16 and q.is_contiguous(),
-          "q must be a contiguous (B, D) bfloat16")
-    B, D = q.shape
-    N = slab.shape[0]
-    _need(slab.dtype == torch.int8 and slab.shape == (N, D)
-          and slab.is_contiguous(), f"slab must be a contiguous (N, {D}) "
-          "int8")
-    for name, t, dt in (("scales", scales, torch.float32),
-                        ("vsq", vsq, torch.float32),
-                        ("valid", valid, torch.bool)):
-        _need(t.shape == (N,) and t.dtype == dt and t.is_contiguous(),
-              f"{name} must be a contiguous ({N},) {dt}")
-    for t in (slab, scales, vsq, valid):
-        _need(t.device == q.device, f"a tensor is on {t.device}, q on "
-              f"{q.device}")
-    _need(B <= 65535 * 64, f"B = {B} queries exceed the kernel's grid")
+    B, N, D = _check_i8_operands(q, slab, scales, vsq, valid)
     out = torch.empty((B, N), dtype=torch.float32, device=q.device)
     if B == 0 or N == 0:
         return out
@@ -221,3 +245,51 @@ def score_i8(q, slab, scales, vsq, valid, metric: str) -> torch.Tensor:
     _raise_on(err, "score_i8")
     SCORE_I8.launches += 1
     return out
+
+
+def topk_i8_reference(q, slab, scales, vsq, valid, metric: str, k: int):
+    """Plain version of ``topk_i8``: ``score_i8_reference``, a stable
+    descending sort, the first k columns (ops/knn.py's ``_topk``)."""
+    scores = score_i8_reference(q, slab, scales, vsq, valid, metric)
+    s, i = torch.sort(scores, dim=1, descending=True, stable=True)
+    return s[:, :k], i[:, :k]
+
+
+def topk_i8(q, slab, scales, vsq, valid, metric: str, k: int):
+    """K3 top-k: the ``k`` best rows of one int8 extent for each query, as
+    ``score_i8`` scores them — (B, k) float32 scores and (B, k) int64 rows,
+    best first, equal scores lowest row first, invalid rows (-inf) ranked
+    like any other (a stable descending sort's order, ``lax.top_k``'s).
+    Operands as ``score_i8``'s, over a whole extent of any length;
+    1 <= k <= ``K_MAX`` and k <= N.
+
+    CUDA tensors launch the fused kernel and its merge on the current
+    stream (counted once a call in ``TOPK_I8.launches``); CPU tensors take
+    ``topk_i8_reference``."""
+    _check_metric(metric)
+    N = slab.shape[0]
+    _need(1 <= k <= min(K_MAX, N), f"k = {k} must be in [1, min({K_MAX}, "
+          f"N = {N})]")
+    if not _on_card(q, "topk_i8"):
+        return topk_i8_reference(q, slab, scales, vsq, valid, metric, k)
+    B, N, D = _check_i8_operands(q, slab, scales, vsq, valid)
+    _need(N < 2**31, f"N = {N} rows exceed the kernel's 31-bit rows")
+    scores = torch.empty((B, k), dtype=torch.float32, device=q.device)
+    rows = torch.empty((B, k), dtype=torch.int64, device=q.device)
+    if B == 0:
+        return scores, rows
+    lib = KNN_I8.load()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(q.device):
+        _raise_on(lib.pt_knn_topk_i8_blocks(B, N, D, k, ctypes.byref(blocks)),
+                  "topk_i8")
+        ws = torch.empty((blocks.value, B, k), dtype=torch.int64,
+                         device=q.device)
+        err = lib.pt_knn_topk_i8(
+            q.data_ptr(), slab.data_ptr(), scales.data_ptr(),
+            vsq.data_ptr(), valid.data_ptr(), ws.data_ptr(), blocks.value,
+            scores.data_ptr(), rows.data_ptr(), B, N, D, _METRICS[metric], k,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "topk_i8")
+    TOPK_I8.launches += 1
+    return scores, rows
