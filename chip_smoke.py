@@ -33,22 +33,31 @@ non-zero, and no result line is printed):
 6. K3 top-k (``topk_i8``, the score fused with the top-k) against
    ``topk_i8_reference``: cos and l2sq, B in {1, 7, 9, 32, 64, 65}, N in
    {10, 4097, 100352, 10M}, k in {1, 10, 64}, random rows with invalid
-   rows and an extent with none valid (within 1e-5 x max|score|, -inf ranks and
-   their rows exact), and exact-arithmetic rows with ties (l2sq, small
-   codes, power-of-two scales, integer queries: scores and rows equal);
-   times over 10M x 384 rows at B=1 and B=64, k=10, beside the bound, the
-   old route (``score_i8`` + a stable sort per chunk + the merge) and
-   torch.matmul + torch.topk per chunk;
-7. path 1: ``DeviceEmbeddingKnnIndex(EncoderEmbedder(bge_small),
+   rows and an extent with none valid (within 1e-5 x max|score|, -inf
+   ranks and their rows exact), and exact-arithmetic rows with ties (l2sq,
+   small codes, power-of-two scales, integer queries: scores and rows
+   equal); times over 10M x 384 rows at B=1 and B=64, k=10, beside the
+   bound, the old route (``score_i8`` + a stable sort per chunk + the
+   merge) and torch.matmul + torch.topk per chunk;
+7. K2 (``topk_bf16``, the bf16 score fused with the top-k) against
+   ``topk_bf16_reference``: cos and l2sq, B in {1, 7, 64, 65}, N in {10,
+   4097, 100352, 10,485,760}, k in {1, 10, 64}, random rows with invalid
+   rows and an extent with none valid (as K3's), and exact-arithmetic
+   rows with ties (+-1 on 4 or 16 columns, integer queries: scores and
+   rows equal); times over the 10M index's 10,485,760 x 384 rows at B=1
+   and B=64, k=10, beside the bound, the old route (torch.matmul + a
+   stable sort per chunk + the merge) and torch.matmul + torch.topk per
+   chunk;
+8. path 1: ``DeviceEmbeddingKnnIndex(EncoderEmbedder(bge_small),
    BruteForceKnnIndex(384, bf16 paged))`` ingests ``--docs`` synthetic
    documents in batches of 512 through the fused path, then answers 64
    single-query text searches (32 copies of ingested documents, 32 fresh
    texts). Checks: the launch count of K1 equals 12 x the encoder
-   dispatches of that run, every query's top 10 against a brute-force
-   scan of the same rows on the card, every copy finding its document,
-   and card-vs-CPU embeddings; times K2 (the float extent's search:
-   torch.matmul + a stable sort) at B=1 and B=64;
-8. path 2: the same 100,000 documents and 64 queries through the ragged
+   dispatches of that run, K2's equals the searches x extents, every
+   query's top 10 against a brute-force scan of the same rows on the
+   card, every copy finding its document, and card-vs-CPU embeddings;
+   times K2 at the index's shape at B=1 and B=64 beside the old route;
+9. path 2: the same 100,000 documents and 64 queries through the ragged
    embedder into ``BruteForceKnnIndex(384, dtype="int8", metric="cos")``
    (K1 with segment ids, K4 in the fused write, K3 top-k in the search),
    and one search with limit 20 and a filter, whose fetch of 80 rows
@@ -57,16 +66,22 @@ non-zero, and no result line is printed):
    every top 10 (and the top 20) against a plain scan of the same int8
    rows, every copy found, ragged vs padded embeddings, ``search_extent``
    at k = 65 against the plain version;
-9. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
+10. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
    on the flush path, K3 top-k in the search): query times at B=1 and
    B=64, every top 10 against the plain scan;
-10. bench_knn's int8 deployment (bench.py:2547-2579): 10,000,000 x 384
+11. bench_knn's int8 deployment (bench.py:2547-2579): 10,000,000 x 384
    rows, cos, fed by ``add_batch_device`` in 65,536-row batches of
-   seeded randn on the card, searched at B=1 (64 calls) and B=64, k=10:
-   add time and p50s, every top 10 against the plain scan, B=64 equal to
-   the B=1 searches, K3 top-k launches = searches x extents, K3 score
-   launches 0;
-11. profile: torch.profiler over three encoder forwards of each path's
+   seeded randn on the card, searched at B=1 (64 calls) and B=64, k=10,
+   then ``latency_probe`` as bench.py calls it (knn_int8_p50_ms,
+   knn_int8_batch64_ms): add time, p50s and probe times, every top 10
+   against the plain scan, B=64 equal to the B=1 searches, K3 top-k
+   launches = searches x extents, K3 score launches 0;
+12. bench_knn's bf16 deployment (bench.py:3436-3490), after the int8
+   index is freed: 10,000,000 x 384 uniform bf16 rows, cos, made on the
+   card in 2^19-row seeded chunks and fed by ``add_batch_device``,
+   searched and probed as phase 11 (knn_p50_ms, knn_batch64_ms), with
+   the same checks; K2 launches = searches x extents;
+13. profile: torch.profiler over three encoder forwards of each path's
    dispatch, device time by kernel group (K1, GEMM, other) and the
    device's busy share.
 
@@ -77,6 +92,7 @@ The second-to-last line is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -91,6 +107,7 @@ INGEST_BATCH = 512
 N_LAYERS = 12
 RAGGED_DOCS = 100_000  # path 2's documents, never cut
 K3_ROWS = 10_000_000   # the README's 10M x 384 deployment
+K2_ROWS = 10_485_760   # planned_capacity(10M): the 10M index's one extent
 WORDS_PER_DOC = 90  # bench.py make_docs: 90 words + CLS/SEP -> bucket 96
 
 
@@ -194,26 +211,29 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from pathway_tpu_torch.ops.attention import ATTENTION
-    from pathway_tpu_torch.ops.knn_kernels import KNN_I8
+    from pathway_tpu_torch.ops.knn_kernels import KNN_BF16, KNN_I8
 
-    libs = [ATTENTION, KNN_I8]
+    libs = [ATTENTION, KNN_I8, KNN_BF16]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         list(pool.map(lambda lib: lib.load(), libs))
     print(f"[build] {len(libs)} kernel source(s) built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for fn, (regs, spill) in sorted(ptxas_report(KNN_I8.build_log).items()):
-        print(f"[build] ptxas {fn}: {regs} registers, {spill} bytes spill "
-              "stores", flush=True)
-    # K3, score and top-k, multiplies on the tensor cores too
-    counts = sass_mma_counts(KNN_I8.path())
-    for kernel in ("knn_score_i8_kernel", "knn_topk_i8_kernel"):
-        fns = {f: c for f, c in counts.items() if kernel in f}
-        for f, c in sorted(fns.items()):
-            print(f"[build] SASS {f}: {c} HMMA/HGMMA instructions",
-                  flush=True)
-        if not fns or 0 in fns.values():
-            fail(f"K3 ({kernel}) has no tensor-core instruction")
+    # K3 (score and top-k) and K2 multiply on the tensor cores too
+    for lib, kernels in ((KNN_I8, ("knn_score_i8_kernel",
+                                   "knn_topk_i8_kernel")),
+                         (KNN_BF16, ("knn_topk_bf16_kernel",))):
+        for fn, (regs, spill) in sorted(ptxas_report(lib.build_log).items()):
+            print(f"[build] ptxas {fn}: {regs} registers, {spill} bytes "
+                  "spill stores", flush=True)
+        counts = sass_mma_counts(lib.path())
+        for kernel in kernels:
+            fns = {f: c for f, c in counts.items() if kernel in f}
+            for f, c in sorted(fns.items()):
+                print(f"[build] SASS {f}: {c} HMMA/HGMMA instructions",
+                      flush=True)
+            if not fns or 0 in fns.values():
+                fail(f"{kernel} has no tensor-core instruction")
     # ptxas -v: registers and spills per instantiation; D = 64 is the
     # encoder's head dim (mangled template argument Li64E)
     report = ptxas_report(ATTENTION.build_log)
@@ -628,6 +648,32 @@ def phase_knn_i8(card: str) -> tuple[dict, dict]:
     return k3_rec, k4_rec
 
 
+def hold_topk(s, i, rs, ri, full, label: str) -> float:
+    """A top-k kernel's (scores s, rows i) against its plain version's (rs,
+    ri), with ``full`` the plain (B, N) scores: within 1e-5 x max|score|
+    rank by rank, -inf ranks and their rows exact, rows distinct, each
+    row's plain score its rank's. Returns the largest score error."""
+    import torch
+
+    fin_all = torch.isfinite(full)
+    tol = 1e-5 * max(1.0, float(full[fin_all].abs().max())
+                     if bool(fin_all.any()) else 1.0)
+    fin = torch.isfinite(rs)
+    plain_of_got = torch.gather(full, 1, i)
+    err = float((s[fin] - rs[fin]).abs().max()) if bool(fin.any()) else 0.0
+    err_rows = float((plain_of_got[fin] - rs[fin]).abs().max()) \
+        if bool(fin.any()) else 0.0
+    distinct = bool((torch.sort(i, dim=1).values.diff(dim=1) != 0).all())
+    if not (torch.equal(fin, torch.isfinite(s))
+            and torch.equal(fin, torch.isfinite(plain_of_got))
+            and torch.equal(i[~fin], ri[~fin]) and distinct
+            and err <= tol and err_rows <= tol):
+        fail(f"{label}: score error {err:.3e}, its rows' plain scores "
+             f"{err_rows:.3e} (tolerance {tol:.3e}), -inf ranks or rows "
+             f"differ, or rows repeat (distinct {distinct})")
+    return err
+
+
 def phase_topk_i8(card: str) -> dict:
     """K3 top-k against its plain version over random and exact-arithmetic
     extents up to 10M rows; its times over 10M x 384 rows at B=1 and B=64
@@ -686,26 +732,8 @@ def phase_topk_i8(card: str) -> dict:
                 fail(f"K3 top-k, exact inputs, {what}: scores or rows "
                      "differ from the plain version")
             return 0.0
-        full = score_i8_reference(q, *ext, metric)
-        fin_all = torch.isfinite(full)
-        tol = 1e-5 * max(1.0, float(full[fin_all].abs().max())
-                         if bool(fin_all.any()) else 1.0)
-        fin = torch.isfinite(rs)
-        plain_of_got = torch.gather(full, 1, i)
-        del full, fin_all
-        err = float((s[fin] - rs[fin]).abs().max()) if bool(fin.any()) \
-            else 0.0
-        err_rows = float((plain_of_got[fin] - rs[fin]).abs().max()) \
-            if bool(fin.any()) else 0.0
-        distinct = bool((torch.sort(i, dim=1).values.diff(dim=1) != 0).all())
-        if not (torch.equal(fin, torch.isfinite(s))
-                and torch.equal(fin, torch.isfinite(plain_of_got))
-                and torch.equal(i[~fin], ri[~fin]) and distinct
-                and err <= tol and err_rows <= tol):
-            fail(f"K3 top-k {what}: score error {err:.3e}, its rows' plain "
-                 f"scores {err_rows:.3e} (tolerance {tol:.3e}), -inf ranks "
-                 f"or rows differ, or rows repeat (distinct {distinct})")
-        return err
+        return hold_topk(s, i, rs, ri, score_i8_reference(q, *ext, metric),
+                         f"K3 top-k {what}")
 
     # B = 9 and 32 take the n8-tile counts 2 and 4 (the register path)
     Bs, ks = (1, 7, 9, 32, 64, 65), (1, 10, 64)
@@ -799,7 +827,175 @@ def phase_topk_i8(card: str) -> dict:
                     "library_ms": lib64, "old_route_ms": old64}}
 
 
-def phase_slice(n_docs: int, seed: int, card: str) -> int:
+def phase_topk_bf16(card: str) -> dict:
+    """K2 against its plain version over random and exact-arithmetic bf16
+    extents up to 10,485,760 rows (the 10M index's extent); its times over
+    that extent at B=1 and B=64 beside the bound, the old route and
+    torch's matmul + topk per chunk."""
+    import torch
+
+    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS, search_chunks
+    from pathway_tpu_torch.ops.knn_kernels import (TOPK_BF16,
+                                                   score_float_reference,
+                                                   topk_bf16,
+                                                   topk_bf16_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    D = 384
+    before = TOPK_BF16.launches
+
+    def extent(N, exact, valid_frac=0.9):
+        """Uniform rows in [-1, 1) with 10% invalid; or (exact) rows of +-1
+        on 4 or 16 contiguous columns at a random offset (squared norms 4
+        and 16, so rsqrt and both metrics' scores are exact in f32) with
+        the first half of the rows repeated (exact ties)."""
+        slab = torch.empty((N, D), dtype=torch.bfloat16, device="cuda")
+        col = torch.arange(D, device="cuda")
+        for c0 in range(0, N, 1 << 20):
+            m = min(1 << 20, N - c0)
+            if exact:
+                nnz = torch.where(torch.rand(m, generator=gen, device="cuda")
+                                  < 0.5, 4, 16)
+                off = torch.randint(0, D - 15, (m,), generator=gen,
+                                    device="cuda")
+                sign = torch.randint(0, 2, (m, D), generator=gen,
+                                     device="cuda", dtype=torch.int8) * 2 - 1
+                on = (col >= off[:, None]) & (col < (off + nnz)[:, None])
+                slab[c0:c0 + m] = (on * sign).to(torch.bfloat16)
+            else:
+                slab[c0:c0 + m] = (torch.rand((m, D), generator=gen,
+                                              device="cuda") * 2 - 1).to(
+                    torch.bfloat16)
+        if exact:
+            half = N // 2
+            slab[N - half:] = slab[:half].clone()
+        valid = torch.rand(N, generator=gen, device="cuda") < valid_frac
+        return slab, valid
+
+    def queries(B, exact):
+        if exact:
+            return torch.randint(-3, 4, (B, D), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+        q = torch.randn((B, D), generator=gen, device="cuda")
+        return (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+
+    ks = (1, 10, 64)
+
+    def check(ext, B, metric, exact) -> tuple[float, int]:
+        """The kernel against the plain version at every k of ``ks`` on one
+        query batch: exact, or within 1e-5 x max|score| rank by rank, -inf
+        ranks and their rows exact, rows distinct, each row's plain score
+        its rank's. Returns the largest error and the cases checked."""
+        q = queries(B, exact)
+        N = ext[0].shape[0]
+        rs_all, ri_all = topk_bf16_reference(q, *ext, metric, min(64, N))
+        full = None if exact else score_float_reference(q.float(), *ext,
+                                                        metric)
+        worst, cases = 0.0, 0
+        for k in ks:
+            if k > N:
+                continue
+            s, i = topk_bf16(q, *ext, metric, k)
+            torch.cuda.synchronize()
+            rs, ri = rs_all[:, :k], ri_all[:, :k]
+            what = f"N={N} B={B} k={k} {metric}"
+            cases += 1
+            if exact:
+                if not (torch.equal(s, rs) and torch.equal(i, ri)):
+                    fail(f"K2, exact inputs, {what}: scores or rows differ "
+                         "from the plain version")
+                continue
+            err = hold_topk(s, i, rs, ri, full, f"K2 {what}")
+            worst = max(worst, err)
+        return worst, cases
+
+    Bs = (1, 7, 64, 65)
+    err1 = 0.0
+    for N in (10, 4097, 100_352, K2_ROWS):
+        for exact in (True, False):
+            ext = extent(N, exact)
+            worst, cases = 0.0, 0
+            for metric in ("cos", "l2sq"):
+                for B in Bs:
+                    err, n_cases = check(ext, B, metric, exact)
+                    worst, cases = max(worst, err), cases + n_cases
+                    if N == K2_ROWS and B == 1 and metric == "cos" \
+                            and not exact:
+                        err1 = err
+            print(f"[K2 top-k] N={N:,} " + (
+                "exact inputs with ties (cos, l2sq): scores and rows equal "
+                f"to the plain version in all {cases} cases" if exact else
+                f"random rows, 10% invalid (cos, l2sq): {cases} cases, "
+                f"max_abs_err {worst:.3e} (tolerance 1e-5 x max|score|)"),
+                flush=True)
+            del ext
+            torch.cuda.empty_cache()
+    none = extent(4097, False, valid_frac=0.0)
+    cases = 0
+    for metric in ("cos", "l2sq"):
+        for B in (1, 65):
+            cases += check(none, B, metric, False)[1]
+    print(f"[K2 top-k] an extent with no valid row, N=4,097: rows 0..k-1 at "
+          f"-inf as the plain version in all {cases} cases", flush=True)
+    del none
+
+    # times over the 10M index's extent (all valid), cos, k = 10
+    N, k = K2_ROWS, 10
+    slab, valid = extent(N, False, valid_frac=1.0)
+    n_chunks = N // _CHUNK_ROWS
+    read_ms = cuda_ms(lambda: slab.view(torch.float32).amax(), 10)
+    print(f"[K2 top-k] torch's read of the {N * D * 2 / 1e9:.2f} GB of bf16 "
+          f"rows (amax over them as float32): {read_ms:.4f} ms, "
+          f"{N * D * 2 / read_ms / 1e9:.3f} TB/s [{card}]", flush=True)
+    times = {}
+    for B in (1, 64):
+        q = queries(B, False)
+        qf = q.float()
+
+        def old_route():  # search_extent's bf16 route before K2
+            return search_chunks(lambda c0, c1: score_float_reference(
+                qf, slab[c0:c1], valid[c0:c1], "cos"), N, k)
+
+        ms = cuda_ms(lambda: topk_bf16(q, slab, valid, "cos", k), 20)
+        old_ms = cuda_ms(old_route, 3)
+        plain_ms = cuda_ms(lambda: topk_bf16_reference(q, slab, valid, "cos",
+                                                       k), 2)
+        lib_ms = cuda_ms(lambda: [torch.topk(torch.matmul(
+            q, slab[c0:c0 + _CHUNK_ROWS].T), k) for c0 in range(
+                0, N, _CHUNK_ROWS)], 10)
+        # reads the rows, valid and the queries; writes (B, k) scores and
+        # rows
+        nbytes = N * (2 * D + 1) + B * D * 2 + B * k * (4 + 8)
+        flops = 2.0 * B * N * D
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"[K2 top-k] B={B} k={k} over {N:,} x {D} bf16 rows (cos): "
+              f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP), share of "
+              f"bound {bound_ms / ms:.3f}; old route (score_float_reference"
+              f" + stable sort per chunk + merge) {old_ms:.4f} ms; "
+              f"torch.matmul + torch.topk per chunk x {n_chunks} "
+              f"{lib_ms:.4f} ms; plain {plain_ms:.4f} ms [{card}]",
+              flush=True)
+        times[B] = (ms, plain_ms, lib_ms, bound_ms, bound_by, old_ms)
+    del slab, valid
+    torch.cuda.empty_cache()
+    TOPK_BF16.launches = before
+    ms, plain_ms, lib_ms, bound_ms, bound_by, old_ms = times[1]
+    ms64, plain64, lib64, bound64, by64, old64 = times[64]
+    return {"name": "knn_topk_bf16", "route": "cuda",
+            "source": "pathway_tpu_torch/ops/csrc/knn_bf16.cu",
+            "replaces": "pathway_tpu/ops/knn.py:172",
+            "max_abs_err": err1, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "library_ms": lib_ms,
+            "old_route_ms": old_ms,
+            "b64": {"ms": ms64, "plain_ms": plain64, "bound_ms": bound64,
+                    "bound_by": by64, "bound_share": bound64 / ms64,
+                    "library_ms": lib64, "old_route_ms": old64}}
+
+
+def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int]:
+    """Path 1. Returns the launches of K1 and K2 in the counted run."""
     import torch
 
     from pathway_tpu_torch.internals.keys import Pointer
@@ -808,7 +1004,10 @@ def phase_slice(n_docs: int, seed: int, card: str) -> int:
                                                   init_params_host)
     from pathway_tpu_torch.ops.attention import ATTENTION
     from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
-                                           DeviceEmbeddingKnnIndex)
+                                           DeviceEmbeddingKnnIndex,
+                                           search_chunks, search_extent)
+    from pathway_tpu_torch.ops.knn_kernels import (TOPK_BF16,
+                                                   score_float_reference)
     from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
 
     cfg = EncoderConfig.bge_small()
@@ -836,7 +1035,7 @@ def phase_slice(n_docs: int, seed: int, card: str) -> int:
           f"ms ({flops / fwd_ms / 1e9:.1f} TFLOP/s) [{card}]", flush=True)
 
     # the counted run: ingest, then single-query searches
-    ATTENTION.launches = 0
+    ATTENTION.launches = TOPK_BF16.launches = 0
     emb.dispatches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -854,6 +1053,7 @@ def phase_slice(n_docs: int, seed: int, card: str) -> int:
         lat_ms.append((time.perf_counter() - t1) * 1e3)
         results.append(res[0])
     launches, dispatches = ATTENTION.launches, emb.dispatches
+    k2_launches = TOPK_BF16.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     print(f"[slice] ingested {len(index)} docs into "
@@ -863,12 +1063,18 @@ def phase_slice(n_docs: int, seed: int, card: str) -> int:
           f"{np.percentile(lat_ms, 99):.3f} ms over {len(lat_ms)} "
           f"single-query searches; peak device memory {peak_mb:.1f} MiB "
           f"[{card}]", flush=True)
+    n_ext = len([e for e in index.inner._pool.extents if e.established])
     print(f"[slice] K1 launches {launches}, encoder dispatches {dispatches}"
-          f" (x{N_LAYERS} = {N_LAYERS * dispatches})", flush=True)
+          f" (x{N_LAYERS} = {N_LAYERS * dispatches}); K2 launches "
+          f"{k2_launches} ({len(queries) + 1} searches x {n_ext} "
+          "extent(s))", flush=True)
     if len(index) != n_docs:
         fail(f"index holds {len(index)} docs, expected {n_docs}")
     if dispatches == 0 or launches != N_LAYERS * dispatches:
         fail("K1 did not run on every encoder layer of the main path")
+    if k2_launches != (len(queries) + 1) * n_ext:
+        fail(f"K2 ran {k2_launches} times, not once for each of the "
+             f"{len(queries) + 1} searches x {n_ext} extent(s)")
 
     # the index against a brute-force scan of the same rows on the card.
     # The index scores bf16(query) against bf16 rows in f32 (the JAX
@@ -892,30 +1098,37 @@ def phase_slice(n_docs: int, seed: int, card: str) -> int:
         embed_ms.append((t2 - t1) * 1e3)
         search_ms.append((time.perf_counter() - t2) * 1e3)
     print(f"[slice] query halves, p50: text embed (tokenize + B=1 forward) "
-          f"{np.percentile(embed_ms, 50):.3f} ms, index search (score + "
-          f"sort + merge over {inner.capacity} rows) "
+          f"{np.percentile(embed_ms, 50):.3f} ms, index search (K2 + host "
+          f"merge over {inner.capacity} rows) "
           f"{np.percentile(search_ms, 50):.3f} ms [{card}]", flush=True)
-    # K2, the float extent's search (torch.matmul + a stable sort, not yet
-    # a kernel), at this index's shape, k = 10
-    from pathway_tpu_torch.ops.knn import search_extent
-
+    # K2 at this index's shape, k = 10: search_extent (the query cast and
+    # K2) beside the route it replaced (torch.matmul + a stable sort) and
+    # torch's matmul + topk
     ext = exts[0]
     N, D = ext.vectors.shape
+    k2_before = TOPK_BF16.launches
     for B in (1, 64):
         qb = torch.randn((B, D), device="cuda")
+        qf = qb.to(torch.bfloat16).float()
         k2_ms = cuda_ms(lambda: search_extent(qb, ext.vectors, ext.valid, 10,
                                               inner.metric), 20)
+        old_ms = cuda_ms(lambda: search_chunks(
+            lambda c0, c1: score_float_reference(
+                qf, ext.vectors[c0:c1], ext.valid[c0:c1],
+                inner.metric.value), N, 10), 20)
         qb16 = qb.to(torch.bfloat16)
         k2_lib = cuda_ms(lambda: torch.topk(torch.matmul(qb16, ext.vectors.T),
                                             10), 20)
         nbytes = N * (2 * D + 1) + B * D * 4 + B * 10 * (4 + 8)
         k2_bound, k2_by = bound(2.0 * B * N * D, nbytes)
         print(f"[K2] B={B} k=10 over {N:,} x {D} bf16 rows ({len(exts)} "
-              f"extent): search_extent (torch.matmul + stable sort) "
+              f"extent, {inner.metric.value}): search_extent (K2) "
               f"{k2_ms:.4f} ms, bound {k2_bound:.4f} ms ({k2_by}; "
               f"{nbytes / 1e6:.1f} MB), share of bound "
-              f"{k2_bound / k2_ms:.3f}; torch.matmul + torch.topk "
+              f"{k2_bound / k2_ms:.3f}; the old route (torch.matmul + "
+              f"stable sort) {old_ms:.4f} ms; torch.matmul + torch.topk "
               f"{k2_lib:.4f} ms [{card}]", flush=True)
+    TOPK_BF16.launches = k2_before  # comparisons don't count
     dist = (qv * qv).sum(1, keepdim=True) - 2.0 * qv @ rows.T \
         + (rows * rows).sum(1)[None, :]
     dist = dist.masked_fill(~valid[None, :], float("inf"))
@@ -963,7 +1176,7 @@ def phase_slice(n_docs: int, seed: int, card: str) -> int:
           f"{cos.min():.6f} (required >= 0.999)", flush=True)
     if not np.all(np.isfinite(a)) or cos.min() < 0.999:
         fail("card embeddings disagree with the CPU port")
-    return launches
+    return launches, k2_launches
 
 
 def check_top10(results, scan_scores, keys_of, label: str, n: int = 10
@@ -1254,15 +1467,94 @@ def phase_int8_million(seed: int, card: str) -> None:
           "keys", flush=True)
 
 
-def phase_int8_10m(seed: int, card: str) -> dict:
+def rows_that_fit(label: str, n: int, row_bytes: int) -> int:
+    """Prints ``free -g``; returns ``n``, or, where the machine's memory
+    cannot hold ``row_bytes`` of host state per row (the index's host
+    mirror and ~300 bytes of key maps and sets), the largest multiple of
+    2^19 rows that fits, printing the cut."""
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    print(f"[{label}] free -g:\n" + free, flush=True)
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable"))
+    fits = int(0.8 * avail) // (row_bytes + 300)
+    if fits >= n:
+        return n
+    cut = max(1 << 19, fits // (1 << 19) * (1 << 19))
+    print(f"[{label}] CUT: {avail / 2**30:.1f} GiB available holds "
+          f"{fits:,} rows; {cut:,} rows instead of {n:,}", flush=True)
+    return cut
+
+
+# latency_probe as bench_knn calls it (bench.py:3485-3486, 2571-2572):
+# (batch_size, reps) of knn_p50_ms and knn_batch64_ms
+PROBES = ((1, 64), (64, 16))
+# searches of a 10M phase: a warm-up, 64 at B=1, 5 at B=64, then each
+# probe's warm pass and timed pass
+SEARCHES_10M = 1 + 64 + 5 + sum(2 * reps for _, reps in PROBES)
+
+
+def search_10m(index, qs, label: str, key0: int, card: str):
+    """A 10M index's search: B=1 (64 calls after a warm-up) and B=64 (5
+    calls), k=10, host merge included; then ``latency_probe`` as bench_knn
+    calls it. Returns (B=1 results, B=64 results, probe times)."""
+    from pathway_tpu_torch.internals.keys import Pointer
+
+    index.search([(Pointer(key0), qs[0], 10, None)])  # warm-up
+    lat1, results = [], []
+    for qi in range(64):
+        t1 = time.perf_counter()
+        results.append(index.search([(Pointer(key0 + qi), qs[qi], 10,
+                                      None)])[0])
+        lat1.append((time.perf_counter() - t1) * 1e3)
+    lat64 = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        batch_res = index.search([(Pointer(key0 + i), qs[i], 10, None)
+                                  for i in range(64)])
+        lat64.append((time.perf_counter() - t1) * 1e3)
+    probes = [index.latency_probe(batch_size=b, k=10, reps=reps)
+              for b, reps in PROBES]
+    print(f"[{label}] search p50 (host merge included) at B=1 "
+          f"{np.percentile(lat1, 50):.3f} ms (p99 "
+          f"{np.percentile(lat1, 99):.3f}), at B=64 "
+          f"{np.percentile(lat64, 50):.3f} ms per call; latency_probe "
+          f"(device, no host merge): B=1 {probes[0]:.4f} ms (reps "
+          f"{PROBES[0][1]}), B=64 {probes[1]:.4f} ms (reps {PROBES[1][1]})"
+          f" [{card}]", flush=True)
+    return results, batch_res, probes
+
+
+def check_10m(index, results, batch_res, scan_fn, label: str) -> None:
+    """Every B=1 top 10 against a plain scan of the index's extents, and
+    the B=64 search equal to the 64 B=1 searches."""
+    import torch
+
+    exts = [e for e in index._pool.extents if e.established]
+    keys_of = np.concatenate([
+        np.fromiter((int(index._slot_to_key.get(e.base + s, -1))
+                     for s in range(e.rows)), np.int64, e.rows)
+        for e in exts])
+    scan = torch.cat([scan_fn(e) for e in exts], dim=1)
+    rank1 = check_top10(results, scan, keys_of, label)
+    if [[int(k) for k, _ in r] for r in batch_res] != \
+            [[int(k) for k, _ in r] for r in results]:
+        fail(f"{label}: a B=64 search differs from the 64 B=1 searches")
+    print(f"[{label}] top-10 vs a plain scan: all 64 queries pass (rank 1 "
+          f"identical on {rank1}/64); the B=64 search returns the same keys",
+          flush=True)
+
+
+def phase_int8_10m(seed: int, card: str) -> tuple[tuple, list]:
     """bench_knn's int8 deployment (bench.py:2547-2579; README.md:1655,
     1749): BruteForceKnnIndex(384, reserved_space=10M, int8, cos) fed by
     add_batch_device in 65,536-row batches of seeded randn on the card,
-    searched at B=1 (64 calls after a warm-up) and B=64 (5 calls), k=10.
-    The host mirror is f32 (15.4 GB at 10M rows): where the machine's
-    memory cannot hold it, the rows are cut to the largest multiple of
-    2^19 that fits, and the cut is printed. Returns the launches of K3
-    top-k, K3 score and K4 in this run."""
+    searched by ``search_10m`` (bench.py's knn_int8_p50_ms and
+    knn_int8_batch64_ms from latency_probe). The host mirror is f32 (15.4
+    GB at 10M rows); ``rows_that_fit`` cuts the rows where the machine
+    cannot hold it. Returns the launches of K3 top-k, K3 score and K4 in
+    this run, and the probe times."""
     import torch
 
     from pathway_tpu_torch.internals.keys import Pointer
@@ -1270,20 +1562,8 @@ def phase_int8_10m(seed: int, card: str) -> dict:
     from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
                                                    SCORE_I8, TOPK_I8)
 
-    D, batch, n = 384, 65_536, K3_ROWS
-    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
-                          timeout=60).stdout.strip()
-    print("[int8 10M] free -g:\n" + free, flush=True)
-    with open("/proc/meminfo") as f:
-        avail = next(int(line.split()[1]) * 1024 for line in f
-                     if line.startswith("MemAvailable"))
-    # the f32 mirror plus ~300 bytes of key maps and sets per row
-    fits = int(0.8 * avail) // (D * 4 + 300)
-    if fits < n:
-        n = max(1 << 19, fits // (1 << 19) * (1 << 19))
-        print(f"[int8 10M] CUT: {avail / 2**30:.1f} GiB available holds "
-              f"{fits:,} rows; {n:,} rows instead of {K3_ROWS:,}",
-              flush=True)
+    D, batch = 384, 65_536
+    n = rows_that_fit("int8 10M", K3_ROWS, D * 4)
     gen = torch.Generator(device="cuda").manual_seed(seed + 10)
     QUANTIZE_SCATTER.launches = SCORE_I8.launches = TOPK_I8.launches = 0
     t0 = time.perf_counter()
@@ -1296,57 +1576,94 @@ def phase_int8_10m(seed: int, card: str) -> dict:
                                            device="cuda"))
     index.drain()
     add_s = time.perf_counter() - t0
+    print(f"[int8 10M] {len(index):,} rows added in {add_s:.2f} s through "
+          f"add_batch_device ({index.page_stats()['extents']} extent(s), "
+          f"{index.capacity:,} rows) [{card}]", flush=True)
     qs = torch.randn((64, D), generator=gen, device="cuda").cpu().numpy()
-    index.search([(Pointer(10**10), qs[0], 10, None)])  # warm-up
-    lat1, results = [], []
-    for qi in range(64):
-        t1 = time.perf_counter()
-        results.append(index.search([(Pointer(10**10 + qi), qs[qi], 10,
-                                      None)])[0])
-        lat1.append((time.perf_counter() - t1) * 1e3)
-    lat64 = []
-    for _ in range(5):
-        t1 = time.perf_counter()
-        batch_res = index.search([(Pointer(10**10 + i), qs[i], 10, None)
-                                  for i in range(64)])
-        lat64.append((time.perf_counter() - t1) * 1e3)
+    results, batch_res, probes = search_10m(index, qs, "int8 10M", 10**10,
+                                            card)
+    print(f"[int8 10M] bench.py's names: knn_int8_p50_ms {probes[0]:.4f}, "
+          f"knn_int8_batch64_ms {probes[1]:.4f} [{card}]", flush=True)
     launches = (TOPK_I8.launches, SCORE_I8.launches,
                 QUANTIZE_SCATTER.launches)
-    stats = index.page_stats()
-    exts = [e for e in index._pool.extents if e.established]
-    searches = 1 + 64 + 5
-    print(f"[int8 10M] {len(index):,} rows added in {add_s:.2f} s through "
-          f"add_batch_device ({stats['extents']} extent(s), "
-          f"{index.capacity:,} rows); query p50 at B=1 "
-          f"{np.percentile(lat1, 50):.3f} ms (p99 "
-          f"{np.percentile(lat1, 99):.3f}), at B=64 "
-          f"{np.percentile(lat64, 50):.3f} ms per call [{card}]", flush=True)
-    print(f"[int8 10M] launches: K3 top-k {launches[0]} ({searches} searches "
-          f"x {len(exts)} extent(s)), K3 score {launches[1]}, K4 "
+    n_ext = len([e for e in index._pool.extents if e.established])
+    print(f"[int8 10M] launches: K3 top-k {launches[0]} ({SEARCHES_10M} "
+          f"searches x {n_ext} extent(s)), K3 score {launches[1]}, K4 "
           f"{launches[2]}", flush=True)
     if len(index) != n:
         fail(f"int8 10M: the index holds {len(index)} rows, not {n}")
-    if launches[0] != searches * len(exts) or launches[1] != 0:
+    if launches[0] != SEARCHES_10M * n_ext or launches[1] != 0:
         fail("int8 10M: the search did not go through K3 top-k once an "
              "extent, or K3's score ran")
     if launches[2] < -(-n // batch):
         fail("int8 10M: K4 did not write every batch")
-    keys_of = np.concatenate([
-        np.fromiter((int(index._slot_to_key.get(e.base + s, -1))
-                     for s in range(e.rows)), np.int64, e.rows)
-        for e in exts])
     q = torch.from_numpy(qs).cuda()
     q = (q / (q.norm(dim=1, keepdim=True) + 1e-12)).to(torch.bfloat16)
-    scan = torch.cat([plain_scan_i8(q, e.vectors, e.scales, e.vsq, e.valid)
-                      for e in exts], dim=1)
-    rank1 = check_top10(results, scan, keys_of, "int8 10M")
-    if [[int(k) for k, _ in r] for r in batch_res] != \
-            [[int(k) for k, _ in r] for r in results]:
-        fail("int8 10M: a B=64 search differs from the 64 B=1 searches")
-    print(f"[int8 10M] top-10 vs a plain scan: all 64 queries pass (rank 1 "
-          f"identical on {rank1}/64); the B=64 search returns the same keys",
-          flush=True)
-    return launches
+    check_10m(index, results, batch_res, lambda e: plain_scan_i8(
+        q, e.vectors, e.scales, e.vsq, e.valid), "int8 10M")
+    return launches, probes
+
+
+def phase_bf16_10m(card: str) -> tuple[int, list]:
+    """bench_knn's headline deployment (bench.py:3436-3490, KNN_N at
+    :27): BruteForceKnnIndex(384, reserved_space=10M, dtype="bfloat16",
+    metric="cos"), 10M rows uniform in [-1, 1) made on the card in 2^19-row
+    chunks, chunk i from torch.Generator(device="cuda").manual_seed(i),
+    added by add_batch_device; bench_knn's 64 queries
+    (default_rng(0).random((64, 384)) * 2 - 1) through ``search_10m``
+    (bench.py's knn_p50_ms and knn_batch64_ms from latency_probe). The
+    host mirror is bf16 (7.7 GB). Returns K2's launches in this run and
+    the probe times."""
+    import torch
+
+    from pathway_tpu_torch.internals.keys import Pointer
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+    from pathway_tpu_torch.ops.knn_kernels import (TOPK_BF16,
+                                                   score_float_reference)
+
+    D, chunk = 384, 1 << 19
+    n = rows_that_fit("bf16 10M", K3_ROWS, D * 2)
+    TOPK_BF16.launches = 0
+    t0 = time.perf_counter()
+    index = BruteForceKnnIndex(D, reserved_space=n, dtype="bfloat16",
+                               metric="cos", device="cuda")
+    for ci, base in enumerate(range(0, n, chunk)):
+        m = min(chunk, n - base)
+        gen = torch.Generator(device="cuda").manual_seed(ci)
+        vecs = (torch.rand((m, D), generator=gen, device="cuda") * 2 - 1).to(
+            torch.bfloat16)
+        index.add_batch_device([Pointer(base + i) for i in range(m)], vecs)
+    index.drain()
+    add_s = time.perf_counter() - t0
+    print(f"[bf16 10M] {len(index):,} rows added in {add_s:.2f} s through "
+          f"add_batch_device ({index.page_stats()['extents']} extent(s), "
+          f"{index.capacity:,} rows) [{card}]", flush=True)
+    qs = np.random.default_rng(0).random((64, D), dtype=np.float32) * 2 - 1
+    results, batch_res, probes = search_10m(index, qs, "bf16 10M", 10**10,
+                                            card)
+    print(f"[bf16 10M] bench.py's names: knn_p50_ms {probes[0]:.4f}, "
+          f"knn_batch64_ms {probes[1]:.4f} [{card}]", flush=True)
+    launches = TOPK_BF16.launches
+    n_ext = len([e for e in index._pool.extents if e.established])
+    print(f"[bf16 10M] launches: K2 {launches} ({SEARCHES_10M} searches x "
+          f"{n_ext} extent(s))", flush=True)
+    if len(index) != n:
+        fail(f"bf16 10M: the index holds {len(index)} rows, not {n}")
+    if launches != SEARCHES_10M * n_ext:
+        fail("bf16 10M: the search did not go through K2 once an extent")
+    q = torch.from_numpy(qs).cuda()
+    q = (q / (q.norm(dim=1, keepdim=True) + 1e-12)).to(
+        torch.bfloat16).float()
+
+    def scan(e, rows=1 << 20):
+        out = torch.empty((64, e.rows), device="cuda")
+        for c0 in range(0, e.rows, rows):
+            out[:, c0:c0 + rows] = score_float_reference(
+                q, e.vectors[c0:c0 + rows], e.valid[c0:c0 + rows], "cos")
+        return out
+
+    check_10m(index, results, batch_res, scan, "bf16 10M")
+    return launches, probes
 
 
 def phase_profile(card: str) -> None:
@@ -1438,18 +1755,24 @@ def main() -> None:
     k1_seg = phase_segments(card)
     k3, k4 = phase_knn_i8(card)
     k3_topk = phase_topk_i8(card)
+    k2 = phase_topk_bf16(card)
     done("kernel phases")
-    k1["launches"] = phase_slice(args.docs, args.seed, card)
+    k1["launches"], k2["launches"] = phase_slice(args.docs, args.seed, card)
     done("path 1")
     (k1_seg["launches"], k3_topk_path2, k3["launches"],
      k4["launches"]) = phase_ragged_int8(args.seed, card)
     done("path 2")
     phase_int8_million(args.seed, card)
-    k3_topk["launches"], _, _ = phase_int8_10m(args.seed, card)
+    (k3_topk["launches"], _, _), k3_topk["probe_ms"] = phase_int8_10m(
+        args.seed, card)
     k3_topk["launches_path2"] = k3_topk_path2
     done("int8 indexes")
+    gc.collect()  # the 10M int8 index and its host mirror are gone
+    torch.cuda.empty_cache()
+    k2["launches_10m"], k2["probe_ms"] = phase_bf16_10m(card)
+    done("bf16 10M index")
     phase_profile(card)
-    print(json.dumps({"kernels": [k1, k1_seg, k3_topk, k3, k4]}),
+    print(json.dumps({"kernels": [k1, k1_seg, k2, k3_topk, k3, k4]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -51,7 +51,8 @@
 // k-th best, and a warp merges a buffer past half full with a bitonic
 // sort, between the block barriers that end each tile. Each block writes
 // its k best per query to a workspace. Launch 2: a block per query merges
-// the blocks' lists by the same key.
+// the blocks' lists by the same key. The keys, lists, merges, wgmma
+// helpers and launch 2 live in knn_topk.cuh, shared with K2 (knn_bf16.cu).
 //
 // K4, the quantizing scatter: replaces
 // pathway_tpu/ops/knn.py::_quantize_i8 inside _shared_scatter_i8_fn and
@@ -75,27 +76,16 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include "knn_topk.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 // ------------------------------------------------------------------------
 // K3: int8 score
 // ------------------------------------------------------------------------
 
-constexpr int kWarps = 8;          // warps per block
-constexpr int kTileRows = 16;      // slab rows per warp tile (mma M)
 constexpr int kQPad = 4;           // bf16 padding of a staged query row
-constexpr int kMaxQueryTiles = 8;  // n8 query tiles per block (64 queries)
 constexpr size_t kMaxSmem = 200 * 1024;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // two int8 (bytes `shift / 8` and the next of w) -> a bf16 pair, exact
 __device__ __forceinline__ uint32_t widen2(uint32_t w, int shift) {
@@ -240,14 +230,8 @@ cudaError_t launch_score(const ScoreParams& p, cudaStream_t stream) {
 }
 
 // ------------------------------------------------------------------------
-// K3 top-k: int8 score fused with the top-k
+// K3 top-k: int8 score fused with the top-k (shared parts: knn_topk.cuh)
 // ------------------------------------------------------------------------
-
-using u64 = unsigned long long;
-
-constexpr int kTopkKMax = 64;         // largest k
-constexpr int kMergeThreads = 256;    // launch 2: threads per query
-constexpr int kMergeMaxKeys = 4096;   // launch 2: keys sorted at once
 
 // a - b on bf16 pairs (as a + b * -1), exact on the integers used here
 __device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
@@ -272,65 +256,6 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
                   __byte_perm(s, 0x43u, 0x4342));
 }
 
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// (score, row) -> a key ordered as the stable descending sort ranks:
-// higher score first, on equal scores the lower row. The score's bits map
-// to an unsigned order (-0 as +0; a NaN that the card produces ranks
-// first, as torch.sort puts it), the row is stored complemented. 0 is no
-// key: below every real one.
-__device__ __forceinline__ u64 topk_key(float s, long long row) {
-  uint32_t u = __float_as_uint(s == 0.f ? 0.f : s);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<u64>(u) << 32) | ~static_cast<uint32_t>(row);
-}
-
-__device__ __forceinline__ float key_score(u64 key) {
-  const uint32_t u = static_cast<uint32_t>(key >> 32);
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
-}
-
-__device__ __forceinline__ long long key_row(u64 key) {
-  return static_cast<long long>(~static_cast<uint32_t>(key));
-}
-
-// Bitonic sort of n keys (a power of two) in shared memory, descending, by
-// the threads first, first + step, ... of a warp (kBlock false) or block.
-template <bool kBlock>
-__device__ void sort_desc(u64* a, int n, int first, int step) {
-  for (int size = 2; size <= n; size <<= 1)
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = first; i < n / 2; i += step) {
-        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
-        const u64 x = a[lo], y = a[hi];
-        if ((x < y) == ((lo & size) == 0)) {
-          a[lo] = y;
-          a[hi] = x;
-        }
-      }
-      if (kBlock)
-        __syncthreads();
-      else
-        __syncwarp();
-    }
-}
-
-// One query's keys, by one warp: [0, k) its k best, sorted; [k, k + cnt)
-// new candidates (cnt past the buffer counts refused appends). Sorts the
-// used power-of-two prefix, so [0, k) again holds the k best.
-__device__ void merge_list(u64* a, int* cnt, int k, int S, int lane) {
-  const int n = k + min(*cnt, S - k);
-  int P = 32;
-  while (P < n) P <<= 1;
-  for (int i = n + lane; i < P; i += 32) a[i] = 0ull;
-  __syncwarp();
-  sort_desc<false>(a, P, lane, 32);
-  if (lane == 0) *cnt = 0;
-  __syncwarp();
-}
-
 struct TopkParams {
   const bf16* q;
   const int8_t* slab;
@@ -343,83 +268,10 @@ struct TopkParams {
   bool vec;
 };
 
-constexpr int kTopkTile = kWarps * kTileRows;  // rows per block tile
-// keys a query keeps in shared memory: its k best and a buffer of 128 - k
-// candidates (a power of two, for the bitonic merge)
-constexpr int kTopkKeys = 128;
-// wgmma's B descriptor: bytes between core matrices along k (8 query
-// groups of 128 bytes) and along the queries
-constexpr uint32_t kWgLbo = 1024, kWgSbo = 128;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// wgmma m64n64k16 (f32 += bf16 x bf16): A, the warp's 16 rows, in
-// registers in mma.sync's fragment layout; B, 64 queries x 16 k, in shared
-// memory without swizzle, K-major: 8 x 8 core matrices of 128 bytes, LBO
-// bytes apart along k and SBO along the queries. The sum's layout is
-// mma.sync's m16n8 layout for each 8 queries.
-__device__ __forceinline__ u64 wg_desc(const void* p, uint32_t lbo,
-                                       uint32_t sbo) {
-  return static_cast<u64>((smem_addr(p) & 0x3FFFF) >> 4) |
-         (static_cast<u64>(lbo >> 4) << 16) |
-         (static_cast<u64>(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_64x64(float (&d)[8][4],
-                                            const uint32_t (&a)[4], u64 b,
-                                            int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
-      : "memory");
-}
-
-// Shared memory of launch 1: keys [NQ][kTopkKeys], counts [NQ], queries
-// [NQ][DP] bf16, then (stg > 0) the ring: stg stages of each warp's 16
-// rows x DP
+// Shared memory of launch 1: keys, counts and queries, then (stg > 0) the
+// ring: stg stages of each warp's 16 rows x DP
 size_t topk_smem(int nt, int DP, int stg) {
-  return static_cast<size_t>(8 * nt) *
-             (sizeof(u64) * kTopkKeys + sizeof(int) + sizeof(bf16) * DP) +
+  return topk_lists_smem(nt, DP) +
          static_cast<size_t>(stg) * kTopkTile * DP;
 }
 
@@ -447,33 +299,11 @@ knn_topk_i8_kernel(const TopkParams p) {
   int8_t* ring = reinterpret_cast<int8_t*>(qs + NQ * p.DP);
   const int q0 = blockIdx.y * NQ;
   const int nq = min(NQ, p.B - q0);
-  // mma.sync: the 8-byte unit u of query row r sits at unit u ^ (r & 3),
-  // so the B-fragment reads below are free of bank conflicts without
-  // padding. wgmma: column c (64 j + 16 t + 4 s + 2 hi + e) is k position
-  // 2 t + e + 8 hi of k-step 4 j + s (score_i8's permutation), stored in
-  // core matrix (k chunk 2 (4 j + s) + hi, query group r / 8) at row r % 8
-  for (int e = threadIdx.x; e < NQ * p.DP; e += blockDim.x) {
-    const int r = e / p.DP, c = e % p.DP;
-    const bf16 v = r < nq && c < p.D
-                       ? p.q[static_cast<long long>(q0 + r) * p.D + c]
-                       : __float2bfloat16(0.f);
-    if constexpr (WG) {
-      const int w = c & 63, kc = 2 * (4 * (c >> 6) + ((w >> 2) & 3)) +
-                                 ((w >> 1) & 1);
-      qs[(kc * (NQ / 8) + (r >> 3)) * 64 + (r & 7) * 8 + 2 * (w >> 4) +
-         (w & 1)] = v;
-    } else {
-      qs[r * p.DP + ((((c >> 2) ^ (r & 3))) << 2) + (c & 3)] = v;
-    }
-  }
-  for (int e = threadIdx.x; e < NQ * S; e += blockDim.x) keys[e] = 0ull;
-  for (int e = threadIdx.x; e < NQ; e += blockDim.x) cnt[e] = 0;
-  __syncthreads();
+  topk_stage<NQ, WG>(p.q, q0, nq, p.D, p.DP, qs, keys, cnt);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int nj = p.DP / 64, k = p.k;
-  const int C = S - k, hw = C / 2;  // buffer size and its merge mark
   const bf16* qrow = qs + g * p.DP;
   const long long stride = static_cast<long long>(gridDim.x) * kTopkTile;
   // ring rows: the 16-byte chunk c of an odd row sits at chunk c ^ sw_odd,
@@ -638,102 +468,11 @@ knn_topk_i8_kernel(const TopkParams p) {
         }
       }
     }
-
-    // the k-th best score of each of the lane's queries (-inf while a
-    // list has fewer than k keys): a cheap first test before the key's
-    float ts[NT][2];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const u64 th = keys[(8 * n + 2 * t + e) * S + k - 1];
-        ts[n][e] = th ? key_score(th) : -INFINITY;
-      }
-    bool crossed = false;  // a buffer this thread appended to is past hw
-    // acc[n][c] is (row r0 + 8 (c >> 1), query 8 n + 2 t + (c & 1)); false
-    // if not a candidate or appended, true if its query's buffer is full
-    auto consider = [&](int n, int c) -> bool {
-      const int h = c >> 1, qi = 8 * n + 2 * t + (c & 1);
-      if (qi >= nq || !in[h]) return false;
-      const float d = acc[n][c];
-      const float s = !ok[h] ? -INFINITY
-                      : p.metric ? __fsub_rn(__fmul_rn(d, fa[h]), fb[h])
-                                 : __fmul_rn(d, fa[h]);
-      if (s < ts[n][c & 1]) return false;
-      const u64 key = topk_key(s, r0 + 8 * h);
-      if (key <= keys[qi * S + k - 1]) return false;
-      const int pos = atomicAdd(&cnt[qi], 1);
-      if (pos >= C) return true;
-      keys[qi * S + k + pos] = key;
-      crossed |= pos + 1 >= hw;
-      return false;
-    };
-    uint32_t pend = 0;  // bit 4 n + c: waits for a merge
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (consider(n, c)) pend |= 1u << (4 * n + c);
-    bool more = pend != 0 || crossed;
-    while (__syncthreads_or(more)) {
-      for (int qi = warp; qi < nq; qi += kWarps)
-        if (cnt[qi] >= hw) merge_list(keys + qi * S, cnt + qi, k, S, lane);
-      __syncthreads();
-      crossed = false;
-      const uint32_t was = pend;
-      pend = 0;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (((was >> (4 * n + c)) & 1u) && consider(n, c))
-            pend |= 1u << (4 * n + c);
-      more = pend != 0 || crossed;
-    }
+    topk_offer_tile<NT>(acc, keys, cnt, k, nq, r0, in, ok, fa, fb,
+                        p.metric != 0, warp, lane);
   }
-  // every append is visible (the last barrier above): final merges
-  for (int qi = warp; qi < nq; qi += kWarps)
-    if (cnt[qi] > 0) merge_list(keys + qi * S, cnt + qi, k, S, lane);
-  __syncthreads();
-  for (int e = threadIdx.x; e < nq * k; e += blockDim.x) {
-    const int qi = e / k, r = e % k;
-    p.ws[(static_cast<long long>(blockIdx.x) * p.B + q0 + qi) * k + r] =
-        keys[qi * S + r];
-  }
+  topk_block_finish(keys, cnt, k, nq, p.B, q0, p.ws, warp, lane);
 }
-
-// Launch 2: block q merges the G blocks' k best keys of query q, M keys
-// at a time ([0, k) the best so far, [k, M) the next chunk), and writes
-// scores and rows.
-__global__ void __launch_bounds__(kMergeThreads)
-knn_topk_merge_kernel(const u64* ws, int G, int B, int k, int M,
-                      float* out_s, long long* out_row) {
-  extern __shared__ u64 mk[];
-  const int q = blockIdx.x;
-  const long long total = static_cast<long long>(G) * k;
-  for (int i = threadIdx.x; i < k; i += blockDim.x) mk[i] = 0ull;
-  for (long long c0 = 0; c0 < total; c0 += M - k) {
-    for (int i = threadIdx.x; i < M - k; i += blockDim.x) {
-      const long long e = c0 + i;
-      mk[k + i] = e < total ? ws[((e / k) * B + q) * k + e % k] : 0ull;
-    }
-    __syncthreads();
-    sort_desc<true>(mk, M, threadIdx.x, blockDim.x);
-  }
-  for (int r = threadIdx.x; r < k; r += blockDim.x) {
-    out_s[static_cast<long long>(q) * k + r] = key_score(mk[r]);
-    out_row[static_cast<long long>(q) * k + r] = key_row(mk[r]);
-  }
-}
-
-struct TopkConfig {
-  int nt, stg;
-  size_t smem;
-};
-
-constexpr size_t kMaxSmemTopk = 227 * 1024;  // a block's most on sm_90
-// two blocks on one SM: 228 KB less 1 KB the runtime keeps for each
-constexpr size_t kTwoBlockSmem = (228 * 1024) / 2 - 1024;
 
 // n8 query tiles per block (enough for B, at most 8, within the shared
 // memory a block may take) and the ring's stages: 2 where two blocks of
@@ -744,8 +483,7 @@ constexpr size_t kTwoBlockSmem = (228 * 1024) / 2 - 1024;
 // B = 1, and the ring at one block slower than the register path at
 // B = 32 and 64.
 TopkConfig topk_config(int B, int DP, bool vec) {
-  int nt = 1;
-  while (nt < kMaxQueryTiles && 8 * nt < B) nt *= 2;
+  int nt = topk_query_tiles(B);
   for (;;) {
     TopkConfig c;
     c.nt = nt;
@@ -770,17 +508,6 @@ cudaError_t with_topk_kernel(const TopkConfig& c, F f) {
     case 4: return with_stages<4>(c.stg, f);
     default: return with_stages<8>(c.stg, f);
   }
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
 }
 
 // ------------------------------------------------------------------------
@@ -860,8 +587,7 @@ extern "C" int pt_knn_score_i8(const void* q, const void* slab,
   p.vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(slab) % 16 == 0;
   // n8 query tiles per block: enough for B, at most 8, within the
   // shared memory a block may take
-  int nt = 1;
-  while (nt < kMaxQueryTiles && 8 * nt < B) nt *= 2;
+  int nt = topk_query_tiles(B);
   while (nt > 1 && score_smem(nt, p.DP) > kMaxSmem) nt /= 2;
   if (score_smem(nt, p.DP) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -908,23 +634,9 @@ extern "C" int pt_knn_topk_i8_blocks(int B, long long N, int D, int k,
   // as pt_knn_topk_i8 chooses for a 16-byte aligned slab
   const TopkConfig c = topk_config(B, (D + 63) / 64 * 64, D % 16 == 0);
   if (c.smem > kMaxSmemTopk) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = with_topk_kernel(c, [&](auto kernel) {
-      const cudaError_t a = allow_smem(kernel, c.smem);
-      if (a != cudaSuccess) return a;
-      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, kWarps * 32, c.smem);
-    });
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long tiles = (N + kTopkTile - 1) / kTopkTile;
-  const long long want = static_cast<long long>(per_sm) * sms;
-  *blocks = static_cast<int>(tiles < want ? tiles : want);
-  return 0;
+  return static_cast<int>(with_topk_kernel(c, [&](auto kernel) {
+    return topk_grid(kernel, c.smem, N, blocks);
+  }));
 }
 
 // K3 top-k. q (B, D) bf16 contiguous; slab (N, D) int8 contiguous; scales,
@@ -966,13 +678,10 @@ extern "C" int pt_knn_topk_i8(const void* q, const void* slab,
     return cudaGetLastError();
   });
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long total = static_cast<long long>(G) * k + k;
-  int M = 128;
-  while (M < kMergeMaxKeys && M < total) M <<= 1;
-  knn_topk_merge_kernel<<<B, kMergeThreads, sizeof(u64) * M, s>>>(
-      p.ws, G, B, k, M, static_cast<float*>(out_s),
-      static_cast<long long*>(out_row));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_topk_merge(p.ws, G, B, k,
+                                            static_cast<float*>(out_s),
+                                            static_cast<long long*>(out_row),
+                                            s));
 }
 
 extern "C" const char* pt_knn_error_string(int e) {

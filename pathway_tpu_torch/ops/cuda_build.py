@@ -2,8 +2,9 @@
 
 Each kernel source ``ops/csrc/<name>.cu`` exposes a plain C interface. It
 is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
-under ``pathway_tpu_torch/_build/``, named by the source's hash so an edit
-rebuilds, and loaded with ``ctypes``. Nothing here runs at import: a module
+under ``pathway_tpu_torch/_build/``, named by the hash of the source and of
+the headers it includes (``#include "x.cuh"``, from ``ops/csrc/``) so an
+edit to either rebuilds, and loaded with ``ctypes``. Nothing here runs at import: a module
 that holds a kernel creates its :class:`CudaLibrary` object, and the first
 launch builds it.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,6 +24,9 @@ _SRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
 class KernelBuildError(RuntimeError):
@@ -60,10 +65,29 @@ class CudaLibrary:
         self._lib: ctypes.CDLL | None = None
         self._lock = threading.Lock()
 
+    def sources(self) -> list[str]:
+        """The source and every header it includes with quotes, directly
+        or through another header, each once, in include order."""
+        seen: list[str] = []
+        todo = [self.source]
+        while todo:
+            path = todo.pop(0)
+            if path in seen:
+                continue
+            seen.append(path)
+            with open(path, "rb") as f:
+                text = f.read()
+            todo += [os.path.join(os.path.dirname(path), m.decode())
+                     for m in _LOCAL_INCLUDE.findall(text)]
+        return seen
+
     def path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        return os.path.join(BUILD_DIR, f"lib{self.name}-{digest}.so")
+        h = hashlib.sha256()
+        for src in self.sources():
+            with open(src, "rb") as f:
+                h.update(f.read())
+        return os.path.join(BUILD_DIR,
+                            f"lib{self.name}-{h.hexdigest()[:16]}.so")
 
     def _build(self) -> None:
         """Compile the source with ``nvcc`` unless its library is built."""

@@ -4,17 +4,21 @@ pathway_tpu/ops/knn.py.
 Vectors live in page-aligned device extents (engine/paged_store.py); a
 host mirror, key maps and dirty/stale slot sets batch incremental adds
 and removes into few device writes. A search scores every established
-extent (one matrix product + a stable top-k per extent, chunked above
-``_CHUNK_ROWS`` rows; an int8 extent in one fused score + top-k kernel)
-and merges the per-extent candidates on the host by (score desc, slot
-asc), exactly as the JAX package does.
+extent (a bf16 or int8 extent in one fused score + top-k kernel; a float32
+extent, or a k past ``K_MAX``, by a matrix product + a stable top-k,
+chunked above ``_CHUNK_ROWS`` rows) and merges the per-extent candidates
+on the host by (score desc, slot asc), exactly as the JAX package does.
+``latency_probe`` times the device half of a search alone, as the JAX
+package's does (bench.py's ``knn_p50_ms`` family).
 
 Numerics held to the JAX package:
 
-- scores are float32 for every slab dtype: a bfloat16 slab is upcast
-  chunk by chunk before the product (bf16 values are exact in f32), where
-  JAX asks the MXU for f32 outputs of bf16 inputs. Queries are rounded to
-  the slab dtype first, as JAX casts them;
+- scores are float32 for every slab dtype: bf16 rows and bf16 queries
+  multiply with f32 sums, where JAX asks the MXU for f32 outputs of bf16
+  inputs. Queries are rounded to the slab dtype first, as JAX casts them.
+  A bfloat16 slab is searched by K2 (score + top-k in one kernel for k <=
+  64, ops/knn_kernels.py); a float32 slab's product stays ``torch.matmul``,
+  as the JAX package leaves it to XLA;
 - ``dtype="int8"`` keeps rows quantized per row (scale = max|v| / 127)
   with an int-domain squared norm ``vsq`` beside each, written by K4, the
   quantizing scatter, and searched by K3 (score + top-k in one kernel
@@ -22,21 +26,18 @@ Numerics held to the JAX package:
   stays exact float32, as in the JAX package;
 - top-k keeps equal scores lowest slot first (``lax.top_k``'s order, which
   the host merge relies on): a stable descending sort, then a slice, or
-  K3 top-k's (score, slot) keys, which rank the same way.
-
-The float slabs' score product stays ``torch.matmul``, as the JAX package
-leaves it to XLA (ROADMAP: a fused score + top-k kernel, K2).
+  K2's and K3's (score, slot) keys, which rank the same way.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: the contiguous slab (``paged=False``), string (jmespath) filters,
-tenants/quotas. The semantic result cache, operator snapshots and
-``latency_probe`` are absent.
-"""
+tenants/quotas. The semantic result cache and operator snapshots are
+absent."""
 
 from __future__ import annotations
 
 import enum
 import math
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -48,7 +49,8 @@ from pathway_tpu_torch.engine.paged_store import (DevicePagePool,
                                                   paged_store_enabled)
 from pathway_tpu_torch.internals.keys import Pointer
 from pathway_tpu_torch.ops.knn_kernels import (K_MAX, quantize_scatter,
-                                               score_i8, topk_i8)
+                                               score_float_reference,
+                                               score_i8, topk_bf16, topk_i8)
 
 
 class KnnMetric(enum.Enum):
@@ -109,21 +111,6 @@ def _topk(scores: torch.Tensor, k: int):
     return s[:, :k], i[:, :k]
 
 
-def _score_block(q, vectors, valid, metric: KnnMetric):
-    """q (B, D) f32 already in the slab's precision, vectors (N, D) slab
-    dtype -> (B, N) f32 scores, -inf on invalid rows."""
-    vf = vectors.float()
-    dots = q @ vf.T
-    vn_sq = (vf * vf).sum(dim=1)
-    if metric == KnnMetric.COS:
-        scores = dots * torch.rsqrt(vn_sq + 1e-12)[None, :]
-    else:
-        # -||q - v||^2 = 2 q·v - ||v||^2 - ||q||^2 ; drop ||q||^2
-        # (constant per query row, does not change ranking)
-        scores = 2.0 * dots - vn_sq[None, :]
-    return scores.masked_fill(~valid[None, :], -math.inf)
-
-
 def search_chunks(score: Callable, n: int, k: int):
     """Top-k of ``n`` rows scored ``score(c0, c1) -> (B, c1 - c0)`` chunk
     by chunk: above ``_CHUNK_ROWS`` rows a stable top-k per chunk, then a
@@ -135,20 +122,28 @@ def search_chunks(score: Callable, n: int, k: int):
         ts, ti = _topk(score(c0, c0 + _CHUNK_ROWS), k)
         cand_s.append(ts)
         cand_i.append(ti + c0)
-    top_s, pos = _topk(torch.cat(cand_s, dim=1), k)
-    return top_s, torch.gather(torch.cat(cand_i, dim=1), 1, pos)
+    return _topk_gather(torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1),
+                        k)
+
+
+def _topk_gather(cand_s, cand_i, k: int):
+    """The ``k`` best candidates of each row by score, best first, equal
+    scores in column order, with their ids gathered beside them."""
+    top_s, pos = _topk(cand_s, k)
+    return top_s, torch.gather(cand_i, 1, pos)
 
 
 def search_extent(queries, vectors, valid, k: int, metric: KnnMetric,
                   extras: tuple = ()):
     """(scores, local slots) of the ``k`` best rows of one extent for each
     query: (B, k) f32 and int64 tensors on the extent's device, best
-    first, equal scores lowest slot first. An int8 extent passes ``extras
-    = (scales, vsq)`` and is searched against the queries cast to bf16
-    (the JAX package's ``_prep_queries(cast_dtype=bf16)``): for k <=
-    ``K_MAX`` by K3 top-k over the whole extent in one call, else (a
-    filter's escalated fetch) by K3's score and ``search_chunks``. Float
-    extents take ``search_chunks`` over ``_score_block``."""
+    first, equal scores lowest slot first. Queries are cast to bf16 for an
+    int8 or bf16 extent (the JAX package's ``_prep_queries``). For k <=
+    ``K_MAX`` a bf16 extent is searched by K2 (``topk_bf16``) and an int8
+    extent, which passes ``extras = (scales, vsq)``, by K3 top-k, each over
+    the whole extent in one call. Otherwise (a float32 extent, or a
+    filter's escalated fetch) ``search_chunks`` scores it chunk by chunk:
+    K3's score for int8, ``score_float_reference`` for the float slabs."""
     q = queries
     if metric == KnnMetric.COS:
         q = q / (torch.linalg.vector_norm(q, dim=1, keepdim=True) + 1e-12)
@@ -161,11 +156,15 @@ def search_extent(queries, vectors, valid, k: int, metric: KnnMetric,
         def score(c0, c1):
             return score_i8(q, vectors[c0:c1], scales[c0:c1], vsq[c0:c1],
                             valid[c0:c1], metric.value)
+    elif vectors.dtype == torch.bfloat16 and k <= K_MAX:
+        return topk_bf16(q.to(torch.bfloat16).contiguous(), vectors, valid,
+                         metric.value, k)
     else:
         q = q.to(vectors.dtype).float()
 
         def score(c0, c1):
-            return _score_block(q, vectors[c0:c1], valid[c0:c1], metric)
+            return score_float_reference(q, vectors[c0:c1], valid[c0:c1],
+                                         metric.value)
     return search_chunks(score, vectors.shape[0], k)
 
 
@@ -493,6 +492,45 @@ class BruteForceKnnIndex:
         order = np.argsort(dists, kind="stable")[:limit]
         return tuple((keys[int(i)], float(dists[int(i)])) for i in order)
 
+    def latency_probe(self, *, batch_size: int = 1, k: int = 10,
+                      reps: int = 32, seed: int = 0) -> float:
+        """Device time per search batch, in ms: the JAX package's
+        ``latency_probe`` (bench.py's ``knn_p50_ms`` at batch_size 1 and
+        ``knn_batch64_ms`` at 64).
+
+        ``reps`` searches of distinct resident queries (uniform in [-1, 1)
+        from ``seed``, uploaded once) are queued back to back on the current
+        stream, each folded into a device-side accumulator, with no host
+        sync between them, after one warm pass of the same searches; the
+        wall time from the first to one synchronize after the last, over
+        ``reps``. Host merge and result copies are not part of it."""
+        with self._lock:
+            if not self._key_to_slot:
+                raise ValueError("empty index")
+            self._flush_to_device()
+            run, operands = self._probe_searcher(k)
+            rng = np.random.default_rng(seed)
+            qpool = torch.from_numpy(rng.random(
+                (reps, batch_size, self.dim), dtype=np.float32) * 2.0 - 1.0
+            ).to(self.device)
+
+            def probe():
+                acc = torch.zeros((), dtype=torch.float32,
+                                  device=self.device)
+                for i in range(reps):
+                    ts, ti = run(qpool[i], operands)
+                    acc = acc + ts.sum() + ti.sum().float()
+                return acc
+
+            float(probe())  # warm
+            t0 = time.perf_counter()
+            acc = probe()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            total = time.perf_counter() - t0
+            float(acc)
+            return total / reps * 1e3
+
     def _passes_filter(self, key: Pointer, filt: Any) -> bool:
         return passes_filter(self._filter_data, key, filt)
 
@@ -672,6 +710,36 @@ class PagedKnnIndex(BruteForceKnnIndex):
                            constant_values=-np.inf)
             top_i = np.pad(top_i, ((0, 0), (0, pad)))
         return top_s, top_i
+
+    def _probe_searcher(self, k: int):
+        """``(run, operands)``, ``run(q, operands) -> (scores, global
+        slots)``: the device side of one search of (B, dim) queries, as
+        ``latency_probe`` times it. Each established extent is searched for
+        its min(k, rows, ``_CHUNK_ROWS``) best, and the parts merge on the
+        device by a stable descending sort (``lax.top_k``'s order over
+        parts laid out in slot order); nothing syncs the host."""
+        exts = [e for e in self._pool.extents if e.established]
+        ks = [min(k, e.rows, _CHUNK_ROWS) for e in exts]
+        bases = [e.base for e in exts]
+        operands = tuple((e.vectors, self._extent_extras(e), e.valid)
+                         for e in exts)
+        metric = self.metric
+
+        def run(q, operands):
+            ts_all, ti_all = [], []
+            for k_e, base, (vectors, extras, valid) in zip(ks, bases,
+                                                          operands):
+                ts, ti = search_extent(q, vectors, valid, k_e, metric,
+                                       extras)
+                ts_all.append(ts)
+                ti_all.append(ti + base)
+            if len(ts_all) == 1:
+                return ts_all[0], ti_all[0]
+            cand_s = torch.cat(ts_all, dim=1)
+            cand_i = torch.cat(ti_all, dim=1)
+            return _topk_gather(cand_s, cand_i, min(k, cand_s.shape[1]))
+
+        return run, operands
 
     def drain(self) -> None:
         """Block until every queued device write has finished."""

@@ -1,8 +1,11 @@
-"""The int8 slab's kernels — K3, the int8 search (``topk_i8``, score fused
-with the top-k, and ``score_i8``, the score alone), and K4, the quantizing
-scatter (ops/csrc/knn_i8.cu) — with their plain PyTorch versions.
+"""The KNN slabs' kernels — K2, the bf16 search (``topk_bf16``, score fused
+with the top-k; ops/csrc/knn_bf16.cu), K3, the int8 search (``topk_i8``,
+score fused with the top-k, and ``score_i8``, the score alone), and K4,
+the quantizing scatter (ops/csrc/knn_i8.cu) — with their plain PyTorch
+versions. K2 and K3 top-k share their top-k code (ops/csrc/knn_topk.cuh).
 
-They replace two XLA functions of pathway_tpu/ops/knn.py:
+They replace three XLA functions of pathway_tpu/ops/knn.py:
+``_shared_search_fn`` over a bf16 slab (K2, for k <= ``K_MAX``),
 ``_shared_search_i8_fn`` (K3: ``topk_i8`` for k <= ``K_MAX``, its score
 block ``score_i8`` for larger k) and ``_quantize_i8`` inside
 ``_shared_scatter_i8_fn`` and the int8 fused-ingest step (K4). On a CUDA
@@ -37,6 +40,15 @@ KNN_I8 = CudaLibrary("knn_i8", {
                                 + [_P] * 5),
     "pt_knn_error_string": (ctypes.c_char_p, [_I]),
 })
+KNN_BF16 = CudaLibrary("knn_bf16", {
+    # (B, N, D, k, &blocks)
+    "pt_knn_topk_bf16_blocks": (_I, [_I, _L, _I, _I,
+                                     ctypes.POINTER(ctypes.c_int)]),
+    # (q, slab, valid, ws, G, out_s, out_row, B, N, D, metric, k, stream)
+    "pt_knn_topk_bf16": (_I, [_P] * 4 + [_I, _P, _P, _I, _L, _I, _I, _I,
+                                         _P]),
+    "pt_knn_error_string": (ctypes.c_char_p, [_I]),
+})
 _METRICS = {"cos": 0, "l2sq": 1}
 
 
@@ -51,15 +63,16 @@ class LaunchCount:
 
 SCORE_I8 = LaunchCount("knn_score_i8")
 TOPK_I8 = LaunchCount("knn_topk_i8")
-# the largest k that ``topk_i8`` takes: the default limit, bench_knn's k=10
+TOPK_BF16 = LaunchCount("knn_topk_bf16")
+# the largest k that ``topk_i8`` and ``topk_bf16`` take: the default limit, bench_knn's k=10
 # and the 4x over-fetch of a filtered query up to limit 16
 K_MAX = 64
 QUANTIZE_SCATTER = LaunchCount("knn_quantize_scatter")
 
 
-def _raise_on(err: int, what: str) -> None:
+def _raise_on(err: int, what: str, lib: CudaLibrary = KNN_I8) -> None:
     if err != 0:
-        msg = KNN_I8.load().pt_knn_error_string(err).decode()
+        msg = lib.load().pt_knn_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
@@ -273,23 +286,105 @@ def topk_i8(q, slab, scales, vsq, valid, metric: str, k: int):
     if not _on_card(q, "topk_i8"):
         return topk_i8_reference(q, slab, scales, vsq, valid, metric, k)
     B, N, D = _check_i8_operands(q, slab, scales, vsq, valid)
+    return _launch_topk(KNN_I8, "topk_i8", TOPK_I8, q, N, k,
+                        lambda lib, ws, G, out_s, out_row, stream:
+                        lib.pt_knn_topk_i8(
+                            q.data_ptr(), slab.data_ptr(), scales.data_ptr(),
+                            vsq.data_ptr(), valid.data_ptr(), ws, G, out_s,
+                            out_row, B, N, D, _METRICS[metric], k, stream))
+
+
+def _launch_topk(lib: CudaLibrary, what: str, count: LaunchCount, q, N: int,
+                 k: int, launch):
+    """A fused top-k's two launches (``pt_knn_<what>``, with the grid from
+    ``pt_knn_<what>_blocks``) for queries q (B, D) on the card: allocates
+    the (B, k) outputs and the (grid, B, k) workspace, then calls
+    ``launch(lib, ws, grid, out_s, out_row, stream)`` with pointers;
+    raises on a refused launch and counts one."""
     _need(N < 2**31, f"N = {N} rows exceed the kernel's 31-bit rows")
+    B, D = q.shape
     scores = torch.empty((B, k), dtype=torch.float32, device=q.device)
     rows = torch.empty((B, k), dtype=torch.int64, device=q.device)
     if B == 0:
         return scores, rows
-    lib = KNN_I8.load()
+    so = lib.load()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(q.device):
-        _raise_on(lib.pt_knn_topk_i8_blocks(B, N, D, k, ctypes.byref(blocks)),
-                  "topk_i8")
+        _raise_on(getattr(so, f"pt_knn_{what}_blocks")(
+            B, N, D, k, ctypes.byref(blocks)), what, lib)
         ws = torch.empty((blocks.value, B, k), dtype=torch.int64,
                          device=q.device)
-        err = lib.pt_knn_topk_i8(
-            q.data_ptr(), slab.data_ptr(), scales.data_ptr(),
-            vsq.data_ptr(), valid.data_ptr(), ws.data_ptr(), blocks.value,
-            scores.data_ptr(), rows.data_ptr(), B, N, D, _METRICS[metric], k,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "topk_i8")
-    TOPK_I8.launches += 1
+        err = launch(so, ws.data_ptr(), blocks.value, scores.data_ptr(),
+                     rows.data_ptr(),
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, what, lib)
+    count.launches += 1
     return scores, rows
+
+
+# ---------------------------------------------------------------------------
+# K2: bf16 score fused with the top-k
+# ---------------------------------------------------------------------------
+
+def score_float_reference(q, vectors, valid, metric: str):
+    """The score block of the JAX package's ``_shared_search_fn``, plainly:
+    q (B, D) f32 already in the slab's precision, vectors (N, D) float32 or
+    bfloat16 -> (B, N) f32 scores, ``dots * rsqrt(||v||^2 + 1e-12)`` for
+    cos, ``2 dots - ||v||^2`` for l2sq, -inf on invalid rows."""
+    vf = vectors.float()
+    dots = q @ vf.T
+    vn_sq = (vf * vf).sum(dim=1)
+    if metric == "cos":
+        scores = dots * torch.rsqrt(vn_sq + 1e-12)[None, :]
+    else:
+        # -||q - v||^2 = 2 q·v - ||v||^2 - ||q||^2 ; drop ||q||^2
+        # (constant per query row, does not change ranking)
+        scores = 2.0 * dots - vn_sq[None, :]
+    return scores.masked_fill(~valid[None, :], -math.inf)
+
+
+def topk_bf16_reference(q, slab, valid, metric: str, k: int):
+    """Plain version of ``topk_bf16``: ``score_float_reference`` of the
+    bf16 queries, a stable descending sort, the first k columns."""
+    scores = score_float_reference(q.float(), slab, valid, metric)
+    s, i = torch.sort(scores, dim=1, descending=True, stable=True)
+    return s[:, :k], i[:, :k]
+
+
+def topk_bf16(q, slab, valid, metric: str, k: int):
+    """K2: the ``k`` best rows of one bf16 extent for each query, as
+    ``score_float_reference`` scores them — (B, k) float32 scores and
+    (B, k) int64 rows, best first, equal scores lowest row first, invalid
+    rows (-inf) ranked like any other (a stable descending sort's order,
+    ``lax.top_k``'s). q (B, D) bfloat16, normalised for cos then cast;
+    ``slab`` (N, D) bfloat16 and ``valid`` (N,) bool over a whole extent
+    of any length; 1 <= k <= ``K_MAX`` and k <= N.
+
+    CUDA tensors launch the fused kernel and its merge on the current
+    stream (counted once a call in ``TOPK_BF16.launches``); CPU tensors
+    take ``topk_bf16_reference``."""
+    _check_metric(metric)
+    N = slab.shape[0]
+    _need(1 <= k <= min(K_MAX, N), f"k = {k} must be in [1, min({K_MAX}, "
+          f"N = {N})]")
+    if not _on_card(q, "topk_bf16"):
+        return topk_bf16_reference(q, slab, valid, metric, k)
+    _need(q.dim() == 2 and q.dtype == torch.bfloat16 and q.is_contiguous(),
+          "q must be a contiguous (B, D) bfloat16")
+    B, D = q.shape
+    _need(slab.dtype == torch.bfloat16 and slab.shape == (N, D)
+          and slab.is_contiguous(), f"slab must be a contiguous (N, {D}) "
+          "bfloat16")
+    _need(valid.shape == (N,) and valid.dtype == torch.bool
+          and valid.is_contiguous(), f"valid must be a contiguous ({N},) "
+          "bool")
+    for t in (slab, valid):
+        _need(t.device == q.device, f"a tensor is on {t.device}, q on "
+              f"{q.device}")
+    _need(B <= 65535 * 64, f"B = {B} queries exceed the kernel's grid")
+    return _launch_topk(KNN_BF16, "topk_bf16", TOPK_BF16, q, N, k,
+                        lambda lib, ws, G, out_s, out_row, stream:
+                        lib.pt_knn_topk_bf16(
+                            q.data_ptr(), slab.data_ptr(), valid.data_ptr(),
+                            ws, G, out_s, out_row, B, N, D, _METRICS[metric],
+                            k, stream))
