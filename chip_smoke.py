@@ -26,10 +26,16 @@ non-zero, and no result line is printed):
    and f32; time at B=8 S=512 beside SDPA with the same boolean mask;
 5. K4 (quantizing scatter) bit for bit against its plain version, with
    zero rows, exact halves and sentinel slots that must leave the extent
-   untouched; K3's score (``score_i8``) against its plain version at B=1
-   and B=64, cos and l2sq; times, the score over 10,000,000 x 384 int8
-   rows in the index's chunks beside torch.matmul of a bf16 copy of one
-   chunk;
+   untouched; K3's score (``score_i8``, on K3 top-k's mainloop with a
+   store epilogue writing each score's 64-bit key) against the keys of
+   its plain version's scores: random codes within 1e-5 x max|score| and
+   exact-arithmetic rows with ties bit for bit (N in {10, 4097, 2^19}, B
+   in {1, 7, 33, 64, 65}, D = 384, 200, 1041); the route past K_MAX
+   (``search_extent``: ``score_i8`` per chunk + the key selection) on
+   exact rows with ties across chunks, k in ROUTE_KS, equal to the plain
+   scan + stable sort; times over the 10M indexes' 10,485,760 x 384 int8
+   rows beside the bound, torch.matmul of a bf16 copy per chunk, the
+   stable sort it replaced and the route now, at k=80;
 6. K3 top-k (``topk_i8``, the score fused with the top-k) against
    ``topk_i8_reference``: cos and l2sq, B in {1, 7, 9, 32, 64, 65}, N in
    {10, 4097, 100352, 10M}, k in {1, 10, 64}, random rows with invalid
@@ -47,25 +53,33 @@ non-zero, and no result line is printed):
    rows equal); times over the 10M index's 10,485,760 x 384 rows at B=1
    and B=64, k=10, beside the bound, the old route (torch.matmul + a
    stable sort per chunk + the merge) and torch.matmul + torch.topk per
-   chunk;
+   chunk. Then K2's score twin (``score_bf16``) as phase 5 holds K3's
+   score (D = 384 and 200, cos and l2sq exact), the route past K_MAX on
+   exact rows (cos and l2sq), and its times beside the bound, torch.matmul
+   per chunk, the route before it (score_float_reference + a stable sort
+   per chunk) and the route now, at k=80;
 8. path 1: ``DeviceEmbeddingKnnIndex(EncoderEmbedder(bge_small),
    BruteForceKnnIndex(384, bf16 paged))`` ingests ``--docs`` synthetic
    documents in batches of 512 through the fused path, then answers 64
    single-query text searches (32 copies of ingested documents, 32 fresh
-   texts). Checks: the launch count of K1 equals 12 x the encoder
-   dispatches of that run, K2's equals the searches x extents, every
-   query's top 10 against a brute-force scan of the same rows on the
-   card, every copy finding its document, and card-vs-CPU embeddings;
-   times K2 at the index's shape at B=1 and B=64 beside the old route;
+   texts) and one search with limit 20 and a filter (fetch 80: K2's score
+   twin). Checks: the launch count of K1 equals 12 x the encoder
+   dispatches of that run, K2's equals the searches x extents, K2 score's
+   1, every query's top 10 (and the filtered top 20) against a
+   brute-force scan of the same rows on the card, every copy finding its
+   document, ``search_extent`` at k in ROUTE_KS against the plain scan +
+   stable sort, and card-vs-CPU embeddings; times K2 at the index's shape
+   at B=1 and B=64 beside the old route;
 9. path 2: the same 100,000 documents and 64 queries through the ragged
    embedder into ``BruteForceKnnIndex(384, dtype="int8", metric="cos")``
    (K1 with segment ids, K4 in the fused write, K3 top-k in the search),
    and one search with limit 20 and a filter, whose fetch of 80 rows
-   takes K3's score and the sort. Checks: K1 launches = 12 x encoder
-   dispatches, K4 = ingest chunks, K3 top-k = 65 searches, K3 score = 1,
-   every top 10 (and the top 20) against a plain scan of the same int8
-   rows, every copy found, ragged vs padded embeddings, ``search_extent``
-   at k = 65 against the plain version;
+   takes K3's score and the key selection. Checks: K1 launches = 12 x
+   encoder dispatches, K4 = ingest chunks, K3 top-k = 65 searches, K3
+   score = 1, every top 10 (and the top 20) against a plain scan of the
+   same int8 rows, every copy found, ragged vs padded embeddings,
+   ``search_extent`` at k in ROUTE_KS against the plain scan + stable
+   sort;
 10. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
    on the flush path, K3 top-k in the search): query times at B=1 and
    B=64, every top 10 against the plain scan;
@@ -75,12 +89,19 @@ non-zero, and no result line is printed):
    then ``latency_probe`` as bench.py calls it (knn_int8_p50_ms,
    knn_int8_batch64_ms): add time, p50s and probe times, every top 10
    against the plain scan, B=64 equal to the B=1 searches, K3 top-k
-   launches = searches x extents, K3 score launches 0;
+   launches = searches x extents, K3 score launches 0. Then the filtered
+   search (limit 20, a filter every row passes: fetch 80 through the
+   route past K_MAX) at B=1 and B=64 with the same checks on its top 20,
+   K3 score launches = searches x 20 chunks and K3 top-k none; the route
+   at k in ROUTE_KS against the plain scan + stable sort, and its times
+   beside a stable sort per chunk of the same scores at B=1 and 64, k in
+   SELECT_KS;
 12. bench_knn's bf16 deployment (bench.py:3436-3490), after the int8
    index is freed: 10,000,000 x 384 uniform bf16 rows, cos, made on the
    card in 2^19-row seeded chunks and fed by ``add_batch_device``,
    searched and probed as phase 11 (knn_p50_ms, knn_batch64_ms), with
-   the same checks; K2 launches = searches x extents;
+   the same checks; K2 launches = searches x extents; the filtered
+   search, the route and its times as phase 11, with K2's score twin;
 13. profile: torch.profiler over three encoder forwards of each path's
    dispatch, device time by kernel group (K1, GEMM, other) and the
    device's busy share.
@@ -108,6 +129,10 @@ N_LAYERS = 12
 RAGGED_DOCS = 100_000  # path 2's documents, never cut
 K3_ROWS = 10_000_000   # the README's 10M x 384 deployment
 K2_ROWS = 10_485_760   # planned_capacity(10M): the 10M index's one extent
+# k of the route past K_MAX that the phases check, and the fetches at which
+# they time it (a filtered limit 20, 80 and 320 escalated)
+ROUTE_KS = (65, 320, 1280)
+SELECT_KS = (80, 320, 1280)
 WORDS_PER_DOC = 90  # bench.py make_docs: 90 words + CLS/SEP -> bucket 96
 
 
@@ -219,10 +244,12 @@ def phase_build():
         list(pool.map(lambda lib: lib.load(), libs))
     print(f"[build] {len(libs)} kernel source(s) built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    # K3 (score and top-k) and K2 multiply on the tensor cores too
+    # K3 (score and top-k) and K2 (top-k and score) multiply on the tensor
+    # cores too
     for lib, kernels in ((KNN_I8, ("knn_score_i8_kernel",
                                    "knn_topk_i8_kernel")),
-                         (KNN_BF16, ("knn_topk_bf16_kernel",))):
+                         (KNN_BF16, ("knn_topk_bf16_kernel",
+                                     "knn_score_bf16_kernel"))):
         for fn, (regs, spill) in sorted(ptxas_report(lib.build_log).items()):
             print(f"[build] ptxas {fn}: {regs} registers, {spill} bytes "
                   "spill stores", flush=True)
@@ -494,16 +521,19 @@ def hard_rows(n: int, dim: int, gen) -> "torch.Tensor":
 
 
 def phase_knn_i8(card: str) -> tuple[dict, dict]:
-    """K4 bit for bit and K3 within its tolerance against their plain
-    versions; their times beside their bounds."""
+    """K4 bit for bit and K3's score against their plain versions (the
+    score's keys against score_keys of the plain scores: within its
+    tolerance on random rows, bit for bit on exact rows with ties); their
+    times beside their bounds, K3's score over the 10M indexes'
+    10,485,760-row extent."""
     import torch
 
-    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS
+    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS, KnnMetric, search_extent
     from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
                                                    SCORE_I8,
                                                    quantize_scatter,
                                                    quantize_scatter_reference,
-                                                   score_i8,
+                                                   key_scores, score_i8,
                                                    score_i8_reference)
 
     from pathway_tpu_torch.engine.profiler import ingest_scatter_cost
@@ -542,30 +572,79 @@ def phase_knn_i8(card: str) -> tuple[dict, dict]:
             fail(f"K4 n={n}: codes/scales/vsq/valid differ from the plain "
                  "version or a row outside the slots changed")
 
-    # K3 over one _CHUNK_ROWS chunk, cos and l2sq, B = 1 and 64
-    slab, scales, vsq, valid = extent(_CHUNK_ROWS)
-    vsq = (slab.int() ** 2).sum(1).float()
-    k3_err = 0.0
+    # K3 score's keys against the plain version's scores: random codes with
+    # 10% invalid rows (within 1e-5 x max|score|, -inf rows exact) and
+    # exact-arithmetic rows with ties (codes in [-4, 4], power-of-two
+    # scales, the first half of the rows repeated, integer queries: l2sq
+    # keys equal bit for bit)
+    def operands(N, B, exact, D=D):
+        """(q, slab, scales, vsq, valid): random codes and unit queries, or
+        (exact) codes in [-4, 4], power-of-two scales, the first half of
+        the rows repeated, integer queries; 10% of the rows invalid."""
+        hi = 4 if exact else 127
+        slab = torch.randint(-hi, hi + 1, (N, D), generator=gen,
+                             device="cuda", dtype=torch.int8)
+        if exact:
+            scales = 2.0 ** -torch.randint(0, 4, (N,), generator=gen,
+                                           device="cuda").float()
+            half = N // 2
+            slab[N - half:] = slab[:half].clone()
+            scales[N - half:] = scales[:half].clone()
+            q = torch.randint(-3, 4, (B, D), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+        else:
+            scales = torch.rand(N, generator=gen, device="cuda") + 0.01
+            q = torch.randn((B, D), generator=gen, device="cuda")
+            q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        vsq = (slab.int() ** 2).sum(1).float()
+        valid = torch.rand(N, generator=gen, device="cuda") > 0.1
+        return q, slab, scales, vsq, valid
+
+    def score_case(N, B, metric, exact, D=D):
+        ops = (*operands(N, B, exact, D), metric)
+        keys = score_i8(*ops)
+        torch.cuda.synchronize()
+        return hold_keys(keys, score_i8_reference(*ops), exact,
+                         f"K3 score N={N} B={B} D={D} {metric}"
+                         + (" exact" if exact else ""))
+
+    k3_err, cases = 0.0, 0
+    for N in (10, 4097, _CHUNK_ROWS):
+        for B in (1, 7, 33, 64, 65):
+            for metric in ("cos", "l2sq"):
+                err = score_case(N, B, metric, False)
+                if N == _CHUNK_ROWS and B == 1 and metric == "cos":
+                    k3_err = err
+            score_case(N, B, "l2sq", True)
+            cases += 3
+    for B in (1, 64):  # D not a multiple of 64 (nor of 16: no ring)
+        score_case(4097, B, "cos", False, D=200)
+        score_case(4097, B, "l2sq", True, D=200)
+        score_case(4097, B, "cos", False, D=1041)
+        cases += 3
+    print(f"[K3 score] {cases} cases against the plain version (N in {{10, "
+          f"4097, {_CHUNK_ROWS}}}, B in {{1, 7, 33, 64, 65}}, D = 384, 200, "
+          f"1041): random rows within 1e-5 x max|score| (largest error "
+          f"{k3_err:.3e} at B=1 N={_CHUNK_ROWS} cos), keys of exact rows "
+          "with ties equal bit for bit", flush=True)
+    # the route past K_MAX (search_extent: score_i8 per chunk + the key
+    # selection) on exact rows with ties across its chunks (l2sq): the same
+    # scores and rows as the plain scan + stable sort
+    N = 2 * _CHUNK_ROWS + 4097
     for B in (1, 64):
-        q = torch.randn((B, D), generator=gen, device="cuda")
-        q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-        for metric in ("cos", "l2sq"):
-            got = score_i8(q, slab, scales, vsq, valid, metric)
+        q, slab, scales, vsq, valid = operands(N, B, True)
+        for k in ROUTE_KS:
+            got = search_extent(q.float(), slab, valid, k, KnnMetric.L2SQ,
+                                (scales, vsq))
             torch.cuda.synchronize()
-            ref = score_i8_reference(q, slab, scales, vsq, valid, metric)
-            fin = torch.isfinite(ref)
-            # exact products; f32 sums in another order: f32-sized
-            tol = 1e-5 * max(1.0, float(ref[fin].abs().max()))
-            err = float((got[fin] - ref[fin]).abs().max())
-            same_inf = torch.equal(fin, torch.isfinite(got))
-            print(f"[K3] B={B} N={_CHUNK_ROWS} {metric}: max_abs_err "
-                  f"{err:.3e} (tolerance {tol:.3e}), -inf rows agree "
-                  f"{same_inf}", flush=True)
-            if not same_inf or not err <= tol:
-                fail(f"K3 B={B} {metric}: {err} > {tol}")
-            if B == 1 and metric == "cos":
-                k3_err = err
-    del slab, scales, vsq, valid
+            hold_route(got, sort_route(lambda c0, c1: score_i8_reference(
+                q, slab[c0:c1], scales[c0:c1], vsq[c0:c1], valid[c0:c1],
+                "l2sq"), N, k), None, True,
+                f"int8 route N={N} B={B} k={k} exact")
+    del q, slab, scales, vsq, valid
+    print(f"[K3 score] the route past K_MAX on exact rows with ties across "
+          f"chunks, N={N:,}, B in {{1, 64}}, k in {ROUTE_KS} (l2sq): scores "
+          f"and rows equal to the plain scan + stable sort", flush=True)
 
     # K4's time at path 2's write (a ragged chunk: 8 x 32 rows, ~40 real)
     R = 100_352
@@ -595,50 +674,67 @@ def phase_knn_i8(card: str) -> tuple[dict, dict]:
           f"GB/s [{card}]", flush=True)
     del ext, rows
 
-    # K3 over 10M x 384 int8 rows (3.84 GB), scored chunk by chunk as the
-    # index scans an extent
-    N = K3_ROWS
+    # K3 score over the 10M indexes' extent, 10,485,760 x 384 int8 rows
+    # (4.03 GB), chunk by chunk as search_extent scans it
+    N = K2_ROWS
     slab = torch.randint(-127, 128, (N, D), generator=gen, device="cuda",
                          dtype=torch.int8)
     scales = torch.rand(N, generator=gen, device="cuda") + 0.01
     vsq = torch.rand(N, generator=gen, device="cuda") * 1e6
     valid = torch.ones(N, dtype=torch.bool, device="cuda")
     chunk_bf16 = slab[:_CHUNK_ROWS].to(torch.bfloat16)
-    n_chunks = N / _CHUNK_ROWS
+    n_chunks = N // _CHUNK_ROWS
     k3 = {}
     for B in (1, 64):
-        q = torch.randn((B, D), generator=gen, device="cuda").to(
-            torch.bfloat16)
+        qraw = torch.randn((B, D), generator=gen, device="cuda")
+        q = (qraw / qraw.norm(dim=1, keepdim=True)).to(torch.bfloat16)
 
-        def scan(fn):
+        def scan(fn, *extra):
             for c0 in range(0, N, _CHUNK_ROWS):
-                c1 = min(c0 + _CHUNK_ROWS, N)
+                c1 = c0 + _CHUNK_ROWS
                 fn(q, slab[c0:c1], scales[c0:c1], vsq[c0:c1], valid[c0:c1],
-                   "cos")
+                   "cos", *extra)
 
-        ms = cuda_ms(lambda: scan(score_i8), 5)
+        ms = cuda_ms(lambda: scan(score_i8), 10)
         plain_ms = cuda_ms(lambda: scan(score_i8_reference), 2)
         mm_ms = cuda_ms(lambda: torch.matmul(q, chunk_bf16.T), 20) * n_chunks
-        # cos reads codes, vsq and valid; writes the (B, N) scores
-        nbytes = N * (D + 4 + 1) + B * D * 2 + B * N * 4
+        # the route at k = 80 (a filtered limit 20): with the stable sort
+        # per chunk it replaced (of the scores, from the kernel's keys), and
+        # as search_extent runs it now
+        old_ms = cuda_ms(lambda: sort_route(lambda c0, c1: key_scores(
+            score_i8(q, slab[c0:c1], scales[c0:c1], vsq[c0:c1],
+                     valid[c0:c1], "cos")), N, 80), 2)
+        route_ms = cuda_ms(lambda: search_extent(
+            qraw, slab, valid, 80, KnnMetric.COS, (scales, vsq)), 5)
+        # cos reads codes, vsq and valid; writes the (B, N) int64 keys
+        nbytes = N * (D + 4 + 1) + B * D * 2 + B * N * 8
         bound_ms, bound_by = bound(2.0 * B * N * D, nbytes)
-        print(f"[K3] B={B} over {N:,} x {D} int8 rows in {n_chunks:.2f} "
-              f"chunks (cos): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.matmul of a bf16 copy of one chunk x {n_chunks:.2f} "
-              f"{mm_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-              f"{nbytes / 1e9:.3f} GB, {2.0 * B * N * D / 1e9:.1f} GFLOP), "
-              f"share of bound {bound_ms / ms:.3f} [{card}]", flush=True)
-        k3[B] = (ms, plain_ms, mm_ms, bound_ms, bound_by)
+        print(f"[K3 score] B={B} over {N:,} x {D} int8 rows in {n_chunks} "
+              f"chunks (cos, writing keys): kernel {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e9:.3f} GB, "
+              f"{2.0 * B * N * D / 1e9:.1f} GFLOP), share of bound "
+              f"{bound_ms / ms:.3f}; torch.matmul of a bf16 copy of one "
+              f"chunk x {n_chunks} {mm_ms:.4f} ms; plain {plain_ms:.4f} ms;"
+              f" the route at k=80: score_i8 + stable sort per chunk "
+              f"{old_ms:.4f} ms, now (search_extent) {route_ms:.4f} ms "
+              f"[{card}]", flush=True)
+        k3[B] = (ms, plain_ms, mm_ms, bound_ms, bound_by, old_ms, route_ms)
     del slab, scales, vsq, valid, chunk_bf16
     torch.cuda.empty_cache()
     QUANTIZE_SCATTER.launches, SCORE_I8.launches = k4_before, k3_before
-    ms, plain_ms, mm_ms, bound_ms, bound_by = k3[1]
+    ms, plain_ms, mm_ms, bound_ms, bound_by, old_ms, route_ms = k3[1]
+    ms64, plain64, mm64, bound64, by64, old64, route64 = k3[64]
     k3_rec = {"name": "knn_score_i8", "route": "cuda",
               "source": "pathway_tpu_torch/ops/csrc/knn_i8.cu",
               "replaces": "pathway_tpu/ops/knn.py:211",
               "max_abs_err": k3_err, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": bound_by,
-              "bound_share": bound_ms / ms, "library_ms": mm_ms}
+              "bound_share": bound_ms / ms, "library_ms": mm_ms,
+              "old_route_ms": old_ms, "route_ms": route_ms,
+              "b64": {"ms": ms64, "plain_ms": plain64, "bound_ms": bound64,
+                      "bound_by": by64, "bound_share": bound64 / ms64,
+                      "library_ms": mm64, "old_route_ms": old64,
+                      "route_ms": route64}}
     k4_rec = {"name": "knn_quantize_scatter", "route": "cuda",
               "source": "pathway_tpu_torch/ops/csrc/knn_i8.cu",
               "replaces": "pathway_tpu/ops/knn.py:241",
@@ -646,6 +742,33 @@ def phase_knn_i8(card: str) -> tuple[dict, dict]:
               "bound_ms": k4_bound, "bound_by": k4_by,
               "bound_share": k4_bound / k4_ms, "library_ms": None}
     return k3_rec, k4_rec
+
+
+def hold_keys(keys, ref, exact: bool, label: str) -> float:
+    """A score kernel's (B, N) keys against the plain (B, N) scores ``ref``:
+    equal to ``score_keys(ref)`` on exact-arithmetic rows; else each key
+    in its column, its score within 1e-5 x max|score| (exact products, f32
+    sums in another order) and -inf where ``ref`` is. Returns the largest
+    score error."""
+    import torch
+
+    from pathway_tpu_torch.ops.knn_kernels import (key_rows, key_scores,
+                                                   score_keys)
+
+    if exact:
+        if not torch.equal(keys, score_keys(ref)):
+            fail(f"{label}: keys differ from the plain version's")
+        return 0.0
+    cols = torch.arange(ref.shape[1], device=ref.device).expand_as(keys)
+    got = key_scores(keys)
+    fin = torch.isfinite(ref)
+    tol = 1e-5 * max(1.0, float(ref[fin].abs().max()))
+    err = float((got[fin] - ref[fin]).abs().max())
+    if not (torch.equal(key_rows(keys), cols)
+            and torch.equal(fin, torch.isfinite(got)) and err <= tol):
+        fail(f"{label}: max_abs_err {err} > {tol}, -inf rows differ or a "
+             "key is out of its column")
+    return err
 
 
 def hold_topk(s, i, rs, ri, full, label: str) -> float:
@@ -674,15 +797,87 @@ def hold_topk(s, i, rs, ri, full, label: str) -> float:
     return err
 
 
+def sort_route(score, n: int, k: int):
+    """The route past K_MAX as it was before the key selection, written
+    plainly: each _CHUNK_ROWS chunk's scores ``score(c0, c1)`` in a stable
+    descending sort, its first k, then a stable sort of the candidates.
+    With the plain version's scores it is the plain scan + stable sort.
+    Returns (B, k) scores and rows."""
+    import torch
+
+    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS
+
+    cand_s, cand_i = [], []
+    for c0 in range(0, n, _CHUNK_ROWS):
+        c1 = min(c0 + _CHUNK_ROWS, n)
+        s, i = torch.sort(score(c0, c1), dim=1, descending=True, stable=True)
+        cand_s.append(s[:, :k])
+        cand_i.append(i[:, :k] + c0)
+    s, pos = torch.sort(torch.cat(cand_s, dim=1), dim=1, descending=True,
+                        stable=True)
+    return s[:, :k], torch.gather(torch.cat(cand_i, dim=1), 1, pos[:, :k])
+
+
+def hold_route(got, ref, full, exact: bool, label: str) -> float:
+    """``search_extent``'s (scores, rows) past K_MAX against the plain scan
+    + stable sort's: equal on exact-arithmetic inputs, else as
+    ``hold_topk`` holds a top-k kernel (``full``: the plain (B, N)
+    scores). Returns the largest score error."""
+    import torch
+
+    (s, i), (rs, ri) = got, ref
+    if exact:
+        if not (torch.equal(s, rs) and torch.equal(i, ri)):
+            fail(f"{label}: scores or rows differ from the plain scan + "
+                 "stable sort")
+        return 0.0
+    return hold_topk(s, i, rs, ri, full, label)
+
+
+def time_selection(make_score, n: int, label: str, card: str) -> dict:
+    """The route past K_MAX over one extent of ``n`` rows, ``make_score(B)``
+    giving (q, ``score(c0, c1, out=None)``), the queries and the score
+    kernel's keys on a chunk for them: as ``search_extent`` runs it
+    (``search_chunks``: the kernel's keys of up to 64 // B chunks in one
+    ``torch.topk``) beside the selection it replaced, a stable sort per
+    chunk of the scores and of the candidates (``sort_route``, over the
+    scores decoded from the same keys). Each at B=1 and 64 and k in
+    SELECT_KS, after checking that both return the same scores and rows.
+    Returns {(B, k): (ms sort, ms route)}."""
+    from pathway_tpu_torch.ops.knn import search_chunks
+    from pathway_tpu_torch.ops.knn_kernels import key_scores
+
+    out = {}
+    for B in (1, 64):
+        q, score = make_score(B)
+        for k in SELECT_KS:
+            cands = (
+                lambda: sort_route(lambda c0, c1: key_scores(score(c0, c1)),
+                                   n, k),
+                lambda: search_chunks(score, n, k, q))
+            got = [c() for c in cands]
+            hold_route(got[1], got[0], None, True,
+                       f"{label} B={B} k={k}: the route against the sort")
+            iters = 10 if B == 1 else 3
+            out[(B, k)] = tuple(cuda_ms(c, iters) for c in cands)
+            t1, tr = out[(B, k)]
+            print(f"[{label}] route past K_MAX, B={B} k={k} over {n:,} rows "
+                  f"(score kernel + selection): stable sort per chunk "
+                  f"{t1:.4f} ms; the route as search_extent runs it (kernel "
+                  f"keys, chunks grouped, torch.topk) {tr:.4f} ms; both "
+                  f"equal [{card}]", flush=True)
+    return out
+
+
 def phase_topk_i8(card: str) -> dict:
     """K3 top-k against its plain version over random and exact-arithmetic
     extents up to 10M rows; its times over 10M x 384 rows at B=1 and B=64
     beside the bound, the old route and torch's matmul + topk."""
     import torch
 
-    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS, search_chunks
+    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS
     from pathway_tpu_torch.ops.knn_kernels import (SCORE_I8, TOPK_I8,
-                                                   score_i8,
+                                                   key_scores, score_i8,
                                                    score_i8_reference,
                                                    topk_i8,
                                                    topk_i8_reference)
@@ -785,9 +980,9 @@ def phase_topk_i8(card: str) -> dict:
             err1 = check((slab, scales, vsq, valid), 1, "cos", k, False)
 
         def old_route():
-            return search_chunks(lambda c0, c1: score_i8(
+            return sort_route(lambda c0, c1: key_scores(score_i8(
                 q, slab[c0:c1], scales[c0:c1], vsq[c0:c1], valid[c0:c1],
-                "cos"), N, k)
+                "cos")), N, k)
 
         ms = cuda_ms(lambda: topk_i8(q, slab, scales, vsq, valid, "cos", k),
                      20)
@@ -834,7 +1029,7 @@ def phase_topk_bf16(card: str) -> dict:
     torch's matmul + topk per chunk."""
     import torch
 
-    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS, search_chunks
+    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS
     from pathway_tpu_torch.ops.knn_kernels import (TOPK_BF16,
                                                    score_float_reference,
                                                    topk_bf16,
@@ -953,7 +1148,7 @@ def phase_topk_bf16(card: str) -> dict:
         qf = q.float()
 
         def old_route():  # search_extent's bf16 route before K2
-            return search_chunks(lambda c0, c1: score_float_reference(
+            return sort_route(lambda c0, c1: score_float_reference(
                 qf, slab[c0:c1], valid[c0:c1], "cos"), N, k)
 
         ms = cuda_ms(lambda: topk_bf16(q, slab, valid, "cos", k), 20)
@@ -994,8 +1189,179 @@ def phase_topk_bf16(card: str) -> dict:
                     "library_ms": lib64, "old_route_ms": old64}}
 
 
-def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int]:
-    """Path 1. Returns the launches of K1 and K2 in the counted run."""
+def phase_score_bf16(card: str) -> dict:
+    """K2's score twin (``score_bf16``) against its plain version over
+    random and exact-arithmetic bf16 chunks (its keys against score_keys
+    of the plain scores); its times over the 10M index's
+    10,485,760-row extent at B=1 and B=64 beside the bound, torch.matmul
+    per chunk, the route before it (score_float_reference + a stable sort
+    per chunk, at a filtered limit-20 fetch of 80) and the route now."""
+    import torch
+
+    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS, KnnMetric, search_extent
+    from pathway_tpu_torch.ops.knn_kernels import (SCORE_BF16, score_bf16,
+                                                   score_bf16_reference,
+                                                   score_float_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    before = SCORE_BF16.launches
+
+    def pm1(N, D, nnz_choices=(4, 16)):
+        """N rows of +-1 on 4 or 16 contiguous columns at a random offset
+        (squared norms 4 and 16), bf16"""
+        col = torch.arange(D, device="cuda")
+        nnz = torch.where(torch.rand(N, generator=gen, device="cuda") < 0.5,
+                          *nnz_choices)
+        off = torch.randint(0, D - 15, (N,), generator=gen, device="cuda")
+        sign = torch.randint(0, 2, (N, D), generator=gen, device="cuda",
+                             dtype=torch.int8) * 2 - 1
+        on = (col >= off[:, None]) & (col < (off + nnz)[:, None])
+        return (on * sign).to(torch.bfloat16)
+
+    def operands(N, B, exact, D=384):
+        """(q, slab, valid): uniform rows in [-1, 1) and unit queries; or
+        (exact) +-1 rows with the first half repeated and integer queries;
+        10% of the rows invalid."""
+        if exact:
+            slab = pm1(N, D)
+            half = N // 2
+            slab[N - half:] = slab[:half].clone()
+            q = torch.randint(-3, 4, (B, D), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+        else:
+            slab = (torch.rand((N, D), generator=gen, device="cuda") * 2
+                    - 1).to(torch.bfloat16)
+            q = torch.randn((B, D), generator=gen, device="cuda")
+            q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        valid = torch.rand(N, generator=gen, device="cuda") > 0.1
+        return q, slab, valid
+
+    def case(N, B, metric, exact, D=384):
+        """The kernel's keys against the plain version's scores: within
+        1e-5 x max|score|, or (exact) bit for bit."""
+        q, slab, valid = operands(N, B, exact, D)
+        keys = score_bf16(q, slab, valid, metric)
+        torch.cuda.synchronize()
+        return hold_keys(keys, score_bf16_reference(q, slab, valid, metric),
+                         exact, f"K2 score N={N} B={B} D={D} {metric}"
+                         + (" exact" if exact else ""))
+
+    err1, cases = 0.0, 0
+    for N in (10, 4097, _CHUNK_ROWS):
+        for B in (1, 7, 33, 64, 65):
+            for metric in ("cos", "l2sq"):
+                err = case(N, B, metric, False)
+                if N == _CHUNK_ROWS and B == 1 and metric == "cos":
+                    err1 = err
+                case(N, B, metric, True)
+                cases += 2
+    for B in (1, 64):  # D = 200: no ring (D % 128), byte-wise loads
+        for metric in ("cos", "l2sq"):
+            case(4097, B, metric, False, D=200)
+            case(4097, B, metric, True, D=200)
+            cases += 2
+    print(f"[K2 score] {cases} cases against the plain version (N in {{10, "
+          f"4097, {_CHUNK_ROWS}}}, B in {{1, 7, 33, 64, 65}}, D = 384 and "
+          f"200, cos and l2sq): random rows within 1e-5 x max|score| "
+          f"(largest error {err1:.3e} at B=1 N={_CHUNK_ROWS} cos), keys of "
+          "exact rows with ties equal bit for bit", flush=True)
+    # the route past K_MAX (search_extent: score_bf16 per chunk + the key
+    # selection) on exact rows with ties across its chunks: l2sq with
+    # integer queries, cos with queries of +-1 on 4 or 16 columns (their
+    # normalised bf16 values +-1/2 or +-1/4, so every score is exact)
+    N = 2 * _CHUNK_ROWS + 4097
+    for B in (1, 64):
+        _, slab, valid = operands(N, B, True)
+        for metric in ("cos", "l2sq"):
+            q = pm1(B, 384) if metric == "cos" else torch.randint(
+                -3, 4, (B, 384), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+            qn = q.float()
+            if metric == "cos":
+                qn = qn / (torch.linalg.vector_norm(qn, dim=1, keepdim=True)
+                           + 1e-12)
+            qn = qn.to(torch.bfloat16)
+            for k in ROUTE_KS:
+                got = search_extent(q.float(), slab, valid, k,
+                                    KnnMetric(metric))
+                torch.cuda.synchronize()
+                hold_route(got, sort_route(
+                    lambda c0, c1: score_bf16_reference(
+                        qn, slab[c0:c1], valid[c0:c1], metric), N, k),
+                    None, True, f"bf16 route N={N} B={B} k={k} {metric} "
+                    "exact")
+    del slab, valid
+    print(f"[K2 score] the route past K_MAX on exact rows with ties across "
+          f"chunks, N={N:,}, B in {{1, 64}}, k in {ROUTE_KS}, cos and l2sq: "
+          f"scores and rows equal to the plain scan + stable sort",
+          flush=True)
+
+    # times over the 10M index's extent (all valid), cos
+    N, D = K2_ROWS, 384
+    slab = torch.empty((N, D), dtype=torch.bfloat16, device="cuda")
+    for c0 in range(0, N, 1 << 20):
+        slab[c0:c0 + (1 << 20)] = (torch.rand(
+            (min(1 << 20, N - c0), D), generator=gen, device="cuda") * 2
+            - 1).to(torch.bfloat16)
+    valid = torch.ones(N, dtype=torch.bool, device="cuda")
+    n_chunks = N // _CHUNK_ROWS
+    times = {}
+    for B in (1, 64):
+        qraw = torch.randn((B, D), generator=gen, device="cuda")
+        q = (qraw / qraw.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        qf = q.float()
+
+        def scan(fn, *extra):
+            for c0 in range(0, N, _CHUNK_ROWS):
+                c1 = c0 + _CHUNK_ROWS
+                fn(q, slab[c0:c1], valid[c0:c1], "cos", *extra)
+
+        ms = cuda_ms(lambda: scan(score_bf16), 10)
+        plain_ms = cuda_ms(lambda: scan(score_bf16_reference), 2)
+        lib_ms = cuda_ms(lambda: [torch.matmul(q, slab[c0:c0 + _CHUNK_ROWS].T)
+                                  for c0 in range(0, N, _CHUNK_ROWS)], 5)
+        old_ms = cuda_ms(lambda: sort_route(
+            lambda c0, c1: score_float_reference(qf, slab[c0:c1],
+                                                 valid[c0:c1], "cos"),
+            N, 80), 2)
+        route_ms = cuda_ms(lambda: search_extent(qraw, slab, valid, 80,
+                                                 KnnMetric.COS), 5)
+        # reads the rows, valid and the queries; writes the (B, N) int64
+        # keys
+        nbytes = N * (2 * D + 1) + B * D * 2 + B * N * 8
+        bound_ms, bound_by = bound(2.0 * B * N * D, nbytes)
+        print(f"[K2 score] B={B} over {N:,} x {D} bf16 rows in {n_chunks} "
+              f"chunks (cos, writing keys): kernel {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e9:.3f} GB), share "
+              f"of bound {bound_ms / ms:.3f}; torch.matmul per chunk (bf16 "
+              f"out) x {n_chunks} "
+              f"{lib_ms:.4f} ms; plain {plain_ms:.4f} ms; the route at k=80:"
+              f" before (score_float_reference + stable sort per chunk) "
+              f"{old_ms:.4f} ms, now (search_extent) {route_ms:.4f} ms "
+              f"[{card}]", flush=True)
+        times[B] = (ms, plain_ms, lib_ms, bound_ms, bound_by, old_ms,
+                    route_ms)
+    del slab, valid
+    torch.cuda.empty_cache()
+    SCORE_BF16.launches = before
+    ms, plain_ms, lib_ms, bound_ms, bound_by, old_ms, route_ms = times[1]
+    ms64, plain64, lib64, bound64, by64, old64, route64 = times[64]
+    return {"name": "knn_score_bf16", "route": "cuda",
+            "source": "pathway_tpu_torch/ops/csrc/knn_bf16.cu",
+            "replaces": "pathway_tpu/ops/knn.py:172",
+            "max_abs_err": err1, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "library_ms": lib_ms,
+            "old_route_ms": old_ms, "route_ms": route_ms,
+            "b64": {"ms": ms64, "plain_ms": plain64, "bound_ms": bound64,
+                    "bound_by": by64, "bound_share": bound64 / ms64,
+                    "library_ms": lib64, "old_route_ms": old64,
+                    "route_ms": route64}}
+
+
+def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int, int]:
+    """Path 1. Returns the launches of K1, K2 and K2's score twin in the
+    counted run."""
     import torch
 
     from pathway_tpu_torch.internals.keys import Pointer
@@ -1005,8 +1371,8 @@ def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int]:
     from pathway_tpu_torch.ops.attention import ATTENTION
     from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
                                            DeviceEmbeddingKnnIndex,
-                                           search_chunks, search_extent)
-    from pathway_tpu_torch.ops.knn_kernels import (TOPK_BF16,
+                                           search_extent)
+    from pathway_tpu_torch.ops.knn_kernels import (SCORE_BF16, TOPK_BF16,
                                                    score_float_reference)
     from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
 
@@ -1035,7 +1401,7 @@ def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int]:
           f"ms ({flops / fwd_ms / 1e9:.1f} TFLOP/s) [{card}]", flush=True)
 
     # the counted run: ingest, then single-query searches
-    ATTENTION.launches = TOPK_BF16.launches = 0
+    ATTENTION.launches = TOPK_BF16.launches = SCORE_BF16.launches = 0
     emb.dispatches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1052,8 +1418,12 @@ def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int]:
         res = index.search([(Pointer(10**9 + qi), text, 10, None)])
         lat_ms.append((time.perf_counter() - t1) * 1e3)
         results.append(res[0])
+    # limit 20 with a filter (one every document passes) fetches 80 rows,
+    # past K_MAX: K2's score twin and the key selection
+    res20 = index.search([(Pointer(10**9 + 99), queries[40], 20,
+                           lambda data: True)])[0]
     launches, dispatches = ATTENTION.launches, emb.dispatches
-    k2_launches = TOPK_BF16.launches
+    k2_launches, score_launches = TOPK_BF16.launches, SCORE_BF16.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     print(f"[slice] ingested {len(index)} docs into "
@@ -1067,7 +1437,8 @@ def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int]:
     print(f"[slice] K1 launches {launches}, encoder dispatches {dispatches}"
           f" (x{N_LAYERS} = {N_LAYERS * dispatches}); K2 launches "
           f"{k2_launches} ({len(queries) + 1} searches x {n_ext} "
-          "extent(s))", flush=True)
+          f"extent(s)); K2 score {score_launches} (the filtered search)",
+          flush=True)
     if len(index) != n_docs:
         fail(f"index holds {len(index)} docs, expected {n_docs}")
     if dispatches == 0 or launches != N_LAYERS * dispatches:
@@ -1075,6 +1446,9 @@ def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int]:
     if k2_launches != (len(queries) + 1) * n_ext:
         fail(f"K2 ran {k2_launches} times, not once for each of the "
              f"{len(queries) + 1} searches x {n_ext} extent(s)")
+    if score_launches != n_ext:
+        fail("the filtered search's fetch past K_MAX did not take K2's "
+             "score twin once an extent")
 
     # the index against a brute-force scan of the same rows on the card.
     # The index scores bf16(query) against bf16 rows in f32 (the JAX
@@ -1112,7 +1486,7 @@ def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int]:
         qf = qb.to(torch.bfloat16).float()
         k2_ms = cuda_ms(lambda: search_extent(qb, ext.vectors, ext.valid, 10,
                                               inner.metric), 20)
-        old_ms = cuda_ms(lambda: search_chunks(
+        old_ms = cuda_ms(lambda: sort_route(
             lambda c0, c1: score_float_reference(
                 qf, ext.vectors[c0:c1], ext.valid[c0:c1],
                 inner.metric.value), N, 10), 20)
@@ -1165,6 +1539,27 @@ def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int]:
         own_rank1 += got[0] == doc_id
     print(f"[slice] duplicate queries: 32/32 find their document in the top"
           f" 10, {own_rank1}/32 at rank 1", flush=True)
+    # the filtered search's top 20 against the plain scan's scores, and
+    # the route past K_MAX against the plain scan + stable sort
+    keys_of = np.array([int(inner._slot_to_key.get(int(s), -1))
+                        for s in base])
+    metric = inner.metric.value
+    check_top10([res20], score_float_reference(qv[40:41], rows, valid,
+                                               metric),
+                keys_of, "path 1 filtered", n=20)
+    score_before = SCORE_BF16.launches
+    q8, N = qv[:8], ext.vectors.shape[0]
+    full = score_float_reference(q8, ext.vectors, ext.valid, metric)
+    for k in ROUTE_KS:
+        got = search_extent(q8, ext.vectors, ext.valid, k, inner.metric)
+        torch.cuda.synchronize()
+        hold_route(got, sort_route(lambda c0, c1: full[:, c0:c1], N, k),
+                   full, False, f"path 1 search_extent k={k}")
+    SCORE_BF16.launches = score_before  # comparisons don't count
+    print(f"[slice] the filtered limit-20 search's top 20 equal the plain "
+          f"scan's; search_extent at k in {ROUTE_KS} (K2's score twin + the"
+          f" key selection) against the plain scan + stable sort: within "
+          f"1e-5 x max|score|, -inf ranks exact", flush=True)
 
     # card (kernel) vs CPU (plain attention), same weights and dtype
     cpu_emb = EncoderEmbedder(config=cfg, params=params, device="cpu")
@@ -1176,7 +1571,7 @@ def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int]:
           f"{cos.min():.6f} (required >= 0.999)", flush=True)
     if not np.all(np.isfinite(a)) or cos.min() < 0.999:
         fail("card embeddings disagree with the CPU port")
-    return launches, k2_launches
+    return launches, k2_launches, score_launches
 
 
 def check_top10(results, scan_scores, keys_of, label: str, n: int = 10
@@ -1246,8 +1641,7 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int, int]:
                                            KnnMetric, search_extent)
     from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
                                                    SCORE_I8, TOPK_I8,
-                                                   score_i8_reference,
-                                                   topk_i8_reference)
+                                                   score_i8_reference)
     from pathway_tpu_torch.engine.profiler import segment_attention_cost
     from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
 
@@ -1304,7 +1698,7 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int, int]:
         lat_ms.append((time.perf_counter() - t1) * 1e3)
         results.append(res[0])
     # limit 20 with a filter (one every document passes) fetches 80 rows,
-    # past K_MAX: K3's score and the stable sort
+    # past K_MAX: K3's score and the key selection
     res20 = index.search([(Pointer(10**9 + 99), queries[40], 20,
                            lambda data: True)])[0]
     launches = (ATTENTION.launches, TOPK_I8.launches, SCORE_I8.launches,
@@ -1357,24 +1751,31 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int, int]:
           f"queries pass, rank 1 identical on {rank1}/64 (the rest within a"
           f" 1e-6 score tie); the filtered limit-20 search's top 20 too",
           flush=True)
-    # the large-k route once more, directly: search_extent at k = K_MAX + 1
-    # (score_i8 + stable sort) against the plain version
+    # the route past K_MAX once more, directly: search_extent at k in
+    # ROUTE_KS (score_i8 + the key selection) against the plain scan +
+    # stable sort
     ext = exts[0]
     qraw = qv[:8].float()
-    s65, i65 = search_extent(qraw, ext.vectors, ext.valid, 65,
-                             KnnMetric.COS, (ext.scales, ext.vsq))
-    torch.cuda.synchronize()
     qn = (qraw / (torch.linalg.vector_norm(qraw, dim=1, keepdim=True)
                   + 1e-12)).to(torch.bfloat16)
-    rs, ri = topk_i8_reference(qn, ext.vectors, ext.scales, ext.vsq,
-                               ext.valid, "cos", 65)
-    err65 = float((s65 - rs).abs().max())
-    same65 = float((i65 == ri).float().mean())
-    print(f"[ragged] search_extent k=65 (score_i8 + stable sort) vs the "
-          f"plain version: max_abs_err {err65:.3e} (tolerance 1e-5), rows "
-          f"equal at {100 * same65:.1f}% of ranks", flush=True)
-    if not err65 <= 1e-5:
-        fail(f"search_extent at k=65: {err65} > 1e-5")
+    full = score_i8_reference(qn, ext.vectors, ext.scales, ext.vsq,
+                              ext.valid, "cos")
+    score_before = SCORE_I8.launches
+    for k in ROUTE_KS:
+        got = search_extent(qraw, ext.vectors, ext.valid, k, KnnMetric.COS,
+                            (ext.scales, ext.vsq))
+        torch.cuda.synchronize()
+        ref = sort_route(lambda c0, c1: full[:, c0:c1], ext.rows, k)
+        err = hold_route(got, ref, full, False,
+                         f"path 2 search_extent k={k}")
+        same = float((got[1] == ref[1]).float().mean())
+        print(f"[ragged] search_extent k={k} (score_i8 + key selection) vs "
+              f"the plain scan + stable sort: max_abs_err {err:.3e} "
+              f"(tolerance 1e-5), rows equal at {100 * same:.1f}% of ranks",
+              flush=True)
+        if not err <= 1e-5:
+            fail(f"search_extent at k={k}: {err} > 1e-5")
+    SCORE_I8.launches = score_before  # comparisons don't count
     # the two halves of a query on the host clock (after the counted run)
     embed_ms, search_ms = [], []
     for qi, text in enumerate(queries):
@@ -1495,25 +1896,38 @@ PROBES = ((1, 64), (64, 16))
 SEARCHES_10M = 1 + 64 + 5 + sum(2 * reps for _, reps in PROBES)
 
 
-def search_10m(index, qs, label: str, key0: int, card: str):
-    """A 10M index's search: B=1 (64 calls after a warm-up) and B=64 (5
-    calls), k=10, host merge included; then ``latency_probe`` as bench_knn
-    calls it. Returns (B=1 results, B=64 results, probe times)."""
+# searches of a 10M phase's filtered run: a warm-up, 64 at B=1, 5 at B=64
+FILTERED_10M = 1 + 64 + 5
+
+
+def timed_searches(index, qs, key0: int, limit: int, filt):
+    """A 10M index's searches with ``limit`` and ``filt``: B=1 (64 calls
+    after a warm-up) and B=64 (5 calls), host merge included. Returns (B=1
+    results, B=64 results, B=1 times, B=64 times) in ms."""
     from pathway_tpu_torch.internals.keys import Pointer
 
-    index.search([(Pointer(key0), qs[0], 10, None)])  # warm-up
+    index.search([(Pointer(key0), qs[0], limit, filt)])  # warm-up
     lat1, results = [], []
     for qi in range(64):
         t1 = time.perf_counter()
-        results.append(index.search([(Pointer(key0 + qi), qs[qi], 10,
-                                      None)])[0])
+        results.append(index.search([(Pointer(key0 + qi), qs[qi], limit,
+                                      filt)])[0])
         lat1.append((time.perf_counter() - t1) * 1e3)
     lat64 = []
     for _ in range(5):
         t1 = time.perf_counter()
-        batch_res = index.search([(Pointer(key0 + i), qs[i], 10, None)
+        batch_res = index.search([(Pointer(key0 + i), qs[i], limit, filt)
                                   for i in range(64)])
         lat64.append((time.perf_counter() - t1) * 1e3)
+    return results, batch_res, lat1, lat64
+
+
+def search_10m(index, qs, label: str, key0: int, card: str):
+    """A 10M index's search: B=1 (64 calls after a warm-up) and B=64 (5
+    calls), k=10, host merge included; then ``latency_probe`` as bench_knn
+    calls it. Returns (B=1 results, B=64 results, probe times)."""
+    results, batch_res, lat1, lat64 = timed_searches(index, qs, key0, 10,
+                                                     None)
     probes = [index.latency_probe(batch_size=b, k=10, reps=reps)
               for b, reps in PROBES]
     print(f"[{label}] search p50 (host merge included) at B=1 "
@@ -1526,9 +1940,27 @@ def search_10m(index, qs, label: str, key0: int, card: str):
     return results, batch_res, probes
 
 
-def check_10m(index, results, batch_res, scan_fn, label: str) -> None:
-    """Every B=1 top 10 against a plain scan of the index's extents, and
-    the B=64 search equal to the 64 B=1 searches."""
+def filtered_10m(index, qs, label: str, key0: int, card: str):
+    """A 10M index's filtered search: limit 20 and a callable filter that
+    every row passes, so that each search fetches 80 rows through the route
+    past K_MAX (a score kernel per chunk + the key selection), at B=1 and
+    B=64 as ``timed_searches``. Returns (B=1 results, B=64 results, B=1
+    p50, B=64 p50)."""
+    results, batch_res, lat1, lat64 = timed_searches(
+        index, qs, key0, 20, lambda data: True)
+    p50 = (float(np.percentile(lat1, 50)), float(np.percentile(lat64, 50)))
+    print(f"[{label}] filtered search p50 (host merge included), limit 20 "
+          f"with a filter every row passes (fetch 80): B=1 {p50[0]:.3f} ms "
+          f"(p99 {np.percentile(lat1, 99):.3f}), B=64 {p50[1]:.3f} ms per "
+          f"call [{card}]", flush=True)
+    return results, batch_res, p50
+
+
+def check_10m(index, runs, scan_fn, label: str):
+    """Each run's B=1 top n (``runs``: (B=1 results, B=64 results, n,
+    what)) against a plain scan of the index's extents, and its B=64
+    search equal to the 64 B=1 searches. Returns the plain scan (64,
+    rows)."""
     import torch
 
     exts = [e for e in index._pool.extents if e.established]
@@ -1537,30 +1969,88 @@ def check_10m(index, results, batch_res, scan_fn, label: str) -> None:
                      for s in range(e.rows)), np.int64, e.rows)
         for e in exts])
     scan = torch.cat([scan_fn(e) for e in exts], dim=1)
-    rank1 = check_top10(results, scan, keys_of, label)
-    if [[int(k) for k, _ in r] for r in batch_res] != \
-            [[int(k) for k, _ in r] for r in results]:
-        fail(f"{label}: a B=64 search differs from the 64 B=1 searches")
-    print(f"[{label}] top-10 vs a plain scan: all 64 queries pass (rank 1 "
-          f"identical on {rank1}/64); the B=64 search returns the same keys",
-          flush=True)
+    for results, batch_res, n, what in runs:
+        rank1 = check_top10(results, scan, keys_of, f"{label} {what}", n=n)
+        if [[int(k) for k, _ in r] for r in batch_res] != \
+                [[int(k) for k, _ in r] for r in results]:
+            fail(f"{label} {what}: a B=64 search differs from the 64 B=1 "
+                 "searches")
+        print(f"[{label}] {what} vs a plain scan: all 64 queries pass (rank"
+              f" 1 identical on {rank1}/64); the B=64 search returns the "
+              "same keys", flush=True)
+    return scan
 
 
-def phase_int8_10m(seed: int, card: str) -> tuple[tuple, list]:
+def route_10m(ext, qraw, full, extras: tuple, make_score, label: str,
+              card: str) -> dict:
+    """The route past K_MAX over a 10M index's extent: ``search_extent`` at
+    k in ROUTE_KS for the 8 queries ``qraw`` against the plain scan
+    (``full``, their plain scores) + stable sort, then its times beside
+    the stable sort's (``time_selection``)."""
+    import torch
+
+    from pathway_tpu_torch.ops.knn import KnnMetric, search_extent
+
+    for k in ROUTE_KS:
+        got = search_extent(qraw, ext.vectors, ext.valid, k, KnnMetric.COS,
+                            extras)
+        torch.cuda.synchronize()
+        hold_route(got, sort_route(lambda c0, c1: full[:, c0:c1], ext.rows,
+                                   k), full, False,
+                   f"{label} search_extent k={k}")
+    print(f"[{label}] search_extent at k in {ROUTE_KS} for 8 queries against"
+          f" the plain scan + stable sort: within 1e-5 x max|score|, -inf "
+          f"ranks exact", flush=True)
+    return time_selection(make_score, ext.rows, label, card)
+
+
+def filtered_run(index, qs, label: str, count, other, card: str):
+    """``filtered_10m`` with its launches counted: ``count`` (the score
+    kernel's LaunchCount) must launch once a chunk of every search and
+    ``other`` (the top-k kernel's) not at all. Returns (B=1 results, B=64
+    results, p50s, the score kernel's launches)."""
+    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS
+
+    count.launches = other.launches = 0
+    results, batch_res, p50 = filtered_10m(index, qs, label, 2 * 10**10,
+                                           card)
+    launches, other_launches = count.launches, other.launches
+    chunks = sum(-(-e.rows // _CHUNK_ROWS) for e in index._pool.extents
+                 if e.established)
+    print(f"[{label}] filtered searches' launches: {count.name} {launches} "
+          f"({FILTERED_10M} searches x {chunks} chunks), {other.name} "
+          f"{other_launches}", flush=True)
+    if launches != FILTERED_10M * chunks or other_launches != 0:
+        fail(f"{label}: the filtered searches did not take {count.name} "
+             f"once a chunk, or {other.name} ran")
+    return results, batch_res, p50, launches
+
+
+def selection_record(times: dict) -> dict:
+    """``time_selection``'s times as JSON: {"B1_k80": [ms sort, ms route],
+    ...}"""
+    return {f"B{B}_k{k}": list(t) for (B, k), t in times.items()}
+
+
+def phase_int8_10m(seed: int, card: str) -> tuple[tuple, list, dict]:
     """bench_knn's int8 deployment (bench.py:2547-2579; README.md:1655,
     1749): BruteForceKnnIndex(384, reserved_space=10M, int8, cos) fed by
     add_batch_device in 65,536-row batches of seeded randn on the card,
     searched by ``search_10m`` (bench.py's knn_int8_p50_ms and
-    knn_int8_batch64_ms from latency_probe). The host mirror is f32 (15.4
-    GB at 10M rows); ``rows_that_fit`` cuts the rows where the machine
-    cannot hold it. Returns the launches of K3 top-k, K3 score and K4 in
-    this run, and the probe times."""
+    knn_int8_batch64_ms from latency_probe), then by ``filtered_10m``
+    (limit 20 with a filter: K3's score per chunk), the route past K_MAX
+    checked and timed (``route_10m``). The host
+    mirror is f32 (15.4 GB at 10M rows); ``rows_that_fit`` cuts the rows
+    where the machine cannot hold it. Returns the launches of K3 top-k, K3
+    score and K4 in the unfiltered run, the probe times, and the filtered
+    run's numbers."""
     import torch
 
     from pathway_tpu_torch.internals.keys import Pointer
     from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
     from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
-                                                   SCORE_I8, TOPK_I8)
+                                                   SCORE_I8, TOPK_I8,
+                                                   score_i8)
 
     D, batch = 384, 65_536
     n = rows_that_fit("int8 10M", K3_ROWS, D * 4)
@@ -1597,33 +2087,53 @@ def phase_int8_10m(seed: int, card: str) -> tuple[tuple, list]:
              "extent, or K3's score ran")
     if launches[2] < -(-n // batch):
         fail("int8 10M: K4 did not write every batch")
-    q = torch.from_numpy(qs).cuda()
-    q = (q / (q.norm(dim=1, keepdim=True) + 1e-12)).to(torch.bfloat16)
-    check_10m(index, results, batch_res, lambda e: plain_scan_i8(
-        q, e.vectors, e.scales, e.vsq, e.valid), "int8 10M")
-    return launches, probes
+    f_res, f_batch, f_p50, f_launches = filtered_run(
+        index, qs, "int8 10M", SCORE_I8, TOPK_I8, card)
+    qraw = torch.from_numpy(qs).cuda()
+    q = (qraw / (qraw.norm(dim=1, keepdim=True) + 1e-12)).to(torch.bfloat16)
+    scan = check_10m(index, [(results, batch_res, 10, "top-10"),
+                             (f_res, f_batch, 20, "filtered top-20")],
+                     lambda e: plain_scan_i8(q, e.vectors, e.scales, e.vsq,
+                                             e.valid), "int8 10M")
+    ext = index._pool.extents[0]
+    before = SCORE_I8.launches
+
+    def make_score(B):
+        qb = q[:B].contiguous()
+        return qb, lambda c0, c1, out=None: score_i8(
+            qb, ext.vectors[c0:c1], ext.scales[c0:c1], ext.vsq[c0:c1],
+            ext.valid[c0:c1], "cos", out)
+
+    sel = route_10m(ext, qraw[:8], scan[:8, :ext.rows], (ext.scales, ext.vsq),
+                    make_score, "int8 10M", card)
+    SCORE_I8.launches = before  # comparisons don't count
+    return launches, probes, {"filtered_p50_ms": f_p50,
+                              "launches_10m": f_launches,
+                              "selection_ms": selection_record(sel)}
 
 
-def phase_bf16_10m(card: str) -> tuple[int, list]:
+def phase_bf16_10m(card: str) -> tuple[int, list, dict]:
     """bench_knn's headline deployment (bench.py:3436-3490, KNN_N at
     :27): BruteForceKnnIndex(384, reserved_space=10M, dtype="bfloat16",
     metric="cos"), 10M rows uniform in [-1, 1) made on the card in 2^19-row
     chunks, chunk i from torch.Generator(device="cuda").manual_seed(i),
     added by add_batch_device; bench_knn's 64 queries
     (default_rng(0).random((64, 384)) * 2 - 1) through ``search_10m``
-    (bench.py's knn_p50_ms and knn_batch64_ms from latency_probe). The
-    host mirror is bf16 (7.7 GB). Returns K2's launches in this run and
-    the probe times."""
+    (bench.py's knn_p50_ms and knn_batch64_ms from latency_probe), then
+    ``filtered_10m`` (K2's score twin per chunk) and ``route_10m``, as
+    phase 11. The host mirror is bf16 (7.7 GB). Returns K2's launches in
+    the unfiltered run, the probe times and the filtered run's numbers."""
     import torch
 
     from pathway_tpu_torch.internals.keys import Pointer
     from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
-    from pathway_tpu_torch.ops.knn_kernels import (TOPK_BF16,
+    from pathway_tpu_torch.ops.knn_kernels import (SCORE_BF16, TOPK_BF16,
+                                                   score_bf16,
                                                    score_float_reference)
 
     D, chunk = 384, 1 << 19
     n = rows_that_fit("bf16 10M", K3_ROWS, D * 2)
-    TOPK_BF16.launches = 0
+    TOPK_BF16.launches = SCORE_BF16.launches = 0
     t0 = time.perf_counter()
     index = BruteForceKnnIndex(D, reserved_space=n, dtype="bfloat16",
                                metric="cos", device="cuda")
@@ -1643,27 +2153,45 @@ def phase_bf16_10m(card: str) -> tuple[int, list]:
                                             card)
     print(f"[bf16 10M] bench.py's names: knn_p50_ms {probes[0]:.4f}, "
           f"knn_batch64_ms {probes[1]:.4f} [{card}]", flush=True)
-    launches = TOPK_BF16.launches
+    launches, score_launches = TOPK_BF16.launches, SCORE_BF16.launches
     n_ext = len([e for e in index._pool.extents if e.established])
     print(f"[bf16 10M] launches: K2 {launches} ({SEARCHES_10M} searches x "
-          f"{n_ext} extent(s))", flush=True)
+          f"{n_ext} extent(s)), K2 score {score_launches}", flush=True)
     if len(index) != n:
         fail(f"bf16 10M: the index holds {len(index)} rows, not {n}")
-    if launches != SEARCHES_10M * n_ext:
-        fail("bf16 10M: the search did not go through K2 once an extent")
-    q = torch.from_numpy(qs).cuda()
-    q = (q / (q.norm(dim=1, keepdim=True) + 1e-12)).to(
-        torch.bfloat16).float()
+    if launches != SEARCHES_10M * n_ext or score_launches != 0:
+        fail("bf16 10M: the search did not go through K2 once an extent, "
+             "or K2's score twin ran")
+    f_res, f_batch, f_p50, f_launches = filtered_run(
+        index, qs, "bf16 10M", SCORE_BF16, TOPK_BF16, card)
+    qraw = torch.from_numpy(qs).cuda()
+    q = (qraw / (qraw.norm(dim=1, keepdim=True) + 1e-12)).to(torch.bfloat16)
+    qf = q.float()
 
     def scan(e, rows=1 << 20):
         out = torch.empty((64, e.rows), device="cuda")
         for c0 in range(0, e.rows, rows):
             out[:, c0:c0 + rows] = score_float_reference(
-                q, e.vectors[c0:c0 + rows], e.valid[c0:c0 + rows], "cos")
+                qf, e.vectors[c0:c0 + rows], e.valid[c0:c0 + rows], "cos")
         return out
 
-    check_10m(index, results, batch_res, scan, "bf16 10M")
-    return launches, probes
+    full = check_10m(index, [(results, batch_res, 10, "top-10"),
+                             (f_res, f_batch, 20, "filtered top-20")],
+                     scan, "bf16 10M")
+    ext = index._pool.extents[0]
+    before = SCORE_BF16.launches
+
+    def make_score(B):
+        qb = q[:B].contiguous()
+        return qb, lambda c0, c1, out=None: score_bf16(
+            qb, ext.vectors[c0:c1], ext.valid[c0:c1], "cos", out)
+
+    sel = route_10m(ext, qraw[:8], full[:8, :ext.rows], (), make_score,
+                    "bf16 10M", card)
+    SCORE_BF16.launches = before  # comparisons don't count
+    return launches, probes, {"filtered_p50_ms": f_p50,
+                              "launches_10m": f_launches,
+                              "selection_ms": selection_record(sel)}
 
 
 def phase_profile(card: str) -> None:
@@ -1756,24 +2284,28 @@ def main() -> None:
     k3, k4 = phase_knn_i8(card)
     k3_topk = phase_topk_i8(card)
     k2 = phase_topk_bf16(card)
+    k2_score = phase_score_bf16(card)
     done("kernel phases")
-    k1["launches"], k2["launches"] = phase_slice(args.docs, args.seed, card)
+    k1["launches"], k2["launches"], k2_score["launches"] = phase_slice(
+        args.docs, args.seed, card)
     done("path 1")
     (k1_seg["launches"], k3_topk_path2, k3["launches"],
      k4["launches"]) = phase_ragged_int8(args.seed, card)
     done("path 2")
     phase_int8_million(args.seed, card)
-    (k3_topk["launches"], _, _), k3_topk["probe_ms"] = phase_int8_10m(
+    (k3_topk["launches"], _, _), k3_topk["probe_ms"], filt = phase_int8_10m(
         args.seed, card)
     k3_topk["launches_path2"] = k3_topk_path2
+    k3.update(filt)
     done("int8 indexes")
     gc.collect()  # the 10M int8 index and its host mirror are gone
     torch.cuda.empty_cache()
-    k2["launches_10m"], k2["probe_ms"] = phase_bf16_10m(card)
+    k2["launches_10m"], k2["probe_ms"], filt = phase_bf16_10m(card)
+    k2_score.update(filt)
     done("bf16 10M index")
     phase_profile(card)
-    print(json.dumps({"kernels": [k1, k1_seg, k2, k3_topk, k3, k4]}),
-          flush=True)
+    print(json.dumps({"kernels": [k1, k1_seg, k2, k3_topk, k3, k4,
+                                  k2_score]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,6 @@
-// K2, the bf16 KNN slab's fused score + top-k for Hopper (sm_90a), bound
-// to Python with ctypes (ops/knn_kernels.py::topk_bf16).
+// K2, the bf16 KNN slab's fused score + top-k for Hopper (sm_90a), and its
+// score-only twin, bound to Python with ctypes
+// (ops/knn_kernels.py::topk_bf16, score_bf16).
 //
 // Replaces pathway_tpu/ops/knn.py::_shared_search_fn (an XLA function on
 // the TPU: score block, lax.top_k per 2^19-row chunk and the merge of
@@ -31,6 +32,16 @@
 // ||v||^2 (FMA on the lane's 16 columns, then a sum over the quad's four
 // lanes). The scores go through K3's running top-k in shared memory and
 // its merge launch.
+//
+// K2's score twin (knn_score_bf16_kernel), for k > 64 (a filter's escalated
+// fetch): the same scores written out, each as the selection's 64-bit key
+// (score_key), (B, N) int64: the score block of _shared_search_fn, which
+// ops/knn.py::search_extent calls per 2^19-row chunk (the reference's
+// _CHUNK_ROWS) before an exact selection. Bound: the slab read and the key
+// write, N (2 D + 1) + 8 B N bytes. The same mainloop (bf16_rows)
+// into knn_topk.cuh's store epilogue: each warp stages its 16 rows x n
+// queries in shared memory and writes each query's rows contiguously with
+// streaming 16-byte stores.
 
 #include <cstdint>
 
@@ -89,55 +100,49 @@ __device__ __forceinline__ void add_squares(const Piece& v, float (&ss)[2]) {
   }
 }
 
-struct Bf16TopkParams {
+struct Bf16Params {
   const bf16* q;
   const bf16* slab;
   const uint8_t* valid;
-  u64* ws;  // (gridDim.x, B, k): each block's k best keys per query
+  u64* ws;    // top-k: (gridDim.x, B, k), each block's k best keys per query
+  long long* out;  // score: (B, N) keys score_key(score, row)
   long long N;
   int B, D, DP, metric, k;
-  bool vec;
+  bool vec;      // D % 16 == 0 and a 16-byte aligned slab
+  bool vec_out;  // score: N % 4 == 0 (16-byte stores)
 };
 
-// Shared memory of launch 1: keys, counts and queries, then (ring) two
-// stages of each warp's 16 rows x DP / 2 columns
-size_t bf16_smem(int nt, int DP, bool ring) {
-  return topk_lists_smem(nt, DP) +
+// Shared memory of launch 1: the top-k's lists or the score's staging,
+// then the queries, then (ring) two stages of each warp's 16 rows x DP / 2
+// columns
+size_t bf16_smem(bool store, int nt, int DP, bool ring) {
+  return (store ? score_lists_smem(nt, DP) : topk_lists_smem(nt, DP)) +
          (ring ? static_cast<size_t>(2) * kTopkTile * DP : 0);
 }
 
-// Launch 1. Each warp scores 16 rows of a block tile against the block's
-// NT n8 query tiles. RING false: a lane loads its pieces of the rows into
-// registers, PF 64-column blocks ahead (any D). RING (D % 128 == 0, a
-// 16-byte aligned slab): each warp streams its rows, half a row at a
-// time, into a ring of two stages in shared memory with cp.async, the
-// next half in flight while this one multiplies, in requests that hold no
-// registers while in flight; half a row keeps the ring of two 8-warp
-// blocks an SM within the SM's shared memory. The products are mma.sync
-// m16n8k16, one per warp and n8 query tile, or at 64 queries (WG) one
-// wgmma m64n64k16 per 4 warps, which reads the queries from shared memory
-// once for the 4.
-template <int NT, bool RING>
-__global__ void __launch_bounds__(kWarps * 32, 2)
-knn_topk_bf16_kernel(const Bf16TopkParams p) {
+// Launch 1's mainloop, for K2 and its score twin alike. Each warp scores
+// 16 rows of a block tile against the block's NT n8 query tiles, staged in
+// qs, and hands each tile's sums to epi(acc, r0, in, ok, fa, fb). RING
+// false: a lane loads its pieces of the rows into registers, PF 64-column
+// blocks ahead (any D). RING (D % 128 == 0, a 16-byte aligned slab): each
+// warp streams its rows, half a row at a time, into a ring of two stages
+// in shared memory with cp.async, the next half in flight while this one
+// multiplies, in requests that hold no registers while in flight; half a
+// row keeps the ring of two 8-warp blocks an SM within the SM's shared
+// memory. The products are mma.sync m16n8k16, one per warp and n8 query
+// tile, or at 64 queries (WG) one wgmma m64n64k16 per 4 warps, which reads
+// the queries from shared memory once for the 4.
+template <int NT, bool RING, bool WG, typename Epi>
+__device__ __forceinline__ void bf16_rows(const Bf16Params& p,
+                                          const bf16* qs, bf16* ring,
+                                          Epi&& epi) {
   constexpr int NQ = 8 * NT;  // queries per block
-  constexpr bool WG = NT == 8 && !RING;
   // register path: 64-column blocks loaded ahead, one at 64 queries, else
   // two
   constexpr int PF = WG ? 1 : 2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int S = kTopkKeys;
-  u64* keys = reinterpret_cast<u64*>(smem);          // [NQ][S]
-  int* cnt = reinterpret_cast<int*>(keys + NQ * S);  // [NQ]
-  bf16* qs = reinterpret_cast<bf16*>(cnt + NQ);        // [NQ][DP]
-  bf16* ring = qs + NQ * p.DP;  // [2][kWarps][kTileRows][DP / 2]
-  const int q0 = blockIdx.y * NQ;
-  const int nq = min(NQ, p.B - q0);
-  topk_stage<NQ, WG>(p.q, q0, nq, p.D, p.DP, qs, keys, cnt);
-
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int nj = p.DP / 64, k = p.k;
+  const int nj = p.DP / 64;
   const bf16* qrow = qs + g * p.DP;
   const long long stride = static_cast<long long>(gridDim.x) * kTopkTile;
   const long long first = static_cast<long long>(blockIdx.x) * kTopkTile +
@@ -292,7 +297,7 @@ knn_topk_bf16_kernel(const Bf16TopkParams p) {
       }
     }
     // ||v||^2 of rows r0 and r0 + 8 over the quad's four lanes; the score
-    // factors as topk_offer_tile takes them: cos dots * fa, fa = rsqrt(
+    // factors as tile_score takes them: cos dots * fa, fa = rsqrt(
     // ||v||^2 + 1e-12); l2sq dots * 2 - ||v||^2
     float fa[2], fb[2];
 #pragma unroll
@@ -303,47 +308,129 @@ knn_topk_bf16_kernel(const Bf16TopkParams p) {
       fa[h] = p.metric ? 2.f : rsqrtf(n2 + 1e-12f);
       fb[h] = p.metric ? n2 : 0.f;
     }
-    topk_offer_tile<NT>(acc, keys, cnt, k, nq, r0, in, ok, fa, fb,
-                        p.metric != 0, warp, lane);
+    epi(acc, r0, in, ok, fa, fb);
   }
-  topk_block_finish(keys, cnt, k, nq, p.B, q0, p.ws, warp, lane);
+}
+
+// K2, launch 1: the mainloop into the block's running top-k lists, then
+// each block's k best keys per query into the workspace.
+template <int NT, bool RING>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+knn_topk_bf16_kernel(const Bf16Params p) {
+  constexpr int NQ = 8 * NT;  // queries per block
+  constexpr bool WG = NT == 8 && !RING;
+  constexpr int S = kTopkKeys;
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* keys = reinterpret_cast<u64*>(smem);          // [NQ][S]
+  int* cnt = reinterpret_cast<int*>(keys + NQ * S);  // [NQ]
+  bf16* qs = reinterpret_cast<bf16*>(cnt + NQ);        // [NQ][DP]
+  bf16* ring = qs + NQ * p.DP;  // [2][kWarps][kTileRows][DP / 2]
+  const int q0 = blockIdx.y * NQ;
+  const int nq = min(NQ, p.B - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  stage_queries<NQ, WG>(p.q, q0, nq, p.D, p.DP, qs);
+  topk_lists_init<NQ>(keys, cnt);
+  __syncthreads();
+  bf16_rows<NT, RING, WG>(
+      p, qs, ring,
+      [&](const float (&acc)[NT][4], long long r0, const bool (&in)[2],
+          const bool (&ok)[2], const float (&fa)[2], const float (&fb)[2]) {
+        topk_offer_tile<NT>(acc, keys, cnt, p.k, nq, r0, in, ok, fa, fb,
+                            p.metric != 0, warp, lane);
+      });
+  topk_block_finish(keys, cnt, p.k, nq, p.B, q0, p.ws, warp, lane);
+}
+
+// K2's score twin, for k past the top-k's lists: the same mainloop into
+// the store epilogue (knn_topk.cuh::store_tile), with no block barrier
+// after the prologue; wgmma at 64 queries from the ring too (see
+// bf16_config).
+template <int NT, bool RING>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+knn_score_bf16_kernel(const Bf16Params p) {
+  constexpr int NQ = 8 * NT;
+  constexpr bool WG = NT == 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* stg = reinterpret_cast<float*>(smem);  // [kWarps][NQ][kStgLd]
+  bf16* qs = reinterpret_cast<bf16*>(stg + kWarps * NQ * kStgLd);
+  bf16* ring = qs + NQ * p.DP;
+  const int q0 = blockIdx.y * NQ;
+  const int nq = min(NQ, p.B - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* wstg = stg + warp * NQ * kStgLd;
+  stage_queries<NQ, WG>(p.q, q0, nq, p.D, p.DP, qs);
+  __syncthreads();
+  bf16_rows<NT, RING, WG>(
+      p, qs, ring,
+      [&](const float (&acc)[NT][4], long long r0, const bool (&)[2],
+          const bool (&ok)[2], const float (&fa)[2], const float (&fb)[2]) {
+        store_tile<NT>(acc, wstg, p.out, p.vec_out, p.N, q0, nq,
+                       r0 - (lane >> 2), ok, fa, fb, p.metric != 0, lane);
+      });
 }
 
 // n8 query tiles per block (enough for B, at most 8, within the shared
 // memory a block may take) and the ring (stg 2) where two blocks of the
 // ring kernel fit on an SM (B <= 8 at D = 384; D % 128 == 0 and a 16-byte
-// aligned slab), else the register path
-TopkConfig bf16_config(int B, int D, bool vec) {
+// aligned slab), else the register path. The score twin takes the ring
+// with wgmma at 33-64 queries even at one block an SM, which wrote its
+// keys faster at B = 64 than the register path (PERF.md).
+TopkConfig bf16_config(bool store, int B, int D, bool vec) {
   const int DP = (D + 63) / 64 * 64;
   TopkConfig c;
   c.nt = topk_query_tiles(B);
-  while (c.nt > 1 && bf16_smem(c.nt, DP, false) > kMaxSmemTopk) c.nt /= 2;
-  c.stg = vec && D % 128 == 0 && bf16_smem(c.nt, DP, true) <= kTwoBlockSmem
+  while (c.nt > 1 && bf16_smem(store, c.nt, DP, false) > kMaxSmemTopk)
+    c.nt /= 2;
+  const size_t ring_max =
+      store && c.nt == kMaxQueryTiles ? kMaxSmemTopk : kTwoBlockSmem;
+  c.stg = vec && D % 128 == 0 && bf16_smem(store, c.nt, DP, true) <= ring_max
               ? 2
               : 0;
-  c.smem = bf16_smem(c.nt, DP, c.stg > 0);
+  c.smem = bf16_smem(store, c.nt, DP, c.stg > 0);
   return c;
 }
 
-template <int NT, typename F>
+// f(kernel) for the launch-1 kernel (STORE: the score twin, else K2) of c
+template <bool STORE, int NT, typename F>
 cudaError_t with_ring(int stg, F f) {
-  return stg ? f(knn_topk_bf16_kernel<NT, true>)
-             : f(knn_topk_bf16_kernel<NT, false>);
+  if constexpr (STORE)
+    return stg ? f(knn_score_bf16_kernel<NT, true>)
+               : f(knn_score_bf16_kernel<NT, false>);
+  else
+    return stg ? f(knn_topk_bf16_kernel<NT, true>)
+               : f(knn_topk_bf16_kernel<NT, false>);
 }
 
-template <typename F>
+template <bool STORE, typename F>
 cudaError_t with_bf16_kernel(const TopkConfig& c, F f) {
   switch (c.nt) {
-    case 1: return with_ring<1>(c.stg, f);
-    case 2: return with_ring<2>(c.stg, f);
-    case 4: return with_ring<4>(c.stg, f);
-    default: return with_ring<8>(c.stg, f);
+    case 1: return with_ring<STORE, 1>(c.stg, f);
+    case 2: return with_ring<STORE, 2>(c.stg, f);
+    case 4: return with_ring<STORE, 4>(c.stg, f);
+    default: return with_ring<STORE, 8>(c.stg, f);
   }
 }
 
-bool bad_args(int B, long long N, int D, int k) {
-  return B < 1 || N < 1 || D < 1 || k < 1 || k > kTopkKMax || k > N ||
-         N > 0x7FFFFFFFLL;
+// The operands of both launch-1 kernels; false if they cannot take them
+bool bf16_params(Bf16Params& p, const void* q, const void* slab,
+                 const void* valid, int B, long long N, int D, int metric) {
+  if (B < 1 || N < 1 || D < 1 || N > 0x7FFFFFFFLL ||
+      (metric != 0 && metric != 1))
+    return false;
+  p.q = static_cast<const bf16*>(q);
+  p.slab = static_cast<const bf16*>(slab);
+  p.valid = static_cast<const uint8_t*>(valid);
+  p.ws = nullptr;
+  p.out = nullptr;
+  p.N = N;
+  p.B = B;
+  p.D = D;
+  p.DP = (D + 63) / 64 * 64;
+  p.metric = metric;
+  p.k = 0;
+  p.vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(slab) % 16 == 0;
+  p.vec_out = false;
+  return true;
 }
 
 }  // namespace
@@ -353,11 +440,13 @@ bool bad_args(int B, long long N, int D, int k) {
 // wrapper allocates the (blocks, B, k) workspace from it.
 extern "C" int pt_knn_topk_bf16_blocks(int B, long long N, int D, int k,
                                        int* blocks) {
-  if (bad_args(B, N, D, k)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || N < 1 || D < 1 || k < 1 || k > kTopkKMax || k > N ||
+      N > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   // as pt_knn_topk_bf16 chooses for a 16-byte aligned slab
-  const TopkConfig c = bf16_config(B, D, D % 16 == 0);
+  const TopkConfig c = bf16_config(false, B, D, D % 16 == 0);
   if (c.smem > kMaxSmemTopk) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(with_bf16_kernel(c, [&](auto kernel) {
+  return static_cast<int>(with_bf16_kernel<false>(c, [&](auto kernel) {
     return topk_grid(kernel, c.smem, N, blocks);
   }));
 }
@@ -372,26 +461,18 @@ extern "C" int pt_knn_topk_bf16(const void* q, const void* slab,
                                 void* out_s, void* out_row, int B,
                                 long long N, int D, int metric, int k,
                                 void* stream) {
-  if (bad_args(B, N, D, k) || G < 1 || (metric != 0 && metric != 1))
+  Bf16Params p;
+  if (!bf16_params(p, q, slab, valid, B, N, D, metric) || G < 1 || k < 1 ||
+      k > kTopkKMax || k > N)
     return static_cast<int>(cudaErrorInvalidValue);
-  Bf16TopkParams p;
-  p.q = static_cast<const bf16*>(q);
-  p.slab = static_cast<const bf16*>(slab);
-  p.valid = static_cast<const uint8_t*>(valid);
   p.ws = static_cast<u64*>(ws);
-  p.N = N;
-  p.B = B;
-  p.D = D;
-  p.DP = (D + 63) / 64 * 64;
-  p.metric = metric;
   p.k = k;
-  p.vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(slab) % 16 == 0;
-  const TopkConfig c = bf16_config(B, D, p.vec);
+  const TopkConfig c = bf16_config(false, B, D, p.vec);
   if (c.smem > kMaxSmemTopk) return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (B + 8 * c.nt - 1) / (8 * c.nt);
   if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = with_bf16_kernel(c, [&](auto kernel) {
+  const cudaError_t e = with_bf16_kernel<false>(c, [&](auto kernel) {
     const cudaError_t a = allow_smem(kernel, c.smem);
     if (a != cudaSuccess) return a;
     kernel<<<dim3(G, groups), kWarps * 32, c.smem, s>>>(p);
@@ -402,6 +483,33 @@ extern "C" int pt_knn_topk_bf16(const void* q, const void* slab,
                                             static_cast<float*>(out_s),
                                             static_cast<long long*>(out_row),
                                             s));
+}
+
+// K2's score twin. q (B, D) bf16 contiguous; slab (N, D) bf16 contiguous;
+// valid (N,) bytes; out (B, N) int64 keys score_key(score, row).
+// metric: 0 = cos, 1 = l2sq; N < 2^31. Returns the cudaError_t of the
+// launch.
+extern "C" int pt_knn_score_bf16(const void* q, const void* slab,
+                                 const void* valid, void* out, int B,
+                                 long long N, int D, int metric,
+                                 void* stream) {
+  Bf16Params p;
+  if (!bf16_params(p, q, slab, valid, B, N, D, metric))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.out = static_cast<long long*>(out);
+  p.vec_out = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const TopkConfig c = bf16_config(true, B, D, p.vec);
+  if (c.smem > kMaxSmemTopk) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (B + 8 * c.nt - 1) / (8 * c.nt);
+  if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_bf16_kernel<true>(c, [&](auto kernel) {
+    int blocks = 0;
+    const cudaError_t e = topk_grid(kernel, c.smem, N, &blocks);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(blocks, groups), kWarps * 32, c.smem, s>>>(p);
+    return cudaGetLastError();
+  }));
 }
 
 extern "C" const char* pt_knn_error_string(int e) {

@@ -1,58 +1,45 @@
 // The int8 KNN slab's kernels for Hopper (sm_90a), bound to Python
 // with ctypes (ops/knn_kernels.py).
 //
-// K3, the int8 score: replaces the score block of
+// K3 top-k, the int8 score fused with the top-k: replaces the whole of
 // pathway_tpu/ops/knn.py::_shared_search_i8_fn (an XLA function on the
-// TPU). For queries q (B, D) bf16, already normalised for cos and cast,
-// and a chunk of N int8 rows with per-row f32 `scales` and int-domain
-// squared norms `vsq`:
+// TPU: score block, lax.top_k per 2^19-row chunk and the merge of
+// _chunked_search) for one extent and k <= 64. For queries q (B, D) bf16,
+// already normalised for cos and cast, and N int8 rows with per-row f32
+// `scales` and int-domain squared norms `vsq`:
 //   dots = q . bf16(v)   (int8 widens to bf16 exactly, products are exact
 //                         in f32, sums in f32)
 //   cos:  dots * rsqrt(vsq + 1e-12)            (the row scale cancels)
 //   l2sq: 2 dots scale - vsq scale^2           (-||q - v||^2 + ||q||^2)
-//   invalid rows: -inf.
-// Output: (B, N) f32 scores, row-major. ops/knn.py::search_extent takes it
-// (with a stable sort per chunk) only for k > 64; K3 top-k below is the
-// search for k <= 64.
+//   invalid rows: -inf,
+// each rounded as the plain version rounds it; the result is the k best
+// rows per query in the stable descending sort's order: higher score
+// first, equal scores lower row first, -inf (invalid) rows ranked like
+// any other. Bound: the slab read, N (D + 5) bytes, since no score reaches
+// device memory.
 //
-// What bounds it: bytes. Each slab byte is read once; at the serving
-// batch (B <= 64) the product is far below the tensor cores' rate, and at
-// B = 1 the (B, N) score write is ~1% of the traffic. Design: the slab is
-// the M side of mma.sync m16n8k16 (16 rows per warp tile), the queries the
-// N side (8 per n-tile, up to 64 per block, staged in shared memory
-// zero-padded). A lane loads 16 contiguous bytes of each of its two rows
-// per 64 columns (row-contiguous 64-byte runs per quad, streaming loads),
-// widens them to bf16 in registers and feeds them as A fragments
-// directly. The reduction dimension is permuted inside each 64-column
-// block (lane t's bytes 4s..4s+3 of its 16 are the k positions 2t, 2t+1,
-// 2t+8, 2t+9 of k-step s), and the query fragments are read with the same
-// permutation, so the dot products are unchanged. Blocks loop over row
-// tiles (a grid of a few blocks per SM), so each block stages its queries
-// once.
+// K3 score, the same scores written out for k > 64 (a filter's escalated
+// fetch), each as the selection's 64-bit key (score_key), (B, N) int64:
+// the score block of _shared_search_i8_fn, which
+// ops/knn.py::search_extent calls per 2^19-row chunk (the reference's
+// _CHUNK_ROWS) before an exact selection (torch.topk of the keys). Bound:
+// the slab read and the key write, N (D + 5) + 8 B N bytes; the write is
+// 57% of it at B = 64, so it leaves as full 16-byte stores.
 //
-// K3 top-k, the int8 score fused with the top-k: replaces the whole of
-// _shared_search_i8_fn (score block, lax.top_k per 2^19-row chunk and the
-// merge of _chunked_search) for one extent and k <= 64. Each row's score
-// is score_i8's formula, rounded as the plain version rounds it; the
-// result is the k best rows per query in the stable descending sort's
-// order: higher score first, equal scores lower row first, -inf (invalid)
-// rows ranked like any other. A (score, row) pair is one 64-bit key in
-// that order (score bits mapped to an unsigned order, row complemented),
-// so a plain integer comparison ranks and breaks ties. Bound: the slab
-// read, N (D + 5) bytes, since no score reaches device memory. Launch 1: a
+// Both are one launch-1 mainloop (i8_rows) with two epilogues. A
 // persistent grid of two 8-warp blocks an SM walks 128-row block tiles,
-// each warp 16 rows (mma.sync m16n8k16 with score_i8's fragment layout;
-// at 33-64 queries a block one wgmma m64n64k16 per 4 warps); at B <= 8
-// the rows stream through a cp.async ring in shared memory, else through
-// registers (see topk_config). Codes widen to bf16 with no
-// conversion instruction (byte permutes and one bf16x2 subtraction per
-// pair). Each query keeps, in shared memory, its sorted k best and a
-// candidate buffer; a row enters the buffer only if its key beats the
-// k-th best, and a warp merges a buffer past half full with a bitonic
-// sort, between the block barriers that end each tile. Each block writes
-// its k best per query to a workspace. Launch 2: a block per query merges
-// the blocks' lists by the same key. The keys, lists, merges, wgmma
-// helpers and launch 2 live in knn_topk.cuh, shared with K2 (knn_bf16.cu).
+// each warp 16 rows (mma.sync m16n8k16; at 33-64 queries a block one
+// wgmma m64n64k16 per 4 warps, which reads the queries once for the 4); at
+// B <= 8 the rows stream through a cp.async ring in shared memory, else
+// through registers loaded ahead across a tile's end (see i8_config).
+// Codes widen to bf16 with no conversion instruction (byte permutes and
+// one bf16x2 subtraction per pair). K3 top-k's epilogue is the running
+// top-k of knn_topk.cuh (the block's lists, a workspace, and launch 2,
+// which merges the blocks' lists); K3 score's is knn_topk.cuh's store
+// epilogue: each warp stages its 16 rows x n queries in shared memory and
+// writes each query's rows contiguously with streaming 16-byte stores. The
+// keys, lists, merges, wgmma helpers, query staging and both epilogues
+// live in knn_topk.cuh, shared with K2 (knn_bf16.cu).
 //
 // K4, the quantizing scatter: replaces
 // pathway_tpu/ops/knn.py::_quantize_i8 inside _shared_scatter_i8_fn and
@@ -81,19 +68,8 @@
 namespace {
 
 // ------------------------------------------------------------------------
-// K3: int8 score
+// K3: int8 score + top-k, and the score alone (shared parts: knn_topk.cuh)
 // ------------------------------------------------------------------------
-
-constexpr int kQPad = 4;           // bf16 padding of a staged query row
-constexpr size_t kMaxSmem = 200 * 1024;
-
-// two int8 (bytes `shift / 8` and the next of w) -> a bf16 pair, exact
-__device__ __forceinline__ uint32_t widen2(uint32_t w, int shift) {
-  const float lo = static_cast<float>(static_cast<int8_t>(w >> shift));
-  const float hi = static_cast<float>(static_cast<int8_t>(w >> (shift + 8)));
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
 
 // 16 bytes of slab row `row` from column `col`; zero past N rows or D
 // columns. `vec` (D % 16 == 0 and a 16-byte aligned base) takes one
@@ -111,127 +87,6 @@ __device__ __forceinline__ uint4 load16(const int8_t* slab, long long row,
                  << (8 * (i & 3));
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
-
-struct ScoreParams {
-  const bf16* q;
-  const int8_t* slab;
-  const float* scales;
-  const float* vsq;
-  const uint8_t* valid;
-  float* out;
-  long long N;
-  int B, D, DP, metric;  // DP: D rounded up to 64; metric 0 = cos, 1 = l2sq
-  bool vec;
-};
-
-template <int NT>
-__global__ void __launch_bounds__(kWarps * 32)
-knn_score_i8_kernel(const ScoreParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [8 NT][DP + kQPad]
-  const int ld = p.DP + kQPad;
-  const int q0 = blockIdx.y * 8 * NT;
-  const int nq = min(8 * NT, p.B - q0);
-  for (int e = threadIdx.x; e < 8 * NT * p.DP; e += blockDim.x) {
-    const int r = e / p.DP, c = e % p.DP;
-    qs[r * ld + c] = r < nq && c < p.D
-                         ? p.q[static_cast<long long>(q0 + r) * p.D + c]
-                         : __float2bfloat16(0.f);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int nj = p.DP / 64;
-  const long long n_tiles = (p.N + kTileRows - 1) / kTileRows;
-  for (long long tile = static_cast<long long>(blockIdx.x) * kWarps + warp;
-       tile < n_tiles; tile += static_cast<long long>(gridDim.x) * kWarps) {
-    const long long ra = tile * kTileRows + g, rb = ra + 8;
-    float acc[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-    uint4 va = load16(p.slab, ra, p.N, p.D, 16 * t, p.vec);
-    uint4 vb = load16(p.slab, rb, p.N, p.D, 16 * t, p.vec);
-    for (int j = 0; j < nj; ++j) {
-      const int col = 64 * j + 16 * t;
-      uint4 na = make_uint4(0u, 0u, 0u, 0u), nb = na;
-      if (j + 1 < nj) {  // the next 64 columns load while these multiply
-        na = load16(p.slab, ra, p.N, p.D, col + 64, p.vec);
-        nb = load16(p.slab, rb, p.N, p.D, col + 64, p.vec);
-      }
-      const uint32_t wa[4] = {va.x, va.y, va.z, va.w};
-      const uint32_t wb[4] = {vb.x, vb.y, vb.z, vb.w};
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        // k positions 2t, 2t+1 <- columns col + 4s, +1; 2t+8, 2t+9 <- +2, +3
-        const uint32_t a[4] = {widen2(wa[s], 0), widen2(wb[s], 0),
-                               widen2(wa[s], 16), widen2(wb[s], 16)};
-        const bf16* qc = qs + g * ld + col + 4 * s;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const uint2 bq = *reinterpret_cast<const uint2*>(qc + n * 8 * ld);
-          mma_bf16(acc[n], a, bq.x, bq.y);
-        }
-      }
-      va = na;
-      vb = nb;
-    }
-    // lane holds rows ra (acc[n][0..1]) and rb (acc[n][2..3]) for queries
-    // q0 + 8n + 2t and + 1
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = h ? rb : ra;
-      if (row >= p.N) continue;
-      const bool ok = p.valid[row] != 0;
-      const float vs = p.vsq[row];
-      const float sc = p.metric ? p.scales[row] : 0.f;
-      const float rn = rsqrtf(vs + 1e-12f);
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qi = 8 * n + 2 * t + e;
-          if (qi >= nq) continue;
-          const float dots = acc[n][2 * h + e];
-          const float score =
-              !ok ? -INFINITY
-                  : p.metric ? 2.f * dots * sc - vs * (sc * sc) : dots * rn;
-          p.out[static_cast<long long>(q0 + qi) * p.N + row] = score;
-        }
-    }
-  }
-}
-
-size_t score_smem(int nt, int DP) {
-  return sizeof(bf16) * 8 * nt * (DP + kQPad);
-}
-
-template <int NT>
-cudaError_t launch_score(const ScoreParams& p, cudaStream_t stream) {
-  const size_t smem = score_smem(NT, p.DP);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        knn_score_i8_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxSmem));
-    if (e != cudaSuccess) return e;
-  }
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long tiles = (p.N + kTileRows - 1) / kTileRows;
-  const long long want = (tiles + kWarps - 1) / kWarps;
-  const long long cap = 4LL * sms;  // a few resident blocks per SM
-  const dim3 grid(static_cast<unsigned>(want < cap ? want : cap),
-                  (p.B + 8 * NT - 1) / (8 * NT));
-  knn_score_i8_kernel<NT><<<grid, kWarps * 32, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------------------------------
-// K3 top-k: int8 score fused with the top-k (shared parts: knn_topk.cuh)
-// ------------------------------------------------------------------------
 
 // a - b on bf16 pairs (as a + b * -1), exact on the integers used here
 __device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
@@ -256,54 +111,46 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
                   __byte_perm(s, 0x43u, 0x4342));
 }
 
-struct TopkParams {
+struct I8Params {
   const bf16* q;
   const int8_t* slab;
   const float* scales;
   const float* vsq;
   const uint8_t* valid;
-  u64* ws;  // (gridDim.x, B, k): each block's k best keys per query
+  u64* ws;    // top-k: (gridDim.x, B, k), each block's k best keys per query
+  long long* out;  // score: (B, N) keys score_key(score, row)
   long long N;
   int B, D, DP, metric, k;
-  bool vec;
+  bool vec;   // D % 16 == 0 and a 16-byte aligned slab
+  bool vec_out;  // score: N % 4 == 0 (16-byte stores)
 };
 
-// Shared memory of launch 1: keys, counts and queries, then (stg > 0) the
-// ring: stg stages of each warp's 16 rows x DP
-size_t topk_smem(int nt, int DP, int stg) {
-  return topk_lists_smem(nt, DP) +
+// Shared memory of launch 1 before the ring (the top-k's lists or the
+// score's staging, then the queries), then (stg > 0) the ring: stg stages
+// of each warp's 16 rows x DP
+size_t i8_smem(bool store, int nt, int DP, int stg) {
+  return (store ? score_lists_smem(nt, DP) : topk_lists_smem(nt, DP)) +
          static_cast<size_t>(stg) * kTopkTile * DP;
 }
 
-// Launch 1. Each warp scores 16 rows of a block tile against the block's
-// NT n8 query tiles. STG = 0: a lane loads its 16-byte pieces of the rows
-// into registers, two 64-column blocks ahead (any D); STG = 2 (D % 16 ==
-// 0, 16-byte aligned slab): each warp streams its rows into a ring of STG
-// stages in shared memory with cp.async, a tile ahead, in 512-byte
-// contiguous requests that hold no registers while in flight. The
-// products are mma.sync m16n8k16, one per warp and n8 query tile, or at
-// 64 queries (WG) one wgmma m64n64k16 per 4 warps, which reads the
+// Launch 1's mainloop, for K3 top-k and K3 score alike. Each warp scores
+// 16 rows of a block tile against the block's NT n8 query tiles, staged in
+// qs, and hands each tile's sums to epi(acc, r0, in, ok, fa, fb). STG = 0:
+// a lane loads its 16-byte pieces of the rows into registers, two
+// 64-column blocks ahead (any D); STG = 2 (vec): each warp streams its rows
+// into a ring of STG stages in shared memory with cp.async, a tile ahead,
+// in 512-byte contiguous requests that hold no registers while in flight.
+// The products are mma.sync m16n8k16, one per warp and n8 query tile, or
+// at 64 queries (WG) one wgmma m64n64k16 per 4 warps, which reads the
 // queries from shared memory once for the 4 and issues 1/32 the
 // instructions.
-template <int NT, int STG>
-__global__ void __launch_bounds__(kWarps * 32, 2)
-knn_topk_i8_kernel(const TopkParams p) {
+template <int NT, int STG, bool WG, typename Epi>
+__device__ __forceinline__ void i8_rows(const I8Params& p, const bf16* qs,
+                                        int8_t* ring, Epi&& epi) {
   constexpr int NQ = 8 * NT;  // queries per block
-  // 64 queries from registers: one wgmma per k-step for each 4 warps
-  constexpr bool WG = NT == 8 && STG == 0;
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int S = kTopkKeys;
-  u64* keys = reinterpret_cast<u64*>(smem);          // [NQ][S]
-  int* cnt = reinterpret_cast<int*>(keys + NQ * S);  // [NQ]
-  bf16* qs = reinterpret_cast<bf16*>(cnt + NQ);        // [NQ][DP]
-  int8_t* ring = reinterpret_cast<int8_t*>(qs + NQ * p.DP);
-  const int q0 = blockIdx.y * NQ;
-  const int nq = min(NQ, p.B - q0);
-  topk_stage<NQ, WG>(p.q, q0, nq, p.D, p.DP, qs, keys, cnt);
-
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int nj = p.DP / 64, k = p.k;
+  const int nj = p.DP / 64;
   const bf16* qrow = qs + g * p.DP;
   const long long stride = static_cast<long long>(gridDim.x) * kTopkTile;
   // ring rows: the 16-byte chunk c of an odd row sits at chunk c ^ sw_odd,
@@ -345,7 +192,7 @@ knn_topk_i8_kernel(const TopkParams p) {
 
   // each row's vsq, scale (l2sq) and validity, loaded a tile ahead of its
   // use (a load at the tile's start would stall every warp at the block
-  // barrier that ends the tile)
+  // barrier that ends the top-k's tile)
   float vs_n[2], sc_n[2];
   bool ok_n[2];
   auto load_rows = [&](long long r) {
@@ -363,7 +210,7 @@ knn_topk_i8_kernel(const TopkParams p) {
   // register path: the 64-column blocks j + 1 and j + 2 load while j
   // multiplies (two ahead measured faster than one, three or five at
   // B = 64), and past a tile's end they are the next tile's first blocks,
-  // so loads stay in flight through the epilogue and the barrier
+  // so loads stay in flight through the epilogue
   constexpr int PF = 2;
   uint4 va[PF + 1], vb[PF + 1];
   auto load_ahead = [&](long long r0cur, int jn, uint4& a, uint4& b) {
@@ -387,9 +234,9 @@ knn_topk_i8_kernel(const TopkParams p) {
        base < p.N; base += stride, ++it) {
     // the lane's rows: r0 and r0 + 8
     const long long r0 = base + warp * kTileRows + g;
-    // their score factors, as score_i8's epilogue: cos dots * fa, fa =
-    // rsqrt(vsq + 1e-12); l2sq (dots * fa) - fb, with fa = 2 scale, fb =
-    // vsq scale^2, rounded as the plain version rounds them
+    // their score factors: cos dots * fa, fa = rsqrt(vsq + 1e-12); l2sq
+    // (dots * fa) - fb, with fa = 2 scale, fb = vsq scale^2, rounded as the
+    // plain version rounds them
     float fa[2], fb[2];
     bool in[2], ok[2];
 #pragma unroll
@@ -407,8 +254,8 @@ knn_topk_i8_kernel(const TopkParams p) {
       for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
     // one 64-column block j: A fragments from the 16 bytes va (row r0) and
     // vb (row r0 + 8) at columns 64 j + 16 t; k positions 2t, 2t+1 <-
-    // columns 16t + 4s, +1 and 2t+8, 2t+9 <- +2, +3 (score_i8's
-    // permutation), for the slab and the queries alike
+    // columns 16t + 4s, +1 and 2t+8, 2t+9 <- +2, +3, for the slab and the
+    // queries alike
     auto mma_block = [&](int j, const uint4& va, const uint4& vb) {
       if constexpr (WG) {
         uint32_t a[4][4];
@@ -468,10 +315,65 @@ knn_topk_i8_kernel(const TopkParams p) {
         }
       }
     }
-    topk_offer_tile<NT>(acc, keys, cnt, k, nq, r0, in, ok, fa, fb,
-                        p.metric != 0, warp, lane);
+    epi(acc, r0, in, ok, fa, fb);
   }
-  topk_block_finish(keys, cnt, k, nq, p.B, q0, p.ws, warp, lane);
+}
+
+// K3 top-k, launch 1: the mainloop into the block's running top-k lists,
+// then each block's k best keys per query into the workspace.
+template <int NT, int STG>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+knn_topk_i8_kernel(const I8Params p) {
+  constexpr int NQ = 8 * NT;
+  // 64 queries from registers: one wgmma per k-step for each 4 warps
+  constexpr bool WG = NT == 8 && STG == 0;
+  constexpr int S = kTopkKeys;
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* keys = reinterpret_cast<u64*>(smem);          // [NQ][S]
+  int* cnt = reinterpret_cast<int*>(keys + NQ * S);  // [NQ]
+  bf16* qs = reinterpret_cast<bf16*>(cnt + NQ);        // [NQ][DP]
+  int8_t* ring = reinterpret_cast<int8_t*>(qs + NQ * p.DP);
+  const int q0 = blockIdx.y * NQ;
+  const int nq = min(NQ, p.B - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  stage_queries<NQ, WG>(p.q, q0, nq, p.D, p.DP, qs);
+  topk_lists_init<NQ>(keys, cnt);
+  __syncthreads();
+  i8_rows<NT, STG, WG>(
+      p, qs, ring,
+      [&](const float (&acc)[NT][4], long long r0, const bool (&in)[2],
+          const bool (&ok)[2], const float (&fa)[2], const float (&fb)[2]) {
+        topk_offer_tile<NT>(acc, keys, cnt, p.k, nq, r0, in, ok, fa, fb,
+                            p.metric != 0, warp, lane);
+      });
+  topk_block_finish(keys, cnt, p.k, nq, p.B, q0, p.ws, warp, lane);
+}
+
+// K3 score, for k past the top-k's lists: the same mainloop into the store
+// epilogue (knn_topk.cuh::store_tile), with no block barrier after the
+// prologue; wgmma at 64 queries from the ring too (see i8_config).
+template <int NT, int STG>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+knn_score_i8_kernel(const I8Params p) {
+  constexpr int NQ = 8 * NT;
+  constexpr bool WG = NT == 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* stg = reinterpret_cast<float*>(smem);  // [kWarps][NQ][kStgLd]
+  bf16* qs = reinterpret_cast<bf16*>(stg + kWarps * NQ * kStgLd);
+  int8_t* ring = reinterpret_cast<int8_t*>(qs + NQ * p.DP);
+  const int q0 = blockIdx.y * NQ;
+  const int nq = min(NQ, p.B - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* wstg = stg + warp * NQ * kStgLd;
+  stage_queries<NQ, WG>(p.q, q0, nq, p.D, p.DP, qs);
+  __syncthreads();
+  i8_rows<NT, STG, WG>(
+      p, qs, ring,
+      [&](const float (&acc)[NT][4], long long r0, const bool (&)[2],
+          const bool (&ok)[2], const float (&fa)[2], const float (&fb)[2]) {
+        store_tile<NT>(acc, wstg, p.out, p.vec_out, p.N, q0, nq,
+                       r0 - (lane >> 2), ok, fa, fb, p.metric != 0, lane);
+      });
 }
 
 // n8 query tiles per block (enough for B, at most 8, within the shared
@@ -479,35 +381,67 @@ knn_topk_i8_kernel(const TopkParams p) {
 // the ring kernel fit on an SM (B <= 8 at D = 384), else the register
 // path, which also runs two blocks an SM. On an H100 at 10M x 384 rows,
 // two blocks (16 warps) an SM are what hides the latency of each tile's
-// load, products and merge: one block with a deeper ring was slower at
-// B = 1, and the ring at one block slower than the register path at
-// B = 32 and 64.
-TopkConfig topk_config(int B, int DP, bool vec) {
+// load, products and merge in K3 top-k: one block with a deeper ring was
+// slower at B = 1, and the ring at one block slower than the register
+// path at B = 32 and 64. K3 score, which has no barrier per tile, takes
+// the ring with wgmma at 33-64 queries even at one block an SM, which
+// wrote its keys faster at B = 64 than the register path (PERF.md).
+TopkConfig i8_config(bool store, int B, int DP, bool vec) {
   int nt = topk_query_tiles(B);
   for (;;) {
     TopkConfig c;
     c.nt = nt;
-    c.stg = vec && topk_smem(nt, DP, 2) <= kTwoBlockSmem ? 2 : 0;
-    c.smem = topk_smem(nt, DP, c.stg);
+    const size_t ring_max =
+        store && nt == kMaxQueryTiles ? kMaxSmemTopk : kTwoBlockSmem;
+    c.stg = vec && i8_smem(store, nt, DP, 2) <= ring_max ? 2 : 0;
+    c.smem = i8_smem(store, nt, DP, c.stg);
     if (c.smem <= kMaxSmemTopk || nt == 1) return c;
     nt /= 2;
   }
 }
 
-// f(kernel) for the kernel instantiation of c
-template <int NT, typename F>
+// f(kernel) for the launch-1 kernel (STORE: K3 score, else K3 top-k) of c
+template <bool STORE, int NT, typename F>
 cudaError_t with_stages(int stg, F f) {
-  return stg ? f(knn_topk_i8_kernel<NT, 2>) : f(knn_topk_i8_kernel<NT, 0>);
+  if constexpr (STORE)
+    return stg ? f(knn_score_i8_kernel<NT, 2>) : f(knn_score_i8_kernel<NT, 0>);
+  else
+    return stg ? f(knn_topk_i8_kernel<NT, 2>) : f(knn_topk_i8_kernel<NT, 0>);
 }
 
-template <typename F>
-cudaError_t with_topk_kernel(const TopkConfig& c, F f) {
+template <bool STORE, typename F>
+cudaError_t with_i8_kernel(const TopkConfig& c, F f) {
   switch (c.nt) {
-    case 1: return with_stages<1>(c.stg, f);
-    case 2: return with_stages<2>(c.stg, f);
-    case 4: return with_stages<4>(c.stg, f);
-    default: return with_stages<8>(c.stg, f);
+    case 1: return with_stages<STORE, 1>(c.stg, f);
+    case 2: return with_stages<STORE, 2>(c.stg, f);
+    case 4: return with_stages<STORE, 4>(c.stg, f);
+    default: return with_stages<STORE, 8>(c.stg, f);
   }
+}
+
+// The operands of both K3 launches; false if the kernels cannot take them
+bool i8_params(I8Params& p, const void* q, const void* slab,
+               const void* scales, const void* vsq, const void* valid, int B,
+               long long N, int D, int metric) {
+  if (B < 1 || N < 1 || D < 1 || N > 0x7FFFFFFFLL ||
+      (metric != 0 && metric != 1))
+    return false;
+  p.q = static_cast<const bf16*>(q);
+  p.slab = static_cast<const int8_t*>(slab);
+  p.scales = static_cast<const float*>(scales);
+  p.vsq = static_cast<const float*>(vsq);
+  p.valid = static_cast<const uint8_t*>(valid);
+  p.ws = nullptr;
+  p.out = nullptr;
+  p.N = N;
+  p.B = B;
+  p.D = D;
+  p.DP = (D + 63) / 64 * 64;
+  p.metric = metric;
+  p.k = 0;
+  p.vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(slab) % 16 == 0;
+  p.vec_out = false;
+  return true;
 }
 
 // ------------------------------------------------------------------------
@@ -563,43 +497,31 @@ knn_quantize_scatter_kernel(const float* rows, long long ld,
 
 }  // namespace
 
-// K3. q (B, D) bf16 contiguous; slab (N, D) int8 contiguous; scales, vsq
-// (N,) f32 (scales read only for l2sq); valid (N,) bytes; out (B, N) f32.
-// metric: 0 = cos, 1 = l2sq. Returns the cudaError_t of the launch.
+// K3 score. q (B, D) bf16 contiguous; slab (N, D) int8 contiguous; scales,
+// vsq (N,) f32 (scales read only for l2sq); valid (N,) bytes; out (B, N)
+// int64 keys score_key(score, row). metric: 0 = cos, 1 = l2sq; N < 2^31.
+// Returns the cudaError_t of the launch.
 extern "C" int pt_knn_score_i8(const void* q, const void* slab,
                                const void* scales, const void* vsq,
                                const void* valid, void* out, int B,
                                long long N, int D, int metric, void* stream) {
-  if (B < 1 || N < 1 || D < 1 || (metric != 0 && metric != 1))
+  I8Params p;
+  if (!i8_params(p, q, slab, scales, vsq, valid, B, N, D, metric))
     return static_cast<int>(cudaErrorInvalidValue);
-  ScoreParams p;
-  p.q = static_cast<const bf16*>(q);
-  p.slab = static_cast<const int8_t*>(slab);
-  p.scales = static_cast<const float*>(scales);
-  p.vsq = static_cast<const float*>(vsq);
-  p.valid = static_cast<const uint8_t*>(valid);
-  p.out = static_cast<float*>(out);
-  p.N = N;
-  p.B = B;
-  p.D = D;
-  p.DP = (D + 63) / 64 * 64;
-  p.metric = metric;
-  p.vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(slab) % 16 == 0;
-  // n8 query tiles per block: enough for B, at most 8, within the
-  // shared memory a block may take
-  int nt = topk_query_tiles(B);
-  while (nt > 1 && score_smem(nt, p.DP) > kMaxSmem) nt /= 2;
-  if (score_smem(nt, p.DP) > kMaxSmem)
-    return static_cast<int>(cudaErrorInvalidValue);
+  p.out = static_cast<long long*>(out);
+  p.vec_out = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const TopkConfig c = i8_config(true, B, p.DP, p.vec);
+  if (c.smem > kMaxSmemTopk) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (B + 8 * c.nt - 1) / (8 * c.nt);
+  if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (nt) {
-    case 1: e = launch_score<1>(p, s); break;
-    case 2: e = launch_score<2>(p, s); break;
-    case 4: e = launch_score<4>(p, s); break;
-    default: e = launch_score<8>(p, s); break;
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(with_i8_kernel<true>(c, [&](auto kernel) {
+    int blocks = 0;
+    const cudaError_t e = topk_grid(kernel, c.smem, N, &blocks);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(blocks, groups), kWarps * 32, c.smem, s>>>(p);
+    return cudaGetLastError();
+  }));
 }
 
 // K4. rows (n, D) f32 with row stride ld (elements), last dim contiguous;
@@ -632,9 +554,9 @@ extern "C" int pt_knn_topk_i8_blocks(int B, long long N, int D, int k,
       N > 0x7FFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
   // as pt_knn_topk_i8 chooses for a 16-byte aligned slab
-  const TopkConfig c = topk_config(B, (D + 63) / 64 * 64, D % 16 == 0);
+  const TopkConfig c = i8_config(false, B, (D + 63) / 64 * 64, D % 16 == 0);
   if (c.smem > kMaxSmemTopk) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(with_topk_kernel(c, [&](auto kernel) {
+  return static_cast<int>(with_i8_kernel<false>(c, [&](auto kernel) {
     return topk_grid(kernel, c.smem, N, blocks);
   }));
 }
@@ -649,29 +571,18 @@ extern "C" int pt_knn_topk_i8(const void* q, const void* slab,
                               const void* valid, void* ws, int G, void* out_s,
                               void* out_row, int B, long long N, int D,
                               int metric, int k, void* stream) {
-  if (B < 1 || N < 1 || D < 1 || G < 1 || k < 1 || k > kTopkKMax || k > N ||
-      N > 0x7FFFFFFFLL || (metric != 0 && metric != 1))
+  I8Params p;
+  if (!i8_params(p, q, slab, scales, vsq, valid, B, N, D, metric) || G < 1 ||
+      k < 1 || k > kTopkKMax || k > N)
     return static_cast<int>(cudaErrorInvalidValue);
-  TopkParams p;
-  p.q = static_cast<const bf16*>(q);
-  p.slab = static_cast<const int8_t*>(slab);
-  p.scales = static_cast<const float*>(scales);
-  p.vsq = static_cast<const float*>(vsq);
-  p.valid = static_cast<const uint8_t*>(valid);
   p.ws = static_cast<u64*>(ws);
-  p.N = N;
-  p.B = B;
-  p.D = D;
-  p.DP = (D + 63) / 64 * 64;
-  p.metric = metric;
   p.k = k;
-  p.vec = D % 16 == 0 && reinterpret_cast<uintptr_t>(slab) % 16 == 0;
-  const TopkConfig c = topk_config(B, p.DP, p.vec);
+  const TopkConfig c = i8_config(false, B, p.DP, p.vec);
   if (c.smem > kMaxSmemTopk) return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (B + 8 * c.nt - 1) / (8 * c.nt);
   if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = with_topk_kernel(c, [&](auto kernel) {
+  cudaError_t e = with_i8_kernel<false>(c, [&](auto kernel) {
     const cudaError_t a = allow_smem(kernel, c.smem);
     if (a != cudaSuccess) return a;
     kernel<<<dim3(G, groups), kWarps * 32, c.smem, s>>>(p);

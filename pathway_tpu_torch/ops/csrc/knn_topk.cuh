@@ -1,6 +1,6 @@
-// The fused KNN score + top-k's shared device code for Hopper (sm_90a):
-// what K3 top-k (knn_i8.cu, int8 rows) and K2 (knn_bf16.cu, bf16 rows)
-// both run around their own row loads.
+// The KNN kernels' shared device code for Hopper (sm_90a): what K3 (knn_i8.cu,
+// int8 rows) and K2 (knn_bf16.cu, bf16 rows) run around their own row loads,
+// in their fused top-k and in their score-only twins.
 //
 // Each kernel's launch 1 is a persistent grid of 8-warp blocks walking
 // 128-row block tiles, each warp 16 rows: the rows are the M side of
@@ -9,18 +9,23 @@
 // A lane's A fragment of a 64-column block comes from columns 16 t .. 16 t
 // + 15 of its rows g and g + 8: k positions 2t, 2t+1 of k-step s are
 // columns 16 t + 4 s, +1, and 2t+8, 2t+9 are +2, +3. The queries are
-// staged with the same permutation (topk_stage), so dot products are
-// unchanged.
+// staged with the same permutation (stage_queries), so dot products are
+// unchanged. A tile's sums then go to one of two epilogues:
 //
-// A (score, row) pair is one 64-bit key in the stable descending sort's
-// order (higher score first, equal scores lower row first, -inf rows
-// ranked like any other), so one integer comparison ranks and breaks ties.
-// Each query keeps, in shared memory, its sorted k best and a candidate
-// buffer; a row enters the buffer only if its key beats the k-th best, and
-// a warp merges a buffer past half full with a bitonic sort, between the
-// block barriers that end each tile (topk_offer_tile). Each block writes
-// its k best per query to a workspace (topk_block_finish); launch 2
-// (knn_topk_merge_kernel) merges the blocks' lists by the same key.
+// - the top-k (topk_offer_tile). A (score, row) pair is one 64-bit key in
+//   the stable descending sort's order (higher score first, equal scores
+//   lower row first, -inf rows ranked like any other), so one integer
+//   comparison ranks and breaks ties. Each query keeps, in shared memory,
+//   its sorted k best and a candidate buffer; a row enters the buffer only
+//   if its key beats the k-th best, and a warp merges a buffer past half
+//   full with a bitonic sort, between the block barriers that end each
+//   tile. Each block writes its k best per query to a workspace
+//   (topk_block_finish); launch 2 (knn_topk_merge_kernel) merges the
+//   blocks' lists by the same key.
+// - the store (store_tile), for k past the top-k's lists: each warp stages
+//   its 16 rows x n queries of scores in shared memory and writes them out
+//   row-contiguous per query with 16-byte streaming stores, as the signed
+//   64-bit keys of score_key (the selection's order).
 
 #pragma once
 
@@ -189,16 +194,15 @@ size_t topk_lists_smem(int nt, int DP) {
 }
 
 // Launch 1's prologue: the block's NQ queries q0 .. q0 + nq - 1 of q (B,
-// D) staged in qs, zero-padded to NQ x DP, and its lists emptied. mma.sync
-// (WG false): the 8-byte unit u of query row r sits at unit u ^ (r & 3),
-// so the B-fragment reads are free of bank conflicts without padding.
-// wgmma: column c (64 j + 16 t + 4 s + 2 hi + e) is k position 2 t + e + 8
-// hi of k-step 4 j + s, stored in core matrix (k chunk 2 (4 j + s) + hi,
+// D) staged in qs, zero-padded to NQ x DP (the caller's barrier ends it).
+// mma.sync (WG false): the 8-byte unit u of query row r sits at unit u ^ (r
+// & 3), so the B-fragment reads are free of bank conflicts without
+// padding. wgmma: column c (64 j + 16 t + 4 s + 2 hi + e) is k position 2 t
+// + e + 8 hi of k-step 4 j + s, stored in core matrix (k chunk 2 (4 j + s),
 // query group r / 8) at row r % 8.
 template <int NQ, bool WG>
-__device__ __forceinline__ void topk_stage(const bf16* q, int q0, int nq,
-                                           int D, int DP, bf16* qs,
-                                           u64* keys, int* cnt) {
+__device__ __forceinline__ void stage_queries(const bf16* q, int q0, int nq,
+                                              int D, int DP, bf16* qs) {
   for (int e = threadIdx.x; e < NQ * DP; e += blockDim.x) {
     const int r = e / DP, c = e % DP;
     const bf16 v = r < nq && c < D
@@ -213,10 +217,23 @@ __device__ __forceinline__ void topk_stage(const bf16* q, int q0, int nq,
       qs[r * DP + ((((c >> 2) ^ (r & 3))) << 2) + (c & 3)] = v;
     }
   }
+}
+
+// The top-k's lists emptied (the caller's barrier ends it)
+template <int NQ>
+__device__ __forceinline__ void topk_lists_init(u64* keys, int* cnt) {
   for (int e = threadIdx.x; e < NQ * kTopkKeys; e += blockDim.x)
     keys[e] = 0ull;
   for (int e = threadIdx.x; e < NQ; e += blockDim.x) cnt[e] = 0;
-  __syncthreads();
+}
+
+// A row's score from its dot product, rounded as the plain versions round
+// it: dots * fa (cos) or dots * fa - fb (l2sq), -inf where !ok
+__device__ __forceinline__ float tile_score(float d, bool ok, float fa,
+                                            float fb, bool l2sq) {
+  return !ok ? -INFINITY
+         : l2sq ? __fsub_rn(__fmul_rn(d, fa), fb)
+                : __fmul_rn(d, fa);
 }
 
 // One tile's scores into the block's lists, by every thread of the block
@@ -249,10 +266,7 @@ __device__ __forceinline__ void topk_offer_tile(
   auto consider = [&](int n, int c) -> bool {
     const int h = c >> 1, qi = 8 * n + 2 * t + (c & 1);
     if (qi >= nq || !in[h]) return false;
-    const float d = acc[n][c];
-    const float s = !ok[h] ? -INFINITY
-                    : l2sq ? __fsub_rn(__fmul_rn(d, fa[h]), fb[h])
-                           : __fmul_rn(d, fa[h]);
+    const float s = tile_score(acc[n][c], ok[h], fa[h], fb[h], l2sq);
     if (s < ts[n][c & 1]) return false;
     const u64 key = topk_key(s, r0 + 8 * h);
     if (key <= keys[qi * S + k - 1]) return false;
@@ -302,6 +316,72 @@ __device__ __forceinline__ void topk_block_finish(u64* keys, int* cnt, int k,
     ws[(static_cast<long long>(blockIdx.x) * B + q0 + qi) * k + r] =
         keys[qi * S + r];
   }
+}
+
+// The store epilogue's staging: a warp's scores of a query's 16 rows at a
+// stride of kStgLd floats, so that the fragment writes (queries 2 t + e,
+// rows g, g + 8) fall in 32 distinct banks and each query's rows start
+// 16-byte aligned.
+constexpr int kStgLd = 20;
+
+// Shared memory of a score kernel before any ring: each warp's staging
+// [NQ][kStgLd] f32, then the queries [NQ][DP] bf16
+size_t score_lists_smem(int nt, int DP) {
+  return static_cast<size_t>(8 * nt) *
+         (sizeof(float) * kWarps * kStgLd + sizeof(bf16) * DP);
+}
+
+// (score, row) -> the selection's signed 64-bit key
+// (ops/knn_kernels.py::score_keys): the high word is the score's bits as
+// an order-preserving int32 (sign and magnitude to two's complement, so
+// -0 is +0), the low word the row complemented. A higher key ranks first:
+// higher score, then lower row.
+__device__ __forceinline__ long long score_key(float s, long long row) {
+  const int b = __float_as_int(s);
+  const int o = b < 0 ? -(b & 0x7FFFFFFF) : b;
+  return static_cast<long long>(
+      (static_cast<u64>(static_cast<uint32_t>(o)) << 32) |
+      static_cast<u64>(~static_cast<uint32_t>(row)));
+}
+
+// The store epilogue of one warp's 16-row tile (rows row0 .. row0 + 15 of
+// the N), by the warp: acc as topk_offer_tile takes it, scored by
+// tile_score into the warp's staging stg, then each query's rows out to
+// row q0 + qi of out (B, N), each score as its 64-bit key score_key, four
+// rows a lane as two 16-byte streaming stores where vec (N % 4 == 0), else
+// one by one. Rows past N are not written.
+template <int NT>
+__device__ __forceinline__ void store_tile(
+    const float (&acc)[NT][4], float* stg, long long* out, bool vec,
+    long long N, int q0, int nq, long long row0, const bool (&ok)[2],
+    const float (&fa)[2], const float (&fb)[2], bool l2sq, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int h = c >> 1;
+      stg[(8 * n + 2 * t + (c & 1)) * kStgLd + g + 8 * h] =
+          tile_score(acc[n][c], ok[h], fa[h], fb[h], l2sq);
+    }
+  __syncwarp();
+  for (int e = lane; e < 4 * nq; e += 32) {
+    const int qi = e >> 2, p4 = 4 * (e & 3);
+    const long long row = row0 + p4;
+    if (row >= N) continue;
+    const float4 v = *reinterpret_cast<const float4*>(stg + qi * kStgLd + p4);
+    long long* o = out + static_cast<long long>(q0 + qi) * N + row;
+    const long long k0 = score_key(v.x, row), k1 = score_key(v.y, row + 1),
+                    k2 = score_key(v.z, row + 2), k3 = score_key(v.w, row + 3);
+    if (vec) {
+      __stcs(reinterpret_cast<longlong2*>(o), make_longlong2(k0, k1));
+      __stcs(reinterpret_cast<longlong2*>(o) + 1, make_longlong2(k2, k3));
+    } else {
+      const long long kk[4] = {k0, k1, k2, k3};
+      for (int i = 0; i < 4 && row + i < N; ++i) __stcs(o + i, kk[i]);
+    }
+  }
+  __syncwarp();  // the staging is read before the next tile writes it
 }
 
 // Launch 2: block q merges the G blocks' k best keys of query q, M keys

@@ -5,8 +5,9 @@ Vectors live in page-aligned device extents (engine/paged_store.py); a
 host mirror, key maps and dirty/stale slot sets batch incremental adds
 and removes into few device writes. A search scores every established
 extent (a bf16 or int8 extent in one fused score + top-k kernel; a float32
-extent, or a k past ``K_MAX``, by a matrix product + a stable top-k,
-chunked above ``_CHUNK_ROWS`` rows) and merges the per-extent candidates
+extent, or a k past ``K_MAX``, by a score kernel or a matrix product and
+an exact selection of unique (score, slot) keys, chunked above
+``_CHUNK_ROWS`` rows) and merges the per-extent candidates
 on the host by (score desc, slot asc), exactly as the JAX package does.
 ``latency_probe`` times the device half of a search alone, as the JAX
 package's does (bench.py's ``knn_p50_ms`` family).
@@ -17,16 +18,18 @@ Numerics held to the JAX package:
   multiply with f32 sums, where JAX asks the MXU for f32 outputs of bf16
   inputs. Queries are rounded to the slab dtype first, as JAX casts them.
   A bfloat16 slab is searched by K2 (score + top-k in one kernel for k <=
-  64, ops/knn_kernels.py); a float32 slab's product stays ``torch.matmul``,
-  as the JAX package leaves it to XLA;
+  64, its score twin beyond, ops/knn_kernels.py); a float32 slab's
+  product stays ``torch.matmul``, as the JAX package leaves it to XLA;
 - ``dtype="int8"`` keeps rows quantized per row (scale = max|v| / 127)
   with an int-domain squared norm ``vsq`` beside each, written by K4, the
   quantizing scatter, and searched by K3 (score + top-k in one kernel
-  for k <= 64) against bf16 queries (ops/knn_kernels.py); the host mirror
-  stays exact float32, as in the JAX package;
+  for k <= 64, its score alone beyond) against bf16 queries
+  (ops/knn_kernels.py); the host mirror stays exact float32, as in the
+  JAX package;
 - top-k keeps equal scores lowest slot first (``lax.top_k``'s order, which
-  the host merge relies on): a stable descending sort, then a slice, or
-  K2's and K3's (score, slot) keys, which rank the same way.
+  the host merge relies on): ``torch.topk`` of unique 64-bit (score,
+  slot) keys (``knn_kernels.score_keys``), or K2's and K3's keys, which
+  rank the same way.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: the contiguous slab (``paged=False``), string (jmespath) filters,
@@ -48,9 +51,11 @@ from pathway_tpu_torch.engine.locking import create_rlock
 from pathway_tpu_torch.engine.paged_store import (DevicePagePool,
                                                   paged_store_enabled)
 from pathway_tpu_torch.internals.keys import Pointer
-from pathway_tpu_torch.ops.knn_kernels import (K_MAX, quantize_scatter,
+from pathway_tpu_torch.ops.knn_kernels import (K_MAX, key_rows, key_scores,
+                                               quantize_scatter, score_bf16,
                                                score_float_reference,
-                                               score_i8, topk_bf16, topk_i8)
+                                               score_i8, score_keys,
+                                               topk_bf16, topk_i8)
 
 
 class KnnMetric(enum.Enum):
@@ -61,6 +66,11 @@ class KnnMetric(enum.Enum):
 _MIN_CAPACITY = 1024
 # extents larger than this are scanned in chunks of this many rows
 _CHUNK_ROWS = 1 << 19
+# the route past K_MAX selects from several chunks' keys in one torch.topk
+# call, up to this many queries' chunks of keys at a time (B=64: one chunk,
+# B=1: 64). torch.topk sorts the rows of a call with at most 10 of them
+# and selects by radix from 11 on, which an H100 does faster (PERF.md).
+_SELECT_ROWS = 64
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -106,24 +116,48 @@ def _slab_dtype(dtype: str) -> torch.dtype:
 
 
 def _topk(scores: torch.Tensor, k: int):
-    """Top-k of each row, best first, equal scores lowest column first."""
-    s, i = torch.sort(scores, dim=1, descending=True, stable=True)
-    return s[:, :k], i[:, :k]
+    """Top-k of each row, best first, equal scores lowest column first:
+    ``torch.topk`` of the rows' unique (score, column) keys
+    (``score_keys``), so exactly the first k columns of a stable
+    descending sort, score bits included."""
+    cols = torch.topk(score_keys(scores), k, dim=1).indices
+    return torch.gather(scores, 1, cols), cols
 
 
-def search_chunks(score: Callable, n: int, k: int):
-    """Top-k of ``n`` rows scored ``score(c0, c1) -> (B, c1 - c0)`` chunk
-    by chunk: above ``_CHUNK_ROWS`` rows a stable top-k per chunk, then a
-    merge that keeps lowest-row-first tie order (``_chunked_search``)."""
-    if n <= _CHUNK_ROWS:
-        return _topk(score(0, n), k)
-    cand_s, cand_i = [], []
-    for c0 in range(0, n, _CHUNK_ROWS):
-        ts, ti = _topk(score(c0, c0 + _CHUNK_ROWS), k)
-        cand_s.append(ts)
-        cand_i.append(ti + c0)
-    return _topk_gather(torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1),
-                        k)
+def search_chunks(keys: Callable, n: int, k: int, q: torch.Tensor):
+    """Top-k of ``n`` rows for the queries ``q`` (B, D), scored chunk by
+    chunk: ``keys(c0, c1, out)`` writes the ``score_keys`` of chunk [c0,
+    c1) (columns from 0) into ``out``, a (B, c1 - c0) int64 view on q's
+    device. The k best keys of each ``_CHUNK_ROWS`` chunk, their rows made
+    global (a key less c0 is the key of row c0 + its column), then the k
+    best of those (``_chunked_search``: top-k per chunk and a merge, in
+    lowest-row-first tie order). Chunks of one width are selected in
+    groups of up to ``_SELECT_ROWS // B`` by one ``torch.topk`` call over
+    the group's chunks x B rows, which holds no more keys than one chunk of
+    ``_SELECT_ROWS`` queries. Returns (B, k) scores and rows."""
+    B = q.shape[0]
+    group = max(1, _SELECT_ROWS // max(B, 1))
+    cand, c0 = [], 0
+    while c0 < n:
+        width = min(_CHUNK_ROWS, n - c0)
+        starts = [c for c in range(c0, c0 + group * width, width)
+                  if c + width <= n]
+        buf = torch.empty((len(starts) * B, width), dtype=torch.int64,
+                          device=q.device)
+        for j, c in enumerate(starts):
+            keys(c, c + width, buf[j * B:(j + 1) * B])
+        kc = min(k, width)
+        top = torch.topk(buf, kc, dim=1).values.view(len(starts), B, kc)
+        # starts c0, c0 + width, ...: made on the device (a host list would
+        # be a copy that waits for the card)
+        top = top - (c0 + width * torch.arange(
+            len(starts), device=q.device))[:, None, None]
+        cand.append(top.permute(1, 0, 2).reshape(B, len(starts) * kc))
+        c0 = starts[-1] + width
+    # one chunk's k best are the answer; several chunks' are merged
+    top = cand[0] if n <= _CHUNK_ROWS else \
+        torch.topk(torch.cat(cand, dim=1), k, dim=1).values
+    return key_scores(top), key_rows(top)
 
 
 def _topk_gather(cand_s, cand_i, k: int):
@@ -141,9 +175,11 @@ def search_extent(queries, vectors, valid, k: int, metric: KnnMetric,
     int8 or bf16 extent (the JAX package's ``_prep_queries``). For k <=
     ``K_MAX`` a bf16 extent is searched by K2 (``topk_bf16``) and an int8
     extent, which passes ``extras = (scales, vsq)``, by K3 top-k, each over
-    the whole extent in one call. Otherwise (a float32 extent, or a
-    filter's escalated fetch) ``search_chunks`` scores it chunk by chunk:
-    K3's score for int8, ``score_float_reference`` for the float slabs."""
+    the whole extent in one call. Otherwise (a filter's escalated fetch,
+    or a float32 extent) ``search_chunks`` selects from each chunk's keys:
+    K3's score (``score_i8``) for int8 and K2's score twin
+    (``score_bf16``) for bf16 write them themselves; a float32 extent's
+    come from ``score_float_reference``."""
     q = queries
     if metric == KnnMetric.COS:
         q = q / (torch.linalg.vector_norm(q, dim=1, keepdim=True) + 1e-12)
@@ -153,19 +189,23 @@ def search_extent(queries, vectors, valid, k: int, metric: KnnMetric,
         if k <= K_MAX:
             return topk_i8(q, vectors, scales, vsq, valid, metric.value, k)
 
-        def score(c0, c1):
-            return score_i8(q, vectors[c0:c1], scales[c0:c1], vsq[c0:c1],
-                            valid[c0:c1], metric.value)
-    elif vectors.dtype == torch.bfloat16 and k <= K_MAX:
-        return topk_bf16(q.to(torch.bfloat16).contiguous(), vectors, valid,
-                         metric.value, k)
-    else:
-        q = q.to(vectors.dtype).float()
+        def keys(c0, c1, out):
+            score_i8(q, vectors[c0:c1], scales[c0:c1], vsq[c0:c1],
+                     valid[c0:c1], metric.value, out)
+    elif vectors.dtype == torch.bfloat16:
+        q = q.to(torch.bfloat16).contiguous()
+        if k <= K_MAX:
+            return topk_bf16(q, vectors, valid, metric.value, k)
 
-        def score(c0, c1):
-            return score_float_reference(q, vectors[c0:c1], valid[c0:c1],
-                                         metric.value)
-    return search_chunks(score, vectors.shape[0], k)
+        def keys(c0, c1, out):
+            score_bf16(q, vectors[c0:c1], valid[c0:c1], metric.value, out)
+    else:
+        q = q.float()
+
+        def keys(c0, c1, out):
+            out.copy_(score_keys(score_float_reference(
+                q, vectors[c0:c1], valid[c0:c1], metric.value)))
+    return search_chunks(keys, vectors.shape[0], k, q)
 
 
 def _fused_step_fn(producer: Callable, dtype: str):

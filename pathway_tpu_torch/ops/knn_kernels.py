@@ -1,11 +1,14 @@
 """The KNN slabs' kernels — K2, the bf16 search (``topk_bf16``, score fused
-with the top-k; ops/csrc/knn_bf16.cu), K3, the int8 search (``topk_i8``,
-score fused with the top-k, and ``score_i8``, the score alone), and K4,
-the quantizing scatter (ops/csrc/knn_i8.cu) — with their plain PyTorch
-versions. K2 and K3 top-k share their top-k code (ops/csrc/knn_topk.cuh).
+with the top-k, and ``score_bf16``, the score alone; ops/csrc/knn_bf16.cu),
+K3, the int8 search (``topk_i8``, score fused with the top-k, and
+``score_i8``, the score alone), and K4, the quantizing scatter
+(ops/csrc/knn_i8.cu) — with their plain PyTorch versions, and the 64-bit
+keys (``score_keys``) in which the search ranks (score, row) pairs. Each
+kernel family runs one mainloop with two epilogues (ops/csrc/knn_topk.cuh).
 
 They replace three XLA functions of pathway_tpu/ops/knn.py:
-``_shared_search_fn`` over a bf16 slab (K2, for k <= ``K_MAX``),
+``_shared_search_fn`` over a bf16 slab (K2: ``topk_bf16`` for k <=
+``K_MAX``, its score block ``score_bf16`` for larger k),
 ``_shared_search_i8_fn`` (K3: ``topk_i8`` for k <= ``K_MAX``, its score
 block ``score_i8`` for larger k) and ``_quantize_i8`` inside
 ``_shared_scatter_i8_fn`` and the int8 fused-ingest step (K4). On a CUDA
@@ -47,6 +50,8 @@ KNN_BF16 = CudaLibrary("knn_bf16", {
     # (q, slab, valid, ws, G, out_s, out_row, B, N, D, metric, k, stream)
     "pt_knn_topk_bf16": (_I, [_P] * 4 + [_I, _P, _P, _I, _L, _I, _I, _I,
                                          _P]),
+    # (q, slab, valid, out, B, N, D, metric, stream)
+    "pt_knn_score_bf16": (_I, [_P] * 4 + [_I, _L, _I, _I, _P]),
     "pt_knn_error_string": (ctypes.c_char_p, [_I]),
 })
 _METRICS = {"cos": 0, "l2sq": 1}
@@ -64,6 +69,7 @@ class LaunchCount:
 SCORE_I8 = LaunchCount("knn_score_i8")
 TOPK_I8 = LaunchCount("knn_topk_i8")
 TOPK_BF16 = LaunchCount("knn_topk_bf16")
+SCORE_BF16 = LaunchCount("knn_score_bf16")
 # the largest k that ``topk_i8`` and ``topk_bf16`` take: the default limit, bench_knn's k=10
 # and the 4x over-fetch of a filtered query up to limit 16
 K_MAX = 64
@@ -88,6 +94,41 @@ def _on_card(t: torch.Tensor, what: str) -> bool:
 def _need(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+# ---------------------------------------------------------------------------
+# the search's keys
+# ---------------------------------------------------------------------------
+
+_LOW32 = 0xFFFFFFFF
+
+
+def score_keys(scores: torch.Tensor) -> torch.Tensor:
+    """(B, N) float32 scores -> (B, N) int64 keys, one per (score, column),
+    in the order of a stable descending sort: a higher key is a higher
+    score, or an equal score at a lower column. The high word is the
+    score's bits as an order-preserving int32 (sign and magnitude to two's
+    complement, so -0 and +0 are one score; -inf ranks below every finite
+    score, a NaN above +inf, as the sort puts it), the low word ``2^32 - 1
+    - column`` for columns 0 .. N - 1. Keys are unique within a row, so
+    ``torch.topk`` of them is exact. The score kernels write the same keys
+    (ops/csrc/knn_topk.cuh ``score_key``)."""
+    b = scores.contiguous().view(torch.int32)
+    o = torch.where(b < 0, -(b & 0x7FFFFFFF), b).to(torch.int64)
+    cols = torch.arange(scores.shape[-1], dtype=torch.int64,
+                        device=scores.device)
+    return o * (1 << 32) + (_LOW32 - cols)
+
+
+def key_scores(keys: torch.Tensor) -> torch.Tensor:
+    """The float32 scores of ``score_keys`` keys (-0 comes back +0)."""
+    o = torch.div(keys, 1 << 32, rounding_mode="floor").to(torch.int32)
+    return torch.where(o < 0, (-o) | -(1 << 31), o).view(torch.float32)
+
+
+def key_rows(keys: torch.Tensor) -> torch.Tensor:
+    """The int64 columns (rows) of ``score_keys`` keys."""
+    return _LOW32 - (keys & _LOW32)
 
 
 # ---------------------------------------------------------------------------
@@ -219,9 +260,9 @@ def _check_i8_operands(q, slab, scales, vsq, valid) -> tuple[int, int, int]:
 
 
 def score_i8_reference(q, slab, scales, vsq, valid, metric: str):
-    """Plain version of ``score_i8``: the int8 rows widened to float32
-    (exact), one f32 product with the bf16 queries (exact products, f32
-    sums), then the score block of the JAX package's
+    """The scores whose keys ``score_i8`` writes: the int8 rows widened to
+    float32 (exact), one f32 product with the bf16 queries (exact products,
+    f32 sums), then the score block of the JAX package's
     ``_shared_search_i8_fn``."""
     dots = q.float() @ slab.float().T
     if metric == "cos":
@@ -232,37 +273,63 @@ def score_i8_reference(q, slab, scales, vsq, valid, metric: str):
     return scores.masked_fill(~valid[None, :], -math.inf)
 
 
-def score_i8(q, slab, scales, vsq, valid, metric: str) -> torch.Tensor:
-    """K3: queries q (B, D) bfloat16 (normalised for cos, then cast), an
-    int8 chunk ``slab`` (N, D) with its (N,) ``scales``, ``vsq`` (f32) and
-    ``valid`` (bool) -> (B, N) float32 scores: ``dots * rsqrt(vsq +
-    1e-12)`` for cos, ``2 dots scale - vsq scale^2`` for l2sq, -inf on
-    invalid rows.
+def score_i8(q, slab, scales, vsq, valid, metric: str,
+             out: torch.Tensor | None = None) -> torch.Tensor:
+    """K3 score: queries q (B, D) bfloat16 (normalised for cos, then cast),
+    an int8 chunk ``slab`` (N, D) with its (N,) ``scales``, ``vsq`` (f32)
+    and ``valid`` (bool) -> the (B, N) int64 ``score_keys`` of the scores
+    ``dots * rsqrt(vsq + 1e-12)`` for cos, ``2 dots scale - vsq scale^2``
+    for l2sq, -inf on invalid rows (``key_scores`` gives them back).
+    Written into ``out`` (contiguous, of that shape and dtype) if given.
 
     CUDA tensors launch the kernel on the current stream (counted in
-    ``SCORE_I8.launches``); CPU tensors take ``score_i8_reference``."""
+    ``SCORE_I8.launches``); CPU tensors take the keys of
+    ``score_i8_reference``."""
     _check_metric(metric)
     if not _on_card(q, "score_i8"):
-        return score_i8_reference(q, slab, scales, vsq, valid, metric)
+        return _plain_keys(
+            score_i8_reference(q, slab, scales, vsq, valid, metric), out)
     B, N, D = _check_i8_operands(q, slab, scales, vsq, valid)
-    out = torch.empty((B, N), dtype=torch.float32, device=q.device)
+    return _launch_score(KNN_I8, "score_i8", SCORE_I8, q, N, out,
+                         lambda lib, out, stream: lib.pt_knn_score_i8(
+                             q.data_ptr(), slab.data_ptr(), scales.data_ptr(),
+                             vsq.data_ptr(), valid.data_ptr(), out, B, N, D,
+                             _METRICS[metric], stream))
+
+
+def _plain_keys(scores: torch.Tensor,
+                out: torch.Tensor | None) -> torch.Tensor:
+    keys = score_keys(scores)
+    return keys if out is None else out.copy_(keys)
+
+
+def _launch_score(lib: CudaLibrary, what: str, count: LaunchCount, q,
+                  N: int, out: torch.Tensor | None, launch):
+    """A score kernel's launch (``pt_knn_<what>``) for queries q (B, D) on
+    the card into ``out``, or a new (B, N) int64 output of keys: calls
+    ``launch(lib, out, stream)`` with pointers, raises on a refused launch
+    and counts one."""
+    _need(N < 2**31, f"N = {N} rows exceed the kernel's 31-bit rows")
+    B = q.shape[0]
+    if out is None:
+        out = torch.empty((B, N), dtype=torch.int64, device=q.device)
+    _need(out.shape == (B, N) and out.dtype == torch.int64
+          and out.is_contiguous() and out.device == q.device,
+          f"out must be a contiguous ({B}, {N}) int64 on {q.device}")
     if B == 0 or N == 0:
         return out
-    lib = KNN_I8.load()
+    so = lib.load()
     with torch.cuda.device(q.device):
-        err = lib.pt_knn_score_i8(
-            q.data_ptr(), slab.data_ptr(), scales.data_ptr(),
-            vsq.data_ptr(), valid.data_ptr(), out.data_ptr(), B, N, D,
-            _METRICS[metric],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "score_i8")
-    SCORE_I8.launches += 1
+        err = launch(so, out.data_ptr(),
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, what, lib)
+    count.launches += 1
     return out
 
 
 def topk_i8_reference(q, slab, scales, vsq, valid, metric: str, k: int):
     """Plain version of ``topk_i8``: ``score_i8_reference``, a stable
-    descending sort, the first k columns (ops/knn.py's ``_topk``)."""
+    descending sort, the first k columns."""
     scores = score_i8_reference(q, slab, scales, vsq, valid, metric)
     s, i = torch.sort(scores, dim=1, descending=True, stable=True)
     return s[:, :k], i[:, :k]
@@ -351,6 +418,26 @@ def topk_bf16_reference(q, slab, valid, metric: str, k: int):
     return s[:, :k], i[:, :k]
 
 
+def _check_bf16_operands(q, slab, valid) -> tuple[int, int, int]:
+    """(B, N, D) of K2's operands on the card, after checking what the
+    kernels take."""
+    _need(q.dim() == 2 and q.dtype == torch.bfloat16 and q.is_contiguous(),
+          "q must be a contiguous (B, D) bfloat16")
+    B, D = q.shape
+    N = slab.shape[0]
+    _need(slab.dtype == torch.bfloat16 and slab.shape == (N, D)
+          and slab.is_contiguous(), f"slab must be a contiguous (N, {D}) "
+          "bfloat16")
+    _need(valid.shape == (N,) and valid.dtype == torch.bool
+          and valid.is_contiguous(), f"valid must be a contiguous ({N},) "
+          "bool")
+    for t in (slab, valid):
+        _need(t.device == q.device, f"a tensor is on {t.device}, q on "
+              f"{q.device}")
+    _need(B <= 65535 * 64, f"B = {B} queries exceed the kernel's grid")
+    return B, N, D
+
+
 def topk_bf16(q, slab, valid, metric: str, k: int):
     """K2: the ``k`` best rows of one bf16 extent for each query, as
     ``score_float_reference`` scores them — (B, k) float32 scores and
@@ -369,22 +456,38 @@ def topk_bf16(q, slab, valid, metric: str, k: int):
           f"N = {N})]")
     if not _on_card(q, "topk_bf16"):
         return topk_bf16_reference(q, slab, valid, metric, k)
-    _need(q.dim() == 2 and q.dtype == torch.bfloat16 and q.is_contiguous(),
-          "q must be a contiguous (B, D) bfloat16")
-    B, D = q.shape
-    _need(slab.dtype == torch.bfloat16 and slab.shape == (N, D)
-          and slab.is_contiguous(), f"slab must be a contiguous (N, {D}) "
-          "bfloat16")
-    _need(valid.shape == (N,) and valid.dtype == torch.bool
-          and valid.is_contiguous(), f"valid must be a contiguous ({N},) "
-          "bool")
-    for t in (slab, valid):
-        _need(t.device == q.device, f"a tensor is on {t.device}, q on "
-              f"{q.device}")
-    _need(B <= 65535 * 64, f"B = {B} queries exceed the kernel's grid")
+    B, N, D = _check_bf16_operands(q, slab, valid)
     return _launch_topk(KNN_BF16, "topk_bf16", TOPK_BF16, q, N, k,
                         lambda lib, ws, G, out_s, out_row, stream:
                         lib.pt_knn_topk_bf16(
                             q.data_ptr(), slab.data_ptr(), valid.data_ptr(),
                             ws, G, out_s, out_row, B, N, D, _METRICS[metric],
                             k, stream))
+
+
+def score_bf16_reference(q, slab, valid, metric: str):
+    """The scores whose keys ``score_bf16`` writes:
+    ``score_float_reference`` of the bf16 queries in float32."""
+    return score_float_reference(q.float(), slab, valid, metric)
+
+
+def score_bf16(q, slab, valid, metric: str,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """K2's score twin: queries q (B, D) bfloat16 (normalised for cos, then
+    cast), a bf16 chunk ``slab`` (N, D) with its (N,) bool ``valid`` -> the
+    (B, N) int64 ``score_keys`` of the scores ``dots * rsqrt(||v||^2 +
+    1e-12)`` for cos, ``2 dots - ||v||^2`` for l2sq, -inf on invalid rows
+    (f32 sums of bf16 products; ``key_scores`` gives them back). Written
+    into ``out`` (contiguous, of that shape and dtype) if given.
+
+    CUDA tensors launch the kernel on the current stream (counted in
+    ``SCORE_BF16.launches``); CPU tensors take the keys of
+    ``score_bf16_reference``."""
+    _check_metric(metric)
+    if not _on_card(q, "score_bf16"):
+        return _plain_keys(score_bf16_reference(q, slab, valid, metric), out)
+    B, N, D = _check_bf16_operands(q, slab, valid)
+    return _launch_score(KNN_BF16, "score_bf16", SCORE_BF16, q, N, out,
+                         lambda lib, out, stream: lib.pt_knn_score_bf16(
+                             q.data_ptr(), slab.data_ptr(), valid.data_ptr(),
+                             out, B, N, D, _METRICS[metric], stream))

@@ -173,12 +173,13 @@ def test_bf16_search_past_one_chunk_matches_jax_chunked_merge(metric, k):
                                      ("float32", 10)])
 def test_search_extent_routes_by_dtype_and_k(dtype, k, monkeypatch):
     """bf16 with k <= K_MAX: one topk_bf16 call over the whole extent;
-    bf16 past K_MAX and float32: score_float_reference chunk by chunk plus
-    the stable sort. All give the JAX package's results."""
+    bf16 past K_MAX: its score twin score_bf16 chunk by chunk, float32:
+    score_float_reference chunk by chunk, each plus the key selection. All
+    give the JAX package's results."""
     monkeypatch.setattr(jknn, "_CHUNK_ROWS", 128)
     monkeypatch.setattr(tknn, "_CHUNK_ROWS", 128)
     calls = []
-    for name in ("topk_bf16", "score_float_reference"):
+    for name in ("topk_bf16", "score_bf16", "score_float_reference"):
         fn = getattr(tknn, name)
         monkeypatch.setattr(tknn, name, lambda *a, _f=fn, _n=name:
                             calls.append(_n) or _f(*a))
@@ -193,9 +194,10 @@ def test_search_extent_routes_by_dtype_and_k(dtype, k, monkeypatch):
                 jnp.asarray(valid))
     _same((s.numpy(), i.numpy()), (np.asarray(js), np.asarray(ji)),
           exact=True)
-    routed = dtype == "bfloat16" and k <= K_MAX
-    assert calls == (["topk_bf16"] if routed
-                     else ["score_float_reference"] * 4)
+    if dtype == "float32":
+        assert calls == ["score_float_reference"] * 4
+    else:
+        assert calls == (["topk_bf16"] if k <= K_MAX else ["score_bf16"] * 4)
 
 
 def test_topk_bf16_checks_k_and_counts_nothing_on_cpu():

@@ -15,11 +15,12 @@ from pathway_tpu.ops import knn as jknn
 from pathway_tpu_torch.internals.keys import Pointer
 from pathway_tpu_torch.ops import knn as tknn
 from pathway_tpu_torch.ops.knn_kernels import (INV_127, QUANTIZE_SCATTER,
-                                               SCORE_I8,
+                                               SCORE_I8, key_scores,
                                                quantize_i8_reference,
                                                quantize_scatter,
                                                quantize_scatter_reference,
-                                               score_i8, score_i8_reference)
+                                               score_i8, score_i8_reference,
+                                               score_keys)
 
 DIM = 16
 # both sides score the same int8 rows against the same bf16 queries with
@@ -97,8 +98,9 @@ def test_quantize_scatter_drops_sentinel_slots_and_counts_nothing():
 
 @pytest.mark.parametrize("metric", ["cos", "l2sq"])
 def test_score_reference_matches_jax_score_block(metric, monkeypatch):
-    """K3's plain version against the JAX int8 search kernel's scores
-    (one chunk, k = every row) on the same int8 rows and queries."""
+    """K3's plain version (the keys of ``score_i8_reference``) against the
+    JAX int8 search kernel's scores (one chunk, k = every row) on the same
+    int8 rows and queries."""
     rng = np.random.default_rng(4)
     n = 300
     q8, scale, vsq = jknn._quantize_i8_np(rng.normal(size=(n, DIM))
@@ -112,14 +114,13 @@ def test_score_reference_matches_jax_score_block(metric, monkeypatch):
     qt = torch.from_numpy(queries)
     if metric == "cos":
         qt = qt / (torch.linalg.vector_norm(qt, dim=1, keepdim=True) + 1e-12)
-    got = score_i8(qt.to(torch.bfloat16), torch.from_numpy(q8),
-                   torch.from_numpy(scale), torch.from_numpy(vsq),
-                   torch.from_numpy(valid), metric).numpy()
-    assert torch.equal(
-        torch.from_numpy(got),
-        score_i8_reference(qt.to(torch.bfloat16), torch.from_numpy(q8),
-                           torch.from_numpy(scale), torch.from_numpy(vsq),
-                           torch.from_numpy(valid), metric))
+    keys = score_i8(qt.to(torch.bfloat16), torch.from_numpy(q8),
+                    torch.from_numpy(scale), torch.from_numpy(vsq),
+                    torch.from_numpy(valid), metric)
+    assert torch.equal(keys, score_keys(score_i8_reference(
+        qt.to(torch.bfloat16), torch.from_numpy(q8), torch.from_numpy(scale),
+        torch.from_numpy(vsq), torch.from_numpy(valid), metric)))
+    got = key_scores(keys).numpy()
     ref = np.full_like(got, -np.inf)
     np.put_along_axis(ref, ji, js, axis=1)
     np.testing.assert_allclose(got, ref, **TOL)
@@ -327,7 +328,7 @@ def test_score_kernel_matches_reference_on_card(B, n, dim, metric):
     valid = torch.rand(n, generator=gen, device=dev) > 0.1
     q = torch.randn((B, dim), generator=gen, device=dev)
     q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-    got = score_i8(q, slab, scales, vsq, valid, metric)
+    got = key_scores(score_i8(q, slab, scales, vsq, valid, metric))
     torch.cuda.synchronize()
     ref = score_i8_reference(q, slab, scales, vsq, valid, metric)
     fin = torch.isfinite(ref)
