@@ -26,9 +26,13 @@ non-zero, and no result line is printed):
    and f32; time at B=8 S=512 beside SDPA with the same boolean mask;
 5. K4 (quantizing scatter) bit for bit against its plain version, with
    zero rows, exact halves and sentinel slots that must leave the extent
-   untouched; K3's score (``score_i8``, on K3 top-k's mainloop with a
-   store epilogue writing each score's 64-bit key) against the keys of
-   its plain version's scores: random codes within 1e-5 x max|score| and
+   untouched, on its vector body (D in {64, 100, 384}, row stride D or D +
+   4) and its scalar body (row stride D + 1, D = 1041); its time at path
+   2's write as a graph of K4 alone, replayed, and launched eagerly; the
+   bulk write of 65,536 rows beside its bound and the scalar body; K3's
+   score (``score_i8``, on K3 top-k's mainloop with a store epilogue
+   writing each score's 64-bit key) against the keys of its plain version's
+   scores: random codes within 1e-5 x max|score| and
    exact-arithmetic rows with ties bit for bit (N in {10, 4097, 2^19}, B
    in {1, 7, 33, 64, 65}, D = 384, 200, 1041); the route past K_MAX
    (``search_extent``: ``score_i8`` per chunk + the key selection) on
@@ -72,14 +76,18 @@ non-zero, and no result line is printed):
    at B=1 and B=64 beside the old route;
 9. path 2: the same 100,000 documents and 64 queries through the ragged
    embedder into ``BruteForceKnnIndex(384, dtype="int8", metric="cos")``
-   (K1 with segment ids, K4 in the fused write, K3 top-k in the search),
-   and one search with limit 20 and a filter, whose fetch of 80 rows
-   takes K3's score and the key selection. Checks: K1 launches = 12 x
-   encoder dispatches, K4 = ingest chunks, K3 top-k = 65 searches, K3
-   score = 1, every top 10 (and the top 20) against a plain scan of the
+   (each ingest chunk one replay of a CUDA graph of the fused step: K1 with
+   segment ids, K4; K3 top-k in the search), and one search with limit 20
+   and a filter, whose fetch of 80 rows takes K3's score and the key
+   selection. Checks: graph replays = ingest chunks, graphs captured <=
+   chunk shapes x extents, K1 launches = 12 x encoder dispatches, K4 =
+   ingest chunks, K3 top-k = 65 searches, K3 score = 1, the index equal
+   bit for bit to one the step's eager body builds from the same
+   documents, every top 10 (and the top 20) against a plain scan of the
    same int8 rows, every copy found, ragged vs padded embeddings,
    ``search_extent`` at k in ROUTE_KS against the plain scan + stable
-   sort;
+   sort; then a chunk's replay time beside the eager step's and the
+   device's busy share over four ingest batches (torch.profiler);
 10. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
    on the flush path, K3 top-k in the search): query times at B=1 and
    B=64, every top 10 against the plain scan;
@@ -542,21 +550,28 @@ def phase_knn_i8(card: str) -> tuple[dict, dict]:
     D = 384
     k4_before, k3_before = QUANTIZE_SCATTER.launches, SCORE_I8.launches
 
-    def extent(R):
+    def extent(R, d=D):
         """An extent's four tensors filled with arbitrary bytes."""
-        return (torch.randint(-127, 128, (R, D), generator=gen,
+        return (torch.randint(-127, 128, (R, d), generator=gen,
                               device="cuda", dtype=torch.int8),
                 torch.rand(R, generator=gen, device="cuda"),
                 torch.rand(R, generator=gen, device="cuda"),
                 torch.rand(R, generator=gen, device="cuda") > 0.5)
 
-    # K4: bit for bit, sentinels untouched
-    for n, R in ((256, 1024), (512, 1024), (65_536, 100_352)):
-        rows = hard_rows(n, D, gen)
+    # K4: bit for bit, sentinels untouched; the vector body (D % 4 == 0,
+    # rows 16-byte aligned, row stride D or D + 4) and the scalar body
+    # (row stride D + 1, or D = 1041)
+    for n, R, d, pad in ((256, 1024, D, 0), (512, 1024, D, 0),
+                         (65_536, 100_352, D, 0), (300, 1024, D, 4),
+                         (300, 1024, D, 1), (300, 1024, 64, 0),
+                         (300, 1024, 100, 0), (300, 1024, 1041, 0)):
+        full = torch.zeros((n, d + pad), device="cuda")
+        full[:, :d] = hard_rows(n, d, gen)
+        rows = full[:, :d]
         slots = torch.randperm(R, generator=gen, device="cuda")[:n]
         slots[n // 4::5] = R + 1  # sentinel slots: dropped
         vv = torch.rand(n, generator=gen, device="cuda") > 0.1
-        ext = extent(R)
+        ext = extent(R, d)
         got, ref = [t.clone() for t in ext], [t.clone() for t in ext]
         quantize_scatter(rows, slots, vv, *got)
         torch.cuda.synchronize()
@@ -565,12 +580,13 @@ def phase_knn_i8(card: str) -> tuple[dict, dict]:
         hit = torch.zeros(R, dtype=torch.bool, device="cuda")
         hit[slots[slots < R]] = True
         kept = all(torch.equal(a[~hit], b[~hit]) for a, b in zip(got, ext))
-        print(f"[K4] n={n} rows into R={R}: bit-identical to the plain "
-              f"version {same}; {int((slots >= R).sum())} sentinel rows, "
-              f"untouched rows unchanged {kept}", flush=True)
+        print(f"[K4] n={n} rows of D={d} (row stride {d + pad}) into R={R}: "
+              f"bit-identical to the plain version {same}; "
+              f"{int((slots >= R).sum())} sentinel rows, untouched rows "
+              f"unchanged {kept}", flush=True)
         if not (same and kept):
-            fail(f"K4 n={n}: codes/scales/vsq/valid differ from the plain "
-                 "version or a row outside the slots changed")
+            fail(f"K4 n={n} D={d}: codes/scales/vsq/valid differ from the "
+                 "plain version or a row outside the slots changed")
 
     # K3 score's keys against the plain version's scores: random codes with
     # 10% invalid rows (within 1e-5 x max|score|, -inf rows exact) and
@@ -646,33 +662,64 @@ def phase_knn_i8(card: str) -> tuple[dict, dict]:
           f"chunks, N={N:,}, B in {{1, 64}}, k in {ROUTE_KS} (l2sq): scores "
           f"and rows equal to the plain scan + stable sort", flush=True)
 
-    # K4's time at path 2's write (a ragged chunk: 8 x 32 rows, ~40 real)
+    # K4's time at path 2's write (a ragged chunk: 8 x 32 rows, ~40 real):
+    # launched eagerly, and as the graph of K4 alone, replayed
     R = 100_352
     ext = extent(R)
     rows = torch.randn((256, D), generator=gen, device="cuda")
     slots = torch.full((256,), R, dtype=torch.int64, device="cuda")
     slots[:40] = torch.randperm(R, generator=gen, device="cuda")[:40]
-    k4_ms = cuda_ms(lambda: quantize_scatter(rows, slots, None, *ext), 200)
+    k4_eager = cuda_ms(lambda: quantize_scatter(rows, slots, None, *ext),
+                       200)
     k4_plain = cuda_ms(lambda: quantize_scatter_reference(
         rows, slots, None, *ext), 20)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        quantize_scatter(rows, slots, None, *ext)
+    k4_ms = cuda_ms(graph.replay, 200)
     real = 40
     k4_bytes = 256 * 8 + real * (4 * D + D + 4 + 4 + 1)
     k4_bound, k4_by = bound(2.0 * real * D, k4_bytes)
-    print(f"[K4] path 2's write, 256 rows (40 real) of D={D}: kernel "
-          f"{k4_ms:.4f} ms, plain {k4_plain:.4f} ms, bound {k4_bound:.5f} ms"
-          f" ({k4_by}; {k4_bytes / 1e3:.1f} kB) [{card}]", flush=True)
-    rows = torch.randn((65_536, D), generator=gen, device="cuda")
+    print(f"[K4] path 2's write, 256 rows (40 real) of D={D}: a graph of K4 "
+          f"alone replayed 200 times {k4_ms:.4f} ms a replay, launched "
+          f"eagerly {k4_eager:.4f} ms, plain {k4_plain:.4f} ms, bound "
+          f"{k4_bound:.5f} ms ({k4_by}; {k4_bytes / 1e3:.1f} kB) [{card}]",
+          flush=True)
+    del graph
+    # the bulk flush: the vector body, and the scalar body it replaced (a
+    # row a warp, two passes of 4-byte loads; a row stride of D + 1 floats
+    # selects it) on the same values; each a graph of 20 launches (no host
+    # gap between them), timed in turns
+    full = torch.randn((65_536, D + 1), generator=gen, device="cuda")
+    rows = full[:, :D].contiguous()
     slots = torch.randperm(R, generator=gen, device="cuda")[:65_536]
-    bulk_ms = cuda_ms(lambda: quantize_scatter(rows, slots, None, *ext), 50)
+    eager_bulk = cuda_ms(lambda: quantize_scatter(rows, slots, None, *ext),
+                         50)
+    times = {}
+    for label, r in (("now", rows), ("scalar", full[:, :D])):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                quantize_scatter(r, slots, None, *ext)
+        times[label] = (graph, [])
+    for label in ("now", "scalar", "scalar", "now", "now", "scalar"):
+        graph, runs = times[label]
+        runs.append(cuda_ms(graph.replay, 5) / 20)
+    bulk_ms = float(np.median(times["now"][1]))
+    before_ms = float(np.median(times["scalar"][1]))
     bulk_bytes = 65_536 * (8 + 4 * D + D + 9)
     bulk_bound, _ = bound(2.0 * 65_536 * D, bulk_bytes)
     _, model_bytes = ingest_scatter_cost(65_536, D, itemsize=1)
-    print(f"[K4] bulk flush, 65,536 rows: kernel {bulk_ms:.4f} ms, bound "
-          f"{bulk_bound:.4f} ms ({bulk_bytes / 1e6:.1f} MB), share of bound "
-          f"{bulk_bound / bulk_ms:.3f}; the cost model's ingest_scatter_cost"
-          f" {model_bytes / 1e6:.1f} MB -> {model_bytes / bulk_ms / 1e6:.1f} "
-          f"GB/s [{card}]", flush=True)
-    del ext, rows
+    print(f"[K4] bulk flush, 65,536 rows, median of 3 graphs of 20 launches "
+          f"in turns: kernel {bulk_ms:.4f} ms, bound {bulk_bound:.4f} ms "
+          f"({bulk_bytes / 1e6:.1f} MB), share of bound "
+          f"{bulk_bound / bulk_ms:.3f}; the scalar body (row stride "
+          f"{D + 1}) {before_ms:.4f} ms, share {bulk_bound / before_ms:.3f}"
+          f"; runs now {times['now'][1]}, scalar {times['scalar'][1]}; "
+          f"launched eagerly {eager_bulk:.4f} ms; the cost model's "
+          f"ingest_scatter_cost {model_bytes / 1e6:.1f} MB -> "
+          f"{model_bytes / bulk_ms / 1e6:.1f} GB/s [{card}]", flush=True)
+    del ext, rows, full, times
 
     # K3 score over the 10M indexes' extent, 10,485,760 x 384 int8 rows
     # (4.03 GB), chunk by chunk as search_extent scans it
@@ -740,7 +787,11 @@ def phase_knn_i8(card: str) -> tuple[dict, dict]:
               "replaces": "pathway_tpu/ops/knn.py:241",
               "max_abs_err": 0.0, "ms": k4_ms, "plain_ms": k4_plain,
               "bound_ms": k4_bound, "bound_by": k4_by,
-              "bound_share": k4_bound / k4_ms, "library_ms": None}
+              "bound_share": k4_bound / k4_ms, "library_ms": None,
+              "eager_ms": k4_eager,
+              "bulk": {"ms": bulk_ms, "bound_ms": bulk_bound,
+                       "bound_share": bulk_bound / bulk_ms,
+                       "before_ms": before_ms, "eager_ms": eager_bulk}}
     return k3_rec, k4_rec
 
 
@@ -1705,6 +1756,8 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int, int]:
                 QUANTIZE_SCATTER.launches)
     dispatches = emb.dispatches
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    step = index._fused.step
+    captures, replays = step.captures, step.replays
 
     batches = -(-n_docs // INGEST_BATCH)
     print(f"[ragged] ingested {len(index)} docs into "
@@ -1716,16 +1769,50 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int, int]:
           f"single-query searches; peak device memory {peak_mb:.1f} MiB "
           f"[{card}]", flush=True)
     n_ext = index.inner.page_stats()["extents"]
+    buckets = {k[0] for k in step.graphs}
     print(f"[ragged] launches: K1 {launches[0]}, K3 top-k {launches[1]}, K3 "
           f"score {launches[2]}, K4 {launches[3]}; encoder dispatches "
           f"{dispatches} (x{N_LAYERS} = {N_LAYERS * dispatches}), "
-          f"{ingest_dispatches} of them ingest", flush=True)
+          f"{ingest_dispatches} of them ingest; CUDA graphs: {captures} "
+          f"captured ({len(buckets)} chunk shapes x {n_ext} extent(s)), "
+          f"{replays} replays", flush=True)
     if len(index) != n_docs:
         fail(f"index holds {len(index)} docs, expected {n_docs}")
     if dispatches == 0 or launches[0] != N_LAYERS * dispatches:
         fail("K1 did not run on every encoder layer of path 2")
+    if replays != ingest_dispatches:
+        fail(f"{replays} graph replays for {ingest_dispatches} ingest chunks:"
+             " a chunk of path 2 did not run as a replay of its graph")
     if launches[3] != ingest_dispatches:
         fail("K4 did not write every ragged chunk of path 2")
+    if captures > len(buckets) * n_ext:
+        fail(f"{captures} graphs captured for {len(buckets)} chunk shapes x "
+             f"{n_ext} extent(s)")
+
+    # the same documents through the eager body of the step (no graph),
+    # into an index of its own: equal, bit for bit
+    e_inner = BruteForceKnnIndex(cfg.hidden, reserved_space=100_064,
+                                 dtype="int8", metric="cos", device="cuda")
+    e_index = DeviceEmbeddingKnnIndex(emb, e_inner)
+    e_index._fused = e_inner._ingest_fn(step.eager)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b0 in range(0, n_docs, INGEST_BATCH):
+        sl = range(b0, min(b0 + INGEST_BATCH, n_docs))
+        e_index.add_batch([Pointer(i) for i in sl], [docs[i] for i in sl])
+    e_index.drain()
+    eager_s = time.perf_counter() - t0
+    same = e_inner._key_to_slot == index.inner._key_to_slot and all(
+        torch.equal(getattr(a, t), getattr(b, t))
+        for a, b in zip(index.inner._pool.extents, e_inner._pool.extents)
+        for t in ("vectors", "scales", "vsq", "valid"))
+    print(f"[ragged] the same {n_docs} docs through the step's eager body: "
+          f"{eager_s:.2f} s, {n_docs / eager_s:.1f} docs/s (graphs: "
+          f"{ingest_s:.2f} s); index bit-identical to the graphs' (slots, "
+          f"codes, scales, vsq, valid) {same} [{card}]", flush=True)
+    if not same:
+        fail("path 2's index through graphs differs from the eager step's")
+    del e_index, e_inner
     if launches[1] != (len(queries) + 1) * n_ext:
         fail(f"K3 top-k ran {launches[1]} times, not once for each of the "
              f"{len(queries) + 1} searches x {n_ext} extent(s)")
@@ -1809,7 +1896,55 @@ def phase_ragged_int8(seed: int, card: str) -> tuple[int, int, int, int]:
           f" row cosine {cos.min():.6f} (required >= 0.999)", flush=True)
     if not np.all(np.isfinite(a)) or cos.min() < 0.999:
         fail("ragged embeddings disagree with padded ones")
+    time_step(index, emb, chunks, docs, card)
     return launches
+
+
+def time_step(index, emb, chunks, docs, card: str) -> None:
+    """Path 2's step after the counted run: a chunk as one graph replay
+    against the eager body, both on CUDA events, writing nothing (sentinel
+    slots); then four ingest batches that rewrite documents already held
+    (the same rows again) under torch.profiler: the device's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathway_tpu_torch.internals.keys import Pointer
+
+    step, inner = index._fused.step, index.inner
+    ext = inner._pool.extents[0]
+    args, _, n_pad = chunks[0]
+    none = np.full(n_pad, ext.rows, np.int64)  # every slot a sentinel
+    eager_ms = cuda_ms(lambda: step.eager(ext, none, emb.model, *args), 20)
+    step.eager(ext, none, emb.model, *args)  # stage the chunk for the replay
+    graph = next(g for k, (g, _) in step.graphs.items()
+                 if k[0][0] == args[0].shape
+                 and k[3] == ext.vectors.data_ptr())
+    replay_ms = cuda_ms(graph.replay, 50)
+    print(f"[ragged] one chunk ({args[0].shape[0]} x {args[0].shape[1]}): "
+          f"graph replay {replay_ms:.3f} ms, eager step {eager_ms:.3f} ms "
+          f"CUDA events [{card}]",
+          flush=True)
+    torch.cuda.synchronize()
+    batches = [range(b0, b0 + INGEST_BATCH)
+               for b0 in range(0, 4 * INGEST_BATCH, INGEST_BATCH)]
+    replays = step.replays
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for sl in batches:
+            index.add_batch([Pointer(i) for i in sl], [docs[i] for i in sl])
+        index.drain()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    replays = step.replays - replays
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    print(f"[ragged] {len(batches)} ingest batches under torch.profiler: "
+          f"wall {wall_ms:.2f} ms, {replays} replays, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%); replay time x "
+          f"replays {replay_ms * replays:.2f} ms "
+          f"({100 * replay_ms * replays / wall_ms:.1f}%) [{card}]",
+          flush=True)
 
 
 def phase_int8_million(seed: int, card: str) -> None:

@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and the host-to-device
+upload that never waits for the card (``PinnedStaging``).
 
 Every entry point takes an explicit ``device`` that defaults to CUDA. The
 CPU runs only when the caller asks for it (the CPU tests do): a missing
@@ -6,6 +7,8 @@ card is an error, never a silent fallback.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -36,3 +39,66 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise RuntimeError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+class _Done:
+    """An event that is always complete: the CPU's copies finish before
+    ``upload`` returns."""
+
+    def record(self) -> None:
+        pass
+
+    def synchronize(self) -> None:
+        pass
+
+
+class PinnedStaging:
+    """Host arrays into fixed device tensors, with no host wait.
+
+    ``upload(arrays)`` copies a tuple of numpy arrays into the device
+    tensors kept for their shapes and dtypes: the same tensors at every call
+    with those shapes, so a CUDA graph captured over them reads each call's
+    data. On a CUDA device the arrays go through pinned host buffers and
+    ``non_blocking`` copies on the current stream (a copy from pageable
+    memory would make PyTorch wait for the stream). ``depth`` sets of host
+    buffers take turns; an event recorded after a set's copies is waited on
+    before the set is written again, so a buffer is never rewritten while
+    its copy is still queued, and the host runs up to ``depth`` uploads
+    ahead of the card. On the CPU the buffers are plain memory and
+    ``event()`` (default: always complete) stands in for the CUDA event."""
+
+    def __init__(self, device: torch.device, depth: int = 2,
+                 event: Callable | None = None):
+        self.device = torch.device(device)
+        self.depth = depth
+        self._pin = self.device.type == "cuda"
+        self._event = event or (torch.cuda.Event if self._pin else _Done)
+        self._sets: dict[tuple, list] = {}
+
+    def _new_set(self, arrays) -> list:
+        host = [[torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
+                             pin_memory=self._pin) for a in arrays]
+                for _ in range(self.depth)]
+        dev = tuple(torch.empty(h.shape, dtype=h.dtype, device=self.device)
+                    for h in host[0])
+        # [host buffer sets, their events, device tensors, next set]
+        return [host, [None] * self.depth, dev, 0]
+
+    def upload(self, arrays) -> tuple[torch.Tensor, ...]:
+        """The device tensors for ``arrays``' shapes, holding their values
+        once the copies queued here have run."""
+        key = tuple((a.shape, a.dtype.str) for a in arrays)
+        st = self._sets.get(key)
+        if st is None:
+            st = self._sets[key] = self._new_set(arrays)
+        host, events, dev, i = st
+        st[3] = (i + 1) % self.depth
+        if events[i] is not None:
+            events[i].synchronize()  # this set's last copies have run
+        for h, a in zip(host[i], arrays):
+            h.numpy()[...] = a
+        for d, h in zip(dev, host[i]):
+            d.copy_(h, non_blocking=True)
+        events[i] = self._event()
+        events[i].record()
+        return dev

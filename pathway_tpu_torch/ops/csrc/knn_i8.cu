@@ -53,8 +53,18 @@
 // The scale is the JAX package's `m / 127.0` as XLA compiles it (a
 // multiply by the rounded reciprocal); v / scale is an IEEE division
 // (__fdiv_rn, whatever the flags) and rint rounds half to even, so codes,
-// scales and vsq are bit-identical to what the JAX index stores. One warp
-// per row: bytes bound it (4 D bytes in, D + 9 out per row).
+// scales and vsq are bit-identical to what the JAX index stores. Bytes
+// bound it: per row 4 D read, D + 9 written (codes, scale, vsq, valid)
+// and its 8-byte slot. So each row is read once, at full width: a lane
+// loads its share as 16-byte float4s into registers (3 at D = 384), the
+// max and the codes both come from those registers, and a lane stores its
+// codes as packed 4-byte words, so one warp store writes 128 contiguous
+// bytes. A warp takes kQuantRows rows: all their loads issue before the
+// first reduction, and the rows' shuffles interleave. Rows
+// with D % 4 != 0, a row stride that is not a multiple of 4 floats or an
+// unaligned base take the scalar body (one warp a row, lane-strided
+// 4-byte loads, read twice), which gives the same bits: a max and an
+// integer sum do not depend on their order.
 
 #include <cfloat>
 #include <cmath>
@@ -448,7 +458,12 @@ bool i8_params(I8Params& p, const void* q, const void* slab,
 // K4: quantizing scatter
 // ------------------------------------------------------------------------
 
-constexpr int kQuantThreads = 256;  // 8 rows per block, one warp each
+constexpr int kQuantThreads = 256;  // 8 warps
+// rows a warp of the vector body holds in flight: 1, 2, 4 and 8 were timed
+// on the bulk write (NVIDIA H100 80GB HBM3, 700 W; PERF.md) and 1 was
+// the fastest: fewer registers let more warps stay resident, which keeps
+// more rows in flight per SM than more rows a warp do
+constexpr int kQuantRows = 1;
 constexpr float kInv127 = 0.007874015718698502f;  // f32(1 / 127)
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -464,6 +479,16 @@ __device__ __forceinline__ int warp_sum(int x) {
   return x;
 }
 
+__device__ __forceinline__ float quant_scale(float m) {
+  return fmaxf(__fmul_rn(m, kInv127), 1e-30f);
+}
+
+__device__ __forceinline__ int quant_code(float v, float scale) {
+  return static_cast<int>(
+      fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f));
+}
+
+// The scalar body: one warp per row, 8 rows a block.
 __global__ void __launch_bounds__(kQuantThreads)
 knn_quantize_scatter_kernel(const float* rows, long long ld,
                             const long long* slots, const uint8_t* valid_vals,
@@ -477,13 +502,11 @@ knn_quantize_scatter_kernel(const float* rows, long long ld,
   const float* v = rows + i * ld;
   float m = 0.f;
   for (int c = lane; c < D; c += 32) m = fmaxf(m, fabsf(v[c]));
-  m = warp_max(m);
-  const float scale = fmaxf(__fmul_rn(m, kInv127), 1e-30f);
+  const float scale = quant_scale(warp_max(m));
   int8_t* out = slab + slot * D;
   int sq = 0;
   for (int c = lane; c < D; c += 32) {
-    const float r = fminf(fmaxf(rintf(__fdiv_rn(v[c], scale)), -127.f), 127.f);
-    const int qi = static_cast<int>(r);
+    const int qi = quant_code(v[c], scale);
     out[c] = static_cast<int8_t>(qi);
     sq += qi * qi;
   }
@@ -493,6 +516,104 @@ knn_quantize_scatter_kernel(const float* rows, long long ld,
     vsq[slot] = __int2float_rn(sq);
     valid[slot] = valid_vals ? valid_vals[i] : 1;
   }
+}
+
+// The vector body: D % 4 == 0, rows 16-byte aligned with a row stride of a
+// multiple of 4 floats, D <= 128 V. Each warp takes kQuantRows rows; lane
+// l holds float4 l + 32 j of each (j < V) in registers.
+template <int V>
+__global__ void __launch_bounds__(kQuantThreads)
+knn_quantize_scatter_vec(const float* rows, long long ld,
+                         const long long* slots, const uint8_t* valid_vals,
+                         int n, int D, long long R, int8_t* slab,
+                         float* scales, float* vsq, uint8_t* valid) {
+  const int warp = (blockIdx.x * kQuantThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int i0 = warp * kQuantRows;
+  if (i0 >= n) return;
+  const int D4 = D >> 2;
+  long long slot[kQuantRows];
+  bool live[kQuantRows];
+#pragma unroll
+  for (int r = 0; r < kQuantRows; ++r) {
+    slot[r] = i0 + r < n ? slots[i0 + r] : -1;
+    live[r] = slot[r] >= 0 && slot[r] < R;  // sentinel: dropped
+  }
+  float4 v[kQuantRows][V];
+#pragma unroll
+  for (int r = 0; r < kQuantRows; ++r) {
+    const float4* row =
+        reinterpret_cast<const float4*>(rows + (i0 + r) * ld);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int c = lane + 32 * j;
+      v[r][j] = live[r] && c < D4 ? __ldcs(row + c)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  float m[kQuantRows];
+#pragma unroll
+  for (int r = 0; r < kQuantRows; ++r) {
+    m[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      m[r] = fmaxf(fmaxf(m[r], fmaxf(fabsf(v[r][j].x), fabsf(v[r][j].y))),
+                   fmaxf(fabsf(v[r][j].z), fabsf(v[r][j].w)));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < kQuantRows; ++r)
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], o));
+  int sq[kQuantRows];
+#pragma unroll
+  for (int r = 0; r < kQuantRows; ++r) {
+    sq[r] = 0;
+    if (!live[r]) continue;  // warp-uniform
+    const float scale = quant_scale(m[r]);
+    uint32_t* out = reinterpret_cast<uint32_t*>(slab + slot[r] * D);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int c = lane + 32 * j;
+      const int a = quant_code(v[r][j].x, scale);
+      const int b = quant_code(v[r][j].y, scale);
+      const int d = quant_code(v[r][j].z, scale);
+      const int e = quant_code(v[r][j].w, scale);
+      sq[r] += a * a + b * b + d * d + e * e;
+      if (c < D4)
+        out[c] = static_cast<uint32_t>(a & 0xff) |
+                 static_cast<uint32_t>(b & 0xff) << 8 |
+                 static_cast<uint32_t>(d & 0xff) << 16 |
+                 static_cast<uint32_t>(e & 0xff) << 24;
+    }
+    if (lane == 0) scales[slot[r]] = scale;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < kQuantRows; ++r)
+      sq[r] += __shfl_xor_sync(0xffffffffu, sq[r], o);
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < kQuantRows; ++r) {
+      if (!live[r]) continue;
+      vsq[slot[r]] = __int2float_rn(sq[r]);
+      valid[slot[r]] = valid_vals ? valid_vals[i0 + r] : 1;
+    }
+  }
+}
+
+template <int V>
+cudaError_t launch_quantize_vec(const float* rows, long long ld,
+                                const long long* slots,
+                                const uint8_t* valid_vals, int n, int D,
+                                long long R, int8_t* slab, float* scales,
+                                float* vsq, uint8_t* valid, cudaStream_t s) {
+  constexpr int per_block = kQuantThreads / 32 * kQuantRows;
+  knn_quantize_scatter_vec<V><<<(n + per_block - 1) / per_block,
+                                kQuantThreads, 0, s>>>(
+      rows, ld, slots, valid_vals, n, D, R, slab, scales, vsq, valid);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -527,21 +648,45 @@ extern "C" int pt_knn_score_i8(const void* q, const void* slab,
 // K4. rows (n, D) f32 with row stride ld (elements), last dim contiguous;
 // slots (n,) int64 local rows of the extent (outside [0, R): dropped);
 // valid_vals (n,) bytes or null (all valid); slab (R, D) int8, scales,
-// vsq (R,) f32 and valid (R,) bytes are written in place.
+// vsq (R,) f32 and valid (R,) bytes are written in place. The vector body
+// takes D % 4 == 0 up to D = 1024 with 16-byte aligned rows (base and
+// stride); the scalar body the rest. One launch, no allocation and no
+// host sync, so a CUDA graph can capture it.
 extern "C" int pt_knn_quantize_scatter(const void* rows, long long ld,
                                        const void* slots,
                                        const void* valid_vals, int n, int D,
                                        long long R, void* slab, void* scales,
                                        void* vsq, void* valid, void* stream) {
   if (n < 1 || D < 1 || R < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(rows);
+  const long long* sl = static_cast<const long long*>(slots);
+  const uint8_t* vv = static_cast<const uint8_t*>(valid_vals);
+  int8_t* q = static_cast<int8_t*>(slab);
+  float* sc = static_cast<float*>(scales);
+  float* vs = static_cast<float*>(vsq);
+  uint8_t* va = static_cast<uint8_t*>(valid);
+  const bool vec = D % 4 == 0 && D <= 1024 && ld % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(slab) % 4 == 0;
+  if (vec) {
+    // float4s per lane: 128 floats per lane-column of the warp
+    switch ((D + 127) / 128) {
+      case 1: return static_cast<int>(launch_quantize_vec<1>(
+          r, ld, sl, vv, n, D, R, q, sc, vs, va, s));
+      case 2: return static_cast<int>(launch_quantize_vec<2>(
+          r, ld, sl, vv, n, D, R, q, sc, vs, va, s));
+      case 3: return static_cast<int>(launch_quantize_vec<3>(
+          r, ld, sl, vv, n, D, R, q, sc, vs, va, s));
+      case 4: return static_cast<int>(launch_quantize_vec<4>(
+          r, ld, sl, vv, n, D, R, q, sc, vs, va, s));
+      default: return static_cast<int>(launch_quantize_vec<8>(
+          r, ld, sl, vv, n, D, R, q, sc, vs, va, s));
+    }
+  }
   const int blocks = (n + kQuantThreads / 32 - 1) / (kQuantThreads / 32);
-  knn_quantize_scatter_kernel<<<blocks, kQuantThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rows), ld,
-      static_cast<const long long*>(slots),
-      static_cast<const uint8_t*>(valid_vals), n, D, R,
-      static_cast<int8_t*>(slab), static_cast<float*>(scales),
-      static_cast<float*>(vsq), static_cast<uint8_t*>(valid));
+  knn_quantize_scatter_kernel<<<blocks, kQuantThreads, 0, s>>>(
+      r, ld, sl, vv, n, D, R, q, sc, vs, va);
   return static_cast<int>(cudaGetLastError());
 }
 

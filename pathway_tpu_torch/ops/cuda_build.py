@@ -33,6 +33,23 @@ class KernelBuildError(RuntimeError):
     pass
 
 
+# every launch count of the port's kernels, in creation order: a CUDA
+# graph's replay adds to each what the graph's capture counted
+# (ops/knn.py GraphedIngestStep)
+LAUNCH_COUNTS: list = []
+
+
+class LaunchCount:
+    """Launches of one kernel: incremented by its wrapper where it
+    launches the kernel, and nowhere else (a replay of a captured graph
+    adds the launches its capture made); a caller may reset it to 0."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        LAUNCH_COUNTS.append(self)
+
+
 def cuda_tool(name: str) -> str:
     """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): under
     ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``), else on ``PATH``."""
@@ -48,19 +65,17 @@ def cuda_tool(name: str) -> str:
     return found
 
 
-class CudaLibrary:
-    """One kernel source, its shared library and its launch count.
+class CudaLibrary(LaunchCount):
+    """One kernel source, its shared library and its launch count (for a
+    source with one kernel).
 
     ``signatures`` maps each exported C function to ``(restype,
-    argtypes)`` for ctypes. ``launches`` is incremented by the kernel's
-    wrapper each time it launches the kernel, and nowhere else; a caller
-    may reset it to 0."""
+    argtypes)`` for ctypes."""
 
     def __init__(self, name: str, signatures: dict[str, tuple]):
-        self.name = name
+        super().__init__(name)
         self.signatures = signatures
         self.source = os.path.join(_SRC_DIR, f"{name}.cu")
-        self.launches = 0
         self.build_log = ""
         self._lib: ctypes.CDLL | None = None
         self._lock = threading.Lock()

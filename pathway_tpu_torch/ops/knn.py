@@ -46,11 +46,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch._device import PinnedStaging, resolve_device
 from pathway_tpu_torch.engine.locking import create_rlock
 from pathway_tpu_torch.engine.paged_store import (DevicePagePool,
                                                   paged_store_enabled)
 from pathway_tpu_torch.internals.keys import Pointer
+from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 from pathway_tpu_torch.ops.knn_kernels import (K_MAX, key_rows, key_scores,
                                                quantize_scatter, score_bf16,
                                                score_float_reference,
@@ -208,7 +209,7 @@ def search_extent(queries, vectors, valid, k: int, metric: KnnMetric,
     return search_chunks(keys, vectors.shape[0], k, q)
 
 
-def _fused_step_fn(producer: Callable, dtype: str):
+def _fused_step_fn(producer: Callable, dtype: str, device: torch.device):
     """The producer + scatter step of a fused ingest: the producer's rows
     are written straight into one extent's device tensors, in place (the
     port's form of JAX's donated ``.at[].set``), with nothing returned to
@@ -216,14 +217,16 @@ def _fused_step_fn(producer: Callable, dtype: str):
     slots as a host int64 array; a slot >= the extent's rows is the
     sentinel of a ragged padding row and is dropped (JAX's
     ``mode="drop"``). int8 quantizes and writes through K4, which drops
-    sentinels itself; the float slabs select the in-range rows and
-    ``index_copy_`` them."""
+    sentinels itself, with the slots uploaded from pinned staging; the
+    float slabs select the in-range rows and ``index_copy_`` them."""
 
     if dtype == "int8":
+        staging = PinnedStaging(device)
+
         def step_i8(ext, slots, *args) -> None:
             out = producer(*args)
-            quantize_scatter(out.float().contiguous(),
-                             torch.from_numpy(slots).to(out.device), None,
+            (loc,) = staging.upload((slots,))
+            quantize_scatter(out.float().contiguous(), loc, None,
                              ext.vectors, ext.scales, ext.vsq, ext.valid)
 
         return step_i8
@@ -240,6 +243,130 @@ def _fused_step_fn(producer: Callable, dtype: str):
         ext.valid.index_fill_(0, loc, True)
 
     return step
+
+
+# pinned upload sets of a graphed ingest step, per chunk shape: enough for
+# the ~13 chunks of a 512-document ragged batch to be queued while the host
+# packs the next batch
+_STAGING_DEPTH = 32
+
+
+class GraphedIngestStep:
+    """The int8 fused-ingest step of a staged producer as one CUDA graph per
+    chunk shape and extent: the port's counterpart of the JAX package's
+    ``step_i8``, one donated ``jax.jit`` dispatch per ragged chunk.
+
+    ``forward(model, *arrays) -> (n, dim)`` is the producer's device half
+    (``EncoderEmbedder.ragged_device_forward``), a function of device
+    tensors only. ``step(ext, slots, model, *arrays)`` copies the host
+    arrays and the extent's local slots (the sentinel ``ext.rows`` in
+    padding rows) into fixed device tensors through ``PinnedStaging``,
+    then runs the body, ``forward`` and K4 into the extent, as a replay of
+    the graph captured for (the arrays' shapes, the model, the extent's rows
+    and the addresses of its four tensors). The first chunk of a key
+    captures it, PyTorch's way: one eager run on a side stream, then the
+    capture, into one memory pool that all the step's graphs share (no
+    graph's memory outlives its replay: its inputs are the staged tensors,
+    its outputs the extent). A grown or re-established extent has other
+    addresses, so it gets a graph of its own and no replay writes through
+    a stale pointer. A capture or replay error raises: there is no eager
+    fallback on the card. On the CPU the body runs eagerly (``eager``).
+
+    Counts: each replay adds to every kernel's launch count
+    (``cuda_build.LAUNCH_COUNTS``) and to each ``counters`` entry (an
+    ``(object, attribute)`` pair the body raises, such as the embedder's
+    ``dispatches``) what the capture counted; the warm-up and the capture
+    themselves count nothing. ``captures`` and ``replays`` count graphs
+    captured and replayed."""
+
+    def __init__(self, forward: Callable, device: torch.device,
+                 counters: tuple = ()):
+        self.forward = forward
+        self.counters = tuple(counters)
+        self.staging = PinnedStaging(device, depth=_STAGING_DEPTH)
+        self.graphs: dict[tuple, tuple] = {}
+        self.captures = 0
+        self.replays = 0
+        self._pool = None
+
+    def _stage(self, slots, arrays) -> tuple[torch.Tensor, ...]:
+        return self.staging.upload((*arrays, slots))
+
+    def _body(self, model, ext, dev) -> None:
+        out = self.forward(model, *dev[:-1])
+        quantize_scatter(out.float().contiguous(), dev[-1], None,
+                         ext.vectors, ext.scales, ext.vsq, ext.valid)
+
+    def eager(self, ext, slots, model, *arrays) -> None:
+        """The step without a graph: upload, then the body, launched
+        eagerly."""
+        self._body(model, ext, self._stage(slots, arrays))
+
+    def __call__(self, ext, slots, model, *arrays) -> None:
+        dev = self._stage(slots, arrays)
+
+        def body() -> None:
+            self._body(model, ext, dev)
+
+        if not self._graphed(dev):
+            body()
+            return
+        key = (tuple(t.shape for t in dev), id(model), ext.rows,
+               ext.vectors.data_ptr(), ext.scales.data_ptr(),
+               ext.vsq.data_ptr(), ext.valid.data_ptr())
+        entry = self.graphs.get(key)
+        if entry is None:
+            entry = self.graphs[key] = self._capture(body, dev[0].device)
+            self.captures += 1
+        graph, adds = entry
+        graph.replay()
+        for obj, attr, n in adds:
+            setattr(obj, attr, getattr(obj, attr) + n)
+        self.replays += 1
+
+    @staticmethod
+    def _graphed(dev) -> bool:
+        return dev[0].device.type == "cuda"
+
+    def _counts(self) -> dict:
+        pairs = [(c, "launches") for c in LAUNCH_COUNTS] + list(
+            self.counters)
+        return {(id(o), a): (o, a, getattr(o, a)) for o, a in pairs}
+
+    def _capture(self, body: Callable, device: torch.device) -> tuple:
+        """(graph, [(object, attribute, count per replay)]) of ``body``;
+        every count is left as it was before the warm-up (a count created
+        during the warm-up started from 0)."""
+        before = self._counts()
+        self._warm(body, device)
+        mid = self._counts()
+        graph = self._record(body)
+        adds = []
+        for key, (obj, attr, now) in self._counts().items():
+            n = now - (mid[key][2] if key in mid else 0)
+            if n:
+                adds.append((obj, attr, n))
+            setattr(obj, attr, before[key][2] if key in before else 0)
+        return graph, adds
+
+    @staticmethod
+    def _warm(body: Callable, device: torch.device) -> None:
+        """One eager run on a side stream: lazy set-up (cuBLAS handles,
+        kernel libraries, the shared-memory opt-in) before the capture."""
+        cur = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            body()
+        cur.wait_stream(side)
+
+    def _record(self, body: Callable):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            body()
+        return graph
 
 
 class BruteForceKnnIndex:
@@ -382,8 +509,24 @@ class BruteForceKnnIndex:
         row count when it exceeds ``len(keys)`` (a ragged chunk pads its
         documents): the padding rows get sentinel slots and are dropped.
         New keys allocate pages in one extent, or a fresh extent."""
-        step = _fused_step_fn(producer, self.dtype)
+        return self._ingest_fn(_fused_step_fn(producer, self.dtype,
+                                              self.device))
 
+    def make_graphed_ingest(self, forward: Callable, counters: tuple = ()):
+        """The int8 fused ingest of a staged producer, each chunk one
+        replay of a CUDA graph (:class:`GraphedIngestStep`, whose object is
+        the returned function's ``step``). ``forward(model, *device
+        arrays)`` is the producer's device half; the returned ``ingest(keys,
+        model, *host_arrays, n_rows=None) -> bool`` behaves as
+        :meth:`make_fused_ingest`'s."""
+        if not self._is_int8:
+            raise ValueError("the graphed ingest step writes int8 extents")
+        step = GraphedIngestStep(forward, self.device, counters)
+        ingest = self._ingest_fn(step)
+        ingest.step = step
+        return ingest
+
+    def _ingest_fn(self, step: Callable) -> Callable:
         def ingest(keys: list[Pointer], *args,
                    n_rows: int | None = None) -> bool:
             with self._lock:
@@ -849,7 +992,13 @@ class DeviceEmbeddingKnnIndex:
         self.inner = inner
         self._fused = None
         self._ragged = bool(getattr(embedder, "ragged", False))
-        if self._ragged and hasattr(embedder, "ragged_device_producer"):
+        if self._ragged and inner.dtype == "int8" and \
+                hasattr(embedder, "ragged_device_forward"):
+            # one graph replay per chunk (the JAX package's donated step)
+            self._fused = inner.make_graphed_ingest(
+                embedder.ragged_device_forward,
+                counters=((embedder, "dispatches"),))
+        elif self._ragged and hasattr(embedder, "ragged_device_producer"):
             self._fused = inner.make_fused_ingest(
                 embedder.ragged_device_producer)
         elif hasattr(embedder, "pack_tokens") and \

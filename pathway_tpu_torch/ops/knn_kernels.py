@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from pathway_tpu_torch.ops.cuda_build import CudaLibrary
+from pathway_tpu_torch.ops.cuda_build import CudaLibrary, LaunchCount
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KNN_I8 = CudaLibrary("knn_i8", {
@@ -55,15 +55,6 @@ KNN_BF16 = CudaLibrary("knn_bf16", {
     "pt_knn_error_string": (ctypes.c_char_p, [_I]),
 })
 _METRICS = {"cos": 0, "l2sq": 1}
-
-
-class LaunchCount:
-    """Launches of one kernel: incremented by its wrapper where it
-    launches the kernel, and nowhere else; a caller may reset it to 0."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
 
 
 SCORE_I8 = LaunchCount("knn_score_i8")

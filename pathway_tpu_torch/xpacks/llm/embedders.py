@@ -16,7 +16,7 @@ import os
 import numpy as np
 import torch
 
-from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch._device import PinnedStaging, resolve_device
 from pathway_tpu_torch.internals.config import _env_int
 from pathway_tpu_torch.models.encoder import (Encoder, EncoderConfig, encode,
                                               encode_ragged,
@@ -63,6 +63,7 @@ class EncoderEmbedder:
         self._ragged_doc_cap = max(1, self.max_len // 16)
         # encoder forwards run (ingest and query), for launch accounting
         self.dispatches = 0
+        self._staging = PinnedStaging(self.device)
 
     def _bucket(self, n: int) -> int:
         """Pad target for a batch whose longest row has ``n`` tokens:
@@ -115,17 +116,27 @@ class EncoderEmbedder:
         self.dispatches += 1
         return encode(model, ids_d, mask)
 
+    def ragged_device_forward(self, model: Encoder, ids, doc_map, pos_ids,
+                              doc_seq, doc_off) -> torch.Tensor:
+        """The device half of the ragged producer: forward over one chunk
+        already on the device (int32 tensors of :meth:`pack_ragged`'s
+        shapes) -> (n_docs_padded, hidden) f32 embeddings. No host sync
+        and no host data, so a CUDA graph can capture it (the int8 index's
+        fused step, ops/knn.py)."""
+        self.dispatches += 1
+        return encode_ragged(model, ids.long(), doc_map, pos_ids.long(),
+                             doc_seq, doc_off)
+
     def ragged_device_producer(self, model: Encoder, ids, doc_map, pos_ids,
                                doc_seq, doc_off) -> torch.Tensor:
         """Forward over one ragged-packed chunk (host arrays from
         :meth:`pack_ragged`) -> (n_docs_padded, hidden) f32 embeddings on
-        the device; the fused ingest of the ragged path."""
-        dev = self.device
-        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-             for a in (ids, doc_map, pos_ids, doc_seq, doc_off)]
-        self.dispatches += 1
-        return encode_ragged(model, t[0].long(), t[1], t[2].long(), t[3],
-                             t[4])
+        the device: the arrays are copied into fixed device tensors of
+        their bucket's shape from pinned staging, without a host wait
+        (``PinnedStaging``), then :meth:`ragged_device_forward` runs
+        eagerly."""
+        return self.ragged_device_forward(model, *self._staging.upload(
+            (ids, doc_map, pos_ids, doc_seq, doc_off)))
 
     def ragged_buckets(self) -> list[int]:
         """Sequence-count buckets the ragged path dispatches: powers of two
