@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--docs N] [--seed S]
 
-Drives the port's two live-RAG device paths at BGE-small's full width
-with random weights from a seed, and checks every kernel of those paths
+Drives the port's two live-RAG device paths, and the engine's batch
+path with the encoder as a batch UDF, at BGE-small's full width with
+random weights from a seed, and checks every kernel of those paths
 against its plain PyTorch version on the card. Phases (each failure exits
 non-zero, and no result line is printed):
 
@@ -74,7 +75,22 @@ non-zero, and no result line is printed):
    document, ``search_extent`` at k in ROUTE_KS against the plain scan +
    stable sort, and card-vs-CPU embeddings; times K2 at the index's shape
    at B=1 and B=64 beside the old route;
-9. path 2: the same 100,000 documents and 64 queries through the ragged
+9. engine (the engine's batch path): the same documents as
+   ``table_from_rows(..., is_stream=True)``, one tick per 512 (196
+   ticks), through ``select(embedding=emb(pw.this.data))`` under
+   ``GraphRunner.run_batch(n_workers=1)`` with the padded embedder as a
+   batch device UDF, every bucket width warmed first; then the same
+   documents through ``embed_batch`` in the same batches; engine, direct,
+   direct, engine. Checks: every document once, diff +1, at its tick's
+   time, under its ``hash_values_uncached("row", i, doc)`` key, its
+   embedding equal to the direct call's bit for bit (both engine runs);
+   K1 launches = 12 x encoder dispatches = 12 x 196 in the counted run and
+   no other kernel. Then the ragged embedder over the first 10,240
+   documents (20 ticks) the same way (its K1 launches are K1 with segment
+   ids). Prints engine and direct docs/s, their ratio, the engine's host
+   time a tick outside the UDF, the garbage collector's time and peak
+   device memory;
+10. path 2: the same 100,000 documents and 64 queries through the ragged
    embedder into ``BruteForceKnnIndex(384, dtype="int8", metric="cos")``
    (each ingest chunk one replay of a CUDA graph of the fused step: K1 with
    segment ids, K4; K3 top-k in the search), and one search with limit 20
@@ -88,10 +104,10 @@ non-zero, and no result line is printed):
    ``search_extent`` at k in ROUTE_KS against the plain scan + stable
    sort; then a chunk's replay time beside the eager step's and the
    device's busy share over four ingest batches (torch.profiler);
-10. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
+11. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
    on the flush path, K3 top-k in the search): query times at B=1 and
    B=64, every top 10 against the plain scan;
-11. bench_knn's int8 deployment (bench.py:2547-2579): 10,000,000 x 384
+12. bench_knn's int8 deployment (bench.py:2547-2579): 10,000,000 x 384
    rows, cos, fed by ``add_batch_device`` in 65,536-row batches of
    seeded randn on the card, searched at B=1 (64 calls) and B=64, k=10,
    then ``latency_probe`` as bench.py calls it (knn_int8_p50_ms,
@@ -104,13 +120,13 @@ non-zero, and no result line is printed):
    at k in ROUTE_KS against the plain scan + stable sort, and its times
    beside a stable sort per chunk of the same scores at B=1 and 64, k in
    SELECT_KS;
-12. bench_knn's bf16 deployment (bench.py:3436-3490), after the int8
+13. bench_knn's bf16 deployment (bench.py:3436-3490), after the int8
    index is freed: 10,000,000 x 384 uniform bf16 rows, cos, made on the
    card in 2^19-row seeded chunks and fed by ``add_batch_device``,
-   searched and probed as phase 11 (knn_p50_ms, knn_batch64_ms), with
+   searched and probed as phase 12 (knn_p50_ms, knn_batch64_ms), with
    the same checks; K2 launches = searches x extents; the filtered
-   search, the route and its times as phase 11, with K2's score twin;
-13. profile: torch.profiler over three encoder forwards of each path's
+   search, the route and its times as phase 12, with K2's score twin;
+14. profile: torch.profiler over three encoder forwards of each path's
    dispatch, device time by kernel group (K1, GEMM, other) and the
    device's busy share.
 
@@ -1625,6 +1641,205 @@ def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int, int]:
     return launches, k2_launches, score_launches
 
 
+ENGINE_RAGGED_DOCS = 10_240  # 20 ticks of the ragged embedder
+
+
+class GcClock:
+    """Host time spent in Python's cyclic garbage collector while
+    installed (``gc.callbacks``)."""
+
+    def __init__(self):
+        self.s, self.n, self._t0 = 0.0, 0, 0.0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.s += time.perf_counter() - self._t0
+            self.n += 1
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+
+
+def engine_run(emb, docs: list[str], label: str) -> dict:
+    """``table_from_rows(docs, one tick per INGEST_BATCH docs at time
+    2 * tick).select(embedding=emb(pw.this.data))`` under
+    ``GraphRunner.run_batch(n_workers=1)``, every launch count set to 0
+    just before the run and read just after. Returns the captured events,
+    K1's launches, the encoder dispatches, the run's wall, the time spent
+    inside the UDF and in the garbage collector (s)."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.debug import table_from_rows
+    from pathway_tpu_torch.internals.runner import GraphRunner
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+
+    rows = [(doc, 2 * (i // INGEST_BATCH), 1) for i, doc in enumerate(docs)]
+    table = table_from_rows(pw.schema_from_types(data=str), rows,
+                            is_stream=True)
+    runner = GraphRunner()
+    cap = runner.capture(table.select(embedding=emb(pw.this.data)))
+    emb.udf_s = 0.0
+    gc.collect()  # earlier phases' garbage is not this run's
+    for count in LAUNCH_COUNTS:
+        count.launches = 0
+    emb.dispatches = 0
+    torch.cuda.synchronize()
+    with GcClock() as gc_clock:
+        t0 = time.perf_counter()
+        runner.run_batch(n_workers=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, dispatches = ATTENTION.launches, emb.dispatches
+    others = {c.name: c.launches for c in LAUNCH_COUNTS
+              if c is not ATTENTION and c.launches}
+    if others:
+        fail(f"{label}: kernels other than K1 ran in the engine run: "
+             f"{others}")
+    return {"events": cap.events, "k1": launches, "dispatches": dispatches,
+            "wall": wall, "udf": emb.udf_s, "gc": gc_clock.s,
+            "gc_n": gc_clock.n}
+
+
+def direct_run(emb, docs: list[str]) -> tuple[np.ndarray, float]:
+    """The same documents through ``embed_batch`` in the engine's
+    batches; returns the embeddings and the wall (s)."""
+    gc.collect()
+    t0 = time.perf_counter()
+    out = np.concatenate([emb.embed_batch(docs[b:b + INGEST_BATCH])
+                          for b in range(0, len(docs), INGEST_BATCH)])
+    return out, time.perf_counter() - t0
+
+
+def hold_engine(events, docs: list[str], direct: np.ndarray, label: str
+                ) -> None:
+    """Every document once, diff +1, at its tick's time, under the key
+    ``table_from_rows`` gives it, with the direct call's embedding bit for
+    bit."""
+    from pathway_tpu_torch.internals.keys import hash_values_uncached
+
+    if len(events) != len(docs):
+        fail(f"{label}: {len(events)} events for {len(docs)} documents")
+    index = {int(hash_values_uncached("row", i, doc)): i
+             for i, doc in enumerate(docs)}
+    seen = np.zeros(len(docs), bool)
+    for key, row, t, diff in events:
+        i = index.get(int(key))
+        if i is None or seen[i]:
+            fail(f"{label}: key {key!r} is no document's or repeats")
+        seen[i] = True
+        if diff != 1 or t != 2 * (i // INGEST_BATCH):
+            fail(f"{label}: document {i} at time {t} diff {diff}")
+        vec = row[0]
+        if vec.dtype != np.float32 or vec.shape != direct[i].shape \
+                or not np.array_equal(vec, direct[i]):
+            diff_max = float(np.abs(vec.astype(np.float64)
+                                    - direct[i]).max())
+            fail(f"{label}: document {i}'s embedding differs from the "
+                 f"direct embed_batch (max |diff| {diff_max:.3e})")
+    if not np.all(np.isfinite(direct)):
+        fail(f"{label}: non-finite embeddings")
+
+
+def phase_engine(n_docs: int, seed: int, card: str) -> tuple[int, int]:
+    """The engine's batch path: BGE-small as a batch device UDF,
+    ``select(embedding=emb(pw.this.data))`` under
+    ``GraphRunner.run_batch``, over path 1's documents (padded, bf16;
+    100,000 by default: 196 ticks of 512), then the ragged embedder over
+    the first 10,240 of them in 20 ticks; each held bit for bit against its own
+    ``embed_batch`` over the same 512-document batches. Returns K1's
+    launches in the padded and in the ragged engine run."""
+    import torch
+
+    from pathway_tpu_torch.models.encoder import (EncoderConfig,
+                                                  init_params_host)
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+
+    class TimedEmbedder(EncoderEmbedder):
+        """The UDF body timed on the host clock (it ends with the
+        device-to-host copy of the batch, so the device work is inside)."""
+
+        udf_s = 0.0
+
+        def __wrapped__(self, texts, **kwargs):
+            t0 = time.perf_counter()
+            out = super().__wrapped__(texts, **kwargs)
+            self.udf_s += time.perf_counter() - t0
+            return out
+
+    cfg = EncoderConfig.bge_small()
+    params = init_params_host(seed, cfg)
+    docs = make_docs(n_docs, seed=seed)
+    launches = []
+    for ragged, n in ((False, n_docs),
+                      (True, min(n_docs, ENGINE_RAGGED_DOCS))):
+        label = "engine ragged" if ragged else "engine"
+        emb = TimedEmbedder(config=cfg, params=params, ragged=ragged,
+                            device="cuda")
+        sub = docs[:n]
+        n_ticks = -(-n // INGEST_BATCH)
+        # warm every dispatch shape outside the timed window
+        if ragged:
+            for b in emb.ragged_buckets():
+                args, _ = emb.ragged_warmup_operands(b)
+                emb.ragged_device_producer(emb.model, *args)
+        else:
+            for w in emb.bucket_widths():
+                emb.device_producer(
+                    emb.model, np.zeros((INGEST_BATCH, w), np.int16),
+                    np.full(INGEST_BATCH, w, np.int32))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # engine, direct, direct, engine: host-clock times drift by 10-30%
+        # between consecutive runs on this machine, so each side is timed
+        # twice in mirrored order; the first engine run is the counted one
+        first = engine_run(emb, sub, label)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        k1, dispatches = first["k1"], first["dispatches"]
+        direct, direct_s1 = direct_run(emb, sub)
+        hold_engine(first.pop("events"), sub, direct, label)
+        direct_s2 = direct_run(emb, sub)[1]
+        second = engine_run(emb, sub, label)
+        hold_engine(second.pop("events"), sub, direct, label + " (again)")
+        if dispatches == 0 or k1 != N_LAYERS * dispatches:
+            fail(f"{label}: K1 launched {k1} times for {dispatches} encoder "
+                 f"dispatches, not {N_LAYERS} a dispatch")
+        if not ragged and dispatches != n_ticks:
+            fail(f"{label}: {dispatches} encoder dispatches for {n_ticks} "
+                 "ticks")
+        runs = (first, second)
+        engine_s = sum(r["wall"] for r in runs)
+        outside_ms = sum(r["wall"] - r["udf"] for r in runs) / 2 / n_ticks
+        print(f"[{label}] {n} docs in {n_ticks} ticks through "
+              f"select(embedding=emb(pw.this.data)) under GraphRunner."
+              f"run_batch, then direct embed_batch in the same batches, "
+              f"twice each in the order engine, direct, direct, engine: "
+              f"engine {n / first['wall']:.1f} and {n / second['wall']:.1f}"
+              f" docs/s, direct {n / direct_s1:.1f} and {n / direct_s2:.1f}"
+              f" docs/s; engine / direct docs/s over both "
+              f"{(direct_s1 + direct_s2) / engine_s:.4f}; engine host time "
+              f"a tick outside the UDF {outside_ms * 1e3:.3f} ms (inside "
+              f"{sum(r['udf'] for r in runs) / 2 / n_ticks * 1e3:.3f} ms); "
+              f"garbage collector {first['gc']:.3f} / {second['gc']:.3f} s "
+              f"({first['gc_n']} / {second['gc_n']} collections) of the "
+              f"engine runs; peak device memory {peak_mb:.1f} MiB [{card}]",
+              flush=True)
+        print(f"[{label}] K1 launches {k1} = {N_LAYERS} x {dispatches} "
+              f"encoder dispatches in the counted run; every document once "
+              f"with diff +1 and its table_from_rows key; embeddings equal "
+              f"the direct embed_batch bit for bit (both engine runs)",
+              flush=True)
+        launches.append(k1)
+    return launches[0], launches[1]
+
+
 def check_top10(results, scan_scores, keys_of, label: str, n: int = 10
                 ) -> int:
     """Each query's top ``n`` keys against a plain scan's scores (B, N) on
@@ -2256,7 +2471,7 @@ def phase_bf16_10m(card: str) -> tuple[int, list, dict]:
     (default_rng(0).random((64, 384)) * 2 - 1) through ``search_10m``
     (bench.py's knn_p50_ms and knn_batch64_ms from latency_probe), then
     ``filtered_10m`` (K2's score twin per chunk) and ``route_10m``, as
-    phase 11. The host mirror is bf16 (7.7 GB). Returns K2's launches in
+    phase 12. The host mirror is bf16 (7.7 GB). Returns K2's launches in
     the unfiltered run, the probe times and the filtered run's numbers."""
     import torch
 
@@ -2424,6 +2639,9 @@ def main() -> None:
     k1["launches"], k2["launches"], k2_score["launches"] = phase_slice(
         args.docs, args.seed, card)
     done("path 1")
+    k1["launches_engine"], k1_seg["launches_engine"] = phase_engine(
+        args.docs, args.seed, card)
+    done("engine")
     (k1_seg["launches"], k3_topk_path2, k3["launches"],
      k4["launches"]) = phase_ragged_int8(args.seed, card)
     done("path 2")

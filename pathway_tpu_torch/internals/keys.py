@@ -1,6 +1,7 @@
 """128-bit row keys (Pointers) and deterministic hashing — the part of
-pathway_tpu/internals/keys.py the index and its tests use, copied so that
-a key made here equals the key the JAX package makes from the same values.
+pathway_tpu/internals/keys.py the index, the engine and their tests use,
+copied so that a key made here equals the key the JAX package makes from
+the same values.
 """
 
 from __future__ import annotations
@@ -152,10 +153,14 @@ def _encode_value_slow(value: Any, out: list) -> None:
     elif isinstance(value, np.ndarray):
         _enc_ndarray(value, out)
     else:
-        # the reference encodes its Json wrapper under tag 0x09; Json is
-        # not ported yet, so every other object takes the repr tag
-        b = repr(value).encode()
-        out.append(b"\x0a" + struct.pack("<q", len(b)) + b)
+        from pathway_tpu_torch.internals.json import Json
+
+        if isinstance(value, Json):
+            b = value.dumps().encode()
+            out.append(b"\x09" + struct.pack("<q", len(b)) + b)
+        else:
+            b = repr(value).encode()
+            out.append(b"\x0a" + struct.pack("<q", len(b)) + b)
 
 
 _HASH_CACHE: dict = {}
@@ -188,6 +193,39 @@ def hash_values(*values: Any) -> Pointer:
     return result
 
 
+def hash_values_uncached(*values: Any) -> Pointer:
+    """hash_values minus the memo cache, for callers whose keys are
+    unique by construction (e.g. per-row source ids that embed a row
+    index): the cache tuple build + miss + insert is pure overhead there
+    and evicts genuinely-repeating dataflow keys. Identical bytes →
+    identical Pointer as hash_values."""
+    out: list = []
+    for v in values:
+        _encode_value(v, out)
+    digest = hashlib.blake2b(b"".join(out), digest_size=16, key=_SALT).digest()
+    return Pointer(int.from_bytes(digest, "little"))
+
+
 def ref_scalar(*args: Any, optional: bool = False) -> Pointer:
     """Public ``pw.this.pointer_from`` scalar variant."""
     return hash_values(*args)
+
+
+_MASK128 = (1 << 128) - 1
+_MIX_A = 0x9E3779B97F4A7C15F39CC0605CEDC835
+_MIX_B = 0xC2B2AE3D27D4EB4F165667B19E3779F9
+_MIX_NONE = 0x6C62272E07BB014262B821756295C58D  # stands in for a missing side
+
+
+def mix_pointers(a: int | None, b: int | None) -> Pointer:
+    """Deterministic 128-bit combine of two (blake2b-uniform) pointers:
+    the key of a flattened row (its parent key mixed with its position).
+    Pointers are already uniform 128-bit digests, so a multiply-xor mix
+    preserves uniformity at far less cost than re-encoding + blake2b."""
+    x = _MIX_NONE if a is None else int(a)
+    y = _MIX_NONE + 1 if b is None else int(b)
+    x = (x * _MIX_A) & _MASK128
+    y = (y * _MIX_B) & _MASK128
+    z = (x ^ (y >> 63) ^ (y << 65)) & _MASK128
+    z = (z * _MIX_A) & _MASK128
+    return Pointer(z ^ (z >> 64))

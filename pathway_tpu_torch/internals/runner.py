@@ -1,0 +1,322 @@
+"""Lowering + execution: Table plans → engine graph → microbatch run —
+port of pathway_tpu/internals/runner.py, trimmed to the batch path.
+
+Walks the plan DAG reachable from requested outputs, compiles expressions
+against row layouts, builds engine operators, then drives the scheduler
+over logical times. Lowered: static, input, identity, map, filter,
+filter_raw (remove_errors), reindex, flatten, concat and concat_reindex.
+Not ported: auto-jit's host/device map split, the external index, and the
+temporal, groupby and join lowerings — a plan of those kinds raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from pathway_tpu_torch.engine import operators as eng
+from pathway_tpu_torch.engine.delta import Delta
+from pathway_tpu_torch.engine.graph import (CapturedStream, EngineGraph,
+                                            Node, Scheduler)
+from pathway_tpu_torch.internals import expression as ex
+from pathway_tpu_torch.internals.expression_compiler import (
+    CompileContext,
+    ExpressionCompiler,
+    compile_map_program,
+)
+from pathway_tpu_torch.internals.keys import Pointer, hash_values, mix_pointers
+from pathway_tpu_torch.internals.table import _DSL_REST, _SLICE_10, Plan, Table
+
+_STREAMING = "ROADMAP queue 1, item 3: connectors and the streaming runtime"
+
+
+def _referenced_tables(exprs, base: Table) -> list[Table]:
+    """All concrete tables appearing in exprs, base first."""
+    seen: dict[int, Table] = {id(base): base}
+    order = [base]
+
+    def walk(e):
+        if isinstance(e, ex.ColumnReference) and isinstance(e.table, Table):
+            if id(e.table) not in seen:
+                seen[id(e.table)] = e.table
+                order.append(e.table)
+        for d in getattr(e, "_deps", ()):
+            walk(d)
+
+    for e in exprs:
+        walk(e)
+    return order
+
+
+def _map_op_for(program, nondet: bool):
+    """Map operator for a compiled program; device-dispatching programs
+    (batch UDFs with device=True, e.g. the encoder embedder) mark the
+    operator device_bound (information only until the device bridge is
+    ported, ROADMAP queue 1 item 2b)."""
+    op = eng.DeterministicMapOperator(program) if nondet \
+        else eng.MapOperator(program)
+    if getattr(program, "device_bound", False):
+        op.device_bound = True
+    return op
+
+
+class GraphRunner:
+    def __init__(self):
+        self.graph = EngineGraph()
+        self._memo: dict[int, Node] = {}
+        # (node, {time: [(key, row, diff)]}) — pre-grouped at lowering so
+        # run startup does not rescan whole feeds row by row
+        self._static_feeds: list[tuple[Node, dict]] = []
+
+    # ------------------------------------------------------------------
+    # public entry points
+    # ------------------------------------------------------------------
+    def capture(self, table: Table) -> CapturedStream:
+        node = self.lower(table)
+        cap = CapturedStream()
+        self.graph.add_node(eng.OutputOperator(cap.on_delta), [node], "capture")
+        return cap
+
+    def subscribe(self, table: Table,
+                  callback: Callable[[int, Delta], None]) -> None:
+        node = self.lower(table)
+        self.graph.add_node(eng.OutputOperator(callback), [node], "subscribe")
+
+    def run_batch(self, n_workers: int = 1) -> None:
+        """Run all static feeds to completion (batch mode: one pass over the
+        totally-ordered times present in the inputs + a flush tick), every
+        operator stepped on the calling thread. ``n_workers`` other than 1
+        raises ``NotImplementedError`` (ROADMAP queue 1, item 2d)."""
+        sched = Scheduler(self.graph, n_workers=n_workers)
+        by_time, feed_times = self.static_feeds_by_time()
+        times = {0} | feed_times
+        for t in sorted(times):
+            for node, groups in by_time:
+                batch = groups.get(t)
+                if batch:
+                    sched.push_source(node, Delta(batch))
+            sched.run_time(t)
+        # end-of-stream flush tick: buffering operators release rows
+        sched.run_time(max(times) + 1, flush=True)
+
+    def static_feeds_by_time(self):
+        """Feeds are stored pre-grouped by logical time (see _lower_static).
+        Returns ([(node, {time: [(k, r, d)]})], set_of_times)."""
+        times: set[int] = set()
+        for _node, groups in self._static_feeds:
+            times.update(groups)
+        return self._static_feeds, times
+
+    # ------------------------------------------------------------------
+    # lowering
+    # ------------------------------------------------------------------
+    def lower(self, table: Table) -> Node:
+        key = id(table)
+        if key in self._memo:
+            return self._memo[key]
+        plan = table._plan
+        handler = getattr(self, f"_lower_{plan.kind}", None)
+        if handler is None:
+            item = {"groupby": _SLICE_10, "dedupe": _SLICE_10,
+                    "external_index": _SLICE_10,
+                    "input": _STREAMING}.get(plan.kind, _DSL_REST)
+            raise NotImplementedError(
+                f"no lowering for plan kind {plan.kind!r} in "
+                f"pathway_tpu_torch yet ({item})")
+        node = handler(table, plan)
+        if node.trace is None:
+            node.trace = plan.trace
+        self._memo[key] = node
+        return node
+
+    # -- helpers ------------------------------------------------------------
+    def _row_space(self, base: Table, exprs: list) -> tuple[Node, CompileContext]:
+        """Node producing zipped rows of all tables referenced by exprs,
+        with a CompileContext mapping references to positions."""
+        tables = _referenced_tables(exprs, base)
+        ctx = CompileContext()
+        node = self.lower(tables[0])
+        offset = ctx.add_table(tables[0], 0)
+        for t in tables[1:]:
+            right = self.lower(t)
+            left_len = offset
+            right_len = len(t._column_names())
+
+            def combine(l, r, _ll=left_len, _rl=right_len):
+                if l is None or r is None:
+                    return None
+                return (*l, *r)
+
+            node = self.graph.add_node(
+                eng.BinaryKeyOperator(combine), [node, right], "zip"
+            )
+            offset = ctx.add_table(t, offset)
+        return node, ctx
+
+    # -- sources ------------------------------------------------------------
+    def _lower_static(self, table: Table, plan: Plan) -> Node:
+        node = self.graph.add_source(table._name)
+        keys = plan.params["keys"]
+        rows = plan.params["rows"]
+        times = plan.params.get("times")
+        diffs = plan.params.get("diffs") or [1] * len(keys)
+        groups: dict[int, list] = {}
+        if times is None:
+            groups[0] = [(k, tuple(r), d)
+                         for k, r, d in zip(keys, rows, diffs)]
+        else:
+            for t, k, r, d in zip(times, keys, rows, diffs):
+                g = groups.get(t)
+                if g is None:
+                    g = groups[t] = []
+                g.append((k, tuple(r), d))
+        self._static_feeds.append((node, groups))
+        return node
+
+    def _lower_identity(self, table: Table, plan: Plan) -> Node:
+        return self.lower(plan.params["base"])
+
+    # -- row ops ------------------------------------------------------------
+    def _lower_map(self, table: Table, plan: Plan) -> Node:
+        base = plan.params["base"]
+        exprs = plan.params["exprs"]
+        node, ctx = self._row_space(base, exprs)
+        program, nondet = compile_map_program(exprs, ctx)
+        return self.graph.add_node(_map_op_for(program, nondet), [node],
+                                   f"map:{table._name}")
+
+    def _lower_filter(self, table: Table, plan: Plan) -> Node:
+        base = plan.params["base"]
+        pred = plan.params["pred"]
+        node, ctx = self._row_space(base, [pred])
+        comp = ExpressionCompiler(ctx)
+        # keep base row shape: need projection back to base columns if zipped
+        pred_fn = comp.compile_predicate(pred)
+        n_base = len(base._column_names())
+
+        def keep_base(keys, rows):
+            return [r[:n_base] for r in rows]
+
+        filt = self.graph.add_node(eng.FilterOperator(pred_fn), [node], "filter")
+        if len(_referenced_tables([pred], base)) > 1:
+            return self.graph.add_node(eng.MapOperator(keep_base), [filt], "proj")
+        return filt
+
+    def _lower_filter_raw(self, table: Table, plan: Plan) -> Node:
+        """Filter with a prebuilt batch predicate fn(keys, rows) -> [bool]
+        (Table.remove_errors)."""
+        base = self.lower(plan.params["base"])
+        return self.graph.add_node(
+            eng.FilterOperator(plan.params["pred_fn"]), [base], "filter_raw")
+
+    def _lower_reindex(self, table: Table, plan: Plan) -> Node:
+        base = plan.params["base"]
+        key_exprs = plan.params["key_exprs"]
+        node, ctx = self._row_space(base, key_exprs)
+        comp = ExpressionCompiler(ctx)
+        if plan.params.get("raw"):
+            vfn = comp.compile(key_exprs[0])
+
+            def key_fn(keys, rows):
+                out = []
+                for v in vfn(keys, rows):
+                    if not isinstance(v, Pointer):
+                        v = hash_values(v)
+                    out.append(v)
+                return out
+        else:
+            key_fn = comp.compile_key_fn(key_exprs)
+        n_base = len(base._column_names())
+        reindexed = self.graph.add_node(
+            eng.ReindexOperator(key_fn), [node], "reindex")
+        if len(_referenced_tables(key_exprs, base)) > 1:
+            return self.graph.add_node(
+                eng.MapOperator(lambda keys, rows: [r[:n_base] for r in rows]),
+                [reindexed], "proj")
+        return reindexed
+
+    # -- set ops ------------------------------------------------------------
+    def _project_to_names(self, t: Table, names: list[str]) -> Node:
+        node = self.lower(t)
+        own = t._column_names()
+        if own == names:
+            return node
+        pos = [own.index(n) for n in names]
+
+        def proj(keys, rows):
+            return [tuple(r[p] for p in pos) for r in rows]
+
+        return self.graph.add_node(eng.MapOperator(proj), [node], "proj")
+
+    def _lower_concat(self, table: Table, plan: Plan) -> Node:
+        tables = plan.params["tables"]
+        update = plan.params["update"]
+        names = table._column_names()
+        nodes = [self._project_to_names(t, names) for t in tables]
+
+        def combine_rows(present: list):
+            live = [r for r in present if r is not None]
+            return live[-1] if update else live[0]
+
+        return self.graph.add_node(
+            eng.NAryConcatOperator(len(nodes), combine_rows, update=update),
+            nodes, "concat")
+
+    def _lower_concat_reindex(self, table: Table, plan: Plan) -> Node:
+        tables = plan.params["tables"]
+        names = table._column_names()
+        nodes = []
+        for i, t in enumerate(tables):
+            n = self._project_to_names(t, names)
+            salt = i
+
+            def key_fn(keys, rows, _s=salt):
+                return [hash_values(k, _s) for k in keys]
+
+            nodes.append(self.graph.add_node(
+                eng.ReindexOperator(key_fn), [n], f"reindex{i}"))
+
+        def combine_rows(present):
+            return next(r for r in present if r is not None)
+
+        return self.graph.add_node(
+            eng.NAryConcatOperator(len(nodes), combine_rows, update=False),
+            nodes, "concat_reindex")
+
+    # -- reshaping ----------------------------------------------------------
+    def _lower_flatten(self, table: Table, plan: Plan) -> Node:
+        base: Table = plan.params["base"]
+        col = plan.params["col_name"]
+        origin_id = plan.params.get("origin_id")
+        node = self.lower(base)
+        pos = base._column_names().index(col)
+
+        def fn(key, row):
+            val = row[pos]
+            if val is None:
+                return []
+            out = []
+            for i, elem in enumerate(val):
+                # mix-derived child keys: parent keys are already uniform
+                # 128-bit digests, so the multiply-xor mix preserves
+                # uniformity at a fraction of a fresh blake2b per row
+                nk = mix_pointers(key, i)
+                nr = list(row)
+                nr[pos] = elem
+                if origin_id is not None:
+                    nr.append(key)
+                out.append((nk, tuple(nr)))
+            return out
+
+        return self.graph.add_node(eng.FlattenOperator(fn), [node], "flatten")
+
+
+# ---------------------------------------------------------------------------
+# convenience: run tables to captured streams (test harness backbone)
+# ---------------------------------------------------------------------------
+
+def run_tables(*tables: Table) -> list[CapturedStream]:
+    runner = GraphRunner()
+    caps = [runner.capture(t) for t in tables]
+    runner.run_batch()
+    return caps

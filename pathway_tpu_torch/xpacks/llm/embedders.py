@@ -1,22 +1,27 @@
 """Encoder embedder — port of pathway_tpu/xpacks/llm/embedders.py
-``JaxEncoderEmbedder``.
+``BaseEmbedder`` and ``JaxEncoderEmbedder``.
 
 ``EncoderEmbedder`` tokenizes on the host (HashTokenizer by default) and
 runs the encoder (models/encoder.py) on the device, either padding each
 batch to a width bucket or, with ``ragged``, packing documents back to
-back into ``max_len``-wide sequences (``encode_ragged``). It is a plain
-class until the engine's UDF machinery is ported; checkpoint loading by
-model name is a later slice (ROADMAP).
+back into ``max_len``-wide sequences (``encode_ragged``). It is a batch
+device UDF (``batch=True, deterministic=True``, device-bound): called on a
+column expression, ``emb(pw.this.text)``, it builds the UDF expression the
+engine runs once per tick over the whole column. Direct callers use
+``embed_batch``. Checkpoint loading by model name is a later slice
+(ROADMAP).
 """
 
 from __future__ import annotations
 
+import asyncio
 import os
 
 import numpy as np
 import torch
 
 from pathway_tpu_torch._device import PinnedStaging, resolve_device
+from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.config import _env_int
 from pathway_tpu_torch.models.encoder import (Encoder, EncoderConfig, encode,
                                               encode_ragged,
@@ -24,22 +29,42 @@ from pathway_tpu_torch.models.encoder import (Encoder, EncoderConfig, encode,
 from pathway_tpu_torch.models.tokenizer import HashTokenizer
 
 
-class EncoderEmbedder:
-    """Embedder over the port's encoder.
+class BaseEmbedder(udfs.UDF):
+    """Embedder base: callable on a column; knows its output dimension."""
+
+    def get_embedding_dimension(self, **kwargs) -> int:
+        """Probe the dimension with one call."""
+        result = self.func(".", **kwargs)
+        if asyncio.iscoroutine(result):
+            result = asyncio.run(result)
+        arr = np.asarray(result)
+        if arr.ndim == 2:  # batch embedder probed with a single item
+            arr = arr[0]
+        return int(arr.shape[0])
+
+
+class EncoderEmbedder(BaseEmbedder):
+    """Embedder over the port's encoder, a batch device UDF.
 
     ``params`` is a JAX-layout numpy tree (e.g. ``init_params_host``
     output or the JAX package's parameters fetched to the host); without
     it the weights are ``init_params_host(seed, config)``. Runs on
-    ``device`` ("cuda" unless the caller passes "cpu"). ``ragged=None``
-    reads ``PATHWAY_RAGGED_ENCODER`` (off unless 1/true/on/yes), as the
-    JAX embedder does."""
+    ``device`` ("cuda" unless the caller passes "cpu"): here ``device`` is
+    the torch device, and the UDF is always device-bound
+    (``device_bound``). ``ragged=None`` reads ``PATHWAY_RAGGED_ENCODER``
+    (off unless 1/true/on/yes), as the JAX embedder does. Other keyword
+    arguments go to :class:`udfs.UDF` (``max_batch_size``, ``batch`` and
+    ``deterministic``, both True by default)."""
 
     _BUCKETS = (32, 64, 128, 256, 512)
 
     def __init__(self, *, config: EncoderConfig | None = None,
                  params: dict | None = None, tokenizer=None, seed: int = 0,
                  max_len: int = 512, ragged: bool | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", **kwargs):
+        kwargs.setdefault("batch", True)
+        kwargs.setdefault("deterministic", True)
+        super().__init__(device=True, **kwargs)
         if ragged is None:
             ragged = os.environ.get("PATHWAY_RAGGED_ENCODER", "0").lower() \
                 in ("1", "true", "on", "yes")
@@ -239,9 +264,10 @@ class EncoderEmbedder:
         """(B, hidden) float32 embeddings as one host array."""
         return self.encode_batch_device(texts).cpu().numpy()
 
-    def __call__(self, texts: list[str]) -> list[np.ndarray]:
-        """Row views of one host transfer for the whole batch (the UDF
-        contract of the JAX embedder's batch call)."""
+    def __wrapped__(self, texts: list[str], **kwargs) -> list[np.ndarray]:
+        """The batch UDF body: ONE device-to-host transfer for the whole
+        column, then row views into it (ndarray iteration yields views,
+        never copies)."""
         return list(self.embed_batch(list(texts)))
 
     def get_embedding_dimension(self, **kwargs) -> int:

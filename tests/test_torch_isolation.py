@@ -36,6 +36,17 @@ ridx = DeviceEmbeddingKnnIndex(remb, BruteForceKnnIndex(
 ridx.add_batch([Pointer(i) for i in range(40)], docs)
 res = ridx.search([(Pointer(10**6), docs[7], 3, None)])
 assert len(res[0]) == 3, res
+# the engine's batch path: the embedder as a batch device UDF
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.internals.runner import GraphRunner
+t = pw.debug.table_from_rows(pw.schema_from_types(data=str),
+                             [(d, 2 * (i // 8), 1) for i, d in enumerate(docs)],
+                             is_stream=True)
+runner = GraphRunner()
+cap = runner.capture(t.filter(pw.this.data != "").select(
+    embedding=emb(pw.this.data), n=pw.apply(len, pw.this.data)))
+runner.run_batch(n_workers=1)
+assert len(cap.events) == 40, cap.events
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pathway_tpu"))
 print("FORBIDDEN", bad)
