@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--docs N] [--seed S]
 
-Drives the port's two live-RAG device paths, and the engine's batch
-path with the encoder as a batch UDF, at BGE-small's full width with
+Drives the port's two live-RAG device paths, the engine's batch path
+with the encoder as a batch UDF, and the engine's index path (the graph
+of bench.py's bench_embed_framework), at BGE-small's full width with
 random weights from a seed, and checks every kernel of those paths
 against its plain PyTorch version on the card. Phases (each failure exits
 non-zero, and no result line is printed):
@@ -90,7 +91,40 @@ non-zero, and no result line is printed):
    ids). Prints engine and direct docs/s, their ratio, the engine's host
    time a tick outside the UDF, the garbage collector's time and peak
    device memory;
-10. path 2: the same 100,000 documents and 64 queries through the ragged
+10. framework (bench.py's ``bench_embed_framework`` graph): the same
+   documents as ``table_from_rows(data, _metadata=Json({"path": ...}),
+   is_stream=True)``, one tick per 2048 (bench.py's BATCH), through
+   ``VectorStoreServer(docs, embedder=emb, index_builder=...
+   default_brute_force_knn_document_index(chunks.text, chunks, ...))``
+   and ``retrieve_query`` under ``GraphRunner.run_batch(n_workers=1)``
+   (DataIndex.query_as_of_now over the external index operator: the
+   index embeds text itself), with queries at time 0, at the middle tick
+   (copies of ingested and of later documents) and after the last tick
+   (copies, fresh texts and one k = 80); configuration A the padded
+   embedder into a bf16 cos index (K1, K2, K2's score twin), B the
+   ragged embedder into an int8 cos index (K1 with segment ids, K4 in
+   each chunk's graph replay, K3 top-k, K3 score); engine, direct
+   ``add_batch``, direct, engine. Checks: every reply equal to a plain
+   scan on the card of the rows present at its query's time, copies find
+   their document first when ingested and never before, texts and
+   metadata the documents', the engine-built index equal bit for bit to
+   the direct one, and the launches inside ``run_batch`` equal to the
+   counts the code gives (stated before the run). Prints
+   ``framework_docs_per_s``, the direct docs/s and their ratio, the
+   engine's host time a tick outside the index, host time by operator,
+   graphs captured in each timed window, the garbage collector's time and
+   peak device memory; the query embeddings the engine passed to the
+   index against the plain encoder (``attention_reference``) on the card;
+11. array_sum (``GroupByOperator``'s device segment sum, off by default):
+   ``device_segsum`` on the card bit for bit against the sequential numpy
+   loop; then ``groupby(g).reduce(g, a=npsum(v))`` over two ticks of each
+   ARRAY_SUM_CASES shape (D 384 or 64; 512 to 32,768 rows a tick; one
+   group to one a row, and a skewed tick) with the route forced on and
+   off (device, host, host, device) and under ``_segsum_pays``: events bit
+   for bit equal, ``device_segsum`` called as the route says; prints the
+   operator's host ms a tick, the route's pre-pass and the per-row adds
+   it replaces;
+12. path 2: the same 100,000 documents and 64 queries through the ragged
    embedder into ``BruteForceKnnIndex(384, dtype="int8", metric="cos")``
    (each ingest chunk one replay of a CUDA graph of the fused step: K1 with
    segment ids, K4; K3 top-k in the search), and one search with limit 20
@@ -104,10 +138,10 @@ non-zero, and no result line is printed):
    ``search_extent`` at k in ROUTE_KS against the plain scan + stable
    sort; then a chunk's replay time beside the eager step's and the
    device's busy share over four ingest batches (torch.profiler);
-11. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
+13. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
    on the flush path, K3 top-k in the search): query times at B=1 and
    B=64, every top 10 against the plain scan;
-12. bench_knn's int8 deployment (bench.py:2547-2579): 10,000,000 x 384
+14. bench_knn's int8 deployment (bench.py:2547-2579): 10,000,000 x 384
    rows, cos, fed by ``add_batch_device`` in 65,536-row batches of
    seeded randn on the card, searched at B=1 (64 calls) and B=64, k=10,
    then ``latency_probe`` as bench.py calls it (knn_int8_p50_ms,
@@ -120,13 +154,13 @@ non-zero, and no result line is printed):
    at k in ROUTE_KS against the plain scan + stable sort, and its times
    beside a stable sort per chunk of the same scores at B=1 and 64, k in
    SELECT_KS;
-13. bench_knn's bf16 deployment (bench.py:3436-3490), after the int8
+15. bench_knn's bf16 deployment (bench.py:3436-3490), after the int8
    index is freed: 10,000,000 x 384 uniform bf16 rows, cos, made on the
    card in 2^19-row seeded chunks and fed by ``add_batch_device``,
-   searched and probed as phase 12 (knn_p50_ms, knn_batch64_ms), with
+   searched and probed as phase 14 (knn_p50_ms, knn_batch64_ms), with
    the same checks; K2 launches = searches x extents; the filtered
-   search, the route and its times as phase 12, with K2's score twin;
-14. profile: torch.profiler over three encoder forwards of each path's
+   search, the route and its times as phase 14, with K2's score twin;
+16. profile: torch.profiler over three encoder forwards of each path's
    dispatch, device time by kernel group (K1, GEMM, other) and the
    device's busy share.
 
@@ -1840,6 +1874,583 @@ def phase_engine(n_docs: int, seed: int, card: str) -> tuple[int, int]:
     return launches[0], launches[1]
 
 
+FRAMEWORK_BATCH = 2048  # bench.py's BATCH: documents a tick
+
+
+def framework_queries(docs: list[str], n_ticks: int, seed: int) -> list:
+    """The phase's query stream, ``(time, text, k, doc)`` (``doc`` the
+    document a copy repeats, else None): bench.py's own ("word1 word2
+    word3", 3) at time 0, over the first tick's rows; at the middle tick's
+    time 16 copies of documents of ticks up to it and 16 of later ones;
+    after the last tick 32 copies of ingested documents, 32 fresh texts
+    (k = 10) and one copy with k = 80, whose fetch goes past K_MAX."""
+    n = len(docs)
+    t_mid, t_last = 2 * (n_ticks // 2), 2 * n_ticks
+    n_early = (n_ticks // 2 + 1) * FRAMEWORK_BATCH
+    rng = np.random.default_rng(seed + 2)
+    early = rng.choice(n_early, 16, replace=False).tolist()
+    late = (n_early + rng.choice(n - n_early, 16, replace=False)).tolist()
+    ingested = rng.choice(n, 32, replace=False).tolist()
+    spec = [(0, "word1 word2 word3", 3, None)]
+    spec += [(t_mid, docs[i], 10, i) for i in early + late]
+    spec += [(t_last, docs[i], 10, i) for i in ingested]
+    spec += [(t_last, t, 10, None) for t in make_docs(32, seed=seed + 3)]
+    spec.append((t_last, docs[ingested[0]], 80, ingested[0]))
+    return spec
+
+
+def framework_run(emb, dtype: str, rows: list, qspec: list, label: str
+                  ) -> dict:
+    """bench.py's ``bench_embed_framework`` graph through the port:
+    ``VectorStoreServer(docs, embedder=emb, index_builder=...
+    default_brute_force_knn_document_index(chunks.text, chunks,
+    embedder=emb, dimensions=384, reserved_space=n_docs + 64, dtype))``,
+    ``retrieve_query`` captured and run by ``GraphRunner.run_batch(
+    n_workers=1)``, every launch count set to 0 just before the run and
+    read just after. Each operator's step, the index's ``add_batch`` and
+    its searches are timed on the host clock; each search's queries and
+    replies are kept for the checks."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.debug import table_from_rows
+    from pathway_tpu_torch.engine.index_ops import ExternalIndexOperator
+    from pathway_tpu_torch.internals.runner import GraphRunner
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+    from pathway_tpu_torch.stdlib.indexing import \
+        default_brute_force_knn_document_index
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+    n_docs = len(rows)
+    docs = table_from_rows(pw.schema_from_types(data=str, _metadata=pw.Json),
+                           rows, is_stream=True)
+    queries = table_from_rows(
+        pw.schema_from_types(query=str, k=int, metadata_filter=str | None,
+                             filepath_globpattern=str | None),
+        [(text, k, None, None, t, 1) for t, text, k, _ in qspec],
+        is_stream=True)
+    store = VectorStoreServer(
+        docs, embedder=emb,
+        index_builder=lambda chunks: default_brute_force_knn_document_index(
+            chunks.text, chunks, embedder=emb,
+            dimensions=emb.get_embedding_dimension(),
+            reserved_space=n_docs + 64, dtype=dtype))
+    runner = GraphRunner()
+    cap = runner.capture(store.retrieve_query(queries))
+    index = next(n.op.index for n in runner.graph.nodes
+                 if isinstance(n.op, ExternalIndexOperator))
+    op_s: dict[str, float] = {}
+
+    def timed(fn, name):
+        def step(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            op_s[name] = op_s.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return step
+
+    for node in runner.graph.nodes:
+        node.op.step = timed(node.op.step,
+                             f"{node.name.split(':')[0]}/"
+                             f"{type(node.op).__name__}")
+    index.add_batch = timed(index.add_batch, "index add_batch")
+    searches = []
+    inner_search = index.inner.search
+
+    def search(batch):
+        replies = inner_search(batch)
+        searches.append((batch, replies))
+        return replies
+
+    index.inner.search = timed(search, "index inner search")
+    index.search = timed(index.search, "index search")
+    step = getattr(index._fused, "step", None)
+    gc.collect()  # earlier phases' garbage is not this run's
+    for count in LAUNCH_COUNTS:
+        count.launches = 0
+    emb.dispatches = 0
+    torch.cuda.synchronize()
+    with GcClock() as gc_clock:
+        t0 = time.perf_counter()
+        runner.run_batch(n_workers=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"events": cap.events, "index": index, "searches": searches,
+            "extents": sum(e.established for e in index.inner._pool.extents),
+            "wall": wall, "op_s": op_s, "gc": gc_clock.s,
+            "gc_n": gc_clock.n, "dispatches": emb.dispatches,
+            "launches": {c: c.launches for c in LAUNCH_COUNTS},
+            "captures": step.captures if step is not None else 0,
+            "replays": step.replays if step is not None else 0}
+
+
+def framework_direct(emb, dtype: str, texts: list[str], keys: list) -> dict:
+    """The same documents through ``DeviceEmbeddingKnnIndex.add_batch``
+    directly, in the engine's batches and with its keys, into a fresh
+    index; returns the index, the wall (s) and the graphs it captured."""
+    import torch
+
+    from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
+                                           DeviceEmbeddingKnnIndex)
+
+    index = DeviceEmbeddingKnnIndex(emb, BruteForceKnnIndex(
+        emb.get_embedding_dimension(), reserved_space=len(texts) + 64,
+        metric="cos", dtype=dtype, device="cuda"))
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b0 in range(0, len(texts), FRAMEWORK_BATCH):
+        index.add_batch(keys[b0:b0 + FRAMEWORK_BATCH],
+                        texts[b0:b0 + FRAMEWORK_BATCH])
+    index.drain()
+    torch.cuda.synchronize()
+    step = getattr(index._fused, "step", None)
+    return {"index": index, "wall": time.perf_counter() - t0,
+            "captures": step.captures if step is not None else 0}
+
+
+def same_index(a, b) -> bool:
+    """Two indexes hold the same keys in the same slots and the same rows,
+    bit for bit (int8: codes, scales and vsq)."""
+    import torch
+
+    names = ("vectors", "valid") + (("scales", "vsq")
+                                    if a.inner.dtype == "int8" else ())
+    return a.inner._key_to_slot == b.inner._key_to_slot and len(
+        a.inner._pool.extents) == len(b.inner._pool.extents) and all(
+        torch.equal(getattr(x, t), getattr(y, t))
+        for x, y in zip(a.inner._pool.extents, b.inner._pool.extents)
+        for t in names)
+
+
+def hold_framework(run: dict, emb, docs: list[str], keys: list,
+                   qspec: list, label: str) -> None:
+    """The query embeddings the engine passed to the index against the
+    plain encoder (``attention_reference`` in every layer, padded) on the
+    card: row cosine >= 0.999, as the earlier phases hold K1. Each reply
+    against a plain scan, on the card, of the index rows present at its
+    query's time (bf16: ``score_float_reference`` of the bf16 queries;
+    int8: ``score_i8_reference``, as ``plain_scan_i8``), both over the
+    engine's query vectors, so that the search is held exactly: the same
+    keys in rank order up to 1e-6 score ties, each ``dist`` within 1e-5 of
+    1 - the scan's score, texts and ``path`` metadata the documents'; a
+    copy finds its document first when it was ingested by then, and never
+    when it was not."""
+    import torch
+
+    from pathway_tpu_torch.internals.keys import hash_values_uncached
+    from pathway_tpu_torch.models.encoder import encode
+    from pathway_tpu_torch.ops.attention import attention_reference
+    from pathway_tpu_torch.ops.knn_kernels import score_float_reference
+
+    inner = run["index"].inner
+    exts = [e for e in inner._pool.extents if e.established]
+    base = np.concatenate([e.base + np.arange(e.rows) for e in exts])
+    keys_of = np.array([int(inner._slot_to_key.get(int(s), -1))
+                        for s in base])
+    doc_of = {int(k): i for i, k in enumerate(keys)}
+    tick_of_slot = np.array([doc_of[k] // FRAMEWORK_BATCH if k in doc_of
+                             else 1 << 30 for k in keys_of.tolist()])
+    valid = torch.cat([e.valid for e in exts])
+    qkey = {int(hash_values_uncached("row", qi, text, k, None, None)): qi
+            for qi, (_, text, k, _) in enumerate(qspec)}
+    events = run["events"]
+    if len(events) != len(qspec) or any(d != 1 for _, _, _, d in events):
+        fail(f"{label}: {len(events)} reply events for {len(qspec)} queries")
+    replies = {}
+    for key, row, t, _ in events:
+        qi = qkey.get(int(key))
+        if qi is None or qi in replies or t != qspec[qi][0]:
+            fail(f"{label}: reply {key!r} at time {t} is no query's")
+        replies[qi] = row[0].value
+    by_search = {}
+    for batch, _ in run["searches"]:
+        for j, (k, vec, _, _) in enumerate(batch):
+            by_search[qkey[int(k)]] = (batch, j)
+    if len(by_search) != len(qspec):
+        fail(f"{label}: {len(by_search)} queries reached the index, not "
+             f"{len(qspec)}")
+    got_q = np.stack([np.asarray(by_search[qi][0][by_search[qi][1]][1],
+                                 np.float64) for qi in range(len(qspec))])
+    ids, lens = emb.pack_tokens([text for _, text, _, _ in qspec])
+    ids_d = torch.from_numpy(ids).cuda().long()
+    lens_d = torch.from_numpy(lens).cuda()
+    mask = torch.arange(ids_d.shape[1], device="cuda")[None, :] \
+        < lens_d[:, None]
+    ref_q = encode(emb.model, ids_d, mask, attn_fn=attention_reference
+                   ).cpu().numpy().astype(np.float64)
+    q_cos = np.sum(got_q * ref_q, 1) / (np.linalg.norm(got_q, axis=1)
+                                        * np.linalg.norm(ref_q, axis=1))
+    if not np.all(np.isfinite(got_q)) or q_cos.min() < 0.999:
+        fail(f"{label}: a query embedding is off the plain encoder's (min "
+             f"row cosine {q_cos.min():.6f})")
+    own_first = 0
+    for qi, (t, text, k, doc) in enumerate(qspec):
+        reply = replies[qi]
+        if len(reply) != k:
+            fail(f"{label} query {qi}: {len(reply)} matches, not {k}")
+        got = []
+        for m in reply:
+            i = int(m["metadata"]["path"][2:-4])
+            if m["text"] != docs[i] or m["metadata"] != {"path": f"/d{i}.txt"}:
+                fail(f"{label} query {qi}: a match's text or metadata is not "
+                     f"document {i}'s")
+            if 2 * (i // FRAMEWORK_BATCH) > t:
+                fail(f"{label} query {qi} at time {t}: document {i} of a "
+                     "later tick")
+            got.append((keys[i], m["dist"]))
+        batch, j = by_search[qi]
+        q = torch.from_numpy(np.stack(
+            [np.asarray(v, np.float32) for _, v, _, _ in batch])).cuda()
+        q = q / (torch.linalg.vector_norm(q, dim=1, keepdim=True) + 1e-12)
+        q = q[j:j + 1].to(torch.bfloat16)
+        present = valid & torch.from_numpy(
+            2 * tick_of_slot <= t).to(valid.device)
+        if inner.dtype == "int8":
+            cat = [torch.cat([getattr(e, a) for e in exts])
+                   for a in ("vectors", "scales", "vsq")]
+            scan = plain_scan_i8(q, *cat, present)
+        else:
+            rows = torch.cat([e.vectors for e in exts])
+            scan = score_float_reference(q.float(), rows, present, "cos")
+        check_top10([got], scan, keys_of, f"{label} query {qi}", n=k)
+        cols = [int(np.flatnonzero(keys_of == int(kk))[0]) for kk, _ in got]
+        want = 1.0 - scan[0, cols].cpu().numpy()
+        err = float(np.abs(np.array([d for _, d in got]) - want).max())
+        if not err <= 1e-5:
+            fail(f"{label} query {qi}: dist off the scan by {err:.3e}")
+        if doc is not None:
+            ids = [int(m["metadata"]["path"][2:-4]) for m in reply]
+            ingested = 2 * (doc // FRAMEWORK_BATCH) <= t
+            if ingested and ids[0] != doc:
+                fail(f"{label} query {qi}: the copy of document {doc} "
+                     f"finds {ids[0]} first")
+            if not ingested and doc in ids:
+                fail(f"{label} query {qi}: document {doc} found before it "
+                     "was ingested")
+            own_first += ingested
+    print(f"[{label}] query embeddings against the plain encoder on the "
+          f"card: min row cosine {q_cos.min():.6f} (required >= 0.999)",
+          flush=True)
+    print(f"[{label}] answers: all {len(qspec)} replies equal a plain scan "
+          f"of the rows present at their query's time (keys in rank order "
+          f"up to 1e-6 score ties, dist within 1e-5); {own_first} copies of "
+          f"ingested documents find them first, 16 copies of later "
+          f"documents never do", flush=True)
+
+
+def phase_framework(n_docs: int, seed: int, card: str) -> dict:
+    """bench_embed_framework's graph (VectorStoreServer → DataIndex.
+    query_as_of_now over the external index operator) at BGE-small's width:
+    configuration A, the padded embedder into a bf16 cos index (K1, K2, K2
+    score); B, the ragged embedder into an int8 cos index (K1 with segment
+    ids, K4 inside each chunk's graph replay, K3 top-k, K3 score). Each
+    runs engine, direct, direct, engine. Returns each kernel's launches in
+    the counted (first) engine runs, by LaunchCount."""
+    import torch
+
+    from pathway_tpu_torch.internals.json import Json
+    from pathway_tpu_torch.internals.keys import hash_values_uncached
+    from pathway_tpu_torch.models.encoder import (EncoderConfig,
+                                                  init_params_host)
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS, planned_capacity
+    from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
+                                                   SCORE_BF16, SCORE_I8,
+                                                   TOPK_BF16, TOPK_I8)
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+
+    cfg = EncoderConfig.bge_small()
+    params = init_params_host(seed, cfg)
+    docs = make_docs(n_docs, seed=seed)
+    n_ticks = -(-n_docs // FRAMEWORK_BATCH)
+    if n_ticks < 3:
+        fail(f"the framework phase needs 3 ticks of {FRAMEWORK_BATCH} docs")
+    # reserved_space n_docs + 64 plans one extent of <= 2^19 rows: one
+    # top-k launch (or one score chunk) a search
+    if planned_capacity(n_docs + 64) > _CHUNK_ROWS:
+        fail(f"{n_docs} docs need more than one {_CHUNK_ROWS}-row chunk")
+    metas = [Json({"path": f"/d{i}.txt"}) for i in range(n_docs)]
+    rows = [(doc, metas[i], 2 * (i // FRAMEWORK_BATCH), 1)
+            for i, doc in enumerate(docs)]
+    keys = [hash_values_uncached("row", i, doc, metas[i])
+            for i, doc in enumerate(docs)]
+    qspec = framework_queries(docs, n_ticks, seed)
+    q_times = sorted({t for t, _, _, _ in qspec})
+    counted = {}
+    for label, ragged, dtype, kernels in (
+            ("framework A", False, "bfloat16",
+             (ATTENTION, TOPK_BF16, SCORE_BF16)),
+            ("framework B", True, "int8",
+             (ATTENTION, TOPK_I8, SCORE_I8, QUANTIZE_SCATTER))):
+        emb = EncoderEmbedder(config=cfg, params=params, ragged=ragged,
+                              device="cuda")
+        # the counts the code gives, stated before the run: one forward a
+        # tick (padded: the tick's 2048 documents in one fused call;
+        # ragged: one graph replay a packed chunk) and one a query batch
+        # (ragged: a chunk); each search over one extent of <= 2^19 rows
+        # takes the top-k kernel once, except the last tick's batch, whose
+        # k = 80 query makes the whole batch fetch 80: the score kernel
+        # once, then the key selection
+        if ragged:
+            ingest = sum(len(emb.pack_ragged(docs[b:b + FRAMEWORK_BATCH]))
+                         for b in range(0, n_docs, FRAMEWORK_BATCH))
+            query = sum(len(emb.pack_ragged(
+                [text for t, text, _, _ in qspec if t == qt]))
+                for qt in q_times)
+            for b in emb.ragged_buckets():
+                args, _ = emb.ragged_warmup_operands(b)
+                emb.ragged_device_producer(emb.model, *args)
+        else:
+            ingest, query = n_ticks, len(q_times)
+            for w in emb.bucket_widths():
+                emb.device_producer(
+                    emb.model, np.zeros((FRAMEWORK_BATCH, w), np.int16),
+                    np.full(FRAMEWORK_BATCH, w, np.int32))
+        expect = {ATTENTION: N_LAYERS * (ingest + query),
+                  kernels[1]: len(q_times) - 1, kernels[2]: 1}
+        if ragged:
+            expect[QUANTIZE_SCATTER] = ingest
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # engine, direct, direct, engine (host-clock times drift between
+        # consecutive runs, so each side is timed twice in mirrored order);
+        # the first engine run is the counted one
+        first = framework_run(emb, dtype, rows, qspec, label)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        direct = framework_direct(emb, dtype, docs, keys)
+        hold_framework(first, emb, docs, keys, qspec, label)
+        same = same_index(first["index"], direct["index"])
+        direct2 = framework_direct(emb, dtype, docs, keys)
+        del first["index"], direct["index"], direct2["index"]
+        second = framework_run(emb, dtype, rows, qspec, label)
+        hold_framework(second, emb, docs, keys, qspec,
+                       label + " (again)")
+        del second["index"]
+        launches = {c: n for c, n in first["launches"].items() if n}
+        engine_s = first["wall"] + second["wall"]
+        direct_s = direct["wall"] + direct2["wall"]
+        ingest_s = sum(r["op_s"]["index add_batch"] for r in (first, second))
+        search_s = sum(r["op_s"]["index search"] for r in (first, second))
+        print(f"[{label}] {n_docs} docs in {n_ticks} ticks of "
+              f"{FRAMEWORK_BATCH} through VectorStoreServer(...).retrieve_"
+              f"query under GraphRunner.run_batch ({dtype} cos index), then "
+              f"DeviceEmbeddingKnnIndex.add_batch directly in the same "
+              f"batches into a fresh index, twice each in the order engine, "
+              f"direct, direct, engine: framework_docs_per_s "
+              f"{n_docs / first['wall']:.1f} and "
+              f"{n_docs / second['wall']:.1f}; direct "
+              f"{n_docs / direct['wall']:.1f} and "
+              f"{n_docs / direct2['wall']:.1f} docs/s; engine / direct docs/s"
+              f" over both {direct_s / engine_s:.4f}; engine host time a tick "
+              f"outside the index's ingest and search "
+              f"{(engine_s - ingest_s - search_s) / 2 / n_ticks * 1e3:.3f} ms"
+              f" (ingest {ingest_s / 2 / n_ticks * 1e3:.3f} ms a tick, "
+              f"{len(q_times)} searches {search_s / 2 * 1e3:.3f} ms a run); "
+              f"graphs captured inside the timed windows: engine "
+              f"{first['captures']} / {second['captures']}, direct "
+              f"{direct['captures']} / {direct2['captures']}; garbage "
+              f"collector {first['gc']:.3f} / {second['gc']:.3f} s "
+              f"({first['gc_n']} / {second['gc_n']} collections); peak "
+              f"device memory {peak_mb:.1f} MiB [{card}]", flush=True)
+        ops = sorted(first["op_s"].items(), key=lambda kv: -kv[1])
+        print(f"[{label}] host time by operator step in the counted run (ms"
+              f" a tick, {n_ticks} ticks; the index's steps include its "
+              f"device waits): " + ", ".join(
+                  f"{name} {s / n_ticks * 1e3:.3f}" for name, s in ops),
+              flush=True)
+        print(f"[{label}] launches inside run_batch: " + ", ".join(
+            f"{c.name} {n}" for c, n in launches.items())
+            + f"; stated from the code: " + ", ".join(
+                f"{c.name} {n}" for c, n in expect.items())
+            + f" ({ingest} ingest + {query} query encoder dispatches; "
+              f"dispatches counted {first['dispatches']}, graph replays "
+              f"{first['replays']}); engine-built index equal bit for bit "
+              f"to the direct add_batch's: {same}", flush=True)
+        if first["extents"] != 1:
+            fail(f"{label}: {first['extents']} extents, stated 1")
+        if launches != expect:
+            fail(f"{label}: launches {[(c.name, n) for c, n in launches.items()]}"
+                 f" differ from the stated "
+                 f"{[(c.name, n) for c, n in expect.items()]}")
+        if first["dispatches"] != ingest + query or (
+                ragged and first["replays"] != ingest):
+            fail(f"{label}: {first['dispatches']} encoder dispatches "
+                 f"({first['replays']} replays), stated {ingest} + {query}")
+        if not same:
+            fail(f"{label}: the engine-built index differs from the one "
+                 "add_batch builds directly")
+        counted.update({c: launches.get(c, 0) for c in kernels[1:]})
+        counted[(ATTENTION, ragged)] = launches.get(ATTENTION, 0)
+        del emb
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counted
+
+
+# (D, rows a tick, groups a tick, rows of one large group): each case runs
+# two ticks over the same groups; groups 0 means one group of the last
+# field's rows beside singletons (a skewed tick)
+ARRAY_SUM_CASES = (
+    (384, 512, 256, 0), (384, 4096, 4096, 0), (384, 4096, 256, 0),
+    (384, 4096, 16, 0), (384, 4096, 1, 0), (384, 4096, 0, 128),
+    (384, 32768, 16384, 0), (384, 32768, 1, 0), (64, 16384, 8192, 0),
+)
+
+
+class ArraySumRoute:
+    """Sets GroupByOperator's array_sum route while installed: "host" (the
+    per-row numpy loop), "device" (``device_segsum`` on the card for every
+    tick, whatever its size and shape) or "rule" (``device_segsum`` for
+    the ticks ``_segsum_pays`` admits, whatever their size)."""
+
+    def __init__(self, route: str):
+        self.route = route
+
+    def __enter__(self):
+        from pathway_tpu_torch.engine import operators as ops
+
+        self.saved = (ops._array_sum_device_min, ops._ARRAY_SUM_MAX_POSITIONS,
+                      ops._ARRAY_SUM_MAX_PADDING)
+        ops._array_sum_device_min = (lambda: 0) if self.route == "host" \
+            else (lambda: 1)
+        if self.route == "device":
+            ops._ARRAY_SUM_MAX_POSITIONS = ops._ARRAY_SUM_MAX_PADDING = 1 << 62
+        return self
+
+    def __exit__(self, *exc):
+        from pathway_tpu_torch.engine import operators as ops
+
+        (ops._array_sum_device_min, ops._ARRAY_SUM_MAX_POSITIONS,
+         ops._ARRAY_SUM_MAX_PADDING) = self.saved
+
+
+def array_sum_run(gids: np.ndarray, vecs: np.ndarray, route: str) -> dict:
+    """``groupby(g).reduce(g, a=npsum(v))`` over two ticks of
+    ``len(gids) // 2`` rows under ``GraphRunner.run_batch``; returns the
+    events (arrays as bytes), ``device_segsum``'s calls and host ms a
+    tick: the GroupByOperator's step, within it the device route's
+    pre-pass (``_device_array_sums``: gather, pad, upload, the adds,
+    download) and the per-row loop's adds (``_ArraySumState.add``), the
+    work the pre-pass replaces."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.debug import table_from_rows
+    from pathway_tpu_torch.engine import operators as ops
+    from pathway_tpu_torch.engine import reducers
+    from pathway_tpu_torch.internals.runner import GraphRunner
+
+    r = len(gids) // 2
+    t = table_from_rows(pw.schema_from_types(g=int, v=np.ndarray),
+                        [(int(g), v, 2 * (i // r), 1)
+                         for i, (g, v) in enumerate(zip(gids, vecs))],
+                        is_stream=True)
+    runner = GraphRunner()
+    cap = runner.capture(t.groupby(t.g).reduce(t.g, a=pw.reducers.npsum(t.v)))
+    op = next(n.op for n in runner.graph.nodes
+              if isinstance(n.op, ops.GroupByOperator))
+    spent = {"step": 0.0, "pre-pass": 0.0, "adds": 0.0, "calls": 0}
+    segsum, add = ops.device_segsum, reducers._ArraySumState.add
+
+    def timer(fn, name):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    def counted(*args):
+        spent["calls"] += 1
+        return segsum(*args)
+
+    op.step = timer(op.step, "step")
+    op._device_array_sums = timer(op._device_array_sums, "pre-pass")
+    ops.device_segsum = counted
+    reducers._ArraySumState.add = timer(add, "adds")
+    gc.collect()
+    try:
+        with ArraySumRoute(route):
+            runner.run_batch(n_workers=1)
+    finally:
+        ops.device_segsum, reducers._ArraySumState.add = segsum, add
+    out = {k: v / 2 * 1e3 for k, v in spent.items() if k != "calls"}
+    out["calls"] = spent["calls"]
+    out["events"] = sorted(
+        (int(k), row[0], row[1].dtype.str, row[1].tobytes(), tt, d)
+        for k, row, tt, d in cap.events)
+    return out
+
+
+def phase_array_sum(seed: int, card: str) -> None:
+    """GroupByOperator's array_sum route: ``device_segsum`` (the torch
+    form of the JAX package's ``_device_segsum_fn``: one in-order f32 add
+    launch a row position over the padded (G, M, D) rows) on the card,
+    bit for bit against the sequential numpy loop; then, for each case of
+    ARRAY_SUM_CASES, the route forced on ("device") and off ("host") in
+    the order device, host, host, device, and once under the rule alone
+    ("rule"): the operator's host ms a tick, the device route's pre-pass
+    and the per-row adds it replaces. Every run's events must be equal bit
+    for bit, and each run must call ``device_segsum`` as its route says.
+    The route is off by default (``PATHWAY_ARRAY_SUM_DEVICE_MIN`` 0)."""
+    import torch
+
+    from pathway_tpu_torch.engine import operators as ops
+
+    rng = np.random.default_rng(seed + 4)
+    for g, m, d in ((1, 4096, 384), (2048, 2, 384), (7, 300, 1041)):
+        padded = rng.standard_normal((g, m, d)).astype(np.float32)
+        padded[:, -1, ::3] = -0.0
+        init = rng.standard_normal((g, d)).astype(np.float32)
+        init[0, 0] = -0.0
+        got = ops.device_segsum(torch.from_numpy(padded).cuda(),
+                                torch.from_numpy(init).cuda()).cpu().numpy()
+        acc = init.copy()
+        for p in range(m):
+            acc = acc + padded[:, p]
+        if got.tobytes() != acc.tobytes():
+            fail(f"array_sum: device_segsum at ({g}, {m}, {d}) differs from "
+                 "the sequential host loop")
+    print("[array_sum] device_segsum on the card at (G, M, D) in (1, 4096, "
+          "384), (2048, 2, 384), (7, 300, 1041): bit for bit the sequential "
+          "numpy loop", flush=True)
+    for d, r, groups, big in ARRAY_SUM_CASES:
+        if groups:
+            tick = rng.permutation(np.arange(r) % groups)
+        else:
+            tick = np.concatenate([np.zeros(big, np.int64),
+                                   np.arange(1, r - big + 1)])
+            rng.shuffle(tick)
+        gids = np.concatenate([tick, rng.permutation(tick)])
+        g_n = len(np.unique(tick))
+        m = int(np.bincount(tick).max())
+        vecs = rng.standard_normal((2 * r, d)).astype(np.float32)
+        vecs[::7, 1] = -0.0
+        runs = {}
+        for route in ("device", "host", "host", "device", "rule"):
+            runs.setdefault(route, []).append(array_sum_run(gids, vecs, route))
+        want = {"device": 2, "host": 0,
+                "rule": 2 * ops._segsum_pays(r, g_n, m)}
+        ref = runs["host"][0]["events"]
+        if any(x["events"] != ref for rs in runs.values() for x in rs):
+            fail(f"array_sum D={d} R={r} G={g_n}: the routes' events differ")
+        if any(x["calls"] != want[k] for k, rs in runs.items() for x in rs):
+            fail(f"array_sum D={d} R={r} G={g_n}: device_segsum calls "
+                 f"{[(k, [x['calls'] for x in v]) for k, v in runs.items()]}"
+                 f", the routes name {want}")
+        dev, host = runs["device"], runs["host"]
+        print(f"[array_sum] D={d} R={r} rows a tick in G={g_n} groups, "
+              f"longest M={m} (padded {g_n * m * d * 4 / 2**20:.1f} MiB); "
+              f"host ms a tick: GroupByOperator step, device route "
+              f"{dev[0]['step']:.3f} / {dev[1]['step']:.3f}, per-row loop "
+              f"{host[0]['step']:.3f} / {host[1]['step']:.3f}; the device "
+              f"route's pre-pass {dev[0]['pre-pass']:.3f} / "
+              f"{dev[1]['pre-pass']:.3f} against the per-row adds it "
+              f"replaces {host[0]['adds']:.3f} / {host[1]['adds']:.3f}; the "
+              f"rule takes the {'device' if want['rule'] else 'host'} route "
+              f"({runs['rule'][0]['step']:.3f}); events bit for bit equal "
+              f"[{card}]", flush=True)
+
+
 def check_top10(results, scan_scores, keys_of, label: str, n: int = 10
                 ) -> int:
     """Each query's top ``n`` keys against a plain scan's scores (B, N) on
@@ -2471,7 +3082,7 @@ def phase_bf16_10m(card: str) -> tuple[int, list, dict]:
     (default_rng(0).random((64, 384)) * 2 - 1) through ``search_10m``
     (bench.py's knn_p50_ms and knn_batch64_ms from latency_probe), then
     ``filtered_10m`` (K2's score twin per chunk) and ``route_10m``, as
-    phase 12. The host mirror is bf16 (7.7 GB). Returns K2's launches in
+    phase 14. The host mirror is bf16 (7.7 GB). Returns K2's launches in
     the unfiltered run, the probe times and the filtered run's numbers."""
     import torch
 
@@ -2620,6 +3231,10 @@ def main() -> None:
     import torch
 
     from pathway_tpu_torch._device import resolve_device
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
+                                                   SCORE_BF16, SCORE_I8,
+                                                   TOPK_BF16, TOPK_I8)
 
     phase_build()
     resolve_device("cuda")  # f32 products of the plain versions: no TF32
@@ -2642,6 +3257,15 @@ def main() -> None:
     k1["launches_engine"], k1_seg["launches_engine"] = phase_engine(
         args.docs, args.seed, card)
     done("engine")
+    fw = phase_framework(args.docs, args.seed, card)
+    for rec, key in ((k1, (ATTENTION, False)), (k1_seg, (ATTENTION, True)),
+                     (k2, TOPK_BF16), (k2_score, SCORE_BF16),
+                     (k3_topk, TOPK_I8), (k3, SCORE_I8),
+                     (k4, QUANTIZE_SCATTER)):
+        rec["launches_framework"] = fw[key]
+    done("framework")
+    phase_array_sum(args.seed, card)
+    done("array_sum")
     (k1_seg["launches"], k3_topk_path2, k3["launches"],
      k4["launches"]) = phase_ragged_int8(args.seed, card)
     done("path 2")

@@ -13,6 +13,12 @@ device UDF::
     out = docs.select(embedding=emb(pw.this.data))
     runner = GraphRunner(); cap = runner.capture(out); runner.run_batch()
 
+and the index path: groupby/reduce, ``ix``, ``update_cells``, the as-of-now
+external index operator, ``DataIndex.query_as_of_now``
+(pathway_tpu_torch.stdlib.indexing) and ``VectorStoreServer``
+(pathway_tpu_torch.xpacks.llm.vector_store), whose ``retrieve_query`` runs
+the KNN kernels under the same ``run_batch``.
+
 Module paths and public names mirror ``pathway_tpu`` so each port module
 sits where its JAX counterpart does. The port imports torch and numpy,
 never jax and nothing of ``pathway_tpu``: what it needs from there is
@@ -47,6 +53,7 @@ _LAZY = {
     "udf": ("pathway_tpu_torch.internals.udfs", "udf"),
     "UDF": ("pathway_tpu_torch.internals.udfs", "UDF"),
     "udfs": ("pathway_tpu_torch.internals.udfs", None),
+    "reducers": ("pathway_tpu_torch.internals.reducers_frontend", None),
     "Json": ("pathway_tpu_torch.internals.json", "Json"),
     "Pointer": ("pathway_tpu_torch.internals.keys", "Pointer"),
     "DType": ("pathway_tpu_torch.internals.dtype", "DType"),

@@ -98,3 +98,15 @@ class Arrangement:
                 cur = self.rows.get(key)
                 if cur is not None and row_fingerprint(cur) == row_fingerprint(row):
                     del self.rows[key]
+
+
+def upsert_delta(arrangement: Arrangement, key: Pointer, new_row: tuple | None,
+                 out: Delta) -> None:
+    """Emit retraction of the current row (if any) + insertion of new_row."""
+    cur = arrangement.rows.get(key)
+    if cur is not None:
+        if new_row is not None and row_fingerprint(cur) == row_fingerprint(new_row):
+            return
+        out.append(key, cur, -1)
+    if new_row is not None:
+        out.append(key, new_row, 1)

@@ -396,6 +396,20 @@ class FullyAsyncApplyExpression(ApplyExpression):
         self._autocommit_duration_ms = autocommit_duration_ms
 
 
+class ReducerExpression(ColumnExpression):
+    """A reducer call inside ``groupby().reduce()`` (``pw.reducers.*``);
+    the groupby lowering splits it out of the output expressions."""
+
+    def __init__(self, name: str, *args, **kwargs):
+        self._name = name
+        self._args = tuple(wrap_arg(a) for a in args)
+        self._kwargs = kwargs
+
+    @property
+    def _deps(self):
+        return self._args
+
+
 class MethodCallExpression(ColumnExpression):
     """Namespace method (dt/str/num) — maps to a columnar kernel."""
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import asyncio
 import threading
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 
@@ -133,6 +133,24 @@ class ExpressionCompiler:
 
         return key_fn
 
+    def compile_row(self, expr) -> Callable[[Any, tuple], Any]:
+        """Per-row evaluator ``fn(key, row) -> value``: plain column and id
+        references (group keys, join keys, reducer arguments) index the
+        tuple directly; anything else runs as a batch of one."""
+        if not isinstance(expr, ex.ColumnExpression):
+            return lambda key, row: expr
+        if isinstance(expr, ex.IdExpression):  # subclasses ColumnReference
+            return lambda key, row: key
+        if isinstance(expr, ex.ColumnReference):
+            pos = self.ctx.position(expr)
+            return lambda key, row: row[pos]
+        if isinstance(expr, ex.ConstExpression):
+            const = expr._value
+            return lambda key, row: const
+        batch_fn = self._compile(expr)
+        return lambda key, row: batch_fn([key], [row])[0]
+
+    # -- dispatch -----------------------------------------------------------
     def _compile(self, expr) -> Callable[[list, list], Batch]:
         if not isinstance(expr, ex.ColumnExpression):
             expr = ex.ConstExpression(expr)
@@ -701,6 +719,11 @@ class ExpressionCompiler:
         return fn
 
     _compile_FullyAsyncApplyExpression = _compile_AsyncApplyExpression
+
+    def _compile_ReducerExpression(self, expr):
+        raise TypeError(
+            f"reducer {expr._name!r} used outside groupby().reduce()"
+        )
 
 
 class _Pending:

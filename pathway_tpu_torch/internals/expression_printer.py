@@ -25,6 +25,8 @@ def print_expression(expr) -> str:
     if isinstance(expr, ex.ApplyExpression):
         fname = getattr(expr._fn, "__name__", "fn")
         return f"apply({fname}, {', '.join(print_expression(a) for a in expr._args)})"
+    if isinstance(expr, ex.ReducerExpression):
+        return f"reducers.{expr._name}({', '.join(print_expression(a) for a in expr._args)})"
     if isinstance(expr, ex.MethodCallExpression):
         args = ", ".join(print_expression(a) for a in expr._args[1:])
         return f"{print_expression(expr._args[0])}.{expr._method}({args})"

@@ -3,11 +3,14 @@ port of pathway_tpu/internals/runner.py, trimmed to the batch path.
 
 Walks the plan DAG reachable from requested outputs, compiles expressions
 against row layouts, builds engine operators, then drives the scheduler
-over logical times. Lowered: static, input, identity, map, filter,
-filter_raw (remove_errors), reindex, flatten, concat and concat_reindex.
-Not ported: auto-jit's host/device map split, the external index, and the
-temporal, groupby and join lowerings — a plan of those kinds raises
-``NotImplementedError`` naming its ROADMAP item.
+over logical times. Lowered: static, identity, map, filter, filter_raw
+(remove_errors), reindex, flatten, concat, concat_reindex, update_cells,
+groupby (every groupby to ``GroupByOperator``), dedupe, ix (a
+``JoinOperator`` keyed by the left id) and external_index (the as-of-now
+index operator, engine/index_ops.py). Not ported: auto-jit's host/device
+map split, the streaming input, and the temporal, sort and join lowerings
+— a plan of those kinds raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -18,16 +21,29 @@ from pathway_tpu_torch.engine import operators as eng
 from pathway_tpu_torch.engine.delta import Delta
 from pathway_tpu_torch.engine.graph import (CapturedStream, EngineGraph,
                                             Node, Scheduler)
+from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import expression as ex
 from pathway_tpu_torch.internals.expression_compiler import (
     CompileContext,
     ExpressionCompiler,
     compile_map_program,
 )
+from pathway_tpu_torch.internals.groupbys import split_reducers
 from pathway_tpu_torch.internals.keys import Pointer, hash_values, mix_pointers
-from pathway_tpu_torch.internals.table import _DSL_REST, _SLICE_10, Plan, Table
+from pathway_tpu_torch.internals.table import _DSL_REST, Plan, Table
+from pathway_tpu_torch.internals.type_inference import infer_dtype
 
 _STREAMING = "ROADMAP queue 1, item 3: connectors and the streaming runtime"
+
+
+class _Proxy:
+    """Synthetic table for rewritten row spaces (groupby results)."""
+
+    def __init__(self, names):
+        self._names = list(names)
+
+    def _column_names(self):
+        return self._names
 
 
 def _referenced_tables(exprs, base: Table) -> list[Table]:
@@ -117,9 +133,7 @@ class GraphRunner:
         plan = table._plan
         handler = getattr(self, f"_lower_{plan.kind}", None)
         if handler is None:
-            item = {"groupby": _SLICE_10, "dedupe": _SLICE_10,
-                    "external_index": _SLICE_10,
-                    "input": _STREAMING}.get(plan.kind, _DSL_REST)
+            item = _STREAMING if plan.kind == "input" else _DSL_REST
             raise NotImplementedError(
                 f"no lowering for plan kind {plan.kind!r} in "
                 f"pathway_tpu_torch yet ({item})")
@@ -235,6 +249,100 @@ class GraphRunner:
                 [reindexed], "proj")
         return reindexed
 
+    # -- groupby ------------------------------------------------------------
+    def _lower_groupby(self, table: Table, plan: Plan) -> Node:
+        base: Table = plan.params["base"]
+        by = plan.params["by"]
+        instance = plan.params["instance"]
+        out_exprs = plan.params["out_exprs"]
+        use_raw_key = bool(plan.params.get("by_id", False))
+
+        gvals_exprs = list(by)
+        if instance is not None:
+            gvals_exprs.append(instance)
+
+        proxy = _Proxy([])
+        rewritten, reducers = split_reducers(out_exprs, by, instance, proxy)
+        proxy._names = [f"__g{i}" for i in range(len(gvals_exprs))] + [
+            f"__r{j}" for j in range(len(reducers))
+        ]
+
+        # compile group-side fns over base rows
+        inner_exprs = list(gvals_exprs)
+        for r in reducers:
+            inner_exprs.extend(r._args)
+        node, ctx = self._row_space(base, inner_exprs)
+        comp = ExpressionCompiler(ctx)
+        gval_fns = [comp.compile_row(e) for e in gvals_exprs]
+        reducer_specs = []
+        force_sort = False
+        for r in reducers:
+            arg_fns = [comp.compile_row(a) for a in r._args]
+            name = r._name
+            if name in ("sum", "float_sum", "avg", "array_sum") and r._args:
+                # float addition is not associative: keep the canonical
+                # per-tick sort unless the argument is provably integral
+                d = dt.unoptionalize(infer_dtype(r._args[0]))
+                if d not in (dt.INT, dt.BOOL):
+                    force_sort = True
+            kwargs = dict(r._kwargs)
+            fn = kwargs.pop("fn", None)
+            spec_kwargs = {}
+            if name in ("sorted_tuple", "tuple", "ndarray"):
+                spec_kwargs["skip_nones"] = kwargs.get("skip_nones", False)
+            if name == "stateful":
+                spec_kwargs["fn"] = fn
+                if kwargs.get("emit") is not None:
+                    spec_kwargs["emit"] = kwargs["emit"]
+            if name in ("argmin", "argmax"):
+                # one arg: (value, row key); two: (value, payload)
+                def extract(key, row, _fns=arg_fns):
+                    vals = [f(key, row) for f in _fns]
+                    return (vals[0], key) if len(vals) == 1 else (vals[0], vals[1])
+            elif name in ("tuple", "ndarray"):
+                def extract(key, row, _fns=arg_fns):
+                    return (_fns[0](key, row), int(key))
+            elif len(arg_fns) == 1:
+                def extract(key, row, _fn=arg_fns[0]):
+                    return (_fn(key, row),)
+            else:
+                def extract(key, row, _fns=arg_fns):
+                    return tuple(f(key, row) for f in _fns)
+            reducer_specs.append((name, extract, spec_kwargs))
+
+        if len(gval_fns) == 1 and not use_raw_key:
+            def group_fn(key, row, _f=gval_fns[0]):
+                v = _f(key, row)
+                return hash_values(v), (v,)
+        else:
+            def group_fn(key, row):
+                gvals = tuple(f(key, row) for f in gval_fns)
+                if use_raw_key:
+                    gkey = gvals[0] if isinstance(gvals[0], Pointer) \
+                        else hash_values(gvals[0])
+                else:
+                    gkey = hash_values(*gvals)
+                return gkey, gvals
+
+        gnode = self.graph.add_node(
+            eng.GroupByOperator(group_fn, reducer_specs,
+                                force_order_sensitive=force_sort),
+            [node], f"groupby:{table._name}")
+
+        # post-map over (gvals, reduced) rows; elided when it is the
+        # identity projection (reduce() listing group cols then reducers in
+        # storage order — the common case)
+        if (len(rewritten) == len(proxy._names) and all(
+                type(e) is ex.ColumnReference and e.table is proxy
+                and e.name == proxy._names[i]
+                for i, e in enumerate(rewritten))):
+            return gnode
+        post_ctx = CompileContext()
+        post_ctx.add_table(proxy, 0)
+        post_program, nondet = compile_map_program(rewritten, post_ctx)
+        return self.graph.add_node(_map_op_for(post_program, nondet),
+                                   [gnode], f"reduce:{table._name}")
+
     # -- set ops ------------------------------------------------------------
     def _project_to_names(self, t: Table, names: list[str]) -> Node:
         node = self.lower(t)
@@ -283,6 +391,28 @@ class GraphRunner:
             eng.NAryConcatOperator(len(nodes), combine_rows, update=False),
             nodes, "concat_reindex")
 
+    def _lower_update_cells(self, table: Table, plan: Plan) -> Node:
+        base: Table = plan.params["base"]
+        other: Table = plan.params["other"]
+        columns = plan.params["columns"]
+        lnode = self.lower(base)
+        rnode = self.lower(other)
+        base_names = base._column_names()
+        other_names = other._column_names()
+        repl = {base_names.index(c): other_names.index(c) for c in columns}
+
+        def combine(l, r):
+            if l is None:
+                return None
+            if r is None:
+                return l
+            return tuple(
+                r[repl[i]] if i in repl else v for i, v in enumerate(l)
+            )
+
+        return self.graph.add_node(
+            eng.BinaryKeyOperator(combine), [lnode, rnode], "update_cells")
+
     # -- reshaping ----------------------------------------------------------
     def _lower_flatten(self, table: Table, plan: Plan) -> Node:
         base: Table = plan.params["base"]
@@ -309,6 +439,87 @@ class GraphRunner:
             return out
 
         return self.graph.add_node(eng.FlattenOperator(fn), [node], "flatten")
+
+    def _lower_dedupe(self, table: Table, plan: Plan) -> Node:
+        base: Table = plan.params["base"]
+        value_e = plan.params["value"]
+        inst_e = plan.params["instance"]
+        acceptor = plan.params["acceptor"]
+        node = self.lower(base)
+        ctx = CompileContext()
+        ctx.add_table(base, 0)
+        comp = ExpressionCompiler(ctx)
+        vfn = comp.compile_row(value_e) if value_e is not None else None
+        ifn = comp.compile_row(inst_e) if inst_e is not None else None
+
+        def value_fn(key, row):
+            return vfn(key, row) if vfn is not None else row
+
+        def instance_fn(key, row):
+            return ifn(key, row) if ifn is not None else 0
+
+        return self.graph.add_node(
+            eng.DeduplicateOperator(instance_fn, value_fn, acceptor),
+            [node], "deduplicate")
+
+    # -- pointer lookup ------------------------------------------------------
+    def _lower_ix(self, table: Table, plan: Plan) -> Node:
+        target: Table = plan.params["target"]
+        ctx_table: Table = plan.params["ctx"]
+        key_expr = plan.params["key_expr"]
+        optional = plan.params["optional"]
+
+        lnode, lctx = self._row_space(ctx_table, [key_expr])
+        comp = ExpressionCompiler(lctx)
+        kfn = comp.compile_row(key_expr)
+        rnode = self.lower(target)
+
+        def lkey_fn(key, row):
+            k = kfn(key, row)
+            # None lookup key: matches nothing, but in optional mode the
+            # row must still surface with a None payload
+            return ("__pw_null__", "l", key) if k is None else k
+
+        def rkey_fn(key, row):
+            return key
+
+        nt = len(target._column_names())
+
+        def out_fn(lk, lrow, rk, rrow):
+            return rrow if rrow is not None else (None,) * nt
+
+        mode = "left" if optional else "inner"
+        return self.graph.add_node(
+            eng.JoinOperator(mode, lkey_fn, rkey_fn, out_fn,
+                             out_key_fn=lambda lk, rk, jk: lk),
+            [lnode, rnode], "ix")
+
+    # -- external index ------------------------------------------------------
+    def _lower_external_index(self, table: Table, plan: Plan) -> Node:
+        from pathway_tpu_torch.engine.index_ops import ExternalIndexOperator
+
+        data: Table = plan.params["data"]
+        queries: Table = plan.params["queries"]
+        factory = plan.params["index_factory"]
+        dnode = self.lower(data)
+        qnode = self.lower(queries)
+
+        def colpos(t, col):
+            if col is None:
+                return None
+            name = col.name if isinstance(col, ex.ColumnReference) else col
+            return t._column_names().index(name)
+
+        op = ExternalIndexOperator(
+            index=factory.build(),
+            data_vec_pos=plan.params.get("data_vec_pos", 0),
+            data_filter_pos=colpos(data, plan.params.get("data_filter_col")),
+            query_vec_pos=plan.params.get("query_vec_pos", 0),
+            query_limit_pos=colpos(queries, plan.params.get("limit_col")),
+            query_filter_pos=colpos(queries, plan.params.get("query_filter_col")),
+            revise=plan.params.get("revise", False),
+        )
+        return self.graph.add_node(op, [dnode, qnode], "external_index")
 
 
 # ---------------------------------------------------------------------------

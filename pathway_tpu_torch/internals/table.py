@@ -4,9 +4,11 @@ batch path's operations.
 A Table is pure metadata: a plan node + schema + universe; nothing computes
 until a GraphRunner (internals/runner.py) lowers and runs it. Ported:
 select / with_columns / without / rename* / filter / remove_errors /
-flatten / concat / concat_reindex / update_rows / with_id / with_id_from /
-pointer_from / cast_to_types / update_types / debug and the universe
-promises. Every other Table method of the JAX package raises
+flatten / concat / concat_reindex / update_rows / update_cells (``<<``) /
+with_id / with_id_from / pointer_from / groupby / reduce / deduplicate /
+ix / ix_ref / cast_to_types / update_types / debug, the universe promises
+and ``_external_index_as_of_now`` (the plan DataIndex queries build).
+Every other Table method of the JAX package raises
 ``NotImplementedError`` naming the ROADMAP item that brings it
 (``_UNPORTED`` below).
 """
@@ -328,6 +330,47 @@ class Table:
         return ex.PointerExpression(self, *args, optional=optional, instance=instance)
 
     # ------------------------------------------------------------------
+    # groupby / reduce / dedup
+    # ------------------------------------------------------------------
+    def groupby(self, *args, id=None, sort_by=None, instance=None,
+                **kwargs):
+        from pathway_tpu_torch.internals.groupbys import GroupedTable
+
+        by = [self._resolve(ex.wrap_arg(a)) for a in args]
+        if id is not None:
+            by = [self._resolve(ex.wrap_arg(id))]
+        inst = self._resolve(ex.wrap_arg(instance)) if instance is not None else None
+        return GroupedTable(self, by, instance=inst, sort_by=sort_by, by_id=id is not None)
+
+    def reduce(self, *args, **kwargs) -> "Table":
+        return self.groupby().reduce(*args, **kwargs)
+
+    def deduplicate(self, *, value=None, instance=None, acceptor=None, name=None,
+                    persistent_id=None) -> "Table":
+        """Keep one accepted value per instance; by default a new distinct
+        value replaces the old one (reference: pw.Table.deduplicate).
+
+        >>> import pathway_tpu_torch as pw
+        >>> s = pw.debug.table_from_markdown(\'\'\'
+        ... sensor | reading | _time
+        ... a      | 5       | 2
+        ... a      | 5       | 4
+        ... a      | 8       | 6
+        ... \'\'\')
+        >>> pw.debug.compute_and_print(s.deduplicate(value=s.reading),
+        ...                            include_id=False)
+        sensor | reading
+        a | 8
+        """
+        value_e = self._resolve(ex.wrap_arg(value)) if value is not None else None
+        inst_e = self._resolve(ex.wrap_arg(instance)) if instance is not None else None
+        if acceptor is None:
+            acceptor = lambda new, old: new != old
+        plan = Plan("dedupe", base=self, value=value_e, instance=inst_e,
+                    acceptor=acceptor)
+        return Table(plan, self._schema, Universe())
+
+    # ------------------------------------------------------------------
     # set ops / combination
     # ------------------------------------------------------------------
     def concat(self, *others: "Table") -> "Table":
@@ -352,6 +395,17 @@ class Table:
         self._universe.promise_is_subset_of(out._universe)
         other._universe.promise_is_subset_of(out._universe)
         return out
+
+    def update_cells(self, other: "Table") -> "Table":
+        names = other.column_names()
+        for n in names:
+            if n not in self.column_names():
+                raise ValueError(f"update_cells: unknown column {n!r}")
+        plan = Plan("update_cells", base=self, other=other, columns=names)
+        return Table(plan, self._schema, self._universe)
+
+    def __lshift__(self, other: "Table") -> "Table":
+        return self.update_cells(other)
 
     # ------------------------------------------------------------------
     # reshaping
@@ -379,6 +433,53 @@ class Table:
         plan = Plan("flatten", base=self, expr=resolved, col_name=name,
                     origin_id=origin_id)
         return Table(plan, schema, Universe())
+
+    # ------------------------------------------------------------------
+    # pointer lookup
+    # ------------------------------------------------------------------
+    def ix(self, expression, *, optional: bool = False, context=None) -> "Table":
+        ctx_table = context
+        if ctx_table is None:
+            ctx_table = _expr_base_table(expression)
+        if ctx_table is None:
+            raise ValueError("ix needs a context table (pass context=...)")
+        schema = self._schema
+        if optional:
+            schema = sch.schema_from_columns({
+                n: sch.ColumnSchema(name=n, dtype=dt.Optional(self._schema[n].dtype))
+                for n in self.column_names()
+            })
+        plan = Plan("ix", target=self, key_expr=expression, ctx=ctx_table,
+                    optional=optional)
+        return Table(plan, schema, ctx_table._universe)
+
+    def ix_ref(self, *args, optional: bool = False, context=None, instance=None):
+        if context is None:
+            raise ValueError("ix_ref requires context= (the table to index from)")
+        expr = context.pointer_from(*args, instance=instance)
+        return self.ix(expr, optional=optional, context=context)
+
+    # ------------------------------------------------------------------
+    # indexes
+    # ------------------------------------------------------------------
+    def _external_index_as_of_now(self, query_table, *, index_factory,
+                                  query_responses_limit_column=None,
+                                  query_filter_column=None,
+                                  index_filter_data_column=None,
+                                  res_type=dt.ANY_TUPLE,
+                                  revise: bool = False):
+        cols = {"_pw_index_reply": sch.ColumnSchema(name="_pw_index_reply",
+                                                    dtype=res_type)}
+        schema = sch.schema_from_columns(cols)
+        plan = Plan(
+            "external_index", data=self, queries=query_table,
+            index_factory=index_factory,
+            limit_col=query_responses_limit_column,
+            query_filter_col=query_filter_column,
+            data_filter_col=index_filter_data_column,
+            revise=revise,
+        )
+        return Table(plan, schema, query_table._universe.subuniverse())
 
     # ------------------------------------------------------------------
     # constructors
@@ -417,23 +518,25 @@ def _common_schema(tables: list[Table], update: bool = False):
     return sch.schema_from_columns(cols)
 
 
+def _expr_base_table(expr) -> Table | None:
+    if isinstance(expr, ex.ColumnReference) and isinstance(expr.table, Table):
+        return expr.table
+    for d in getattr(expr, "_deps", ()):
+        t = _expr_base_table(d)
+        if t is not None:
+            return t
+    return None
+
+
 # where each unported Table method of the JAX package comes from
-_SLICE_10 = ("ROADMAP queue 1, item 2c: slice 10, groupby + the external "
-             "index")
 _DSL_REST = "ROADMAP queue 1, item 2d: the rest of the Table DSL"
-_UNPORTED = {
-    **{name: _SLICE_10 for name in (
-        "groupby", "reduce", "deduplicate", "_external_index_as_of_now")},
-    **{name: _DSL_REST for name in (
-        "join", "join_inner", "join_left", "join_right", "join_outer",
-        "asof_join", "asof_now_join", "interval_join", "window_join",
-        "windowby", "restrict", "intersect", "difference", "having",
-        "update_cells", "__lshift__", "sort", "diff", "interpolate", "ix",
-        "ix_ref", "show", "plot", "live", "update_id_type",
-        "_gradual_broadcast", "_forget_immediately", "_buffer", "_forget",
-        "_freeze", "_filter_out_results_of_forgetting", "to",
-        "from_columns")},
-}
+_UNPORTED = {name: _DSL_REST for name in (
+    "join", "join_inner", "join_left", "join_right", "join_outer",
+    "asof_join", "asof_now_join", "interval_join", "window_join",
+    "windowby", "restrict", "intersect", "difference", "having", "sort",
+    "diff", "interpolate", "show", "plot", "live", "update_id_type",
+    "_gradual_broadcast", "_forget_immediately", "_buffer", "_forget",
+    "_freeze", "_filter_out_results_of_forgetting", "to", "from_columns")}
 
 
 def _unported(name: str, item: str):

@@ -12,6 +12,28 @@ from pathway_tpu_torch.internals import expression as ex
 _CMP = {"==", "!=", "<", "<=", ">", ">="}
 _BOOL = {"&", "|", "^"}
 
+_REDUCER_TYPES = {
+    "count": lambda args: dt.INT,
+    "sum": lambda args: args[0] if args else dt.INT,
+    "int_sum": lambda args: dt.INT,
+    "float_sum": lambda args: dt.FLOAT,
+    "array_sum": lambda args: dt.ANY_ARRAY,
+    "avg": lambda args: dt.FLOAT,
+    "min": lambda args: args[0] if args else dt.ANY,
+    "max": lambda args: args[0] if args else dt.ANY,
+    # one arg: the best row's KEY; two args: the payload expression's value
+    "argmin": lambda args: args[1] if len(args) > 1 else dt.POINTER,
+    "argmax": lambda args: args[1] if len(args) > 1 else dt.POINTER,
+    "unique": lambda args: args[0] if args else dt.ANY,
+    "any": lambda args: args[0] if args else dt.ANY,
+    "sorted_tuple": lambda args: dt.List(args[0]) if args else dt.ANY_TUPLE,
+    "tuple": lambda args: dt.List(args[0]) if args else dt.ANY_TUPLE,
+    "ndarray": lambda args: dt.ANY_ARRAY,
+    "earliest": lambda args: args[0] if args else dt.ANY,
+    "latest": lambda args: args[0] if args else dt.ANY,
+    "stateful": lambda args: dt.ANY,
+}
+
 _METHOD_TYPES = {
     "to_string": dt.STR,
     "num.abs": None,  # same as arg
@@ -109,6 +131,10 @@ def _infer(expr: ex.ColumnExpression) -> dt.DType:
         return dt.types_lca(_infer(expr._expr), _infer(expr._replacement))
     if isinstance(expr, ex.ApplyExpression):
         return expr._return_type
+    if isinstance(expr, ex.ReducerExpression):
+        arg_types = [_infer(a) for a in expr._args]
+        fn = _REDUCER_TYPES.get(expr._name)
+        return fn(arg_types) if fn else dt.ANY
     if isinstance(expr, ex.MethodCallExpression):
         t = _METHOD_TYPES.get(expr._method, dt.ANY)
         if t is None:

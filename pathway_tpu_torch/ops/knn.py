@@ -378,6 +378,9 @@ class BruteForceKnnIndex:
     :class:`PagedKnnIndex`, the paged store being the only storage ported.
     """
 
+    # read by ExternalIndexOperator.device_bound, as in the JAX package
+    device_bound = True
+
     def __new__(cls, *args, **kwargs):
         if cls is BruteForceKnnIndex:
             if not paged_store_enabled(kwargs.get("paged")):
@@ -983,6 +986,9 @@ class DeviceEmbeddingKnnIndex:
     ``pack_ragged`` and ``ragged_device_producer``) takes one fused call
     per packed chunk, whose padding rows are dropped.
     """
+
+    # read by ExternalIndexOperator.device_bound, as in the JAX package
+    device_bound = True
 
     def __init__(self, embedder, inner: BruteForceKnnIndex):
         dev = getattr(embedder, "device", inner.device)

@@ -333,13 +333,13 @@ def test_table_from_rows_keys_equal_reference():
 
 
 @pytest.mark.parametrize("call", [
-    lambda t: t.groupby(t.a),
-    lambda t: t.reduce(),
+    lambda t: t.windowby(t.a, window=None),
+    lambda t: t.restrict(t),
     lambda t: t.join(t, t.a == t.a),
     lambda t: t.sort(t.a),
-    lambda t: t.deduplicate(value=t.a),
+    lambda t: t.difference(t),
     lambda t: t.slice,
-], ids=["groupby", "reduce", "join", "sort", "deduplicate", "slice"])
+], ids=["windowby", "restrict", "join", "sort", "difference", "slice"])
 def test_unported_operations_raise(call):
     t = _base(tpw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
