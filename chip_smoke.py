@@ -80,7 +80,8 @@ non-zero, and no result line is printed):
    ``table_from_rows(..., is_stream=True)``, one tick per 512 (196
    ticks), through ``select(embedding=emb(pw.this.data))`` under
    ``GraphRunner.run_batch(n_workers=1)`` with the padded embedder as a
-   batch device UDF, every bucket width warmed first; then the same
+   batch device UDF (its map runs on the device bridge at the default
+   window, 2), every bucket width warmed first; then the same
    documents through ``embed_batch`` in the same batches; engine, direct,
    direct, engine. Checks: every document once, diff +1, at its tick's
    time, under its ``hash_values_uncached("row", i, doc)`` key, its
@@ -88,33 +89,45 @@ non-zero, and no result line is printed):
    K1 launches = 12 x encoder dispatches = 12 x 196 in the counted run and
    no other kernel. Then the ragged embedder over the first 10,240
    documents (20 ticks) the same way (its K1 launches are K1 with segment
-   ids). Prints engine and direct docs/s, their ratio, the engine's host
-   time a tick outside the UDF, the garbage collector's time and peak
-   device memory;
-10. framework (bench.py's ``bench_embed_framework`` graph): the same
-   documents as ``table_from_rows(data, _metadata=Json({"path": ...}),
-   is_stream=True)``, one tick per 2048 (bench.py's BATCH), through
-   ``VectorStoreServer(docs, embedder=emb, index_builder=...
-   default_brute_force_knn_document_index(chunks.text, chunks, ...))``
-   and ``retrieve_query`` under ``GraphRunner.run_batch(n_workers=1)``
-   (DataIndex.query_as_of_now over the external index operator: the
-   index embeds text itself), with queries at time 0, at the middle tick
-   (copies of ingested and of later documents) and after the last tick
-   (copies, fresh texts and one k = 80); configuration A the padded
-   embedder into a bf16 cos index (K1, K2, K2's score twin), B the
-   ragged embedder into an int8 cos index (K1 with segment ids, K4 in
-   each chunk's graph replay, K3 top-k, K3 score); engine, direct
-   ``add_batch``, direct, engine. Checks: every reply equal to a plain
-   scan on the card of the rows present at its query's time, copies find
-   their document first when ingested and never before, texts and
-   metadata the documents', the engine-built index equal bit for bit to
-   the direct one, and the launches inside ``run_batch`` equal to the
-   counts the code gives (stated before the run). Prints
-   ``framework_docs_per_s``, the direct docs/s and their ratio, the
-   engine's host time a tick outside the index, host time by operator,
-   graphs captured in each timed window, the garbage collector's time and
-   peak device memory; the query embeddings the engine passed to the
-   index against the plain encoder (``attention_reference``) on the card;
+   ids). Prints engine and direct docs/s, their ratio, the engine's wall
+   a tick outside the UDF body, the garbage collector's time, peak device
+   memory and the bridge's window and counters;
+10. framework (bench.py's ``bench_embed_framework`` graph, as bench.py
+   runs it): the same documents as ``table_from_rows(data,
+   _metadata=Json({"path": ...}), is_stream=True)``, one tick per 2048
+   (bench.py's BATCH), through ``VectorStoreServer(docs, embedder=emb,
+   index_builder=... default_brute_force_knn_document_index(chunks.text,
+   chunks, ...))`` and ``retrieve_query`` under
+   ``GraphRunner.run_batch(n_workers=1)`` (DataIndex.query_as_of_now over
+   the external index operator: the index embeds text itself), with
+   queries at time 0, at the middle tick (copies of ingested and of later
+   documents) and after the last tick (copies, fresh texts and one k =
+   80). The embedder is bench's (bench.py:1266-1276): WordPiece over
+   ``make_synthetic_vocab`` with the native C++ engine (asserted), BGE-small
+   weights from the seed; each run first warms through the built index as
+   bench.py:1160-1198 does, then times ``run_batch`` and the index's
+   ``drain()`` with the device bridge at its default window (2).
+   Configuration A the padded embedder (max_len 128) into a bf16 cos index
+   (K1, K2, K2's score twin), B the ragged embedder (sequences of 512)
+   into an int8 cos index (K1 with segment ids, K4 in each chunk's graph
+   replay, K3 top-k, K3 score); bridged, direct ``add_batch``, direct,
+   bridged, then window 1, then the embedder's default HashTokenizer at
+   window 1 beside its own direct run. Checks, for every engine run: every reply equal to
+   a plain scan on the card of the rows present at its query's time,
+   copies find their document first when ingested and never before, texts
+   and metadata the documents', the query embeddings the engine passed to
+   the index against the plain encoder (``attention_reference``), the
+   engine-built index equal bit for bit to the direct one with the same
+   tokenizer, the launches inside ``run_batch`` equal to the counts the
+   code gives (stated before the runs), no CUDA graph captured inside any
+   timed window, and legs on the bridge in the bridged runs. Prints
+   bench.py's keys (``framework_docs_per_s``,
+   ``framework_device_inflight``, ``framework_bridge_legs``,
+   ``framework_bridge_overlap_ratio``, ``framework_bridge_queue_wait_ms``),
+   the window-1 and HashTokenizer docs/s, the direct docs/s, host ms a
+   tick by leg (calling thread and bridge worker), the host's waits in
+   ``submit`` and ``barrier``, host time by operator, the garbage
+   collector's time and peak device memory;
 11. array_sum (``GroupByOperator``'s device segment sum, off by default):
    ``device_segsum`` on the card bit for bit against the sequential numpy
    loop; then ``groupby(g).reduce(g, a=npsum(v))`` over two ticks of each
@@ -141,25 +154,25 @@ non-zero, and no result line is printed):
 13. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
    on the flush path, K3 top-k in the search): query times at B=1 and
    B=64, every top 10 against the plain scan;
-14. bench_knn's int8 deployment (bench.py:2547-2579): 10,000,000 x 384
-   rows, cos, fed by ``add_batch_device`` in 65,536-row batches of
-   seeded randn on the card, searched at B=1 (64 calls) and B=64, k=10,
-   then ``latency_probe`` as bench.py calls it (knn_int8_p50_ms,
-   knn_int8_batch64_ms): add time, p50s and probe times, every top 10
-   against the plain scan, B=64 equal to the B=1 searches, K3 top-k
-   launches = searches x extents, K3 score launches 0. Then the filtered
+14. bench_knn's bf16 deployment (bench.py:3436-3490): 10,000,000 x 384
+   uniform bf16 rows, cos, made on the card in 2^19-row seeded chunks and
+   fed by ``add_batch_device``, searched with bench_knn's 64 queries at
+   B=1 (64 calls) and B=64, k=10, then ``latency_probe`` as bench.py calls
+   it (knn_p50_ms, knn_batch64_ms): add time, p50s and probe times, every
+   top 10 against the plain scan, B=64 equal to the B=1 searches, K2
+   launches = searches x extents, K2 score launches 0. Then the filtered
    search (limit 20, a filter every row passes: fetch 80 through the
    route past K_MAX) at B=1 and B=64 with the same checks on its top 20,
-   K3 score launches = searches x 20 chunks and K3 top-k none; the route
-   at k in ROUTE_KS against the plain scan + stable sort, and its times
-   beside a stable sort per chunk of the same scores at B=1 and 64, k in
+   K2 score launches = searches x 20 chunks and K2 none; the route at k in
+   ROUTE_KS against the plain scan + stable sort, and its times beside a
+   stable sort per chunk of the same scores at B=1 and 64, k in
    SELECT_KS;
-15. bench_knn's bf16 deployment (bench.py:3436-3490), after the int8
-   index is freed: 10,000,000 x 384 uniform bf16 rows, cos, made on the
-   card in 2^19-row seeded chunks and fed by ``add_batch_device``,
-   searched and probed as phase 14 (knn_p50_ms, knn_batch64_ms), with
-   the same checks; K2 launches = searches x extents; the filtered
-   search, the route and its times as phase 14, with K2's score twin;
+15. bench_knn's int8 deployment (bench.py:2547-2579), after the bf16
+   index is freed: the same rows (each chunk made again from its seed)
+   into an int8 cos index, searched, probed (knn_int8_p50_ms,
+   knn_int8_batch64_ms) and checked as phase 14 with K3 top-k and K3
+   score; bench.py's knn_int8_overlap10_vs_bf16, the mean overlap of the
+   first 8 queries' top-10 with the bf16 index's;
 16. profile: torch.profiler over three encoder forwards of each path's
    dispatch, device time by kernel group (K1, GEMM, other) and the
    device's busy share.
@@ -173,6 +186,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1703,10 +1717,12 @@ class GcClock:
 def engine_run(emb, docs: list[str], label: str) -> dict:
     """``table_from_rows(docs, one tick per INGEST_BATCH docs at time
     2 * tick).select(embedding=emb(pw.this.data))`` under
-    ``GraphRunner.run_batch(n_workers=1)``, every launch count set to 0
-    just before the run and read just after. Returns the captured events,
-    K1's launches, the encoder dispatches, the run's wall, the time spent
-    inside the UDF and in the garbage collector (s)."""
+    ``GraphRunner.run_batch(n_workers=1)`` (the UDF's map on the device
+    bridge at ``PATHWAY_DEVICE_INFLIGHT``'s window, default 2), every
+    launch count set to 0 just before the run and read just after. Returns
+    the captured events, K1's launches, the encoder dispatches, the run's
+    wall, the time spent inside the UDF and in the garbage collector (s),
+    the window and the bridge's counters."""
     import torch
 
     import pathway_tpu_torch as pw
@@ -1739,7 +1755,8 @@ def engine_run(emb, docs: list[str], label: str) -> dict:
              f"{others}")
     return {"events": cap.events, "k1": launches, "dispatches": dispatches,
             "wall": wall, "udf": emb.udf_s, "gc": gc_clock.s,
-            "gc_n": gc_clock.n}
+            "gc_n": gc_clock.n, "window": runner._scheduler.device_inflight,
+            "bridge": runner._scheduler.bridge_stats()}
 
 
 def direct_run(emb, docs: list[str]) -> tuple[np.ndarray, float]:
@@ -1863,7 +1880,13 @@ def phase_engine(n_docs: int, seed: int, card: str) -> tuple[int, int]:
               f"{sum(r['udf'] for r in runs) / 2 / n_ticks * 1e3:.3f} ms); "
               f"garbage collector {first['gc']:.3f} / {second['gc']:.3f} s "
               f"({first['gc_n']} / {second['gc_n']} collections) of the "
-              f"engine runs; peak device memory {peak_mb:.1f} MiB [{card}]",
+              f"engine runs; peak device memory {peak_mb:.1f} MiB; device "
+              f"bridge window {first['window']}"
+              + (f" (legs {first['bridge']['legs_resolved']}, overlap ratio "
+                 f"{first['bridge']['overlap_ratio']:.3f}, host waited "
+                 f"{first['bridge']['submit_wait_ms']:.3f} ms in submit and "
+                 f"{first['bridge']['barrier_wait_ms']:.3f} ms in barrier)"
+                 if first["bridge"] else "") + f" [{card}]",
               flush=True)
         print(f"[{label}] K1 launches {k1} = {N_LAYERS} x {dispatches} "
               f"encoder dispatches in the counted run; every document once "
@@ -1875,6 +1898,28 @@ def phase_engine(n_docs: int, seed: int, card: str) -> tuple[int, int]:
 
 
 FRAMEWORK_BATCH = 2048  # bench.py's BATCH: documents a tick
+BENCH_SEQ = 128         # bench.py's SEQ: the framework embedder's max_len
+# configuration B's packed sequence width: at bench's 128 a 92-token
+# document fills a sequence alone (8 documents a chunk); 512 packs ~5
+RAGGED_SEQ = 512
+WARM_KEY0 = 1 << 62     # bench.py's throw-away keys of the warm-up
+
+
+def framework_tokenizer(max_len: int):
+    """bench.py's framework tokenizer (``_make_framework_embedder``,
+    bench.py:1266-1276): WordPiece over ``make_synthetic_vocab`` of bench's
+    4096 words at BGE-small's vocabulary size. Fails unless the native
+    engine runs it, so no pure-Python fallback reaches a number."""
+    from pathway_tpu_torch.models.tokenizer import (WordPieceTokenizer,
+                                                    make_synthetic_vocab)
+
+    tok = WordPieceTokenizer(make_synthetic_vocab(
+        [f"word{i}" for i in range(4096)], vocab_size=30522),
+        max_len=max_len)
+    if not tok.native:
+        fail(f"bench's WordPiece tokenizer runs its pure-Python engine: the "
+             f"native build failed ({tok.native_error})")
+    return tok
 
 
 def framework_queries(docs: list[str], n_ticks: int, seed: int) -> list:
@@ -1899,21 +1944,58 @@ def framework_queries(docs: list[str], n_ticks: int, seed: int) -> list:
     return spec
 
 
-def framework_run(emb, dtype: str, rows: list, qspec: list, label: str
-                  ) -> dict:
+def framework_warm(index, emb, widths: list[int]) -> None:
+    """bench.py's warm-up (bench.py:1160-1198) through a built
+    ``DeviceEmbeddingKnnIndex``: the query's dispatch shape, a batch of
+    2048 documents under throw-away keys, then the fused step at every
+    padded width the run dispatches (A) or at every ragged chunk bucket,
+    which captures each bucket's CUDA graph on the index's extent (B), one
+    k=3 search, and the warm keys removed with the removal flushed."""
+    from pathway_tpu_torch.internals.keys import Pointer
+
+    emb.embed_batch(["word1 word2 word3"])
+    wkeys = [Pointer(WARM_KEY0 + i) for i in range(FRAMEWORK_BATCH)]
+    index.add_batch(wkeys, make_docs(FRAMEWORK_BATCH, seed=1))
+    if emb.ragged:
+        for b in emb.ragged_buckets():
+            args, n = emb.ragged_warmup_operands(b)
+            index._fused(wkeys[:n], emb.model, *args, n_rows=n)
+    else:
+        for w in widths:
+            index._fused(wkeys, emb.model,
+                         np.zeros((FRAMEWORK_BATCH, w), np.int16),
+                         np.full(FRAMEWORK_BATCH, max(1, w - 2), np.int32))
+    index.search([(Pointer(WARM_KEY0 + FRAMEWORK_BATCH), "word1 word2 word3",
+                   3, None)])
+    for k in wkeys:
+        index.remove(k)
+    index.flush_device()
+
+
+def framework_run(emb, dtype: str, rows: list, qspec: list, widths: list,
+                  window: int | None) -> dict:
     """bench.py's ``bench_embed_framework`` graph through the port:
     ``VectorStoreServer(docs, embedder=emb, index_builder=...
     default_brute_force_knn_document_index(chunks.text, chunks,
     embedder=emb, dimensions=384, reserved_space=n_docs + 64, dtype))``,
-    ``retrieve_query`` captured and run by ``GraphRunner.run_batch(
-    n_workers=1)``, every launch count set to 0 just before the run and
-    read just after. Each operator's step, the index's ``add_batch`` and
-    its searches are timed on the host clock; each search's queries and
-    replies are kept for the checks."""
+    ``retrieve_query`` captured, warmed through the built index
+    (``framework_warm``), then ``GraphRunner.run_batch(n_workers=1)`` and
+    the index's ``drain()`` timed as bench.py times them, with
+    ``PATHWAY_DEVICE_INFLIGHT`` unset (``window`` None: the device bridge
+    at its default window, 2) or set to ``window``; every launch count set
+    to 0 just before the run and read just after. Each operator's step is
+    timed on the host clock by the thread it ran on (the calling thread's
+    host leg, the bridge worker's device leg), the index's ``add_batch``
+    and searches too; each search's queries and replies are kept for the
+    checks."""
+    import threading
+
     import torch
 
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.debug import table_from_rows
+    from pathway_tpu_torch.engine.device_bridge import \
+        device_inflight_from_env
     from pathway_tpu_torch.engine.index_ops import ExternalIndexOperator
     from pathway_tpu_torch.internals.runner import GraphRunner
     from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
@@ -1939,20 +2021,27 @@ def framework_run(emb, dtype: str, rows: list, qspec: list, label: str
     cap = runner.capture(store.retrieve_query(queries))
     index = next(n.op.index for n in runner.graph.nodes
                  if isinstance(n.op, ExternalIndexOperator))
+    framework_warm(index, emb, widths)
     op_s: dict[str, float] = {}
+    leg_s = {"host": 0.0, "device": 0.0}
+    main = threading.main_thread()
 
-    def timed(fn, name):
+    def timed(fn, name, leg=False):
         def step(*args):
             t0 = time.perf_counter()
             out = fn(*args)
-            op_s[name] = op_s.get(name, 0.0) + time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            op_s[name] = op_s.get(name, 0.0) + dt
+            if leg:
+                leg_s["host" if threading.current_thread() is main
+                      else "device"] += dt
             return out
         return step
 
     for node in runner.graph.nodes:
         node.op.step = timed(node.op.step,
                              f"{node.name.split(':')[0]}/"
-                             f"{type(node.op).__name__}")
+                             f"{type(node.op).__name__}", leg=True)
     index.add_batch = timed(index.add_batch, "index add_batch")
     searches = []
     inner_search = index.inner.search
@@ -1965,29 +2054,47 @@ def framework_run(emb, dtype: str, rows: list, qspec: list, label: str
     index.inner.search = timed(search, "index inner search")
     index.search = timed(index.search, "index search")
     step = getattr(index._fused, "step", None)
-    gc.collect()  # earlier phases' garbage is not this run's
-    for count in LAUNCH_COUNTS:
-        count.launches = 0
-    emb.dispatches = 0
-    torch.cuda.synchronize()
-    with GcClock() as gc_clock:
-        t0 = time.perf_counter()
-        runner.run_batch(n_workers=1)
+    # the warm-up's captures and replays are not the window's
+    captures0, replays0 = (step.captures, step.replays) if step is not None \
+        else (0, 0)
+    saved = os.environ.pop("PATHWAY_DEVICE_INFLIGHT", None)
+    if window is not None:
+        os.environ["PATHWAY_DEVICE_INFLIGHT"] = str(window)
+    try:
+        inflight = device_inflight_from_env()
+        gc.collect()  # earlier runs' garbage is not this run's
+        for count in LAUNCH_COUNTS:
+            count.launches = 0
+        emb.dispatches = 0
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            runner.run_batch(n_workers=1)
+            index.drain()
+            wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("PATHWAY_DEVICE_INFLIGHT", None)
+        if saved is not None:
+            os.environ["PATHWAY_DEVICE_INFLIGHT"] = saved
     return {"events": cap.events, "index": index, "searches": searches,
             "extents": sum(e.established for e in index.inner._pool.extents),
-            "wall": wall, "op_s": op_s, "gc": gc_clock.s,
+            "wall": wall, "op_s": op_s, "leg_s": leg_s, "gc": gc_clock.s,
             "gc_n": gc_clock.n, "dispatches": emb.dispatches,
             "launches": {c: c.launches for c in LAUNCH_COUNTS},
-            "captures": step.captures if step is not None else 0,
-            "replays": step.replays if step is not None else 0}
+            "captures": (step.captures if step is not None else 0)
+            - captures0,
+            "replays": (step.replays if step is not None else 0) - replays0,
+            "inflight": inflight,
+            "bridge": runner._scheduler.bridge_stats()}
 
 
-def framework_direct(emb, dtype: str, texts: list[str], keys: list) -> dict:
+def framework_direct(emb, dtype: str, texts: list[str], keys: list,
+                     widths: list) -> dict:
     """The same documents through ``DeviceEmbeddingKnnIndex.add_batch``
     directly, in the engine's batches and with its keys, into a fresh
-    index; returns the index, the wall (s) and the graphs it captured."""
+    index warmed as the engine's is (``framework_warm``, so both hand out
+    the same slots); returns the index, the wall (s) and the graphs
+    captured inside it."""
     import torch
 
     from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
@@ -1996,6 +2103,9 @@ def framework_direct(emb, dtype: str, texts: list[str], keys: list) -> dict:
     index = DeviceEmbeddingKnnIndex(emb, BruteForceKnnIndex(
         emb.get_embedding_dimension(), reserved_space=len(texts) + 64,
         metric="cos", dtype=dtype, device="cuda"))
+    framework_warm(index, emb, widths)
+    step = getattr(index._fused, "step", None)
+    captures0 = step.captures if step is not None else 0
     gc.collect()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2003,10 +2113,10 @@ def framework_direct(emb, dtype: str, texts: list[str], keys: list) -> dict:
         index.add_batch(keys[b0:b0 + FRAMEWORK_BATCH],
                         texts[b0:b0 + FRAMEWORK_BATCH])
     index.drain()
-    torch.cuda.synchronize()
-    step = getattr(index._fused, "step", None)
-    return {"index": index, "wall": time.perf_counter() - t0,
-            "captures": step.captures if step is not None else 0}
+    wall = time.perf_counter() - t0
+    return {"index": index, "wall": wall,
+            "captures": (step.captures if step is not None else 0)
+            - captures0}
 
 
 def same_index(a, b) -> bool:
@@ -2139,14 +2249,76 @@ def hold_framework(run: dict, emb, docs: list[str], keys: list,
           f"documents never do", flush=True)
 
 
+def framework_holds(run: dict, direct, expect: dict, ingest: int,
+                    query: int, emb, docs: list[str], keys: list,
+                    qspec: list, label: str) -> None:
+    """Every check of one engine run: the replies and query embeddings
+    (``hold_framework``), one extent, the launches the code states, the
+    encoder dispatches (B: one graph replay an ingest chunk), the index bit
+    for bit the direct ``add_batch`` one's (same tokenizer), no graph
+    captured inside the timed window, and, under the bridge, legs that
+    ran on it."""
+    hold_framework(run, emb, docs, keys, qspec, label)
+    launches = {c: n for c, n in run["launches"].items() if n}
+    if run["extents"] != 1:
+        fail(f"{label}: {run['extents']} extents, stated 1")
+    if launches != expect:
+        fail(f"{label}: launches {[(c.name, n) for c, n in launches.items()]}"
+             f" differ from the stated "
+             f"{[(c.name, n) for c, n in expect.items()]}")
+    if run["dispatches"] != ingest + query or (
+            emb.ragged and run["replays"] != ingest):
+        fail(f"{label}: {run['dispatches']} encoder dispatches "
+             f"({run['replays']} replays), stated {ingest} + {query}")
+    if not same_index(run["index"], direct):
+        fail(f"{label}: the engine-built index differs from the one "
+             "add_batch builds directly")
+    if run["captures"]:
+        fail(f"{label}: {run['captures']} CUDA graphs captured inside the "
+             "timed window (the warm-up missed a chunk shape)")
+    if run["inflight"] >= 2 and not (run["bridge"] and
+                                     run["bridge"]["legs_resolved"] > 0):
+        fail(f"{label}: no leg ran on the device bridge at window "
+             f"{run['inflight']}")
+
+
+def framework_line(run: dict, n_docs: int, n_ticks: int) -> str:
+    """One engine run's numbers: docs/s, the window and the bridge's
+    counters, host ms a tick by leg, the host's waits on the bridge, the
+    index's ingest and searches, the collector."""
+    br = run["bridge"] or {}
+    ops = run["op_s"]
+    return (f"{n_docs / run['wall']:.1f} docs/s at window {run['inflight']}"
+            + (f" (bridge legs {br['legs_resolved']}, overlap ratio "
+               f"{br['overlap_ratio']:.3f}, queue wait "
+               f"{br['queue_wait_ms']:.3f} ms, leg execution "
+               f"{br['exec_ms']:.3f} ms)" if br else " (no bridge)")
+            + f"; host ms a tick: host leg on the calling thread "
+            f"{run['leg_s']['host'] / n_ticks * 1e3:.3f}, device leg on the "
+            f"bridge worker {run['leg_s']['device'] / n_ticks * 1e3:.3f}; "
+            f"the host thread waited {br.get('submit_wait_ms', 0.0):.3f} ms "
+            f"in submit and {br.get('barrier_wait_ms', 0.0):.3f} ms in "
+            f"barrier; index ingest "
+            f"{ops['index add_batch'] / n_ticks * 1e3:.3f} ms a tick, "
+            f"searches {ops['index search'] * 1e3:.3f} ms a run; garbage "
+            f"collector {run['gc']:.3f} s ({run['gc_n']} collections); "
+            f"graphs captured in the window {run['captures']}")
+
+
 def phase_framework(n_docs: int, seed: int, card: str) -> dict:
     """bench_embed_framework's graph (VectorStoreServer → DataIndex.
-    query_as_of_now over the external index operator) at BGE-small's width:
-    configuration A, the padded embedder into a bf16 cos index (K1, K2, K2
-    score); B, the ragged embedder into an int8 cos index (K1 with segment
+    query_as_of_now over the external index operator) at BGE-small's
+    width, as bench.py runs it: bench's WordPiece tokenizer (native engine
+    asserted), bench's warm-up through the built index, the device bridge
+    at its default window. Configuration A, the padded embedder at bench's
+    max_len 128 into a bf16 cos index (K1, K2, K2 score); B, the ragged
+    embedder (sequences of 512) into an int8 cos index (K1 with segment
     ids, K4 inside each chunk's graph replay, K3 top-k, K3 score). Each
-    runs engine, direct, direct, engine. Returns each kernel's launches in
-    the counted (first) engine runs, by LaunchCount."""
+    runs bridged, direct, direct, bridged, then at window 1, then the
+    embedder's default HashTokenizer at window 1 beside its own direct
+    index. Returns each
+    kernel's launches in the counted (first bridged) runs, by
+    LaunchCount."""
     import torch
 
     from pathway_tpu_torch.internals.json import Json
@@ -2177,112 +2349,145 @@ def phase_framework(n_docs: int, seed: int, card: str) -> dict:
             for i, doc in enumerate(docs)]
     qspec = framework_queries(docs, n_ticks, seed)
     q_times = sorted({t for t, _, _, _ in qspec})
+    ticks = [docs[b:b + FRAMEWORK_BATCH]
+             for b in range(0, n_docs, FRAMEWORK_BATCH)]
     counted = {}
-    for label, ragged, dtype, kernels in (
-            ("framework A", False, "bfloat16",
+    for label, ragged, dtype, max_len, kernels in (
+            ("framework A", False, "bfloat16", BENCH_SEQ,
              (ATTENTION, TOPK_BF16, SCORE_BF16)),
-            ("framework B", True, "int8",
+            ("framework B", True, "int8", RAGGED_SEQ,
              (ATTENTION, TOPK_I8, SCORE_I8, QUANTIZE_SCATTER))):
-        emb = EncoderEmbedder(config=cfg, params=params, ragged=ragged,
-                              device="cuda")
-        # the counts the code gives, stated before the run: one forward a
-        # tick (padded: the tick's 2048 documents in one fused call;
-        # ragged: one graph replay a packed chunk) and one a query batch
-        # (ragged: a chunk); each search over one extent of <= 2^19 rows
-        # takes the top-k kernel once, except the last tick's batch, whose
-        # k = 80 query makes the whole batch fetch 80: the score kernel
-        # once, then the key selection
-        if ragged:
-            ingest = sum(len(emb.pack_ragged(docs[b:b + FRAMEWORK_BATCH]))
-                         for b in range(0, n_docs, FRAMEWORK_BATCH))
-            query = sum(len(emb.pack_ragged(
-                [text for t, text, _, _ in qspec if t == qt]))
-                for qt in q_times)
-            for b in emb.ragged_buckets():
-                args, _ = emb.ragged_warmup_operands(b)
-                emb.ragged_device_producer(emb.model, *args)
-        else:
-            ingest, query = n_ticks, len(q_times)
-            for w in emb.bucket_widths():
-                emb.device_producer(
-                    emb.model, np.zeros((FRAMEWORK_BATCH, w), np.int16),
-                    np.full(FRAMEWORK_BATCH, w, np.int32))
-        expect = {ATTENTION: N_LAYERS * (ingest + query),
-                  kernels[1]: len(q_times) - 1, kernels[2]: 1}
-        if ragged:
-            expect[QUANTIZE_SCATTER] = ingest
+        # bench's embedder (bench.py:1266-1276), and the same weights with
+        # the embedder's default HashTokenizer
+        embs = {"wordpiece": EncoderEmbedder(
+                    config=cfg, params=params, ragged=ragged,
+                    tokenizer=framework_tokenizer(max_len), max_len=max_len,
+                    max_batch_size=FRAMEWORK_BATCH, device="cuda"),
+                "hash": EncoderEmbedder(config=cfg, params=params,
+                                        ragged=ragged, device="cuda")}
+        stated = {}
+        for name, emb in embs.items():
+            # the counts the code gives, stated before the runs: one forward
+            # a tick (padded: the tick's 2048 documents in one fused call;
+            # ragged: one graph replay a packed chunk) and one a query batch
+            # (ragged: a chunk); each search over one extent of <= 2^19 rows
+            # takes the top-k kernel once, except the last tick's batch,
+            # whose k = 80 query makes the whole batch fetch 80: the score
+            # kernel once, then the key selection
+            if ragged:
+                widths = []
+                ingest = sum(len(emb.pack_ragged(t)) for t in ticks)
+                query = sum(len(emb.pack_ragged(
+                    [text for t, text, _, _ in qspec if t == qt]))
+                    for qt in q_times)
+                for b in emb.ragged_buckets():
+                    args, _ = emb.ragged_warmup_operands(b)
+                    emb.ragged_device_producer(emb.model, *args)
+            else:
+                widths = sorted({emb.pack_tokens(t)[0].shape[1]
+                                 for t in ticks})
+                ingest, query = n_ticks, len(q_times)
+                for w in emb.bucket_widths():
+                    emb.device_producer(
+                        emb.model, np.zeros((FRAMEWORK_BATCH, w), np.int16),
+                        np.full(FRAMEWORK_BATCH, w, np.int32))
+            expect = {ATTENTION: N_LAYERS * (ingest + query),
+                      kernels[1]: len(q_times) - 1, kernels[2]: 1}
+            if ragged:
+                expect[QUANTIZE_SCATTER] = ingest
+            stated[name] = (widths, ingest, query, expect)
+        emb, hemb = embs["wordpiece"], embs["hash"]
+        widths, ingest, query, expect = stated["wordpiece"]
+        hwidths, hingest, hquery, hexpect = stated["hash"]
+
+        def run(e, w, window, tag):
+            return dict(framework_run(e, dtype, rows, qspec, w, window),
+                        tag=tag)
+
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        # engine, direct, direct, engine (host-clock times drift between
-        # consecutive runs, so each side is timed twice in mirrored order);
-        # the first engine run is the counted one
-        first = framework_run(emb, dtype, rows, qspec, label)
+        # bridged, direct, direct, bridged (host-clock times drift between
+        # consecutive runs, so each side is timed twice in mirrored order),
+        # then the same at window 1; the first bridged run is the counted
+        # one
+        first = run(emb, widths, None, "bridged")
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
-        direct = framework_direct(emb, dtype, docs, keys)
-        hold_framework(first, emb, docs, keys, qspec, label)
-        same = same_index(first["index"], direct["index"])
-        direct2 = framework_direct(emb, dtype, docs, keys)
-        del first["index"], direct["index"], direct2["index"]
-        second = framework_run(emb, dtype, rows, qspec, label)
-        hold_framework(second, emb, docs, keys, qspec,
-                       label + " (again)")
-        del second["index"]
-        launches = {c: n for c, n in first["launches"].items() if n}
+        direct = framework_direct(emb, dtype, docs, keys, widths)
+        direct2 = framework_direct(emb, dtype, docs, keys, widths)
+        del direct2["index"]
+        second = run(emb, widths, None, "bridged (again)")
+        serial = run(emb, widths, 1, "window 1")
+        runs = [first, second, serial]
+        for r in runs:
+            framework_holds(r, direct["index"], expect, ingest, query, emb,
+                            docs, keys, qspec, f"{label} {r['tag']}")
+            del r["index"]
+        del direct["index"]
+        hash_run = run(hemb, hwidths, 1, "HashTokenizer, window 1")
+        hash_direct = framework_direct(hemb, dtype, docs, keys, hwidths)
+        framework_holds(hash_run, hash_direct["index"], hexpect, hingest,
+                        hquery, hemb, docs, keys, qspec,
+                        f"{label} HashTokenizer")
+        del hash_run["index"], hash_direct["index"]
+        for r in (direct, direct2, hash_direct):
+            if r["captures"]:
+                fail(f"{label}: {r['captures']} CUDA graphs captured inside "
+                     "a direct run's timed window")
+        br = first["bridge"]
+        if first["inflight"] != 2:
+            fail(f"{label}: the bridged runs ran at window "
+                 f"{first['inflight']}, not bench's default 2")
+        print(f"[{label}] bench.py's keys ({n_docs} docs in {n_ticks} ticks "
+              f"of {FRAMEWORK_BATCH} through VectorStoreServer(...)."
+              f"retrieve_query under GraphRunner.run_batch, {dtype} cos index;"
+              f" bench's WordPiece tokenizer, native engine; warmed through "
+              f"the built index; run_batch + drain() timed): "
+              f"framework_docs_per_s {n_docs / first['wall']:.1f}, "
+              f"framework_device_inflight {first['inflight']}, "
+              f"framework_bridge_legs {br['legs_resolved']}, "
+              f"framework_bridge_overlap_ratio {br['overlap_ratio']:.3f}, "
+              f"framework_bridge_queue_wait_ms {br['queue_wait_ms']} "
+              f"[{card}]", flush=True)
         engine_s = first["wall"] + second["wall"]
         direct_s = direct["wall"] + direct2["wall"]
-        ingest_s = sum(r["op_s"]["index add_batch"] for r in (first, second))
-        search_s = sum(r["op_s"]["index search"] for r in (first, second))
-        print(f"[{label}] {n_docs} docs in {n_ticks} ticks of "
-              f"{FRAMEWORK_BATCH} through VectorStoreServer(...).retrieve_"
-              f"query under GraphRunner.run_batch ({dtype} cos index), then "
-              f"DeviceEmbeddingKnnIndex.add_batch directly in the same "
-              f"batches into a fresh index, twice each in the order engine, "
-              f"direct, direct, engine: framework_docs_per_s "
-              f"{n_docs / first['wall']:.1f} and "
-              f"{n_docs / second['wall']:.1f}; direct "
+        print(f"[{label}] in the order bridged, direct, direct, bridged, "
+              f"window 1: framework_docs_per_s {n_docs / first['wall']:.1f} "
+              f"and {n_docs / second['wall']:.1f}; direct add_batch "
               f"{n_docs / direct['wall']:.1f} and "
-              f"{n_docs / direct2['wall']:.1f} docs/s; engine / direct docs/s"
-              f" over both {direct_s / engine_s:.4f}; engine host time a tick "
-              f"outside the index's ingest and search "
-              f"{(engine_s - ingest_s - search_s) / 2 / n_ticks * 1e3:.3f} ms"
-              f" (ingest {ingest_s / 2 / n_ticks * 1e3:.3f} ms a tick, "
-              f"{len(q_times)} searches {search_s / 2 * 1e3:.3f} ms a run); "
-              f"graphs captured inside the timed windows: engine "
-              f"{first['captures']} / {second['captures']}, direct "
-              f"{direct['captures']} / {direct2['captures']}; garbage "
-              f"collector {first['gc']:.3f} / {second['gc']:.3f} s "
-              f"({first['gc_n']} / {second['gc_n']} collections); peak "
-              f"device memory {peak_mb:.1f} MiB [{card}]", flush=True)
+              f"{n_docs / direct2['wall']:.1f} docs/s; bridged / direct "
+              f"docs/s over both {direct_s / engine_s:.4f}; at window 1 "
+              f"{n_docs / serial['wall']:.1f} docs/s (bridged / window 1 "
+              f"{serial['wall'] / (engine_s / 2):.4f}); then the default "
+              f"HashTokenizer at window 1: framework_hash_serial_docs_per_s "
+              f"{n_docs / hash_run['wall']:.1f}, direct "
+              f"{n_docs / hash_direct['wall']:.1f} docs/s; peak device "
+              f"memory in the counted run {peak_mb:.1f} MiB [{card}]",
+              flush=True)
+        for r in runs + [hash_run]:
+            print(f"[{label}] {r['tag']}: "
+                  + framework_line(r, n_docs, n_ticks), flush=True)
         ops = sorted(first["op_s"].items(), key=lambda kv: -kv[1])
         print(f"[{label}] host time by operator step in the counted run (ms"
               f" a tick, {n_ticks} ticks; the index's steps include its "
               f"device waits): " + ", ".join(
                   f"{name} {s / n_ticks * 1e3:.3f}" for name, s in ops),
               flush=True)
-        print(f"[{label}] launches inside run_batch: " + ", ".join(
+        launches = {c: n for c, n in first["launches"].items() if n}
+        print(f"[{label}] launches inside the counted run_batch: " + ", ".join(
             f"{c.name} {n}" for c, n in launches.items())
-            + f"; stated from the code: " + ", ".join(
+            + "; stated from the code: " + ", ".join(
                 f"{c.name} {n}" for c, n in expect.items())
             + f" ({ingest} ingest + {query} query encoder dispatches; "
               f"dispatches counted {first['dispatches']}, graph replays "
-              f"{first['replays']}); engine-built index equal bit for bit "
-              f"to the direct add_batch's: {same}", flush=True)
-        if first["extents"] != 1:
-            fail(f"{label}: {first['extents']} extents, stated 1")
-        if launches != expect:
-            fail(f"{label}: launches {[(c.name, n) for c, n in launches.items()]}"
-                 f" differ from the stated "
-                 f"{[(c.name, n) for c, n in expect.items()]}")
-        if first["dispatches"] != ingest + query or (
-                ragged and first["replays"] != ingest):
-            fail(f"{label}: {first['dispatches']} encoder dispatches "
-                 f"({first['replays']} replays), stated {ingest} + {query}")
-        if not same:
-            fail(f"{label}: the engine-built index differs from the one "
-                 "add_batch builds directly")
+              f"{first['replays']}); in every run (bridged twice, window 1, "
+              f"HashTokenizer): launches as stated, the engine-built index "
+              f"equal bit for bit to the direct add_batch's with the same "
+              f"tokenizer, no graph captured in a timed window (direct "
+              f"runs: {direct['captures']} / {direct2['captures']} / "
+              f"{hash_direct['captures']})", flush=True)
         counted.update({c: launches.get(c, 0) for c in kernels[1:]})
         counted[(ATTENTION, ragged)] = launches.get(ATTENTION, 0)
-        del emb
+        del emb, hemb, embs
         gc.collect()
         torch.cuda.empty_cache()
     return counted
@@ -2993,18 +3198,31 @@ def selection_record(times: dict) -> dict:
     return {f"B{B}_k{k}": list(t) for (B, k), t in times.items()}
 
 
-def phase_int8_10m(seed: int, card: str) -> tuple[tuple, list, dict]:
+def bench_knn_rows(ci: int, m: int, D: int):
+    """bench_knn's chunk ``ci`` (bench.py:3455-3464): ``m`` rows uniform in
+    [-1, 1), made on the card from ``manual_seed(ci)``, as bf16."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(ci)
+    return (torch.rand((m, D), generator=gen, device="cuda") * 2 - 1).to(
+        torch.bfloat16)
+
+
+def phase_int8_10m(qs, bf16_top: list, n_bf16: int, card: str
+                   ) -> tuple[tuple, list, dict]:
     """bench_knn's int8 deployment (bench.py:2547-2579; README.md:1655,
     1749): BruteForceKnnIndex(384, reserved_space=10M, int8, cos) fed by
-    add_batch_device in 65,536-row batches of seeded randn on the card,
-    searched by ``search_10m`` (bench.py's knn_int8_p50_ms and
-    knn_int8_batch64_ms from latency_probe), then by ``filtered_10m``
-    (limit 20 with a filter: K3's score per chunk), the route past K_MAX
-    checked and timed (``route_10m``). The host
-    mirror is f32 (15.4 GB at 10M rows); ``rows_that_fit`` cuts the rows
-    where the machine cannot hold it. Returns the launches of K3 top-k, K3
-    score and K4 in the unfiltered run, the probe times, and the filtered
-    run's numbers."""
+    add_batch_device with the bf16 phase's rows, chunk i made again from
+    ``manual_seed(i)`` (``bench_knn_rows``), searched with bench_knn's
+    queries by ``search_10m`` (bench.py's knn_int8_p50_ms and
+    knn_int8_batch64_ms from latency_probe), then by ``filtered_10m`` (limit
+    20 with a filter: K3's score per chunk), the route past K_MAX checked
+    and timed (``route_10m``); bench.py's knn_int8_overlap10_vs_bf16, the
+    mean overlap of the first 8 queries' top-10 with the bf16 index's over
+    the same rows. The host mirror is f32 (15.4 GB at 10M rows);
+    ``rows_that_fit`` cuts the rows where the machine cannot hold it.
+    Returns the launches of K3 top-k, K3 score and K4 in the unfiltered
+    run, the probe times, and the filtered run's numbers."""
     import torch
 
     from pathway_tpu_torch.internals.keys import Pointer
@@ -3013,24 +3231,22 @@ def phase_int8_10m(seed: int, card: str) -> tuple[tuple, list, dict]:
                                                    SCORE_I8, TOPK_I8,
                                                    score_i8)
 
-    D, batch = 384, 65_536
-    n = rows_that_fit("int8 10M", K3_ROWS, D * 4)
-    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    D, chunk = 384, 1 << 19
+    n = min(n_bf16, rows_that_fit("int8 10M", n_bf16, D * 4))
     QUANTIZE_SCATTER.launches = SCORE_I8.launches = TOPK_I8.launches = 0
     t0 = time.perf_counter()
     index = BruteForceKnnIndex(D, reserved_space=n, dtype="int8",
                                metric="cos", device="cuda")
-    for b0 in range(0, n, batch):
-        b1 = min(b0 + batch, n)
-        index.add_batch_device([Pointer(i) for i in range(b0, b1)],
-                               torch.randn((b1 - b0, D), generator=gen,
-                                           device="cuda"))
+    for ci, base in enumerate(range(0, n, chunk)):
+        m = min(chunk, n - base)
+        index.add_batch_device([Pointer(base + i) for i in range(m)],
+                               bench_knn_rows(ci, m, D))
     index.drain()
     add_s = time.perf_counter() - t0
+    extents = index.page_stats()["extents"]
     print(f"[int8 10M] {len(index):,} rows added in {add_s:.2f} s through "
-          f"add_batch_device ({index.page_stats()['extents']} extent(s), "
+          f"add_batch_device, the bf16 phase's rows ({extents} extent(s), "
           f"{index.capacity:,} rows) [{card}]", flush=True)
-    qs = torch.randn((64, D), generator=gen, device="cuda").cpu().numpy()
     results, batch_res, probes = search_10m(index, qs, "int8 10M", 10**10,
                                             card)
     print(f"[int8 10M] bench.py's names: knn_int8_p50_ms {probes[0]:.4f}, "
@@ -3046,8 +3262,19 @@ def phase_int8_10m(seed: int, card: str) -> tuple[tuple, list, dict]:
     if launches[0] != SEARCHES_10M * n_ext or launches[1] != 0:
         fail("int8 10M: the search did not go through K3 top-k once an "
              "extent, or K3's score ran")
-    if launches[2] < -(-n // batch):
-        fail("int8 10M: K4 did not write every batch")
+    if launches[2] < -(-n // chunk):
+        fail("int8 10M: K4 did not write every chunk")
+    # bench.py:2566-2569: the first 8 queries' top-10 against the bf16
+    # index's over the same rows
+    res = index.search([(Pointer(10**9 + i), qs[i], 10, None)
+                        for i in range(8)])
+    overlap = float(np.mean([len({k for k, _ in res[i]} & set(bf16_top[i]))
+                             / 10.0 for i in range(8)]))
+    print(f"[int8 10M] bench.py's name: knn_int8_overlap10_vs_bf16 "
+          f"{overlap:.3f} (mean top-10 overlap of 8 queries with the bf16 "
+          f"index over the same {n:,} rows"
+          + ("" if n == n_bf16 else f"; the bf16 index held {n_bf16:,}")
+          + f") [{card}]", flush=True)
     f_res, f_batch, f_p50, f_launches = filtered_run(
         index, qs, "int8 10M", SCORE_I8, TOPK_I8, card)
     qraw = torch.from_numpy(qs).cuda()
@@ -3070,10 +3297,11 @@ def phase_int8_10m(seed: int, card: str) -> tuple[tuple, list, dict]:
     SCORE_I8.launches = before  # comparisons don't count
     return launches, probes, {"filtered_p50_ms": f_p50,
                               "launches_10m": f_launches,
-                              "selection_ms": selection_record(sel)}
+                              "selection_ms": selection_record(sel),
+                              "knn_int8_overlap10_vs_bf16": overlap}
 
 
-def phase_bf16_10m(card: str) -> tuple[int, list, dict]:
+def phase_bf16_10m(card: str) -> tuple[int, list, dict, tuple]:
     """bench_knn's headline deployment (bench.py:3436-3490, KNN_N at
     :27): BruteForceKnnIndex(384, reserved_space=10M, dtype="bfloat16",
     metric="cos"), 10M rows uniform in [-1, 1) made on the card in 2^19-row
@@ -3082,8 +3310,10 @@ def phase_bf16_10m(card: str) -> tuple[int, list, dict]:
     (default_rng(0).random((64, 384)) * 2 - 1) through ``search_10m``
     (bench.py's knn_p50_ms and knn_batch64_ms from latency_probe), then
     ``filtered_10m`` (K2's score twin per chunk) and ``route_10m``, as
-    phase 14. The host mirror is bf16 (7.7 GB). Returns K2's launches in
-    the unfiltered run, the probe times and the filtered run's numbers."""
+    the int8 phase. The host mirror is bf16 (7.7 GB). Returns K2's
+    launches in the unfiltered run, the probe times, the filtered run's
+    numbers, and (the queries, the first 8 queries' top-10 keys, the
+    rows) for the int8 index over the same rows."""
     import torch
 
     from pathway_tpu_torch.internals.keys import Pointer
@@ -3100,10 +3330,8 @@ def phase_bf16_10m(card: str) -> tuple[int, list, dict]:
                                metric="cos", device="cuda")
     for ci, base in enumerate(range(0, n, chunk)):
         m = min(chunk, n - base)
-        gen = torch.Generator(device="cuda").manual_seed(ci)
-        vecs = (torch.rand((m, D), generator=gen, device="cuda") * 2 - 1).to(
-            torch.bfloat16)
-        index.add_batch_device([Pointer(base + i) for i in range(m)], vecs)
+        index.add_batch_device([Pointer(base + i) for i in range(m)],
+                               bench_knn_rows(ci, m, D))
     index.drain()
     add_s = time.perf_counter() - t0
     print(f"[bf16 10M] {len(index):,} rows added in {add_s:.2f} s through "
@@ -3150,9 +3378,13 @@ def phase_bf16_10m(card: str) -> tuple[int, list, dict]:
     sel = route_10m(ext, qraw[:8], full[:8, :ext.rows], (), make_score,
                     "bf16 10M", card)
     SCORE_BF16.launches = before  # comparisons don't count
+    # bench.py:3478-3480: the first 8 queries' top-10 keys, for the int8
+    # index over the same rows (knn_int8_overlap10_vs_bf16)
+    top8 = [tuple(k for k, _ in r) for r in results[:8]]
     return launches, probes, {"filtered_p50_ms": f_p50,
                               "launches_10m": f_launches,
-                              "selection_ms": selection_record(sel)}
+                              "selection_ms": selection_record(sel)}, (
+        qs, top8, n)
 
 
 def phase_profile(card: str) -> None:
@@ -3270,16 +3502,17 @@ def main() -> None:
      k4["launches"]) = phase_ragged_int8(args.seed, card)
     done("path 2")
     phase_int8_million(args.seed, card)
-    (k3_topk["launches"], _, _), k3_topk["probe_ms"], filt = phase_int8_10m(
-        args.seed, card)
-    k3_topk["launches_path2"] = k3_topk_path2
-    k3.update(filt)
-    done("int8 indexes")
-    gc.collect()  # the 10M int8 index and its host mirror are gone
-    torch.cuda.empty_cache()
-    k2["launches_10m"], k2["probe_ms"], filt = phase_bf16_10m(card)
+    done("int8 1M index")
+    k2["launches_10m"], k2["probe_ms"], filt, bf16_rows = phase_bf16_10m(card)
     k2_score.update(filt)
     done("bf16 10M index")
+    gc.collect()  # the 10M bf16 index and its host mirror are gone
+    torch.cuda.empty_cache()
+    (k3_topk["launches"], _, _), k3_topk["probe_ms"], filt = phase_int8_10m(
+        *bf16_rows, card)
+    k3_topk["launches_path2"] = k3_topk_path2
+    k3.update(filt)
+    done("int8 10M index")
     phase_profile(card)
     print(json.dumps({"kernels": [k1, k1_seg, k2, k3_topk, k3, k4,
                                   k2_score]}), flush=True)

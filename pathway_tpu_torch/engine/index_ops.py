@@ -42,9 +42,8 @@ class ExternalIndexOperator(Operator):
 
     @property
     def device_bound(self) -> bool:
-        """True when the index itself is device-resident (the KNN slab);
-        information only until the device bridge is ported (ROADMAP queue
-        1, item 2b)."""
+        """True when the index itself is device-resident (the KNN slab):
+        the operator then runs in the tick's device leg."""
         return bool(getattr(self.index, "device_bound", False))
 
     def __init__(self, index, data_vec_pos: int, data_filter_pos: int | None,

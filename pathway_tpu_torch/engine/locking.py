@@ -13,3 +13,7 @@ def create_lock(name: str) -> threading.Lock:
 
 def create_rlock(name: str) -> threading.RLock:
     return threading.RLock()
+
+
+def create_condition(name: str) -> threading.Condition:
+    return threading.Condition(threading.Lock())

@@ -43,9 +43,9 @@ from pathway_tpu_torch.internals.keys import Pointer, hash_values, mix_pointers
 class Operator:
     arity = 1
     # True for ops whose step dispatches accelerator work (a batch UDF
-    # with device=True): information only until the device bridge is
-    # ported (ROADMAP queue 1, item 2b) — the scheduler steps every
-    # operator serially on its own thread
+    # with device=True, a device-resident index): the scheduler runs them
+    # and their downstream closure as the tick's device leg, on the device
+    # bridge's worker when PATHWAY_DEVICE_INFLIGHT >= 2
     device_bound = False
 
     def step(self, time: int, in_deltas: list[Delta]) -> Delta:

@@ -373,8 +373,8 @@ class ApplyExpression(ColumnExpression):
         # the columnar dispatch path for device/vectorized UDFs
         self._batch = batch
         # device=True (batch only) → the fn dispatches accelerator work;
-        # the hosting operator is marked device_bound (information only
-        # until the device bridge is ported, ROADMAP queue 1 item 2b)
+        # the hosting operator is marked device_bound (it runs in the
+        # tick's device leg)
         self._device = device and batch
 
     @property

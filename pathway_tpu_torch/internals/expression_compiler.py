@@ -99,7 +99,8 @@ class ExpressionCompiler:
         self.has_non_deterministic = False
         # set when a compiled expression dispatches accelerator work
         # (batch UDF with device=True): the hosting operator is marked
-        # device_bound (information only until the device bridge is ported)
+        # device_bound, so it runs in the tick's device leg (the device
+        # bridge's worker when PATHWAY_DEVICE_INFLIGHT >= 2)
         self.has_device = False
 
     # -- public -------------------------------------------------------------

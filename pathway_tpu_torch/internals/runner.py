@@ -67,8 +67,8 @@ def _referenced_tables(exprs, base: Table) -> list[Table]:
 def _map_op_for(program, nondet: bool):
     """Map operator for a compiled program; device-dispatching programs
     (batch UDFs with device=True, e.g. the encoder embedder) mark the
-    operator device_bound (information only until the device bridge is
-    ported, ROADMAP queue 1 item 2b)."""
+    operator device_bound, so the scheduler runs it in the tick's device
+    leg (engine/device_bridge.py)."""
     op = eng.DeterministicMapOperator(program) if nondet \
         else eng.MapOperator(program)
     if getattr(program, "device_bound", False):
@@ -100,20 +100,28 @@ class GraphRunner:
 
     def run_batch(self, n_workers: int = 1) -> None:
         """Run all static feeds to completion (batch mode: one pass over the
-        totally-ordered times present in the inputs + a flush tick), every
-        operator stepped on the calling thread. ``n_workers`` other than 1
+        totally-ordered times present in the inputs + a flush tick). The
+        device legs run on the device bridge at ``PATHWAY_DEVICE_INFLIGHT``'s
+        window (default 2; 1 steps every operator on the calling thread);
+        the flush tick waits for every leg, and a leg's failure re-raises
+        here. The scheduler stays as ``_scheduler``, its bridge closed, so
+        ``bridge_stats()`` reads after the run. ``n_workers`` other than 1
         raises ``NotImplementedError`` (ROADMAP queue 1, item 2d)."""
         sched = Scheduler(self.graph, n_workers=n_workers)
         by_time, feed_times = self.static_feeds_by_time()
         times = {0} | feed_times
-        for t in sorted(times):
-            for node, groups in by_time:
-                batch = groups.get(t)
-                if batch:
-                    sched.push_source(node, Delta(batch))
-            sched.run_time(t)
-        # end-of-stream flush tick: buffering operators release rows
-        sched.run_time(max(times) + 1, flush=True)
+        try:
+            for t in sorted(times):
+                for node, groups in by_time:
+                    batch = groups.get(t)
+                    if batch:
+                        sched.push_source(node, Delta(batch))
+                sched.run_time(t)
+            # end-of-stream flush tick: buffering operators release rows
+            sched.run_time(max(times) + 1, flush=True)
+        finally:
+            sched.close()
+            self._scheduler = sched
 
     def static_feeds_by_time(self):
         """Feeds are stored pre-grouped by logical time (see _lower_static).

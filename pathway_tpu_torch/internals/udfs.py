@@ -212,9 +212,9 @@ class UDF:
         # returns a list (columnar device/vectorized dispatch; sync only)
         self.batch = batch
         # device=True → the batch dispatch is accelerator work; the
-        # hosting operator is marked device_bound (its leg runs serially
-        # on the scheduler's thread until the device bridge is ported,
-        # ROADMAP queue 1 item 2b). Kept as ``device_bound``, not as the
+        # hosting operator is marked device_bound (it runs in the tick's
+        # device leg, on the device bridge's worker when the window is 2
+        # or more). Kept as ``device_bound``, not as the
         # JAX package's ``device``: a port embedder's ``device`` is the
         # torch device it runs on.
         self.device_bound = device

@@ -3,7 +3,10 @@
 ``HashTokenizer`` (the embedder's default) is a dependency-free
 deterministic tokenizer (word -> stable md5 hash mod vocab): the same text
 gives the same ids here and in the JAX package. ``WordPieceTokenizer`` is
-the pure-Python BERT WordPiece of the reference.
+the reference's BERT WordPiece, with its two engines: the batch C++ engine
+(``native/wordpiece.cpp``, built on first use) and the pure-Python one.
+``make_synthetic_vocab`` is the reference's vocabulary for benches and
+tests when no checkpoint vocabulary is on disk.
 """
 
 from __future__ import annotations
@@ -89,8 +92,11 @@ class WordPieceTokenizer:
     reference uses through HF `tokenizers` inside
     SentenceTransformerEmbedder (xpacks/llm/embedders.py:268-326).
 
-    Only the pure-Python engine is ported; the batch C++ binding of the
-    reference (native/wordpiece.cpp) is a later slice (ROADMAP).
+    Two engines with identical output: the batch C++ engine
+    (``native/wordpiece.cpp``), taken when ``prefer_native`` and the
+    library builds, and the pure-Python implementation. ``native`` says
+    which one runs; ``native_error`` holds why the C++ engine was not
+    taken (None when it was, or was not asked for).
 
     Known simplification vs HF BertTokenizer: no unicode accent stripping
     (NFD) and no in-text special-token passthrough.
@@ -99,7 +105,8 @@ class WordPieceTokenizer:
     def __init__(self, vocab: list[str] | dict[str, int], *,
                  do_lower: bool = True, max_len: int = 512,
                  unk_token: str = "[UNK]", cls_token: str = "[CLS]",
-                 sep_token: str = "[SEP]", pad_token: str = "[PAD]"):
+                 sep_token: str = "[SEP]", pad_token: str = "[PAD]",
+                 prefer_native: bool = True):
         if isinstance(vocab, dict):
             items = sorted(vocab.items(), key=lambda kv: kv[1])
             vocab = [tok for tok, _ in items]
@@ -116,6 +123,21 @@ class WordPieceTokenizer:
                       if tok.startswith("##")}
         self._full = {tok: i for tok, i in self.vocab.items()
                       if not tok.startswith("##")}
+        self._native = None
+        self.native_error: Exception | None = None
+        if prefer_native:
+            from pathway_tpu_torch.native import NativeWordPiece
+
+            try:
+                self._native = NativeWordPiece(self.vocab_list,
+                                               do_lower=do_lower)
+            except Exception as e:  # no toolchain: the Python engine runs
+                self.native_error = e
+
+    @property
+    def native(self) -> bool:
+        """True when the C++ engine tokenizes."""
+        return self._native is not None
 
     @classmethod
     def from_vocab_file(cls, path: str, **kw) -> "WordPieceTokenizer":
@@ -205,6 +227,16 @@ class WordPieceTokenizer:
               pad_to: int | None = None):
         max_len = max_len or self.max_len
         width = pad_to or max_len
+        if self._native is not None:
+            raw = [t.encode("utf-8") for t in texts]
+            ids, lens = self._native.encode_batch(
+                raw, width, self.cls_id, self.sep_id, self.unk_id,
+                self.pad_id)
+            mask = np.arange(width)[None, :] < lens[:, None]
+            if pad_to is None:
+                w = max(1, int(lens.max()) if len(texts) else 1)
+                ids, mask = ids[:, :w], mask[:, :w]
+            return ids, mask
         encoded = [self.encode(t, width) for t in texts]
         if pad_to is None:
             width = max(1, max(len(e) for e in encoded)) if encoded else 1
@@ -215,3 +247,33 @@ class WordPieceTokenizer:
             ids[i, : len(e)] = e
             mask[i, : len(e)] = True
         return ids, mask
+
+
+def make_synthetic_vocab(words: list[str], vocab_size: int = 30522,
+                         seed: int = 0) -> list[str]:
+    """A deterministic vocab.txt-shaped vocabulary for benches and tests
+    when no checkpoint vocabulary is on disk: specials first (BERT layout),
+    then whole words, then 2-4 char pieces (and their ## continuations) so
+    out-of-vocab words still split instead of collapsing to [UNK]. The
+    same list as the JAX package's for the same arguments."""
+    rng = np.random.default_rng(seed)
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    seen = set(vocab)
+    for w in words:
+        if w not in seen:
+            vocab.append(w)
+            seen.add(w)
+    alphabet = "abcdefghijklmnopqrstuvwxyz0123456789"
+    for ch in alphabet:
+        for tok in (ch, "##" + ch):
+            if tok not in seen:
+                vocab.append(tok)
+                seen.add(tok)
+    while len(vocab) < vocab_size:
+        n = int(rng.integers(2, 5))
+        piece = "".join(rng.choice(list(alphabet), size=n))
+        tok = piece if rng.random() < 0.3 else "##" + piece
+        if tok not in seen:
+            vocab.append(tok)
+            seen.add(tok)
+    return vocab[:vocab_size]

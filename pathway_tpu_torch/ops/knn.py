@@ -361,10 +361,16 @@ class GraphedIngestStep:
         cur.wait_stream(side)
 
     def _record(self, body: Callable):
+        """Capture ``body`` into a new graph. The capture's error mode is
+        ``thread_local``: under the device bridge the step captures on the
+        bridge's worker while the host thread runs the next tick, and in
+        PyTorch's default ``global`` mode a CUDA call the host thread makes
+        meanwhile would fail the capture."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
             body()
         return graph
 
