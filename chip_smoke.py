@@ -4,10 +4,12 @@
     python3 chip_smoke.py [--docs N] [--seed S]
 
 Drives the port's two live-RAG device paths, the engine's batch path
-with the encoder as a batch UDF, and the engine's index path (the graph
-of bench.py's bench_embed_framework), at BGE-small's full width with
-random weights from a seed, and checks every kernel of those paths
-against its plain PyTorch version on the card. Phases (each failure exits
+with the encoder as a batch UDF, the engine's index path (the graph of
+bench.py's bench_embed_framework) and the served path (``pw.run``'s
+streaming runtime behind HTTP: bench.py's bench_serving graph and a live
+RAG server), at BGE-small's full width with random weights from a seed,
+and checks every kernel of those paths against its plain PyTorch version
+on the card. Phases (each failure exits
 non-zero, and no result line is printed):
 
 1. device: CUDA version, card name and capability (9, 0 required), the
@@ -128,7 +130,31 @@ non-zero, and no result line is printed):
    tick by leg (calling thread and bridge worker), the host's waits in
    ``submit`` and ``barrier``, host time by operator, the garbage
    collector's time and peak device memory;
-11. array_sum (``GroupByOperator``'s device segment sum, off by default):
+11. serving (the served path, ``pw.run``'s streaming runtime, with the
+   flight recorder's request tracker on): graph A, bench.py's
+   ``bench_serving`` graph as it builds it (bench.py:1280-1453): an
+   ``IngestSubject`` pushes 100,000 vectors of 384 f32 and then trickles
+   64 every 20 ms into a bf16 cos index (165,536 rows reserved) while 8
+   warm-up and 48 timed ``POST /query`` (k=10) go through a
+   ``rest_connector`` and ``query_as_of_now`` (K2 every query tick);
+   bench.py's keys (``knn_p50_e2e_ms`` and its p95/p99,
+   ``serving_client_p50_ms``, ``serving_ingested_rows``, ``serving_slo_*``,
+   the six ``serving_stage_*_p50_ms``) under bench.py's names, with every
+   reply's 10 matches, every span's stages summing to its e2e, the rows
+   ingested, K2's launches and no CUDA graph captured in the timed window
+   held. Graph B, a live RAG server: ``VectorStoreServer(...).
+   run_server(threaded=True)`` with framework A's embedder and bf16 index
+   over 100,000 ``make_docs`` documents from a ``ConnectorSubject`` and a
+   trickle of 64 every 20 ms, warmed through the built index; 8 warm-up
+   and 48 timed ``/v1/retrieve`` (k=3), then the trickle paused and 8 held
+   retrieves and one k=80 held against a plain scan of the index's rows
+   with the plain encoder's query embedding, ``/v1/statistics``
+   (file_count = documents pushed), ``/v1/inputs`` and
+   ``VectorStoreClient`` against the raw POST; retrieve latencies, the
+   tracker's stages, ingest docs/s, launches (K1, K2, K2 score) and peak
+   memory. Both runs stop through ``stop_all()``, and an error in a run
+   fails the phase;
+12. array_sum (``GroupByOperator``'s device segment sum, off by default):
    ``device_segsum`` on the card bit for bit against the sequential numpy
    loop; then ``groupby(g).reduce(g, a=npsum(v))`` over two ticks of each
    ARRAY_SUM_CASES shape (D 384 or 64; 512 to 32,768 rows a tick; one
@@ -137,7 +163,7 @@ non-zero, and no result line is printed):
    for bit equal, ``device_segsum`` called as the route says; prints the
    operator's host ms a tick, the route's pre-pass and the per-row adds
    it replaces;
-12. path 2: the same 100,000 documents and 64 queries through the ragged
+13. path 2: the same 100,000 documents and 64 queries through the ragged
    embedder into ``BruteForceKnnIndex(384, dtype="int8", metric="cos")``
    (each ingest chunk one replay of a CUDA graph of the fused step: K1 with
    segment ids, K4; K3 top-k in the search), and one search with limit 20
@@ -151,10 +177,10 @@ non-zero, and no result line is printed):
    ``search_extent`` at k in ROUTE_KS against the plain scan + stable
    sort; then a chunk's replay time beside the eager step's and the
    device's busy share over four ingest batches (torch.profiler);
-13. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
+14. an int8 index of 1,000,000 random rows fed by ``add_batch_device`` (K4
    on the flush path, K3 top-k in the search): query times at B=1 and
    B=64, every top 10 against the plain scan;
-14. bench_knn's bf16 deployment (bench.py:3436-3490): 10,000,000 x 384
+15. bench_knn's bf16 deployment (bench.py:3436-3490): 10,000,000 x 384
    uniform bf16 rows, cos, made on the card in 2^19-row seeded chunks and
    fed by ``add_batch_device``, searched with bench_knn's 64 queries at
    B=1 (64 calls) and B=64, k=10, then ``latency_probe`` as bench.py calls
@@ -167,13 +193,13 @@ non-zero, and no result line is printed):
    ROUTE_KS against the plain scan + stable sort, and its times beside a
    stable sort per chunk of the same scores at B=1 and 64, k in
    SELECT_KS;
-15. bench_knn's int8 deployment (bench.py:2547-2579), after the bf16
+16. bench_knn's int8 deployment (bench.py:2547-2579), after the bf16
    index is freed: the same rows (each chunk made again from its seed)
    into an int8 cos index, searched, probed (knn_int8_p50_ms,
-   knn_int8_batch64_ms) and checked as phase 14 with K3 top-k and K3
+   knn_int8_batch64_ms) and checked as phase 15 with K3 top-k and K3
    score; bench.py's knn_int8_overlap10_vs_bf16, the mean overlap of the
    first 8 queries' top-10 with the bf16 index's;
-16. profile: torch.profiler over three encoder forwards of each path's
+17. profile: torch.profiler over three encoder forwards of each path's
    dispatch, device time by kernel group (K1, GEMM, other) and the
    device's busy share.
 
@@ -2493,6 +2519,625 @@ def phase_framework(n_docs: int, seed: int, card: str) -> dict:
     return counted
 
 
+SERVING_N = 100_000     # bench.py's SERVING_N: graph A's vectors, B's docs
+SERVING_DIM = 384       # bench.py's SERVING_DIM
+SERVING_WARMUP, SERVING_QUERIES = 8, 48  # bench.py's defaults
+SERVING_TRICKLE = 64    # rows a trickle burst, one burst every 20 ms
+HELD_QUERIES = 8
+
+
+class GraphCaptures:
+    """Counts CUDA graph captures (``torch.cuda.CUDAGraph.capture_begin``)
+    made in any thread while the ``with`` block runs."""
+
+    def __enter__(self):
+        import torch
+
+        self.n = 0
+        self._cls = torch.cuda.CUDAGraph
+        self._orig = self._cls.capture_begin
+        orig = self._orig
+
+        def counted(graph, *args, **kwargs):
+            self.n += 1
+            return orig(graph, *args, **kwargs)
+
+        self._cls.capture_begin = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.capture_begin = self._orig
+
+
+class Served:
+    """One served graph: ``start()`` (``pw.run``, or ``run_server(
+    threaded=True)`` returning its thread) on a daemon thread, with
+    ``PATHWAY_FLIGHT_RECORDER=1`` set for the run, as bench.py's serving
+    leg sets it. ``stop()`` stops it through ``stop_all()``, joins for 15
+    s as bench.py does, and fails the phase when a thread outlives the
+    join or the run raised (its error re-raised)."""
+
+    def __init__(self, label: str, start):
+        import threading
+
+        from pathway_tpu_torch.engine.threads import crash_epoch
+
+        self.label = label
+        self.errors: list = []
+        self._saved = os.environ.get("PATHWAY_FLIGHT_RECORDER")
+        os.environ["PATHWAY_FLIGHT_RECORDER"] = "1"
+        self._epoch = crash_epoch()
+        self._inner = None
+
+        def run():
+            try:
+                out = start()
+                if isinstance(out, threading.Thread):
+                    # run_server(threaded=True)'s thread
+                    self._inner = out
+                    out.join()
+            except BaseException as e:  # noqa: BLE001 — re-raised by stop
+                self.errors.append(e)
+
+        self.thread = threading.Thread(target=run, daemon=True,
+                                       name=f"smoke-{label}")
+        self.thread.start()
+
+    def check(self) -> None:
+        from pathway_tpu_torch.engine.threads import crashed_threads
+
+        if self.errors:
+            raise self.errors[0]
+        crashes = crashed_threads(self._epoch)
+        if crashes:
+            fail(f"{self.label}: an engine thread died: {crashes}")
+
+    def runtime(self, ws, timeout: float = 600.0):
+        """The live StreamingRuntime once ``ws`` serves."""
+        from pathway_tpu_torch.engine import streaming
+
+        deadline = time.monotonic() + timeout
+        while True:
+            self.check()
+            live = list(streaming._ACTIVE_RUNTIMES)
+            if live and ws._started.is_set() and ws.port:
+                return live[0]
+            if time.monotonic() > deadline:
+                fail(f"{self.label}: the served runtime never started")
+            time.sleep(0.05)
+
+    def stop(self) -> None:
+        from pathway_tpu_torch.engine import streaming
+        from pathway_tpu_torch.internals.parse_graph import G
+
+        try:
+            streaming.stop_all()
+            self.thread.join(15.0)
+        finally:
+            G.clear()
+            os.environ.pop("PATHWAY_FLIGHT_RECORDER", None)
+            if self._saved is not None:
+                os.environ["PATHWAY_FLIGHT_RECORDER"] = self._saved
+        if self.thread.is_alive() or (self._inner is not None
+                                      and self._inner.is_alive()):
+            fail(f"{self.label}: the run outlived stop_all() by 15 s")
+        self.check()
+
+
+def wait_for(cond, what: str, served: Served, timeout: float = 600.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        served.check()
+        if time.monotonic() > deadline:
+            fail(f"{served.label}: timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def post_json(url: str, payload, timeout: float = 120.0):
+    """One POST through urllib, as bench.py's client sends it: (reply,
+    client ms)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        body = resp.read()
+    return json.loads(body), (time.perf_counter() - t0) * 1e3
+
+
+def ingested_rows(rt, name: str) -> int:
+    """bench.py's serving_ingested_rows: the insertions the scheduler
+    counted on the source node named ``name``."""
+    return sum(st.get("insertions", 0) for nid, st in rt.scheduler.stats.items()
+               if rt.runner.graph.nodes[nid].name == name)
+
+
+def span_keys(spans: list, client_ms: list, tracker, prefix: str) -> dict:
+    """bench.py's serving keys over the timed window's spans (its names,
+    its count-based slicing, its exact percentiles), and every span's
+    stages held to sum to its e2e."""
+    from pathway_tpu_torch.engine.request_tracker import STAGES
+
+    for r in spans:
+        gap = abs(sum(r["stages"].values()) - r["e2e_ms"])
+        if gap > 0.01:
+            fail(f"{prefix}: span {r['request_id']}'s stages sum "
+                 f"{gap:.3f} ms off its e2e")
+    e2e = np.array([r["e2e_ms"] for r in spans])
+    over_budget = int(np.sum(e2e > tracker.slo_ms))
+    out = {
+        "knn_p50_e2e_ms": round(float(np.percentile(e2e, 50)), 2),
+        "knn_p95_e2e_ms": round(float(np.percentile(e2e, 95)), 2),
+        "knn_p99_e2e_ms": round(float(np.percentile(e2e, 99)), 2),
+        "serving_client_p50_ms": round(float(np.percentile(client_ms, 50)),
+                                       2),
+        "serving_client_p99_ms": round(float(np.percentile(client_ms, 99)),
+                                       2),
+        "serving_n_queries": len(spans),
+        "serving_slo_ms": tracker.slo_ms,
+        "serving_slo_burn_rate": round(
+            (over_budget / len(e2e)) / tracker.error_budget, 3),
+        "serving_over_budget": over_budget,
+    }
+    for stage in STAGES:
+        vals = np.array([r["stages"][stage] for r in spans])
+        out[f"serving_stage_{stage}_p50_ms"] = round(
+            float(np.percentile(vals, 50)), 3)
+    return out
+
+
+def window_attribution(rec, before: dict, tick0: int) -> str:
+    """Where a window's engine time went, from the flight recorder: each
+    operator's steps since ``before`` (its op_stats then) by total ms,
+    and the device legs of ticks after ``tick0`` (p50 execution and queue
+    wait on the bridge)."""
+    rows = []
+    for st in rec.op_stats():
+        n0, ms0 = before.get(st["id"], (0, 0.0))
+        if st["count"] > n0:
+            rows.append((st["sum_ms"] - ms0, st["count"] - n0, st["name"]))
+    rows.sort(reverse=True)
+    legs = [(q, e) for t, q, e in list(rec._legs) if t > tick0]
+    out = "; ".join(f"{name} {n} steps, {ms / n:.3f} ms mean, {ms:.1f} ms"
+                    for ms, n, name in rows[:8])
+    if legs:
+        qs, es = np.array(legs).T
+        out += (f"; {len(legs)} device legs: execution p50 "
+                f"{np.percentile(es, 50):.3f} ms, p99 "
+                f"{np.percentile(es, 99):.3f} ms, queue wait p50 "
+                f"{np.percentile(qs, 50):.3f} ms")
+    return out
+
+
+def timed_window(served: Served, rt, ask, inputs: list, prefix: str):
+    """bench.py's client loop: SERVING_WARMUP requests, then
+    SERVING_QUERIES timed ones; returns (replies, client ms, the timed
+    window's spans, graphs captured inside it, the window's attribution
+    by operator and device leg)."""
+    tracker = rt.recorder.requests
+    for x in inputs[:SERVING_WARMUP]:
+        ask(x)
+    n_warm = tracker.count
+    before = {st["id"]: (st["count"], st["sum_ms"])
+              for st in rt.recorder.op_stats()}
+    tick0 = rt._last_completed_tick
+    with GraphCaptures() as captures:
+        timed = [ask(x) for x in inputs[SERVING_WARMUP:]]
+    served.check()
+    where = window_attribution(rt.recorder, before, tick0)
+    n_timed = tracker.count - n_warm
+    spans = tracker.trace_spans()[-n_timed:] if n_timed else []
+    if len(spans) != SERVING_QUERIES:
+        fail(f"{prefix}: {len(spans)} timed request spans completed, not "
+             f"{SERVING_QUERIES}")
+    return ([r for r, _ in timed], [ms for _, ms in timed], spans,
+            captures.n, where)
+
+
+def phase_serving_knn(card: str, n_vecs: int = SERVING_N) -> dict:
+    """Graph A, bench.py's ``bench_serving`` (bench.py:1280-1453) as it
+    builds it, in the port: an ``IngestSubject`` pushes ``n_vecs``
+    vectors of 384 f32 (``rng(1)``, chunks of 4096, 2 ms between chunks)
+    and then trickles 64 every 20 ms, through ``pw.io.python.read(...,
+    autocommit_duration_ms=10)`` into ``default_brute_force_knn_document_
+    index(data.v, data, dimensions=384, reserved_space=n + 65536,
+    dtype="bfloat16")`` on the card; ``POST /query`` on a
+    ``PathwayWebserver`` (port 0) through ``rest_connector(...,
+    delete_completed_queries=True, autocommit_duration_ms=5)`` and
+    ``query_as_of_now(qv, number_of_matches=k)`` (K2 on every query tick),
+    answered as ``n_matches``; ``pw.run`` on a daemon thread with the
+    flight recorder on. 8 warm-up and 48 timed POSTs of ``rng(2)``
+    vectors, k=10, through urllib. Prints bench.py's keys; holds every
+    reply's n_matches, the spans' stage sums, the ingested rows, K2's
+    launches and no graph captured in the timed window. Returns the
+    run's launches by LaunchCount."""
+    import threading
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import dtype as dt
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.io.http import PathwayWebserver, rest_connector
+    from pathway_tpu_torch.io.python import ConnectorSubject
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+    from pathway_tpu_torch.ops.knn_kernels import TOPK_BF16
+    from pathway_tpu_torch.stdlib.indexing import \
+        default_brute_force_knn_document_index
+
+    label = "serving A"
+    dim = SERVING_DIM
+    loaded = threading.Event()
+
+    class IngestSubject(ConnectorSubject):
+        """bench.py's: bulk-load the slab, then keep trickling inserts so
+        every timed query is answered under live ingest."""
+
+        def run(self):
+            rng = np.random.default_rng(1)
+            chunk = 4096
+            pushed = 0
+            while pushed < n_vecs:
+                m = min(chunk, n_vecs - pushed)
+                for v in rng.random((m, dim), np.float32) * 2.0 - 1.0:
+                    self.next(v=v)
+                pushed += m
+                if not self._session.sleep(0.002):
+                    return
+            loaded.set()
+            while not self._session.stop_requested:
+                for v in rng.random((SERVING_TRICKLE, dim),
+                                    np.float32) * 2.0 - 1.0:
+                    self.next(v=v)
+                if not self._session.sleep(0.02):
+                    return
+
+    G.clear()
+    data = pw.io.python.read(
+        IngestSubject(), schema=pw.schema_from_types(v=np.ndarray),
+        autocommit_duration_ms=10, name="serving_ingest")
+    index = default_brute_force_knn_document_index(
+        data.v, data, dimensions=dim, reserved_space=n_vecs + (64 << 10),
+        dtype="bfloat16")
+    ws = PathwayWebserver(host="127.0.0.1", port=0)
+    queries, writer = rest_connector(
+        webserver=ws, route="/query",
+        schema=pw.schema_from_types(vec=dt.ANY, k=int), methods=("POST",),
+        delete_completed_queries=True, autocommit_duration_ms=5)
+    qv = queries.select(
+        qv=pw.apply(lambda v: np.asarray(v, dtype=np.float32), queries.vec),
+        k=queries.k)
+    res = index.query_as_of_now(qv.qv, number_of_matches=qv.k)
+    writer(res.select(n_matches=pw.apply(len, res._pw_index_reply_id)))
+
+    for count in LAUNCH_COUNTS:
+        count.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    served = Served(label, pw.run)
+    try:
+        rt = served.runtime(ws)
+        wait_for(loaded.is_set, f"the {n_vecs}-vector bulk load", served)
+        load_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{ws.port}/query"
+        qvecs = np.random.default_rng(2).random(
+            (SERVING_WARMUP + SERVING_QUERIES, dim), np.float32) * 2.0 - 1.0
+        replies, client_ms, spans, captures, where = timed_window(
+            served, rt, lambda v: post_json(url, {
+                "vec": [float(x) for x in v], "k": 10}),
+            list(qvecs), label)
+        tracker = rt.recorder.requests
+        ingested = ingested_rows(rt, "serving_ingest")
+        bridge = rt.scheduler.bridge_stats()
+    finally:
+        served.stop()
+    launches = {c: c.launches for c in LAUNCH_COUNTS}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    # one column written back: each reply is its n_matches value
+    bad = [r for r in replies if r != 10]
+    if bad:
+        fail(f"{label}: {len(bad)} timed replies without 10 matches: "
+             f"{bad[:3]}")
+    keys = span_keys(spans, client_ms, tracker, label)
+    keys.update({"serving_n_vectors": n_vecs,
+                 "serving_ingested_rows": int(ingested),
+                 "serving_dim": dim})
+    if ingested < n_vecs:
+        fail(f"{label}: serving_ingested_rows {ingested} < {n_vecs}")
+    if launches[TOPK_BF16] < SERVING_QUERIES:
+        fail(f"{label}: K2 launched {launches[TOPK_BF16]} times in the run, "
+             f"fewer than the {SERVING_QUERIES} timed queries")
+    if captures:
+        fail(f"{label}: {captures} CUDA graphs captured in the timed window")
+    print(f"[{label}] bench.py's keys (bench_serving's graph in the port: "
+          f"{n_vecs} x {dim} vectors into a bf16 cos index under live "
+          f"ingest, POST /query through rest_connector, {SERVING_WARMUP} "
+          f"warm-up + {SERVING_QUERIES} timed queries, k=10): "
+          + json.dumps(keys) + f" [{card}]", flush=True)
+    print(f"[{label}] holds: every reply n_matches 10, every timed span's "
+          f"six stages sum to its e2e within 0.01 ms, serving_ingested_rows "
+          f"{ingested} >= {n_vecs}, K2 launched {launches[TOPK_BF16]} times "
+          f"in the run (>= {SERVING_QUERIES}), {captures} CUDA graphs "
+          f"captured in the timed window; bulk load {load_s:.1f} s "
+          f"({n_vecs / load_s:.1f} rows/s to the last chunk pushed); bridge "
+          f"legs {bridge['legs_resolved']}, queue wait "
+          f"{bridge['queue_wait_ms']:.1f} ms, leg execution "
+          f"{bridge['exec_ms']:.1f} ms; launches in the run: "
+          + ", ".join(f"{c.name} {n}" for c, n in launches.items() if n)
+          + f"; peak device memory {peak_mb:.1f} MiB [{card}]", flush=True)
+    print(f"[{label}] the timed window by operator (flight recorder; host "
+          f"clock, a device-leg step includes its waits on the card): "
+          f"{where} [{card}]", flush=True)
+    return launches
+
+
+def phase_serving_rag(seed: int, card: str, n_docs: int = SERVING_N) -> dict:
+    """Graph B, a live RAG server: ``VectorStoreServer(docs, embedder=emb,
+    index_builder=... default_brute_force_knn_document_index(chunks.text,
+    chunks, embedder=emb, dimensions=384, reserved_space=n + 64,
+    dtype="bfloat16")).run_server(threaded=True)`` (configuration A of
+    phase_framework: bench's embedder, padded, max_len 128, bench's
+    WordPiece with the native engine asserted; a bf16 cos index), its
+    documents ``n_docs`` ``make_docs`` texts from a ``ConnectorSubject``
+    (schema ``data: str``) in chunks of 2048, then 64 every 20 ms. Every
+    ingest shape is warmed through the built index before the documents
+    flow (``framework_warm``). 8 warm-up and 48 timed ``POST /v1/retrieve
+    {"query": <make_docs text>, "k": 3, "metadata_filter": null,
+    "filepath_globpattern": null}`` (the schema has no defaults for the
+    two filters: a body without them is a 400 in both packages); then the
+    trickle paused and a tick let pass, 8 held retrieves and one k=80
+    (K2's score twin past K_MAX), each reply held against a plain scan of
+    the index's own rows with the engine's query embedding (and that
+    embedding against the plain encoder) as ``hold_framework`` holds
+    framework A; ``/v1/statistics``'s file_count against the documents
+    pushed, ``/v1/inputs``, and ``VectorStoreClient`` against the raw
+    POST. Prints the retrieve latencies, the tracker's e2e and stage
+    p50s, ingest docs/s, launches and peak memory. Returns the run's
+    launches by LaunchCount."""
+    import threading
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_ops import ExternalIndexOperator
+    from pathway_tpu_torch.internals import udfs
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.io.python import ConnectorSubject
+    from pathway_tpu_torch.models.encoder import (EncoderConfig, encode,
+                                                  init_params_host)
+    from pathway_tpu_torch.ops.attention import ATTENTION, attention_reference
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+    from pathway_tpu_torch.ops.knn_kernels import (SCORE_BF16, TOPK_BF16,
+                                                   score_float_reference)
+    from pathway_tpu_torch.stdlib.indexing import \
+        default_brute_force_knn_document_index
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+    from pathway_tpu_torch.xpacks.llm.vector_store import (VectorStoreClient,
+                                                           VectorStoreServer)
+
+    label = "serving B"
+    cfg = EncoderConfig.bge_small()
+    emb = EncoderEmbedder(
+        config=cfg, params=init_params_host(seed, cfg),
+        tokenizer=framework_tokenizer(BENCH_SEQ), max_len=BENCH_SEQ,
+        max_batch_size=FRAMEWORK_BATCH, device="cuda")
+    docs = make_docs(n_docs, seed=seed)
+    go, loaded = threading.Event(), threading.Event()
+    pause, paused = threading.Event(), threading.Event()
+
+    class DocSubject(ConnectorSubject):
+        """The documents, then the trickle until paused. Keeps the engine
+        key of every document it pushes (its ``_emit`` is
+        ConnectorSubject's, recording the key), for the holds."""
+
+        def __init__(self):
+            self.key_of: dict = {}
+            self.pushed: list = []
+
+        def _emit(self, values: dict, diff: int) -> None:
+            key, row = self._source.row_to_engine(values,
+                                                  self._source.bump_seq())
+            self.key_of[values["data"]] = key
+            self.pushed.append(values["data"])
+            self._session.push(key, row, diff)
+
+        def run(self):
+            while not go.wait(0.05):
+                if self._session.stop_requested:
+                    return
+            for b in range(0, n_docs, FRAMEWORK_BATCH):
+                for d in docs[b:b + FRAMEWORK_BATCH]:
+                    self.next(data=d)
+                if not self._session.sleep(0.002):
+                    return
+            loaded.set()
+            burst = 0
+            while not pause.is_set():
+                for d in make_docs(SERVING_TRICKLE, seed=seed + 1000 + burst):
+                    self.next(data=d)
+                burst += 1
+                if not self._session.sleep(0.02):
+                    return
+            paused.set()
+
+    G.clear()
+    subject = DocSubject()
+    source = pw.io.python.read(subject, schema=pw.schema_from_types(data=str),
+                               autocommit_duration_ms=10, name="docs")
+    store = VectorStoreServer(
+        source, embedder=emb,
+        index_builder=lambda chunks: default_brute_force_knn_document_index(
+            chunks.text, chunks, embedder=emb,
+            dimensions=emb.get_embedding_dimension(),
+            reserved_space=n_docs + 64, dtype="bfloat16"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served = Served(label, lambda: store.run_server(
+        host="127.0.0.1", port=0, threaded=True))
+    ask_none = {"metadata_filter": None, "filepath_globpattern": None}
+    try:
+        wait_for(lambda: hasattr(store, "webserver"), "run_server", served)
+        rt = served.runtime(store.webserver)
+        base = f"http://127.0.0.1:{store.webserver.port}"
+        index = next(n.op.index for n in rt.runner.graph.nodes
+                     if isinstance(n.op, ExternalIndexOperator))
+        inner = index.inner
+        # bench's warm-up through the built index, before any document
+        framework_warm(index, emb, list(emb.bucket_widths()))
+        searches = []
+        inner_search = inner.search
+
+        def search(batch):
+            replies = inner_search(batch)
+            searches.append(batch)
+            return replies
+
+        inner.search = search
+        for count in LAUNCH_COUNTS:
+            count.launches = 0
+        t_go = time.perf_counter()
+        go.set()
+        wait_for(lambda: len(inner._key_to_slot) >= n_docs,
+                 f"{n_docs} documents in the index", served)
+        ingest_s = time.perf_counter() - t_go
+        ingest_rows = len(inner._key_to_slot)
+        texts = make_docs(SERVING_WARMUP + SERVING_QUERIES, seed=seed + 7)
+        replies, client_ms, spans, captures, where = timed_window(
+            served, rt, lambda t: post_json(base + "/v1/retrieve", {
+                "query": t, "k": 3, **ask_none}), texts, label)
+        tracker = rt.recorder.requests
+        # the trickle paused, then a tick let pass: every pushed document
+        # is in the index before the held queries' tick
+        pause.set()
+        wait_for(paused.is_set, "the trickle to pause", served)
+        wait_for(lambda: ingested_rows(rt, "docs") >= len(subject.pushed),
+                 "the last documents' tick", served)
+        tick = rt._last_completed_tick
+        wait_for(lambda: rt.scheduler.bridge_stats()["resolved_watermark"]
+                 > tick, "a tick after the last documents", served)
+        rows = len(inner._key_to_slot)
+        if rows != len(subject.pushed):
+            fail(f"{label}: the index holds {rows} rows of the "
+                 f"{len(subject.pushed)} documents pushed")
+        rng = np.random.default_rng(seed + 8)
+        held = [(subject.pushed[int(i)], 3) for i in
+                rng.choice(len(subject.pushed), HELD_QUERIES // 2, False)]
+        held += [(t, 3) for t in make_docs(HELD_QUERIES // 2, seed + 9)]
+        held.append((subject.pushed[n_docs // 2], 80))
+        s0 = len(searches)
+        held_replies = [post_json(base + "/v1/retrieve", {
+            "query": t, "k": k, **ask_none})[0] for t, k in held]
+        held_searches = searches[s0:]
+        raw = post_json(base + "/v1/retrieve",
+                        {"query": held[0][0], "k": 3, **ask_none})[0]
+        stats = post_json(base + "/v1/statistics", {})[0]
+        inputs = post_json(base + "/v1/inputs", ask_none)[0]
+        client = VectorStoreClient(url=base, timeout=120)
+        via_client = client.query(held[0][0], k=3)
+        extents = [e for e in inner._pool.extents if e.established]
+        base_slot = np.concatenate([e.base + np.arange(e.rows)
+                                    for e in extents])
+        keys_of = np.array([int(inner._slot_to_key.get(int(s), -1))
+                            for s in base_slot])
+        valid = torch.cat([e.valid for e in extents])
+        slab = torch.cat([e.vectors for e in extents])
+        bridge = rt.scheduler.bridge_stats()
+    finally:
+        served.stop()
+        # run_server(with_cache=True) set the process-wide UDF cache
+        udfs.set_default_cache(None)
+    launches = {c: c.launches for c in LAUNCH_COUNTS}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    bad = [r for r in replies if len(r) != 3]
+    if bad:
+        fail(f"{label}: {len(bad)} timed replies without 3 matches")
+    keys = span_keys(spans, client_ms, tracker, label)
+    if captures:
+        fail(f"{label}: {captures} CUDA graphs captured in the timed window")
+    # the held replies against a plain scan of the index's own rows
+    if len(held_searches) != len(held) or any(len(b) != 1
+                                              for b in held_searches):
+        fail(f"{label}: the {len(held)} held queries made "
+             f"{len(held_searches)} searches, not one each")
+    got_q = np.stack([np.asarray(b[0][1], np.float64) for b in held_searches])
+    ids, lens = emb.pack_tokens([t for t, _ in held])
+    ids_d = torch.from_numpy(ids).to(slab.device).long()
+    lens_d = torch.from_numpy(lens).to(slab.device)
+    mask = torch.arange(ids_d.shape[1], device=slab.device)[None, :] \
+        < lens_d[:, None]
+    ref_q = encode(emb.model, ids_d, mask, attn_fn=attention_reference
+                   ).cpu().numpy().astype(np.float64)
+    q_cos = np.sum(got_q * ref_q, 1) / (np.linalg.norm(got_q, axis=1)
+                                        * np.linalg.norm(ref_q, axis=1))
+    if not np.all(np.isfinite(got_q)) or q_cos.min() < 0.999:
+        fail(f"{label}: a held query's embedding is off the plain encoder's "
+             f"(min row cosine {q_cos.min():.6f})")
+    own_first = 0
+    for qi, ((text, k), reply, batch) in enumerate(
+            zip(held, held_replies, held_searches)):
+        if len(reply) != k:
+            fail(f"{label} held query {qi}: {len(reply)} matches, not {k}")
+        if any(m["text"] not in subject.key_of for m in reply):
+            fail(f"{label} held query {qi}: a match is no pushed document")
+        got = [(subject.key_of[m["text"]], m["dist"]) for m in reply]
+        q = torch.from_numpy(np.asarray(batch[0][1], np.float32)).to(
+            slab.device)
+        q = (q / (torch.linalg.vector_norm(q) + 1e-12))[None, :]
+        scan = score_float_reference(q.to(torch.bfloat16).float(), slab,
+                                     valid, "cos")
+        check_top10([got], scan, keys_of, f"{label} held query {qi}", n=k)
+        cols = [int(np.flatnonzero(keys_of == int(kk))[0]) for kk, _ in got]
+        want = 1.0 - scan[0, cols].cpu().numpy()
+        err = float(np.abs(np.array([d for _, d in got]) - want).max())
+        if not err <= 1e-5:
+            fail(f"{label} held query {qi}: dist off the scan by {err:.3e}")
+        if text in subject.key_of:
+            if reply[0]["text"] != text:
+                fail(f"{label} held query {qi}: a copy of a pushed document "
+                     "does not find it first")
+            own_first += 1
+    if stats.get("file_count") != len(subject.pushed):
+        fail(f"{label}: /v1/statistics file_count {stats.get('file_count')}, "
+             f"{len(subject.pushed)} documents pushed")
+    if not isinstance(inputs, list) or len(inputs) != len(subject.pushed):
+        fail(f"{label}: /v1/inputs lists {len(inputs)} inputs")
+    if via_client != raw:
+        fail(f"{label}: VectorStoreClient's reply differs from the raw POST's")
+    for c in (ATTENTION, TOPK_BF16, SCORE_BF16):
+        if not launches[c]:
+            fail(f"{label}: {c.name} was not launched in the served run")
+    print(f"[{label}] run_server(threaded=True) over {n_docs} make_docs "
+          f"documents + the trickle ({len(subject.pushed)} pushed, "
+          f"{len(extents)} extents), bench's embedder (WordPiece, native; "
+          f"padded, max_len {BENCH_SEQ}) into a bf16 cos index: ingest "
+          f"{ingest_rows / ingest_s:.1f} docs/s ({ingest_rows} index rows "
+          f"{ingest_s:.2f} s after the first document); /v1/retrieve k=3 "
+          f"from the client p50 {keys['serving_client_p50_ms']} ms, p99 "
+          f"{keys['serving_client_p99_ms']} ms; the tracker's keys: "
+          + json.dumps(keys) + f" [{card}]", flush=True)
+    print(f"[{label}] holds: {len(held)} held retrieves (k=3 x "
+          f"{HELD_QUERIES}, k=80 x 1) equal a plain scan of the index's own "
+          f"rows (score_float_reference, keys in rank order up to 1e-6 score "
+          f"ties, dist within 1e-5), their query embeddings the plain "
+          f"encoder's (min row cosine {q_cos.min():.6f} >= 0.999), "
+          f"{own_first} copies find their document first; /v1/statistics "
+          f"file_count {stats['file_count']} = documents pushed; "
+          f"/v1/inputs {len(inputs)} inputs; VectorStoreClient's reply = the "
+          f"raw POST's; {captures} CUDA graphs captured in the timed window;"
+          f" bridge legs {bridge['legs_resolved']}, queue wait "
+          f"{bridge['queue_wait_ms']:.1f} ms, leg execution "
+          f"{bridge['exec_ms']:.1f} ms; launches in the run: "
+          + ", ".join(f"{c.name} {n}" for c, n in launches.items() if n)
+          + f"; peak device memory {peak_mb:.1f} MiB [{card}]", flush=True)
+    print(f"[{label}] the timed window by operator (flight recorder; host "
+          f"clock, a device-leg step includes its waits on the card): "
+          f"{where} [{card}]", flush=True)
+    return launches
+
+
 # (D, rows a tick, groups a tick, rows of one large group): each case runs
 # two ticks over the same groups; groups 0 means one group of the last
 # field's rows beside singletons (a skewed tick)
@@ -3496,6 +4141,13 @@ def main() -> None:
                      (k4, QUANTIZE_SCATTER)):
         rec["launches_framework"] = fw[key]
     done("framework")
+    served = [phase_serving_knn(card), phase_serving_rag(args.seed, card)]
+    for rec, key in ((k1, ATTENTION), (k2, TOPK_BF16),
+                     (k2_score, SCORE_BF16)):
+        rec["launches_serving"] = sum(run[key] for run in served)
+    gc.collect()  # graph B's index and encoder, and their cached blocks
+    torch.cuda.empty_cache()
+    done("serving")
     phase_array_sum(args.seed, card)
     done("array_sum")
     (k1_seg["launches"], k3_topk_path2, k3["launches"],

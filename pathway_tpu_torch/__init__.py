@@ -17,7 +17,11 @@ and the index path: groupby/reduce, ``ix``, ``update_cells``, the as-of-now
 external index operator, ``DataIndex.query_as_of_now``
 (pathway_tpu_torch.stdlib.indexing) and ``VectorStoreServer``
 (pathway_tpu_torch.xpacks.llm.vector_store), whose ``retrieve_query`` runs
-the KNN kernels under the same ``run_batch``.
+the KNN kernels under the same ``run_batch``. The served path:
+``pw.run()`` runs a graph with streaming sources (``pw.io.python.read``,
+``pw.io.http.rest_connector``) under the streaming runtime
+(engine/streaming.py), and ``VectorStoreServer.run_server`` serves
+``/v1/retrieve``, ``/v1/statistics`` and ``/v1/inputs`` over HTTP.
 
 Module paths and public names mirror ``pathway_tpu`` so each port module
 sits where its JAX counterpart does. The port imports torch and numpy,
@@ -60,6 +64,10 @@ _LAZY = {
     "global_error_log": ("pathway_tpu_torch.internals.error",
                          "global_error_log"),
     "debug": ("pathway_tpu_torch.debug", None),
+    "io": ("pathway_tpu_torch.io", None),
+    "run": ("pathway_tpu_torch.internals.run", "run"),
+    "MonitoringLevel": ("pathway_tpu_torch.internals.monitoring",
+                        "MonitoringLevel"),
     **{name: ("pathway_tpu_torch.internals.expression", name) for name in (
         "ColumnExpression", "ColumnReference", "apply", "apply_async",
         "apply_with_type", "cast", "coalesce", "declare_type", "fill_error",

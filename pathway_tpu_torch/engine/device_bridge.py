@@ -42,9 +42,12 @@ stream, the default stream on both threads, so a leg's work is ordered on
 the card as it would be in line.
 
 The window is configured with ``PATHWAY_DEVICE_INFLIGHT`` (default 2 —
-double buffering; ``1`` disables pipelining entirely). Not ported: the
-fault-injection points, the profiler's leg re-timing and the flight
-recorder's spans (ROADMAP queue 1, item 5).
+double buffering; ``1`` disables pipelining entirely). With a flight
+recorder (engine/flight_recorder.py) each leg records its queue wait and
+execution, its in-flight marker names the tick while it runs, and a leg
+that raises carries the recorder's tail as a note on its exception. Not
+ported: the fault-injection points and the profiler's leg re-timing
+(ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -89,9 +92,13 @@ def device_inflight_from_env() -> int:
 class DeviceBridge:
     """FIFO dispatch queue for per-tick device legs (see module doc)."""
 
-    def __init__(self, max_inflight: int = 2, name: str = "device-bridge"):
+    def __init__(self, max_inflight: int = 2, name: str = "device-bridge",
+                 recorder=None):
         self.max_inflight = max(1, int(max_inflight))
         self.name = name
+        # flight recorder: leg-level spans (queue-wait vs execute) and the
+        # in-flight marker for post-mortems; None keeps them dead branches
+        self.recorder = recorder
         self._current: tuple | None = None  # (tick, started_monotonic)
         # longest resolved prefix of submitted legs: the tick of the last
         # leg that retired cleanly. 0 = nothing resolved yet; frozen on
@@ -149,9 +156,9 @@ class DeviceBridge:
             if self._closed:
                 raise RuntimeError("device bridge is closed")
             if self._thread is None:
-                self._thread = threading.Thread(target=self._work,
-                                                name=self.name, daemon=True)
-                self._thread.start()
+                from pathway_tpu_torch.engine.threads import spawn
+
+                self._thread = spawn(self._work, name=self.name)
             while (len(self._queue) + (1 if self._running else 0)
                    >= self.max_inflight):
                 self.submit_wait_ms += self._wait()
@@ -255,10 +262,26 @@ class DeviceBridge:
                 # a host thread already blocked on us? then this leg is
                 # (at least partially) serialized with host work
                 waited_at_start = self._waiters > 0
+            rec = self.recorder
+            recording = rec is not None and rec.enabled
+            if recording:
+                rec.mark_leg(tick)
             started = _time.perf_counter()
             try:
                 fn()
             except BaseException as e:  # noqa: BLE001 — must cross threads
+                if recording:
+                    # the poison carries the recorder's tail: the host
+                    # thread re-raises this exact object, so the report
+                    # names the operator and its user frame
+                    from pathway_tpu_torch.engine.flight_recorder import \
+                        attach_note
+
+                    tail = rec.dump_tail()
+                    if tail:
+                        attach_note(
+                            e, f"device leg poisoned at tick {tick}; "
+                               f"flight recorder tail:\n{tail}")
                 with self._cv:
                     self._error = e
                     self._running = False
@@ -268,6 +291,10 @@ class DeviceBridge:
                     self._cv.notify_all()
                 continue  # keep serving barrier wake-ups until close
             finished = _time.perf_counter()
+            if recording:
+                rec.record_leg(tick, (started - submitted_at) * 1e3,
+                               (finished - started) * 1e3)
+                rec.clear_leg()
             with self._cv:
                 self.queue_wait_ms += (started - submitted_at) * 1e3
                 self.exec_ms += (finished - started) * 1e3

@@ -15,12 +15,19 @@ bridge's one worker thread, and goes on to the next tick's host leg; the
 end-of-stream tick barriers. At a window of 1 every node steps on the
 calling thread. Both modes give the same events.
 
+The streaming runtime (engine/streaming.py) reads what the scheduler
+keeps per node (``stats``: rows inserted and retracted, step latency) and
+passes a flight recorder (engine/flight_recorder.py): operator spans, and
+the request tracker's host-leg stamp for every query picked up in a tick.
+With no recorder each step pays one branch for it.
+
 Not ported: sharded workers (``n_workers > 1``, ROADMAP queue 1 item 2d),
-iteration, the snapshot sanitizer, the profiler hooks and the flight
-recorder.
+iteration, the snapshot sanitizer and the profiler hooks.
 """
 
 from __future__ import annotations
+
+import time as _time
 
 from pathway_tpu_torch.engine.delta import Delta, row_fingerprint
 from pathway_tpu_torch.engine.device_bridge import (DeviceBridge,
@@ -120,14 +127,24 @@ class Scheduler:
     ``PATHWAY_DEVICE_INFLIGHT``)."""
 
     def __init__(self, graph: EngineGraph, n_workers: int = 1,
-                 device_inflight: int | None = None):
+                 device_inflight: int | None = None, recorder=None):
         if n_workers != 1:
             raise NotImplementedError(
                 f"n_workers={n_workers}: the port's scheduler runs one "
                 "worker (ROADMAP queue 1, item 2d: sharded execution)")
         self.graph = graph
         self.n_workers = 1
+        # flight recorder (engine/flight_recorder.py): None or disabled is
+        # the hot-path default — one branch per operator step
+        self.recorder = recorder
         self._topo = self._topo_sort()
+        # per-operator counters (reference: OperatorStats, read by
+        # bench.py's serving leg as serving_ingested_rows)
+        self.stats: dict[int, dict] = {
+            n.id: {"insertions": 0, "retractions": 0,
+                   "latency_ms": 0.0, "total_ms": 0.0}
+            for n in graph.nodes
+        }
         if device_inflight is None:
             device_inflight = device_inflight_from_env()
         self.device_inflight = max(1, int(device_inflight))
@@ -137,7 +154,11 @@ class Scheduler:
                         if getattr(n.op, "device_bound", False)]
         if self.device_inflight >= 2 and device_nodes:
             self._deferred_ids = self._downstream_closure(device_nodes)
-            self._bridge = DeviceBridge(self.device_inflight)
+            self._bridge = DeviceBridge(self.device_inflight,
+                                        recorder=recorder)
+        # trace labeling: deferred-closure nodes are the device leg when
+        # pipelining; synchronous mode labels the device-bound operators
+        self._trace_device_ids = self._deferred_ids or frozenset(device_nodes)
 
     def _downstream_closure(self, roots: list[int]) -> frozenset[int]:
         """All nodes reachable from ``roots`` (inclusive) following output
@@ -232,10 +253,32 @@ class Scheduler:
         if self._bridge is not None:
             return self._run_time_pipelined(time, flush)
         outputs: dict[int, Delta] = {}
+        # request-tracking host-done stamp (engine/request_tracker.py): in
+        # synchronous mode the "host leg" ends when the first device-bound
+        # operator steps (no device nodes: after the loop). Armed only
+        # while requests are in flight.
+        requests = self._tracked_requests()
+        host_pending = requests is not None
         for node in self._topo:
+            if host_pending and node.id in self._trace_device_ids:
+                requests.host_done(time)
+                host_pending = False
             in_deltas = [outputs.get(up.id, _EMPTY) for up in node.inputs]
-            outputs[node.id] = self._step_op(node, time, in_deltas, flush)
+            delta = self._step_op(node, time, in_deltas, flush)
+            outputs[node.id] = delta
+            self._count(node.id, delta)
+        if host_pending:
+            requests.host_done(time)
         return outputs
+
+    def _tracked_requests(self):
+        """The run's request tracker iff recording is on AND a request is
+        mid-flight — one branch per tick otherwise."""
+        rec = self.recorder
+        if rec is not None and rec.enabled and rec.requests is not None \
+                and rec.requests.active():
+            return rec.requests
+        return None
 
     def _run_time_pipelined(self, time: int, flush: bool):
         """One tick, split into a host leg (stepped now, on this thread)
@@ -255,13 +298,31 @@ class Scheduler:
                 deferred.append(node)
                 continue
             in_deltas = [outputs.get(up.id, _EMPTY) for up in node.inputs]
-            outputs[node.id] = self._step_op(node, time, in_deltas, flush)
+            delta = self._step_op(node, time, in_deltas, flush)
+            outputs[node.id] = delta
+            self._count(node.id, delta)
+        requests = self._tracked_requests()
+        if requests is not None:
+            # host leg complete; the device leg (bridge worker) resolves
+            # the request downstream — the stamp that opens its stage
+            requests.host_done(time)
 
-        def leg() -> None:
+        def body() -> None:
             for node in deferred:
                 in_deltas = [outputs.get(up.id, _EMPTY) for up in node.inputs]
-                outputs[node.id] = self._step_op(node, time, in_deltas,
-                                                 flush)
+                delta = self._step_op(node, time, in_deltas, flush)
+                outputs[node.id] = delta
+                self._count(node.id, delta)
+
+        rec = self.recorder
+        if rec is not None and rec.enabled:
+            def leg() -> None:
+                # a torch.profiler range: profiles of the card show the
+                # same tick boundaries as the recorder's spans
+                with rec.device_annotation(time):
+                    body()
+        else:
+            leg = body
 
         self._bridge.submit(time, leg)
         if flush:
@@ -271,6 +332,14 @@ class Scheduler:
     def _step_op(self, node: Node, time: int, in_deltas: list[Delta],
                  flush: bool) -> Delta:
         op = node.op
+        rec = self.recorder
+        recording = rec is not None and rec.enabled
+        if recording:
+            leg = "device" if node.id in self._trace_device_ids else "host"
+            # in-flight marker set BEFORE the step: a hung operator is
+            # exactly the one the post-mortem must name
+            rec.mark_op(time, node, leg)
+        t0 = _time.perf_counter()
         try:
             delta = op.step(time, in_deltas)
             extra = op.on_time_advance(time)
@@ -286,7 +355,36 @@ class Scheduler:
             add_trace_note(e, node.trace,
                            node.name or type(node.op).__name__)
             raise
+        ms = (_time.perf_counter() - t0) * 1e3
+        st = self.stats[node.id]
+        st["latency_ms"] = ms
+        st["total_ms"] += ms
+        if recording:
+            rows_in = 0
+            for d in in_deltas:
+                rows_in += len(d.entries)
+            # idle steps (no rows either way, sub-ms) are not recorded: a
+            # quiescent server ticks every few ms and its idle spans would
+            # evict the spans of the ticks that served requests
+            if rows_in or delta.entries or ms >= 1.0:
+                rec.record(time, node, leg, t0, ms, rows_in,
+                           len(delta.entries))
+            # cleared on success only: an operator that raised stays named
+            # in the in-flight slot for the post-mortem dump
+            rec.clear_op()
         return delta
+
+    def _count(self, node_id: int, delta: Delta) -> None:
+        if delta:
+            st = self.stats[node_id]
+            ins = rets = 0
+            for _, _, d in delta.entries:
+                if d >= 0:
+                    ins += d
+                else:
+                    rets -= d
+            st["insertions"] += ins
+            st["retractions"] += rets
 
 
 class _PipelinedOutputs:

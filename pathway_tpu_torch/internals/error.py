@@ -45,10 +45,14 @@ class ErrorLog:
         self._lock = threading.Lock()
         self.entries: list[dict] = []
 
-    def log(self, message: str, operator: str = "", trace=None) -> None:
+    def log(self, message: str, operator: str = "", trace=None,
+            kind: str = "cell") -> None:
+        """``kind`` tells a cell's error from an engine thread's crash
+        ("thread", engine/threads.py) or an absorbed engine failure
+        ("engine", engine/streaming.py)."""
         with self._lock:
-            self.entries.append(
-                {"message": message, "operator": operator, "trace": trace})
+            self.entries.append({"message": message, "operator": operator,
+                                 "trace": trace, "kind": kind})
 
 
 _global_log = ErrorLog()

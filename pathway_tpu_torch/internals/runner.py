@@ -1,21 +1,23 @@
 """Lowering + execution: Table plans → engine graph → microbatch run —
-port of pathway_tpu/internals/runner.py, trimmed to the batch path.
+port of pathway_tpu/internals/runner.py.
 
 Walks the plan DAG reachable from requested outputs, compiles expressions
 against row layouts, builds engine operators, then drives the scheduler
-over logical times. Lowered: static, identity, map, filter, filter_raw
-(remove_errors), reindex, flatten, concat, concat_reindex, update_cells,
-groupby (every groupby to ``GroupByOperator``), dedupe, ix (a
-``JoinOperator`` keyed by the left id) and external_index (the as-of-now
-index operator, engine/index_ops.py). Not ported: auto-jit's host/device
-map split, the streaming input, and the temporal, sort and join lowerings
-— a plan of those kinds raises ``NotImplementedError`` naming its ROADMAP
-item.
+over logical times: ``run_batch`` over the static feeds, or the streaming
+runtime (engine/streaming.py, through ``pw.run``) over the streaming
+sources that ``_lower_input`` collects in ``_stream_subjects``. Lowered:
+static, input, identity, map, filter, filter_raw (remove_errors),
+reindex, flatten, concat, concat_reindex, update_cells, groupby (every
+groupby to ``GroupByOperator``), dedupe, ix (a ``JoinOperator`` keyed by
+the left id) and external_index (the as-of-now index operator,
+engine/index_ops.py). Not ported: auto-jit's host/device map split, and
+the temporal, sort and join lowerings — a plan of those kinds raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 from pathway_tpu_torch.engine import operators as eng
 from pathway_tpu_torch.engine.delta import Delta
@@ -32,8 +34,6 @@ from pathway_tpu_torch.internals.groupbys import split_reducers
 from pathway_tpu_torch.internals.keys import Pointer, hash_values, mix_pointers
 from pathway_tpu_torch.internals.table import _DSL_REST, Plan, Table
 from pathway_tpu_torch.internals.type_inference import infer_dtype
-
-_STREAMING = "ROADMAP queue 1, item 3: connectors and the streaming runtime"
 
 
 class _Proxy:
@@ -83,6 +83,9 @@ class GraphRunner:
         # (node, {time: [(key, row, diff)]}) — pre-grouped at lowering so
         # run startup does not rescan whole feeds row by row
         self._static_feeds: list[tuple[Node, dict]] = []
+        # (node, DataSource) of every streaming source, read by the
+        # streaming runtime (engine/streaming.py)
+        self._stream_subjects: list[tuple[Node, Any]] = []
 
     # ------------------------------------------------------------------
     # public entry points
@@ -98,7 +101,7 @@ class GraphRunner:
         node = self.lower(table)
         self.graph.add_node(eng.OutputOperator(callback), [node], "subscribe")
 
-    def run_batch(self, n_workers: int = 1) -> None:
+    def run_batch(self, n_workers: int = 1, recorder=None) -> None:
         """Run all static feeds to completion (batch mode: one pass over the
         totally-ordered times present in the inputs + a flush tick). The
         device legs run on the device bridge at ``PATHWAY_DEVICE_INFLIGHT``'s
@@ -106,8 +109,19 @@ class GraphRunner:
         the flush tick waits for every leg, and a leg's failure re-raises
         here. The scheduler stays as ``_scheduler``, its bridge closed, so
         ``bridge_stats()`` reads after the run. ``n_workers`` other than 1
-        raises ``NotImplementedError`` (ROADMAP queue 1, item 2d)."""
-        sched = Scheduler(self.graph, n_workers=n_workers)
+        raises ``NotImplementedError`` (ROADMAP queue 1, item 2d).
+
+        ``recorder`` threads a flight recorder through the scheduler
+        (engine/flight_recorder.py); when omitted, the environment
+        (``PATHWAY_TRACE_PATH`` / ``PATHWAY_FLIGHT_RECORDER``) decides —
+        by default there is none."""
+        if recorder is None:
+            from pathway_tpu_torch.engine.flight_recorder import \
+                FlightRecorder
+
+            recorder = FlightRecorder.from_env()
+        sched = Scheduler(self.graph, n_workers=n_workers,
+                          recorder=recorder)
         by_time, feed_times = self.static_feeds_by_time()
         times = {0} | feed_times
         try:
@@ -122,6 +136,12 @@ class GraphRunner:
         finally:
             sched.close()
             self._scheduler = sched
+            if recorder is not None:
+                # the trace survives a failing run: it is the post-mortem
+                try:
+                    recorder.write_chrome_trace()
+                except Exception:
+                    pass
 
     def static_feeds_by_time(self):
         """Feeds are stored pre-grouped by logical time (see _lower_static).
@@ -141,10 +161,9 @@ class GraphRunner:
         plan = table._plan
         handler = getattr(self, f"_lower_{plan.kind}", None)
         if handler is None:
-            item = _STREAMING if plan.kind == "input" else _DSL_REST
             raise NotImplementedError(
                 f"no lowering for plan kind {plan.kind!r} in "
-                f"pathway_tpu_torch yet ({item})")
+                f"pathway_tpu_torch yet ({_DSL_REST})")
         node = handler(table, plan)
         if node.trace is None:
             node.trace = plan.trace
@@ -193,6 +212,11 @@ class GraphRunner:
                     g = groups[t] = []
                 g.append((k, tuple(r), d))
         self._static_feeds.append((node, groups))
+        return node
+
+    def _lower_input(self, table: Table, plan: Plan) -> Node:
+        node = self.graph.add_source(table._name)
+        self._stream_subjects.append((node, plan.params["datasource"]))
         return node
 
     def _lower_identity(self, table: Table, plan: Plan) -> Node:

@@ -3,9 +3,11 @@ pathway_tpu/internals/udfs.py.
 
 Sync UDFs are dispatched once per engine batch (``batch=True``: whole
 columns in, a list out); async UDFs gather a whole batch concurrently on
-the shared event loop with capacity/timeout/retry. Caching keeps the
-in-memory strategy; the disk cache and the run-wide default cache belong
-to the persistence layer, which is not ported (ROADMAP queue 1, item 2d).
+the shared event loop with capacity/timeout/retry. Caching: the
+in-memory strategy, the pickle-file ``DiskCache`` (``DefaultCache``) and
+the process-wide default cache, which ``VectorStoreServer.run_server(
+with_cache=True)`` sets and every UDF prepared after it takes when it did
+not pick its own strategy.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import asyncio
 import functools
 import hashlib
 import inspect
+import os
 import pickle
 from typing import Any, Callable
 
@@ -38,6 +41,23 @@ from pathway_tpu_torch.internals.retries import (  # noqa: F401
 # ---------------------------------------------------------------------------
 # cache strategies (reference: udfs/caches.py)
 # ---------------------------------------------------------------------------
+
+# process-wide default cache used by UDFs constructed without an explicit
+# cache_strategy; activated by server run(with_cache=True, cache_backend=...)
+# (reference: udfs/caches.py)
+_DEFAULT_CACHE: "CacheStrategy | None" = None
+
+
+def set_default_cache(strategy: "CacheStrategy | None") -> None:
+    """Set the cache strategy applied to UDFs that did not pick their own.
+    Applies to UDFs prepared after this call."""
+    global _DEFAULT_CACHE
+    _DEFAULT_CACHE = strategy
+
+
+def get_default_cache() -> "CacheStrategy | None":
+    return _DEFAULT_CACHE
+
 
 class CacheStrategy:
     def wrap_async(self, fn: Callable) -> Callable:
@@ -92,6 +112,71 @@ class InMemoryCache(CacheStrategy):
         if self.max_size is not None and len(self._store) >= self.max_size:
             self._store.pop(next(iter(self._store)))
         self._store[key] = value
+
+
+class DiskCache(CacheStrategy):
+    """Pickle-file cache under PATHWAY_PERSISTENT_STORAGE or ./Cache
+    (reference: diskcache-based UDF cache wired into persistence)."""
+
+    def __init__(self, name: str | None = None):
+        self.name = name
+        self._dir: str | None = None
+
+    def _ensure_dir(self) -> str:
+        if self._dir is None:
+            base = os.environ.get("PATHWAY_PERSISTENT_STORAGE", "./Cache")
+            self._dir = os.path.join(base, "udf_cache", self.name or "default")
+            os.makedirs(self._dir, exist_ok=True)
+        return self._dir
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self._ensure_dir(), key + ".pkl")
+
+    def _get(self, key):
+        path = self._path(key)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                return True, pickle.load(f)
+        return False, None
+
+    def _put(self, key, value):
+        path = self._path(key)
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(value, f)
+        os.replace(path + ".tmp", path)
+
+    def wrap_sync(self, fn):
+        name = getattr(fn, "__name__", "fn")
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            key = self._key(name, args, kwargs)
+            hit, val = self._get(key)
+            if hit:
+                return val
+            result = fn(*args, **kwargs)
+            self._put(key, result)
+            return result
+
+        return wrapper
+
+    def wrap_async(self, fn):
+        name = getattr(fn, "__name__", "fn")
+
+        @functools.wraps(fn)
+        async def wrapper(*args, **kwargs):
+            key = self._key(name, args, kwargs)
+            hit, val = self._get(key)
+            if hit:
+                return val
+            result = await fn(*args, **kwargs)
+            self._put(key, result)
+            return result
+
+        return wrapper
+
+
+DefaultCache = DiskCache
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +328,8 @@ class UDF:
     def _prepare(self):
         if self._prepared is not None:
             return self._prepared, self._is_async
+        if self.cache_strategy is None:
+            self.cache_strategy = get_default_cache()
         fn = self.func
         is_coro = inspect.iscoroutinefunction(fn) or inspect.iscoroutinefunction(
             getattr(fn, "__wrapped__", None))

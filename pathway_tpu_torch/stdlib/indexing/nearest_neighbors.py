@@ -48,7 +48,8 @@ class BruteForceKnnFactory:
     src/external_integration/mod.rs:46). ``dtype='bfloat16'`` halves the
     slab's bytes and its scan time; ``dtype='int8'`` halves them again
     (per-row quantization on the device, host mirror exact f32). The
-    index lives on the embedder's device when it has one, else on "cuda"."""
+    index lives on the embedder's device when it has one, else on
+    ``device`` (default "cuda")."""
 
     dimensions: int | None = None
     reserved_space: int = 1024
@@ -62,6 +63,7 @@ class BruteForceKnnFactory:
     fuse: bool = True
     tenant: Any = None
     tenant_quotas: dict | None = None
+    device: str = "cuda"
 
     def build(self):
         _check_ported(self.mesh, self.tenant, self.tenant_quotas)
@@ -71,7 +73,7 @@ class BruteForceKnnFactory:
         inner = BruteForceKnnIndex(
             dim, reserved_space=self.reserved_space, metric=self.metric,
             dtype=self.dtype,
-            device=getattr(self.embedder, "device", None) or "cuda")
+            device=getattr(self.embedder, "device", None) or self.device)
         # device-capable embedder: the engine index takes raw text and
         # embeds on the device; embeddings never visit the host. The gate
         # mirrors BruteForceKnn.embeds_internally, which decides whether
@@ -95,7 +97,8 @@ class BruteForceKnn(InnerIndex):
                  dimensions: int | None = None, reserved_space: int = 1024,
                  metric: KnnMetric = KnnMetric.L2SQ, embedder: Any = None,
                  mesh: Any = None, dtype: str = "float32",
-                 tenant: Any = None, tenant_quotas: dict | None = None):
+                 tenant: Any = None, tenant_quotas: dict | None = None,
+                 device: str = "cuda"):
         super().__init__(data_column, metadata_column)
         _check_ported(mesh, tenant, tenant_quotas)
         self.dimensions = dimensions
@@ -103,11 +106,15 @@ class BruteForceKnn(InnerIndex):
         self.metric = metric
         self.embedder = embedder
         self.dtype = dtype
+        # the index's device when there is no embedder (with one, the
+        # embedder's device wins)
+        self.device = device
 
     def factory(self) -> BruteForceKnnFactory:
         return BruteForceKnnFactory(
             dimensions=self.dimensions, reserved_space=self.reserved_space,
-            metric=self.metric, embedder=self.embedder, dtype=self.dtype)
+            metric=self.metric, embedder=self.embedder, dtype=self.dtype,
+            device=self.device)
 
     @property
     def query_embedder(self):

@@ -35,16 +35,18 @@ def default_brute_force_knn_document_index(
         metadata_column: ex.ColumnExpression | None = None,
         mesh: Any = None, dtype: str = "float32",
         tenant: Any = None,
-        tenant_quotas: dict | None = None) -> DataIndex:
+        tenant_quotas: dict | None = None,
+        device: str = "cuda") -> DataIndex:
     """``dtype='bfloat16'`` halves the slab's bytes and scan time;
     ``dtype='int8'`` halves them again (quantized on the device, host
     mirror exact f32). The index lives on the embedder's device, else on
-    "cuda". ``mesh`` and ``tenant``/``tenant_quotas`` are not ported and
-    raise."""
+    ``device`` (default "cuda"). ``mesh`` and ``tenant``/``tenant_quotas``
+    are not ported and raise."""
     inner = BruteForceKnn(
         data_column, metadata_column, dimensions=dimensions,
         reserved_space=reserved_space, metric=metric, embedder=embedder,
-        mesh=mesh, dtype=dtype, tenant=tenant, tenant_quotas=tenant_quotas)
+        mesh=mesh, dtype=dtype, tenant=tenant, tenant_quotas=tenant_quotas,
+        device=device)
     return DataIndex(data_table, inner)
 
 

@@ -11,14 +11,18 @@ the graph bench.py's ``bench_embed_framework`` measures.
 
 The statistics and inputs queries look the one statistics row up with
 ``ix`` (the JAX package cross-joins it with ``join_left``; joins are not
-ported). Not ported, each raising ``NotImplementedError`` naming its
+ported). ``run_server`` serves the three queries over HTTP
+(``/v1/retrieve``, ``/v1/statistics``, ``/v1/inputs``; io/http's stdlib
+webserver) under ``pw.run``, and ``VectorStoreClient`` is its blocking
+client. Not ported, each raising ``NotImplementedError`` naming its
 ROADMAP item: the default usearch index (no ``index_builder`` /
-``index_factory``), ``run_server`` and the REST client, the LangChain and
-LlamaIndex adapters and the slides server.
+``index_factory``); the LangChain and LlamaIndex adapters and the slides
+server are not in the port.
 """
 
 from __future__ import annotations
 
+import json as _json
 from typing import Any, Callable
 
 import numpy as np
@@ -34,8 +38,6 @@ from pathway_tpu_torch.stdlib.indexing import (
 )
 from pathway_tpu_torch.xpacks.llm._utils import _unwrap_udf
 
-_SERVING = ("ROADMAP queue 1, item 3: connectors, the streaming runtime and "
-            "serving")
 # the key groupby().reduce() with no grouping columns gives its one row
 _STATS_KEY = hash_values()
 
@@ -275,21 +277,90 @@ class VectorStoreServer:
             res.text, res.metadata, res._pw_index_reply_score))
 
     # ------------------------------------------------------------------
-    def run_server(self, *args, **kwargs):
-        raise NotImplementedError(
-            "VectorStoreServer.run_server is not ported to pathway_tpu_torch "
-            f"yet ({_SERVING}); capture retrieve_query(...) under "
-            "GraphRunner.run_batch instead")
+    def run_server(self, host: str = "0.0.0.0", port: int = 8780, *,
+                   threaded: bool = False, with_cache: bool = True,
+                   cache_backend=None, **run_kwargs):
+        """Expose /v1/retrieve, /v1/statistics, /v1/inputs and run
+        (reference vector_store.py:461-566). ``with_cache`` memoizes the
+        UDFs prepared from here on that did not pick a cache strategy
+        (``DiskCache`` under PATHWAY_PERSISTENT_STORAGE or ./Cache, unless
+        ``cache_backend`` is a strategy): in this graph the response
+        formatters — an index that embeds its text itself calls no
+        embedder UDF. ``threaded=True`` runs ``pw.run`` on a daemon thread
+        and returns it; the run stops with
+        ``engine.streaming.stop_all()``. The webserver is
+        ``self.webserver`` (``port=0`` binds a free port, published in
+        ``self.webserver.port`` once it serves)."""
+        from pathway_tpu_torch.internals import udfs
+
+        if with_cache:
+            backend = cache_backend if isinstance(
+                cache_backend, udfs.CacheStrategy) else udfs.DefaultCache()
+            udfs.set_default_cache(backend)
+        webserver = pw.io.http.PathwayWebserver(host=host, port=port)
+        self.webserver = webserver
+
+        def serve(route, schema, handler):
+            queries, writer = pw.io.http.rest_connector(
+                webserver=webserver, route=route, schema=schema,
+                methods=("GET", "POST"), delete_completed_queries=True)
+            writer(handler(queries))
+
+        serve("/v1/retrieve", self.RetrieveQuerySchema, self.retrieve_query)
+        serve("/v1/statistics", self.StatisticsQuerySchema,
+              self.statistics_query)
+        serve("/v1/inputs", self.InputsQuerySchema, self.inputs_query)
+
+        def run():
+            pw.run(**run_kwargs)
+
+        if threaded:
+            from pathway_tpu_torch.engine.threads import spawn
+
+            return spawn(run, name="VectorStoreServer")
+        run()
 
     def __repr__(self) -> str:
         return f"VectorStoreServer({self._graph['chunks']!r})"
 
 
 class VectorStoreClient:
-    """The REST client of the JAX package's VectorStoreServer. Not ported:
-    it talks to ``run_server``, which is not either."""
+    """Blocking HTTP client for VectorStoreServer (reference :627)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "VectorStoreClient is not ported to pathway_tpu_torch yet "
-            f"({_SERVING})")
+    def __init__(self, host: str | None = None, port: int | None = None,
+                 url: str | None = None, timeout: int = 15,
+                 additional_headers: dict | None = None):
+        if url is None:
+            if host is None:
+                raise ValueError("either url or host must be given")
+            url = f"http://{host}:{port or 8780}"
+        self.url = url.rstrip("/")
+        self.timeout = timeout
+        self.additional_headers = additional_headers or {}
+
+    def _post(self, route: str, payload: dict):
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.url + route, data=_json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json",
+                     **self.additional_headers})
+        with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+            return _json.loads(resp.read())
+
+    def query(self, query: str, k: int = 3, metadata_filter: str | None = None,
+              filepath_globpattern: str | None = None) -> list[dict]:
+        return self._post("/v1/retrieve", {
+            "query": query, "k": k, "metadata_filter": metadata_filter,
+            "filepath_globpattern": filepath_globpattern})
+
+    __call__ = query
+
+    def get_vectorstore_statistics(self) -> dict:
+        return self._post("/v1/statistics", {})
+
+    def get_input_files(self, metadata_filter: str | None = None,
+                        filepath_globpattern: str | None = None):
+        return self._post("/v1/inputs", {
+            "metadata_filter": metadata_filter,
+            "filepath_globpattern": filepath_globpattern})

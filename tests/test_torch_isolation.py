@@ -1,6 +1,8 @@
 """The port stands alone: pathway_tpu_torch (and chip_smoke.py) import
-neither jax nor anything of pathway_tpu, and its entry points never drop
-to the CPU unless asked."""
+neither jax nor anything of pathway_tpu, nor aiohttp or any other package
+the chip machine lacks (it has Python's standard library, torch, triton,
+numpy, scipy, einops, pytest and hypothesis), and its entry points never
+drop to the CPU unless asked."""
 
 import ast
 import os
@@ -11,7 +13,10 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "pathway_tpu")
+FORBIDDEN = ("jax", "jaxlib", "pathway_tpu", "aiohttp")
+# what the chip machine has besides Python's standard library
+CHIP_PACKAGES = frozenset(("torch", "triton", "numpy", "scipy", "einops",
+                           "pytest", "hypothesis", "pathway_tpu_torch"))
 
 _SLICE = """
 import sys
@@ -47,8 +52,34 @@ cap = runner.capture(t.filter(pw.this.data != "").select(
     embedding=emb(pw.this.data), n=pw.apply(len, pw.this.data)))
 runner.run_batch(n_workers=1)
 assert len(cap.events) == 40, cap.events
+# the served path: a rest_connector graph under pw.run answers one POST
+import json, threading, time, urllib.request
+from pathway_tpu_torch.engine import streaming
+from pathway_tpu_torch.internals.parse_graph import G
+G.clear()
+ws = pw.io.http.PathwayWebserver(host="127.0.0.1", port=0)
+q, writer = pw.io.http.rest_connector(
+    webserver=ws, route="/q", schema=pw.schema_from_types(query=str),
+    delete_completed_queries=True, autocommit_duration_ms=5)
+writer(q.select(n=pw.apply(len, q.query)))
+th = threading.Thread(target=pw.run, daemon=True)
+th.start()
+deadline = time.monotonic() + 30
+while not (ws._started.is_set() and ws.port):
+    assert time.monotonic() < deadline and th.is_alive()
+    time.sleep(0.01)
+req = urllib.request.Request(f"http://127.0.0.1:{ws.port}/q",
+                             data=json.dumps({"query": "four"}).encode())
+try:
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        assert (resp.status, resp.read()) == (200, b"4")
+finally:
+    streaming.stop_all()
+    th.join(30)
+assert not th.is_alive()
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "pathway_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "pathway_tpu",
+                                    "aiohttp"))
 print("FORBIDDEN", bad)
 """
 
@@ -73,20 +104,70 @@ def _port_files():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
+def _guarded_imports(tree) -> set[int]:
+    """ids of the import nodes inside a ``try`` whose handlers catch
+    ImportError: the module runs without that package (and raises by
+    name where it is needed)."""
+    guarded = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Try):
+            continue
+        catches = set()
+        for h in node.handlers:
+            types = h.type.elts if isinstance(h.type, ast.Tuple) else [h.type]
+            catches |= {getattr(t, "id", None) for t in types}
+        if catches & {"ImportError", "ModuleNotFoundError"}:
+            for stmt in node.body:
+                guarded |= {id(n) for n in ast.walk(stmt)}
+    return guarded
+
+
+def _imports(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    guarded = _guarded_imports(tree)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            yield n, id(node) in guarded
+
+
 def test_no_forbidden_import_in_port_sources():
+    offenders = [(path, n) for path in _port_files()
+                 for n, _guarded in _imports(path) if _is_forbidden(n)]
+    assert not offenders
+
+
+def test_port_imports_only_what_the_chip_machine_has():
+    """Every import of the port and of chip_smoke.py is of the standard
+    library or of a package the chip machine has, unless the module runs
+    without it (an import guarded by ``except ImportError``)."""
     offenders = []
     for path in _port_files():
-        with open(path, encoding="utf-8") as f:
-            tree = ast.parse(f.read(), path)
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
+        for n, guarded in _imports(path):
+            top = n.split(".")[0]
+            if top in sys.stdlib_module_names or top in CHIP_PACKAGES:
                 continue
-            offenders += [(path, n) for n in names if _is_forbidden(n)]
+            if not guarded:
+                offenders.append((os.path.relpath(path, REPO), n))
     assert not offenders
+
+
+def test_the_isolation_checks_catch_an_offender(tmp_path):
+    """The two checks above on a file that imports aiohttp and yaml at the
+    top and pandas under ``except ImportError``."""
+    bad = tmp_path / "bad.py"
+    bad.write_text("import aiohttp\nfrom yaml import safe_dump\n"
+                   "try:\n    import pandas\nexcept ImportError:\n"
+                   "    pandas = None\n")
+    got = list(_imports(str(bad)))
+    assert got == [("aiohttp", False), ("yaml", False), ("pandas", True)]
+    assert [n for n, _ in got if _is_forbidden(n)] == ["aiohttp"]
 
 
 def test_entry_points_default_to_cuda():

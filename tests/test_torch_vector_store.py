@@ -208,19 +208,15 @@ def test_statistics_and_inputs_equal_reference(params, endpoint):
 
 
 def test_unported_parts_raise_naming_their_item(params):
-    """The default usearch index, the server and its client raise; they
-    never fall back to another index or to the CPU."""
+    """The default usearch index, USearchKnn and the mesh-sharded index
+    raise; they never fall back to another index or to the CPU. (The
+    server and its client are ported: tests/test_torch_serving.py.)"""
     from pathway_tpu_torch.stdlib.indexing import USearchKnn
-    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreClient
 
     emb = _embedder("torch", params, False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TVectorStoreServer(_docs_table(tpw), embedder=emb)
     pw, store = _server("torch", params, False, "float32", False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        store.run_server()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VectorStoreClient(url="http://localhost:1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         USearchKnn(store._graph["chunks"].text, embedder=emb)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
