@@ -5,9 +5,11 @@
 
 Drives the port's two live-RAG device paths, the engine's batch path
 with the encoder as a batch UDF, the engine's index path (the graph of
-bench.py's bench_embed_framework) and the served path (``pw.run``'s
+bench.py's bench_embed_framework), the served path (``pw.run``'s
 streaming runtime behind HTTP: bench.py's bench_serving graph and a live
-RAG server), at BGE-small's full width with random weights from a seed,
+RAG server) and the engine's relational core (bench.py's bench_etl
+graph: the columnar groupby and the inner join with their native passes,
+host code), at BGE-small's full width with random weights from a seed,
 and checks every kernel of those paths against its plain PyTorch version
 on the card. Phases (each failure exits
 non-zero, and no result line is printed):
@@ -18,6 +20,21 @@ non-zero, and no result line is printed):
    source, all started together), with the build time, registers and
    spills (ptxas), and a count of tensor-core instructions in the bf16
    kernels (cuobjdump);
+2b. etl (bench.py's bench_etl one-worker graph, host only): Python.h in
+   the interpreter's include directory (else the phase fails naming it),
+   the native join and groupby passes built with g++ and loaded, then
+   ``events.groupby(word).reduce(word, n=count(), total=sum(qty))``
+   joined with the 5,000-row ``lex`` table over bench's 100,000 rows in
+   50 ticks (``default_rng(0)``, bench's draw order), under
+   ``run_batch(n_workers=1)``: native, both passes off in-process,
+   off, native. Checks: the groupby lowered to
+   ``ColumnarGroupByOperator``, the join's ``_step_inner_native`` taken
+   on every tick with input (never with the passes off), the final table
+   equal to a plain numpy count, sum and dict join, the native runs'
+   consolidated events (keys included) equal to the Python loops', no
+   kernel launched. Prints bench.py's ``etl_rows_per_s_1w`` and
+   ``etl_rows_per_s_1w_python_loops``, the host's CPU and cores and the
+   garbage collector's collections;
 3. K1 (the encoder attention kernel) against ``attention_reference`` on
    the card: bf16 at the ingest shape, at S=512 and at the edges of its
    tensor-core tiling (S=16, S=100, S=1000, S=1024, D=40, D=128), f32,
@@ -149,7 +166,10 @@ non-zero, and no result line is printed):
    and 48 timed ``/v1/retrieve`` (k=3), then the trickle paused and 8 held
    retrieves and one k=80 held against a plain scan of the index's rows
    with the plain encoder's query embedding, ``/v1/statistics``
-   (file_count = documents pushed), ``/v1/inputs`` and
+   (file_count = documents pushed), ``/v1/inputs`` (both answered through
+   ``join_left(stats, id=queries.id)`` as in the JAX package: the graph's
+   joins are retrieve's ``ix`` and two left joins, and before the first
+   document both answer the left join's empty row) and
    ``VectorStoreClient`` against the raw POST; retrieve latencies, the
    tracker's stages, ingest docs/s, launches (K1, K2, K2 score) and peak
    memory. Both runs stop through ``stop_all()``, and an error in a run
@@ -383,6 +403,211 @@ def phase_build():
                   flush=True)
             if counts[f] == 0:
                 fail(f"{f} has no tensor-core instruction")
+
+
+# bench.py's bench_etl (bench.py:1832-1946): rows, ticks and vocabulary of
+# its run_once graph, never cut
+ETL_ROWS, ETL_TICKS, ETL_VOCAB = 100_000, 50, 5000
+
+
+def cpu_model() -> str:
+    """The host CPU's model (/proc/cpuinfo's "model name", else lscpu's
+    "Model name") and architecture, for the host-only rates."""
+    import platform
+
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if key.strip() == "model name" and value.strip():
+                    model = value.strip()
+                    break
+    except OSError:
+        pass
+    if model is None:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+        except (OSError, subprocess.SubprocessError):
+            out = ""
+        for line in out.splitlines():
+            key, _, value = line.partition(":")
+            if key.strip() == "Model name" and value.strip():
+                model = value.strip()
+                break
+    return f"{model or 'model not reported'} ({platform.machine()})"
+
+
+def etl_run(words, qtys, ticks) -> dict:
+    """bench_etl's ``run_once(1)`` graph through the port
+    (bench.py:1898-1934): the events table, the ``lex`` dimension table,
+    ``events.groupby(events.word).reduce(word, n=count(), total=sum(qty))``
+    joined with ``lex`` on the word; ``run_batch(n_workers=1)`` timed on
+    the host clock as bench.py times it. Returns the rate (rows/s), the
+    captured stream, the graph's operators and the garbage collector's
+    collections and time inside the timed run."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.debug import table_from_rows
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.runner import GraphRunner
+
+    G.clear()
+
+    class S(pw.Schema):
+        word: str
+        qty: int
+
+    class L(pw.Schema):
+        word: str
+        cat: str
+
+    events = table_from_rows(
+        S, [(f"w{words[i]}", int(qtys[i]), int(ticks[i]) * 2, 1)
+            for i in range(len(words))], is_stream=True)
+    lex = table_from_rows(
+        L, [(f"w{i}", f"cat{i % 7}") for i in range(ETL_VOCAB)])
+    counts = events.groupby(events.word).reduce(
+        events.word, n=pw.reducers.count(),
+        total=pw.reducers.sum(events.qty))
+    joined = counts.join(lex, counts.word == lex.word).select(
+        counts.word, counts.n, counts.total, lex.cat)
+    runner = GraphRunner()
+    cap = runner.capture(joined)
+    with GcClock() as gc_clock:
+        t0 = time.perf_counter()
+        runner.run_batch(n_workers=1)
+        dt = time.perf_counter() - t0
+    G.clear()
+    stats = runner._scheduler.stats
+    return {"rate": len(words) / dt, "cap": cap, "gc_n": gc_clock.n,
+            "gc_s": gc_clock.s,
+            "ops": [node.op for node in runner.graph.nodes],
+            "op_ms": {type(node.op).__name__: stats[node.id]["total_ms"]
+                      for node in runner.graph.nodes}}
+
+
+def phase_etl(card: str) -> None:
+    """bench.py's bench_etl one-worker graph (WordCount + a dimension join)
+    through the port at bench's sizes: 100,000 rows over 50 ticks, a
+    vocabulary of 5,000 words, ``default_rng(0)`` drawing words,
+    quantities and ticks in bench's order. Host code only: the groupby
+    lowers to ``ColumnarGroupByOperator`` (native gather/emit passes,
+    native/fastgroup.cpp) and the join is an inner bilinear
+    ``JoinOperator`` (native pass, native/fastjoin.cpp), both built with
+    g++ against the interpreter's Python.h. Runs native, Python loops
+    (both passes off in-process), Python loops, native. Holds: Python.h
+    present, both passes loaded, the columnar operator built, the join's
+    native pass taken on every tick with input (and not with the passes
+    off), the final table equal to a plain numpy count, sum and dict join
+    over the same draws, the native runs' consolidated events (keys
+    included) equal to the Python loops', and no kernel launched. Prints
+    ``etl_rows_per_s_1w`` (bench.py's key) and
+    ``etl_rows_per_s_1w_python_loops``, the host's CPU and cores, and the
+    garbage collector's collections in each timed run."""
+    import sysconfig
+
+    from pathway_tpu_torch.engine import operators as ops
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+
+    label = "etl"
+    include = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(include, "Python.h")):
+        fail(f"{label}: no Python.h in {include}: the native join and "
+             "groupby passes cannot be built")
+    t0 = time.perf_counter()
+    fastjoin, fastgroup = ops._get_fastjoin(), ops._get_fastgroup()
+    if fastjoin is None or fastgroup is None:
+        fail(f"{label}: a native pass did not load: {ops.NATIVE_ERRORS}")
+    print(f"[{label}] native passes {fastjoin.__name__}, "
+          f"{fastgroup.__name__} built (g++, {include}/Python.h) and loaded "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(0)  # bench.py's draws, in its order
+    words = rng.integers(0, ETL_VOCAB, size=ETL_ROWS)
+    qtys = rng.integers(1, 10, size=ETL_ROWS)
+    ticks = np.sort(rng.integers(0, ETL_TICKS, size=ETL_ROWS))
+    input_ticks = len(np.unique(ticks))
+    # the plain result: a count and a sum per word, the category by dict
+    n_of = np.bincount(words, minlength=ETL_VOCAB)
+    total_of = np.zeros(ETL_VOCAB, np.int64)
+    np.add.at(total_of, words, qtys)
+    cat_of = {f"w{i}": f"cat{i % 7}" for i in range(ETL_VOCAB)}
+    want = sorted((f"w{i}", int(n_of[i]), int(total_of[i]), cat_of[f"w{i}"])
+                  for i in np.flatnonzero(n_of))
+    for count in LAUNCH_COUNTS:
+        count.launches = 0
+    runs = []
+    for native in (True, False, False, True):
+        ops._FASTJOIN, ops._FASTGROUP = (fastjoin, fastgroup) if native \
+            else (None, None)
+        try:
+            run = etl_run(words, qtys, ticks)
+        finally:
+            ops._FASTJOIN, ops._FASTGROUP = fastjoin, fastgroup
+        run["native"] = native
+        runs.append(run)
+    launched = {c.name: c.launches for c in LAUNCH_COUNTS if c.launches}
+    if launched:
+        fail(f"{label}: kernels launched in a host-only phase: {launched}")
+    events = []
+    for i, run in enumerate(runs):
+        kinds = [type(op).__name__ for op in run["ops"]]
+        groups = [op for op in run["ops"]
+                  if isinstance(op, ops.ColumnarGroupByOperator)]
+        joins = [op for op in run["ops"] if isinstance(op, ops.JoinOperator)]
+        if len(groups) != 1 or "GroupByOperator" in kinds:
+            fail(f"{label} run {i}: the groupby did not lower to "
+                 f"ColumnarGroupByOperator: {kinds}")
+        if len(joins) != 1 or joins[0].mode != "inner" \
+                or not joins[0]._bilinear:
+            fail(f"{label} run {i}: no inner bilinear JoinOperator: {kinds}")
+        want_steps = input_ticks if run["native"] else 0
+        if groups[0].native_steps != want_steps:
+            fail(f"{label} run {i}: the groupby's native pass ran "
+                 f"{groups[0].native_steps} steps, not {want_steps}")
+        run["join_steps"] = joins[0].native_steps
+        if run["native"] and not 0 < run["join_steps"] <= input_ticks + 1:
+            fail(f"{label} run {i}: _step_inner_native ran "
+                 f"{run['join_steps']} times over {input_ticks} input ticks")
+        if not run["native"] and run["join_steps"]:
+            fail(f"{label} run {i}: _step_inner_native ran with the passes "
+                 "off")
+        got = sorted(run["cap"].snapshot().values())
+        if got != want:
+            fail(f"{label} run {i}: the final table differs from the plain "
+                 f"numpy count, sum and dict join ({len(got)} rows, "
+                 f"{len(want)} wanted)")
+        events.append(sorted(
+            (time_, int(key), diff, row)
+            for key, row, time_, diff in run["cap"].consolidated_events()))
+    if not (events[0] == events[1] == events[2] == events[3]):
+        fail(f"{label}: the native runs' consolidated events differ from "
+             "the Python loops'")
+    native_rates = [r["rate"] for r in runs if r["native"]]
+    python_rates = [r["rate"] for r in runs if not r["native"]]
+    print(f"[{label}] bench.py's keys: etl_rows_per_s_1w "
+          f"{native_rates[0]:.1f} (then {native_rates[1]:.1f}), "
+          f"etl_rows_per_s_1w_python_loops {python_rates[0]:.1f} (then "
+          f"{python_rates[1]:.1f}); etl_n_rows {ETL_ROWS}, etl_ticks "
+          f"{ETL_TICKS}, vocabulary {ETL_VOCAB}; host CPU {cpu_model()}, "
+          f"{os.cpu_count()} cores [{card}]", flush=True)
+    print(f"[{label}] by run (native, loops, loops, native): "
+          + "; ".join(f"{r['rate']:.1f} rows/s, {r['gc_n']} collections "
+                      f"{r['gc_s'] * 1e3:.1f} ms, join native steps "
+                      f"{r['join_steps']}, groupby "
+                      f"{r['op_ms']['ColumnarGroupByOperator']:.1f} ms, join "
+                      f"{r['op_ms']['JoinOperator']:.1f} ms, capture "
+                      f"{r['op_ms']['OutputOperator']:.1f} ms"
+                      for r in runs) + f" [{card}]",
+          flush=True)
+    print(f"[{label}] holds: Python.h present, both passes loaded, "
+          f"ColumnarGroupByOperator built (native steps = {input_ticks} "
+          f"input ticks), _step_inner_native taken "
+          f"{runs[0]['join_steps']} times (0 with the passes off), final "
+          f"table = plain numpy count/sum/dict join ({len(want)} words), "
+          f"native consolidated events = Python loops' "
+          f"({len(events[0])} events, keys included), 0 kernel launches",
+          flush=True)
 
 
 def phase_attention(card: str) -> dict:
@@ -2903,6 +3128,7 @@ def phase_serving_rag(seed: int, card: str, n_docs: int = SERVING_N) -> dict:
 
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.engine.index_ops import ExternalIndexOperator
+    from pathway_tpu_torch.engine.operators import JoinOperator
     from pathway_tpu_torch.internals import udfs
     from pathway_tpu_torch.internals.parse_graph import G
     from pathway_tpu_torch.io.python import ConnectorSubject
@@ -2996,6 +3222,23 @@ def phase_serving_rag(seed: int, card: str, n_docs: int = SERVING_N) -> dict:
             return replies
 
         inner.search = search
+        # statistics and inputs go through join_left(stats, id=queries.id),
+        # as in the JAX package: two left joins keyed by the query (and
+        # retrieve's ix), no statistics ix
+        joins = sorted((n.name, n.op.mode, n.op._bilinear)
+                       for n in rt.runner.graph.nodes
+                       if isinstance(n.op, JoinOperator))
+        if joins != [("ix", "inner", False), ("join:left", "left", False),
+                     ("join:left", "left", False)]:
+            fail(f"{label}: the served graph's joins are {joins}, not "
+                 "retrieve's ix and the two join_left of statistics and "
+                 "inputs")
+        # before the first document: the left join's row without a match
+        empty = (post_json(base + "/v1/statistics", {})[0],
+                 post_json(base + "/v1/inputs", ask_none)[0])
+        if empty != ({"file_count": None, "last_modified": None}, []):
+            fail(f"{label}: statistics and inputs before the first "
+                 f"document: {empty}")
         for count in LAUNCH_COUNTS:
             count.launches = 0
         t_go = time.perf_counter()
@@ -3124,8 +3367,10 @@ def phase_serving_rag(seed: int, card: str, n_docs: int = SERVING_N) -> dict:
           f"ties, dist within 1e-5), their query embeddings the plain "
           f"encoder's (min row cosine {q_cos.min():.6f} >= 0.999), "
           f"{own_first} copies find their document first; /v1/statistics "
-          f"file_count {stats['file_count']} = documents pushed; "
-          f"/v1/inputs {len(inputs)} inputs; VectorStoreClient's reply = the "
+          f"and /v1/inputs through join_left (graph joins: {joins}), "
+          f"before the first document {empty}, then file_count "
+          f"{stats['file_count']} = documents pushed and "
+          f"{len(inputs)} inputs; VectorStoreClient's reply = the "
           f"raw POST's; {captures} CUDA graphs captured in the timed window;"
           f" bridge legs {bridge['legs_resolved']}, queue wait "
           f"{bridge['queue_wait_ms']:.1f} ms, leg execution "
@@ -4120,6 +4365,9 @@ def main() -> None:
     def done(what):
         print(f"[time] {what} done at {time.perf_counter() - t0:.1f} s",
               flush=True)
+
+    phase_etl(card)
+    done("etl")
 
     k1 = phase_attention(card)
     k1_seg = phase_segments(card)

@@ -13,7 +13,9 @@ device UDF::
     out = docs.select(embedding=emb(pw.this.data))
     runner = GraphRunner(); cap = runner.capture(out); runner.run_batch()
 
-and the index path: groupby/reduce, ``ix``, ``update_cells``, the as-of-now
+and the index path: groupby/reduce, joins (``join*``, ``pw.join*``),
+``restrict`` / ``intersect`` / ``difference`` / ``having``, ``ix``,
+``update_cells``, the as-of-now
 external index operator, ``DataIndex.query_as_of_now``
 (pathway_tpu_torch.stdlib.indexing) and ``VectorStoreServer``
 (pathway_tpu_torch.xpacks.llm.vector_store), whose ``retrieve_query`` runs
@@ -51,6 +53,10 @@ _LAZY = {
                          "schema_from_dict"),
     "schema_from_types": ("pathway_tpu_torch.internals.schema",
                           "schema_from_types"),
+    "JoinMode": ("pathway_tpu_torch.internals.joins", "JoinMode"),
+    "JoinResult": ("pathway_tpu_torch.internals.joins", "JoinResult"),
+    **{name: ("pathway_tpu_torch.internals.compat", name) for name in (
+        "join", "join_inner", "join_left", "join_right", "join_outer")},
     "this": ("pathway_tpu_torch.internals.thisclass", "this"),
     "left": ("pathway_tpu_torch.internals.thisclass", "left"),
     "right": ("pathway_tpu_torch.internals.thisclass", "right"),

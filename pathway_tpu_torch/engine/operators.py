@@ -16,17 +16,20 @@ Conventions:
 
 Also ported: ``GroupByOperator`` (with the array_sum segment sum on the
 device, ``device_segsum``, off unless PATHWAY_ARRAY_SUM_DEVICE_MIN is set),
-``JoinOperator`` (its pure-Python loops; ``ix``
-lowers to it) and ``DeduplicateOperator``. Not ported here: sharding
-(exchange specs, replicas), operator-state snapshots, the native
-``fastjoin`` / ``fastgroup`` passes, ``ColumnarGroupByOperator`` (every
-groupby lowers to ``GroupByOperator``, which emits the same events), and
-the operators of sort and the temporal behaviors (ROADMAP queue 1, item
-2d).
+``ColumnarGroupByOperator`` (the groupbys the lowering finds columnar:
+count, integral sum/avg, min/max, argmin/argmax over plain columns),
+``JoinOperator`` (joins, ``ix``) and ``DeduplicateOperator``, with the
+native passes of the inner bilinear join and of the columnar groupby
+(``native/fastjoin.cpp``, ``native/fastgroup.cpp``, built with g++ at first
+use; when a build fails, a warning is logged, ``NATIVE_ERRORS`` says why
+and the Python loops run). Not ported here: sharding (exchange specs,
+replicas), operator-state snapshots (ROADMAP queue 1, item 6a), and the
+operators of sort and the temporal behaviors (ROADMAP queue 1, item 2d).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Any, Callable, Sequence
 
@@ -36,7 +39,7 @@ import torch
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.engine.delta import (Arrangement, Delta,
                                             row_fingerprint, upsert_delta)
-from pathway_tpu_torch.engine.reducers import make_reducer_state
+from pathway_tpu_torch.engine.reducers import _orderable, make_reducer_state
 from pathway_tpu_torch.internals.keys import Pointer, hash_values, mix_pointers
 
 
@@ -518,6 +521,44 @@ class GroupByOperator(Operator):
         return out
 
 
+_FASTJOIN = False  # False = not probed, None = unavailable, module = loaded
+_FASTGROUP = False
+# why a native pass is not loaded ({"fastjoin": "NativeBuildError: ..."})
+NATIVE_ERRORS: dict[str, str] = {}
+
+
+def _load_pass(name: str):
+    """Build and import ``native/<name>.cpp`` (native/build.py);
+    None, with a warning and the reason in NATIVE_ERRORS, when it fails."""
+    try:
+        from pathway_tpu_torch.native.build import load_extension
+
+        return load_extension(name)
+    except Exception as e:  # no g++, no Python.h, read-only checkout, ...
+        logging.getLogger("pathway_tpu_torch").warning(
+            "native %s pass unavailable (%s); using the pure-Python engine "
+            "loops", name, e)
+        NATIVE_ERRORS[name] = f"{type(e).__name__}: {e}"
+        return None
+
+
+def _get_fastjoin():
+    """The native inner-join pass (native/fastjoin.cpp), built on first
+    use; None when it cannot be built (the Python loops run)."""
+    global _FASTJOIN
+    if _FASTJOIN is False:
+        _FASTJOIN = _load_pass("fastjoin")
+    return _FASTJOIN
+
+
+def _get_fastgroup():
+    """The native groupby gather/emit passes (native/fastgroup.cpp)."""
+    global _FASTGROUP
+    if _FASTGROUP is False:
+        _FASTGROUP = _load_pass("fastgroup")
+    return _FASTGROUP
+
+
 def _rows_equal(a, b) -> bool:
     """Value equality of two rows; fingerprint fallback for rows whose
     cells don't support plain == (ndarrays)."""
@@ -527,17 +568,335 @@ def _rows_equal(a, b) -> bool:
         return row_fingerprint(a) == row_fingerprint(b)
 
 
+class ColumnarGroupByOperator(Operator):
+    """Columnar groupby for dictionary-encodable group keys with
+    count / integral sum / integral avg / min / max / argmin / argmax
+    reducers.
+
+    The row path (GroupByOperator) pays per-row Python: a 128-bit hash per
+    row for the group key plus a dict probe and a state-object method call
+    per reducer. Here a tick's delta is processed as arrays: group values
+    are interned to dense int codes (one dict probe per row; the group key
+    is hashed once per distinct group ever seen), the sums live in numpy
+    int64 arrays indexed by code (``np.add.at`` scatter), and only the
+    touched groups pay per-group Python at emit. Exact under retraction:
+    every state update is additive, so any insert/retract order gives the
+    same state.
+
+    Chosen by the lowering only when every reducer is in the columnar set,
+    no reducer is order-sensitive, and the group values come from plain
+    columns of hashable scalar dtype (internals/runner.py
+    ``_columnar_groupby_spec``); every other groupby keeps
+    GroupByOperator. ``native_steps`` counts the steps the native passes
+    ran.
+    """
+
+    _GROW = 1024
+    _INT_GUARD = 1 << 62  # |sum| beyond this migrates to exact python ints
+
+    def __init__(self, gval_pos: list, reducer_cols: list):
+        # gval_pos: row positions of the group-value columns
+        # reducer_cols: [("count", None) | ("sum"|"avg"|"min"|"max", pos)
+        #                | ("argmin"|"argmax", (cmp_pos, payload_pos))]
+        self.gval_pos = list(gval_pos)
+        self.reducer_cols = list(reducer_cols)
+        self.native_steps = 0
+        # (slot, code) -> exact python-int total for groups whose sums
+        # left the int64 guard range (the row path's _SumState is exact)
+        self._big: dict = {}
+        self._intern: dict = {}          # typed gval -> dense code
+        self._by_gkey: dict = {}         # hashed gkey -> code (alias dedup)
+        self._gvals: list[tuple] = []    # code -> group values
+        self._gkeys: list[Pointer] = []  # code -> output key (hashed once)
+        self._last: list = []            # code -> last emitted row | None
+        self._cnt = np.zeros(0, np.int64)
+        # value-bearing reducers share one extraction slot order (the C
+        # gather returns one column per _val_pos entry; -1 extracts the
+        # row key); sums/avgs also own an int64 state array,
+        # min/max/argmin/argmax a per-group value-count multiset (exact
+        # under retraction)
+        self._val_slot: dict[int, int] = {}   # reducer -> cmp/value slot
+        self._arg_slot: dict[int, int] = {}   # argminmax -> payload slot
+        self._sum_slot: dict[int, int] = {}
+        self._mm: dict[int, dict] = {}   # reducer idx -> {code: {val: n}}
+        val_pos: list[int] = []
+        for i, (kind, pos) in enumerate(reducer_cols):
+            if kind == "count":
+                continue
+            if kind in ("argmin", "argmax"):
+                cpos, ppos = pos
+                self._val_slot[i] = len(val_pos)
+                val_pos.append(cpos)
+                self._arg_slot[i] = len(val_pos)
+                val_pos.append(ppos)
+                self._mm[i] = {}
+                continue
+            self._val_slot[i] = len(val_pos)
+            val_pos.append(pos)
+            if kind in ("sum", "avg"):
+                self._sum_slot[i] = len(self._sum_slot)
+            else:  # min / max
+                self._mm[i] = {}
+        self._sums = [np.zeros(0, np.int64) for _ in self._sum_slot]
+        # the native passes' parameter tables (native/fastgroup.cpp)
+        self._gp = tuple(self.gval_pos)
+        self._val_pos = tuple(val_pos)
+        self._kinds = tuple(
+            0 if kind == "count" else (2 if kind == "avg" else 1)
+            for kind, _ in reducer_cols)
+
+    def snapshot_state(self):
+        raise NotImplementedError(
+            "operator snapshots are not ported to pathway_tpu_torch yet "
+            "(ROADMAP queue 1, item 6a)")
+
+    def restore_state(self, state) -> None:
+        raise NotImplementedError(
+            "operator snapshots are not ported to pathway_tpu_torch yet "
+            "(ROADMAP queue 1, item 6a)")
+
+    def _add_group(self, tkey, gvals: tuple) -> int:
+        # alias through the hashed key: distinct typed representations of
+        # hash-equal values (1 vs 1.0, np.int64(5) vs 5) must share a
+        # group, exactly as the row path's hash_values keying does
+        gkey = hash_values(*gvals)
+        code = self._by_gkey.get(gkey)
+        if code is not None:
+            self._intern[tkey] = code
+            return code
+        code = len(self._gvals)
+        self._intern[tkey] = code
+        self._by_gkey[gkey] = code
+        self._gvals.append(gvals)
+        self._gkeys.append(gkey)
+        self._last.append(None)
+        if code >= self._cnt.shape[0]:
+            self._cnt = np.concatenate(
+                [self._cnt, np.zeros(self._GROW, np.int64)])
+            self._sums = [np.concatenate([s, np.zeros(self._GROW, np.int64)])
+                          for s in self._sums]
+        return code
+
+    def _codes(self, entries) -> np.ndarray:
+        get = self._intern.get
+        add = self._add_group
+        codes = np.empty(len(entries), np.int64)
+        if len(self.gval_pos) == 1:
+            p = self.gval_pos[0]
+            for i, (_k, row, _d) in enumerate(entries):
+                v = row[p]
+                # typed key: bool-vs-int dict equality (True == 1) must not
+                # merge groups the hash path keeps distinct
+                tk = (v.__class__, v)
+                c = get(tk)
+                codes[i] = add(tk, (v,)) if c is None else c
+        else:
+            ps = self.gval_pos
+            for i, (_k, row, _d) in enumerate(entries):
+                gvals = tuple(row[p] for p in ps)
+                tk = (tuple(v.__class__ for v in gvals), gvals)
+                c = get(tk)
+                codes[i] = add(tk, gvals) if c is None else c
+        return codes
+
+    def step(self, time, in_deltas):
+        entries = in_deltas[0].entries
+        if not entries:
+            return Delta()
+        n = len(entries)
+        fg = _get_fastgroup()
+        cols = None
+        if fg is not None:
+            codes_l, diffs_l, cols = fg.gather(
+                entries, self._intern, self._add_group, self._gp,
+                self._val_pos)
+            codes = np.asarray(codes_l, np.int64)
+            diffs = np.asarray(diffs_l, np.int64)
+        else:
+            codes = self._codes(entries)
+            diffs = np.fromiter((e[2] for e in entries), np.int64, n)
+        np.add.at(self._cnt, codes, diffs)
+        touched = np.unique(codes)
+        guard = self._INT_GUARD
+        # min/max/argmin/argmax multisets: one dict update per entry
+        # (exact retraction)
+        for i, groups in self._mm.items():
+            kind, pos = self.reducer_cols[i]
+            if kind in ("argmin", "argmax"):
+                cpos, ppos = pos
+                if cols is not None:
+                    cvals = cols[self._val_slot[i]]
+                    pvals = cols[self._arg_slot[i]]
+                else:
+                    cvals = [e[1][cpos] for e in entries]
+                    pvals = [e[0] if ppos < 0 else e[1][ppos]
+                             for e in entries]
+                vals = list(zip(cvals, pvals))
+            else:
+                vals = cols[self._val_slot[i]] if cols is not None else \
+                    [e[1][pos] for e in entries]
+            for c, v, d in zip(codes.tolist(), vals, diffs.tolist()):
+                g = groups.get(c)
+                if g is None:
+                    g = groups[c] = {}
+                nc = g.get(v, 0) + d
+                if nc == 0:
+                    del g[v]
+                else:
+                    g[v] = nc
+        for i, slot in self._sum_slot.items():
+            pos = self.reducer_cols[i][1]
+            arr = self._sums[slot]
+            vals = cols[self._val_slot[i]] if cols is not None else \
+                [e[1][pos] for e in entries]
+            try:
+                col = np.asarray(vals, np.int64)
+                # bound the whole tick's contribution so the int64 scatter
+                # cannot wrap before the migration check runs
+                fast = bool(np.abs(col).max(initial=0) < guard // (n + 1))
+            except (TypeError, ValueError, OverflowError):
+                fast = False  # None / non-int / giant cells
+            if fast:
+                np.add.at(arr, codes, col * diffs)
+                if self._big:
+                    # groups already migrated to exact python ints track
+                    # their tick contribution here (their arr slot is dead)
+                    big = self._big
+                    for j, c in enumerate(codes.tolist()):
+                        bk = (slot, c)
+                        cur = big.get(bk)
+                        if cur is not None:
+                            big[bk] = cur + int(col[j]) * int(diffs[j])
+                # inputs bounded by the guard and prior totals inside it,
+                # so no wrap happened yet; migrate any group that just
+                # left the guard range to exact python-int accumulation
+                mx = self._sums[slot][touched]
+                if np.abs(mx).max(initial=0) >= guard:
+                    for c in touched[np.abs(mx) >= guard].tolist():
+                        self._big.setdefault((slot, c), int(arr[c]))
+            else:
+                # exact slow path (as _SumState: python ints, None adds
+                # nothing); groups cross into _big when they outgrow int64
+                big = self._big
+                for c, v, d in zip(codes.tolist(), vals, diffs.tolist()):
+                    if v is None:
+                        continue
+                    bk = (slot, c)
+                    cur = big.get(bk)
+                    if cur is not None:
+                        big[bk] = cur + d * int(v)
+                        continue
+                    total = int(arr[c]) + d * int(v)
+                    if -guard < total < guard:
+                        arr[c] = total
+                    else:
+                        big[bk] = total
+        # emit: gather the touched groups' state as lists, then one pass
+        # over the touched groups only (native when available)
+        tl = touched.tolist()
+        cnts = self._cnt[touched].tolist()
+        pcols = []
+        for i, (kind, _pos) in enumerate(self.reducer_cols):
+            if kind == "count":
+                pcols.append([])
+            elif kind in ("min", "max"):
+                groups = self._mm[i]
+                agg = min if kind == "min" else max
+
+                def mm_of(c, _g=groups, _agg=agg):
+                    g = _g.get(c)
+                    if not g:
+                        return None
+                    # net-negative counts (a retraction seen ahead of its
+                    # insertion) are excluded, as the row path's
+                    # _MultisetState.iter_args max(c, 0) excludes them
+                    live = [v for v, cnt in g.items() if cnt > 0]
+                    return _agg(live) if live else None
+
+                pcols.append([mm_of(c) for c in tl])
+            elif kind in ("argmin", "argmax"):
+                groups = self._mm[i]
+                agg = min if kind == "argmin" else max
+
+                def am_of(c, _g=groups, _agg=agg):
+                    g = _g.get(c)
+                    if not g:
+                        return None
+                    # ties break by orderable payload, exactly the row
+                    # path's _ArgMin/_ArgMaxState key functions
+                    best = _agg(
+                        ((cv, _orderable(pv), pv)
+                         for (cv, pv), cnt in g.items() if cnt > 0),
+                        default=None)
+                    return best[2] if best is not None else None
+
+                pcols.append([am_of(c) for c in tl])
+            else:
+                pcols.append(
+                    self._sums[self._sum_slot[i]][touched].tolist())
+        big = self._big
+        if big:
+            for i, (kind, _pos) in enumerate(self.reducer_cols):
+                if kind not in ("sum", "avg"):
+                    continue
+                slot = self._sum_slot[i]
+                col = pcols[i]
+                for idx, c in enumerate(tl):
+                    exact = big.get((slot, c))
+                    if exact is not None:
+                        col[idx] = exact
+        if fg is not None:
+            self.native_steps += 1
+            out = Delta()
+            out.entries = fg.emit(tl, cnts, self._kinds, pcols,
+                                  self._gvals, self._gkeys, self._last)
+            return out
+        out = Delta()
+        append = out.entries.append
+        last = self._last
+        gkeys = self._gkeys
+        gvals = self._gvals
+        for idx, code in enumerate(tl):
+            c = cnts[idx]
+            if c <= 0:
+                new = None
+            else:
+                red = [c if kind == "count"
+                       else (pcols[i][idx] / c if kind == "avg"
+                             else pcols[i][idx])
+                       for i, (kind, _p) in enumerate(self.reducer_cols)]
+                new = (*gvals[code], *red)
+            old = last[code]
+            if old == new:
+                continue
+            gkey = gkeys[code]
+            if old is not None:
+                append((gkey, old, -1))
+            if new is not None:
+                append((gkey, new, 1))
+            last[code] = new
+        return out
+
+
 class JoinOperator(Operator):
-    """Inner/left/right/outer join (reference: join_tables, dataflow.rs:2276),
-    the JAX package's pure-Python loops.
+    """Inner/left/right/outer join (reference: join_tables, dataflow.rs:2276).
 
     ``lkey_fn/rkey_fn`` extract the join key from a row; by default the
     output id mixes the two side ids (``mix_pointers``); outer 'ears' appear
     when a side has no match. With the default key the delta is bilinear
-    (ΔL⋈R_old + L_new⋈ΔR); a custom ``out_key_fn`` (``ix`` keys by the left
-    id) can collide across pairs, so those joins recompute every affected
-    join-key group before and after and emit the difference — exact under
-    arbitrary retraction.
+    (ΔL⋈R_old + L_new⋈ΔR); a custom ``out_key_fn`` (``ix`` and
+    ``join(..., id=...)`` key by one side's id) can collide across pairs,
+    so those joins recompute every affected join-key group before and
+    after and emit the difference — exact under arbitrary retraction.
+
+    The inner bilinear join runs the native pass (native/fastjoin.cpp,
+    ``_step_inner_native``; ``native_steps`` counts its steps) when it
+    builds. ``out_spec`` is ``out_fn`` as a table the pass reads
+    (((side, pos), ...): side 0 the left row, 1 the right row, 2 a key,
+    pos 0 the left id, 1 the right id); ``lkey_pos`` / ``rkey_pos`` name a
+    join key that is a plain column, which the pass reads inline (exact
+    str / int / Pointer cells raw, every other cell through
+    ``lkey_fb(v, key)`` / ``rkey_fb``, the lowering's key function).
     """
 
     arity = 2
@@ -545,13 +904,21 @@ class JoinOperator(Operator):
     def __init__(self, mode: str, lkey_fn, rkey_fn,
                  out_fn: Callable[[Pointer | None, tuple | None,
                                    Pointer | None, tuple | None], tuple],
-                 out_key_fn=None):
+                 out_key_fn=None, out_spec: tuple | None = None,
+                 lkey_pos: int | None = None, lkey_fb=None,
+                 rkey_pos: int | None = None, rkey_fb=None):
         assert mode in ("inner", "left", "right", "outer")
         self.mode = mode
         self.lkey_fn = lkey_fn
         self.rkey_fn = rkey_fn
         self.out_fn = out_fn
+        self.out_spec = out_spec
+        self.lkey_pos = lkey_pos
+        self.lkey_fb = lkey_fb
+        self.rkey_pos = rkey_pos
+        self.rkey_fb = rkey_fb
         self._bilinear = out_key_fn is None
+        self.native_steps = 0
         # live (lk, rk) pairs recur every tick in dimension joins: a dict
         # probe beats re-mixing 128-bit ints per emitted row
         self._mix_cache: dict = {}
@@ -598,6 +965,10 @@ class JoinOperator(Operator):
         dl, dr = in_deltas
         if not dl and not dr:
             return Delta()
+        if self._bilinear and self.mode == "inner":
+            fj = _get_fastjoin()
+            if fj is not None:
+                return self._step_inner_native(fj, dl, dr)
         l_entries = [(self.lkey_fn(k, r), k, r, d) for k, r, d in dl.entries]
         r_entries = [(self.rkey_fn(k, r), k, r, d) for k, r, d in dr.entries]
         if self._bilinear:
@@ -820,9 +1191,39 @@ class JoinOperator(Operator):
                     self._apply(my_index, jk, k, row, -1)
         return out_entries
 
+    def _step_inner_native(self, fj, dl: Delta, dr: Delta) -> Delta:
+        """The inner bilinear delta through the native pass
+        (native/fastjoin.cpp): the algorithm of ``_one_side_inner``, ΔL vs
+        R_old then ΔR vs L_new. Raw delta entries go in when the join key
+        is a plain column (``lkey_pos``); otherwise the keyed 4-tuples are
+        built here and the pass skips extraction."""
+        self.native_steps += 1
+        spec = self.out_spec
+        ofn = self.out_fn if spec is None else None
+        out = Delta()
+        ext = out.entries.extend
+        for delta, key_pos, key_fb, key_fn, mine, other, flip in (
+                (dl, self.lkey_pos, self.lkey_fb, self.lkey_fn,
+                 self.left, self.right, False),
+                (dr, self.rkey_pos, self.rkey_fb, self.rkey_fn,
+                 self.right, self.left, True)):
+            if not delta.entries:
+                continue
+            if key_pos is not None:
+                entries, pos, fb = delta.entries, key_pos, key_fb
+            else:
+                entries = [(key_fn(k, r), k, r, d)
+                           for k, r, d in delta.entries]
+                pos, fb = -1, None
+            ext(fj.one_side_inner(
+                entries, mine, other, self._mix_cache, mix_pointers,
+                Pointer, ofn, spec, flip, pos, fb))
+        return out
+
     def _step_bilinear_inner(self, l_entries, r_entries) -> Delta:
         """Inner-mode bilinear delta: ΔL vs R_old, then ΔR vs L_new, with
-        upsert-pair fusion (see _one_side_inner)."""
+        upsert-pair fusion (see _one_side_inner); the Python loops the
+        native pass replaces."""
         out = Delta()
         if l_entries:
             out.entries.extend(

@@ -33,6 +33,9 @@ class CompileContext:
 
     def __init__(self):
         self.col_pos: dict[tuple[int, str], int] = {}
+        # table -> position of its id in the row (a join's wide row carries
+        # both side ids after the columns)
+        self.id_pos: dict[int, int] = {}
 
     def add_table(self, table, offset: int) -> int:
         """Register `table`'s columns at `offset`; returns next free offset."""
@@ -170,6 +173,12 @@ class ExpressionCompiler:
         return fn
 
     def _compile_IdExpression(self, expr):
+        pos = self.ctx.id_pos.get(id(expr.table))
+        if pos is not None:
+            def fn(keys, rows):
+                return [r[pos] for r in rows]
+            return fn
+
         def fn(keys, rows):
             return list(keys)
 

@@ -219,9 +219,11 @@ _MIX_NONE = 0x6C62272E07BB014262B821756295C58D  # stands in for a missing side
 
 def mix_pointers(a: int | None, b: int | None) -> Pointer:
     """Deterministic 128-bit combine of two (blake2b-uniform) pointers:
-    the key of a flattened row (its parent key mixed with its position).
-    Pointers are already uniform 128-bit digests, so a multiply-xor mix
-    preserves uniformity at far less cost than re-encoding + blake2b."""
+    the key of a flattened row (its parent key mixed with its position)
+    and of a join's output row (its left and right ids; the native join
+    pass, native/fastjoin.cpp, computes the same mix). Pointers are
+    already uniform 128-bit digests, so a multiply-xor mix preserves
+    uniformity at far less cost than re-encoding + blake2b."""
     x = _MIX_NONE if a is None else int(a)
     y = _MIX_NONE + 1 if b is None else int(b)
     x = (x * _MIX_A) & _MASK128
@@ -229,3 +231,48 @@ def mix_pointers(a: int | None, b: int | None) -> Pointer:
     z = (x ^ (y >> 63) ^ (y << 65)) & _MASK128
     z = (z * _MIX_A) & _MASK128
     return Pointer(z ^ (z >> 64))
+
+
+_INT_RANGE = 1 << 62
+
+
+def canonical_shard_value(v: Any):
+    """Canonical raw form of a value used as a join-state key.
+
+    ``hash_values`` encodes equal ints and floats (and their numpy scalar
+    forms) identically, so keying by the raw value must collapse the same
+    equivalence classes: integral floats and numpy scalars map to the
+    python int/float, NaN (!= itself, so useless as a dict key) maps to
+    its hash, and anything exotic maps to its hash. Bools stay raw — they
+    equal their int twins as dict keys, so join key functions hash bools
+    before calling this."""
+    if v is None:
+        return v
+    cls = v.__class__
+    if cls is str or cls is int or cls is Pointer or cls is bool:
+        return v
+    if cls is float:
+        if v != v:
+            return hash_values(v)
+        if v.is_integer() and -_INT_RANGE < v < _INT_RANGE:
+            return int(v)
+        return v
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        f = float(v)
+        if f != f:
+            return hash_values(f)
+        if f.is_integer() and -_INT_RANGE < f < _INT_RANGE:
+            return int(f)
+        return f
+    # subclasses of the raw-pass classes (np.str_, IntEnum, Pointer
+    # subtypes) canonicalize to the base so they key identically to their
+    # plain twins — hash_values encodes them identically too
+    if isinstance(v, Pointer):
+        return v
+    if isinstance(v, str):
+        return str(v)
+    if isinstance(v, int):  # bool was exact-checked above; can't subclass
+        return int(v)
+    return hash_values(v)

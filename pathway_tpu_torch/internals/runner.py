@@ -7,12 +7,16 @@ over logical times: ``run_batch`` over the static feeds, or the streaming
 runtime (engine/streaming.py, through ``pw.run``) over the streaming
 sources that ``_lower_input`` collects in ``_stream_subjects``. Lowered:
 static, input, identity, map, filter, filter_raw (remove_errors),
-reindex, flatten, concat, concat_reindex, update_cells, groupby (every
-groupby to ``GroupByOperator``), dedupe, ix (a ``JoinOperator`` keyed by
-the left id) and external_index (the as-of-now index operator,
-engine/index_ops.py). Not ported: auto-jit's host/device map split, and
-the temporal, sort and join lowerings — a plan of those kinds raises
-``NotImplementedError`` naming its ROADMAP item.
+reindex, flatten, concat, concat_reindex, update_cells, key_filter
+(restrict / intersect / difference), having, groupby (to
+``ColumnarGroupByOperator`` where ``_columnar_groupby_spec`` finds it
+columnar, as the JAX package chooses, else to ``GroupByOperator``),
+join_select (a ``JoinOperator``, which emits the projected row itself when
+every selected expression is a plain column or id), dedupe, ix (a
+``JoinOperator`` keyed by the left id) and external_index (the as-of-now
+index operator, engine/index_ops.py). Not ported: auto-jit's host/device
+map split, and the temporal and sort lowerings — a plan of those kinds
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from pathway_tpu_torch.internals.expression_compiler import (
     compile_map_program,
 )
 from pathway_tpu_torch.internals.groupbys import split_reducers
-from pathway_tpu_torch.internals.keys import Pointer, hash_values, mix_pointers
+from pathway_tpu_torch.internals.keys import (Pointer, canonical_shard_value,
+                                              hash_values, mix_pointers)
 from pathway_tpu_torch.internals.table import _DSL_REST, Plan, Table
 from pathway_tpu_torch.internals.type_inference import infer_dtype
 
@@ -342,24 +347,32 @@ class GraphRunner:
                     return tuple(f(key, row) for f in _fns)
             reducer_specs.append((name, extract, spec_kwargs))
 
-        if len(gval_fns) == 1 and not use_raw_key:
-            def group_fn(key, row, _f=gval_fns[0]):
-                v = _f(key, row)
-                return hash_values(v), (v,)
+        columnar = None
+        if not force_sort and not use_raw_key:
+            columnar = _columnar_groupby_spec(gvals_exprs, reducers, ctx)
+        if columnar is not None:
+            gnode = self.graph.add_node(
+                eng.ColumnarGroupByOperator(*columnar),
+                [node], f"groupby:{table._name}")
         else:
-            def group_fn(key, row):
-                gvals = tuple(f(key, row) for f in gval_fns)
-                if use_raw_key:
-                    gkey = gvals[0] if isinstance(gvals[0], Pointer) \
-                        else hash_values(gvals[0])
-                else:
-                    gkey = hash_values(*gvals)
-                return gkey, gvals
+            if len(gval_fns) == 1 and not use_raw_key:
+                def group_fn(key, row, _f=gval_fns[0]):
+                    v = _f(key, row)
+                    return hash_values(v), (v,)
+            else:
+                def group_fn(key, row):
+                    gvals = tuple(f(key, row) for f in gval_fns)
+                    if use_raw_key:
+                        gkey = gvals[0] if isinstance(gvals[0], Pointer) \
+                            else hash_values(gvals[0])
+                    else:
+                        gkey = hash_values(*gvals)
+                    return gkey, gvals
 
-        gnode = self.graph.add_node(
-            eng.GroupByOperator(group_fn, reducer_specs,
-                                force_order_sensitive=force_sort),
-            [node], f"groupby:{table._name}")
+            gnode = self.graph.add_node(
+                eng.GroupByOperator(group_fn, reducer_specs,
+                                    force_order_sensitive=force_sort),
+                [node], f"groupby:{table._name}")
 
         # post-map over (gvals, reduced) rows; elided when it is the
         # identity projection (reduce() listing group cols then reducers in
@@ -374,6 +387,136 @@ class GraphRunner:
         post_program, nondet = compile_map_program(rewritten, post_ctx)
         return self.graph.add_node(_map_op_for(post_program, nondet),
                                    [gnode], f"reduce:{table._name}")
+
+    # -- joins --------------------------------------------------------------
+    def _lower_join_select(self, table: Table, plan: Plan) -> Node:
+        left: Table = plan.params["left"]
+        right: Table = plan.params["right"]
+        on = plan.params["on"]
+        mode = plan.params["mode"]
+        id_expr = plan.params.get("id_expr")
+        exprs = plan.params["exprs"]
+
+        lnode = self.lower(left)
+        rnode = self.lower(right)
+
+        lctx = CompileContext()
+        lctx.add_table(left, 0)
+        lcomp = ExpressionCompiler(lctx)
+        l_fns = [lcomp.compile_row(a) for a, _ in on]
+        rctx = CompileContext()
+        rctx.add_table(right, 0)
+        rcomp = ExpressionCompiler(rctx)
+        r_fns = [rcomp.compile_row(b) for _, b in on]
+
+        # SQL null semantics: a None join value matches nothing, but in
+        # left/right/outer mode the row must still appear as an unmatched
+        # "ear" — so map it to a per-row sentinel key that can't collide.
+        # Hashable scalars are used RAW as the join-group key (dict keys in
+        # the join state) — hashing per row bought nothing. Bools still hash:
+        # True == 1 as a dict key, but hash_values keeps them distinct,
+        # and both sides must agree on the keying.
+        def _jkey(v, side, key):
+            if v is None:
+                return ("__pw_null__", side, key)
+            cls = v.__class__
+            if cls is str or cls is Pointer:
+                return v
+            if cls is int:  # not bool: its class is bool
+                return v
+            if cls is bool:
+                # True == 1 as a dict key but hash_values keeps bools
+                # distinct from ints — a raw bool would falsely match an
+                # int join key from the other side
+                return hash_values(v)
+            # floats / np scalars canonicalize so equal ints and floats
+            # (1 vs 1.0, np.int64(1) vs 1) join exactly as the hash
+            # encoding says they do; NaN and exotica fall back to hashing
+            return canonical_shard_value(v)
+
+        if len(l_fns) == 1:
+            def lkey_fn(key, row, _f=l_fns[0]):
+                return _jkey(_f(key, row), "l", key)
+        else:
+            def lkey_fn(key, row):
+                vals = tuple(f(key, row) for f in l_fns)
+                if any(v is None for v in vals):
+                    return ("__pw_null__", "l", key)
+                return hash_values(*vals)
+
+        if len(r_fns) == 1:
+            def rkey_fn(key, row, _f=r_fns[0]):
+                return _jkey(_f(key, row), "r", key)
+        else:
+            def rkey_fn(key, row):
+                vals = tuple(f(key, row) for f in r_fns)
+                if any(v is None for v in vals):
+                    return ("__pw_null__", "r", key)
+                return hash_values(*vals)
+
+        # plain-column join keys: give the native pass the position so it
+        # extracts + canonicalizes inline (fallback reproduces _jkey)
+        lkey_pos = rkey_pos = None
+        if len(on) == 1 and type(on[0][0]) is ex.ColumnReference:
+            try:
+                lkey_pos = lctx.position(on[0][0])
+            except KeyError:
+                lkey_pos = None
+        if len(on) == 1 and type(on[0][1]) is ex.ColumnReference:
+            try:
+                rkey_pos = rctx.position(on[0][1])
+            except KeyError:
+                rkey_pos = None
+        key_kw = dict(
+            lkey_pos=lkey_pos,
+            lkey_fb=(lambda v, key: _jkey(v, "l", key))
+            if lkey_pos is not None else None,
+            rkey_pos=rkey_pos,
+            rkey_fb=(lambda v, key: _jkey(v, "r", key))
+            if rkey_pos is not None else None,
+        )
+
+        nl = len(left._column_names())
+        nr = len(right._column_names())
+
+        out_key_fn = None
+        if id_expr is not None and isinstance(id_expr, ex.IdExpression):
+            if id_expr.table is left:
+                out_key_fn = lambda lk, rk, jk: lk
+            elif id_expr.table is right:
+                out_key_fn = lambda lk, rk, jk: rk
+
+        ctx = CompileContext()
+        off = ctx.add_table(left, 0)
+        off = ctx.add_table(right, off)
+        ctx.id_pos = {id(left): nl + nr, id(right): nl + nr + 1}
+
+        # When every selected expression is a plain column/id reference the
+        # join emits the projected row DIRECTLY (code-generated picker) and
+        # the whole select map node disappears — one tuple per output row
+        # instead of three (wide row, column batch, zipped row).
+        direct = _direct_join_projection(exprs, ctx, nl, nr, mode)
+        if direct is not None:
+            direct_fn, cspec = direct
+            jnode = self.graph.add_node(
+                eng.JoinOperator(mode, lkey_fn, rkey_fn, direct_fn,
+                                 out_key_fn, out_spec=cspec, **key_kw),
+                [lnode, rnode], f"join_select:{table._name}")
+            return jnode
+
+        def out_fn(lk, lrow, rk, rrow):
+            lr = lrow if lrow is not None else (None,) * nl
+            rr = rrow if rrow is not None else (None,) * nr
+            return (*lr, *rr, lk, rk)
+
+        jnode = self.graph.add_node(
+            eng.JoinOperator(mode, lkey_fn, rkey_fn, out_fn, out_key_fn,
+                             **key_kw),
+            [lnode, rnode], f"join:{mode}")
+
+        program, nondet = compile_map_program(exprs, ctx)
+        return self.graph.add_node(_map_op_for(program, nondet), [jnode],
+                                   f"join_select:{table._name}")
 
     # -- set ops ------------------------------------------------------------
     def _project_to_names(self, t: Table, names: list[str]) -> Node:
@@ -444,6 +587,42 @@ class GraphRunner:
 
         return self.graph.add_node(
             eng.BinaryKeyOperator(combine), [lnode, rnode], "update_cells")
+
+    def _lower_key_filter(self, table: Table, plan: Plan) -> Node:
+        base: Table = plan.params["base"]
+        other: Table = plan.params["other"]
+        mode = plan.params["mode"]
+        lnode = self.lower(base)
+        rnode = self.lower(other)
+        if mode in ("restrict", "intersect"):
+            combine = lambda l, r: l if (l is not None and r is not None) else None
+        elif mode == "difference":
+            combine = lambda l, r: l if (l is not None and r is None) else None
+        else:
+            raise ValueError(mode)
+        return self.graph.add_node(
+            eng.BinaryKeyOperator(combine), [lnode, rnode], mode)
+
+    def _lower_having(self, table: Table, plan: Plan) -> Node:
+        base: Table = plan.params["base"]
+        indexer = plan.params["indexer"]
+        idx_table: Table = plan.params["indexer_table"]
+        lnode = self.lower(base)
+        inode = self.lower(idx_table)
+        ctx = CompileContext()
+        ctx.add_table(idx_table, 0)
+        comp = ExpressionCompiler(ctx)
+        vfn = comp.compile(indexer)
+
+        def key_fn(keys, rows):
+            return [v if isinstance(v, Pointer) else hash_values(v)
+                    for v in vfn(keys, rows)]
+
+        keyed = self.graph.add_node(
+            eng.ReindexOperator(key_fn), [inode], "having_keys")
+        combine = lambda l, r: l if (l is not None and r is not None) else None
+        return self.graph.add_node(
+            eng.BinaryKeyOperator(combine), [lnode, keyed], "having")
 
     # -- reshaping ----------------------------------------------------------
     def _lower_flatten(self, table: Table, plan: Plan) -> Node:
@@ -552,6 +731,140 @@ class GraphRunner:
             revise=plan.params.get("revise", False),
         )
         return self.graph.add_node(op, [dnode, qnode], "external_index")
+
+
+def _direct_join_projection(exprs, ctx, nl: int, nr: int, mode: str):
+    """``(out_fn, c_spec)`` when every select expression is a plain
+    column/id reference; None otherwise. out_fn is a code-generated
+    ``(lk, lrow, rk, rrow) -> projected row``; c_spec is the equivalent
+    ((side, pos), ...) table for the native join pass (side 0 = left row,
+    1 = right row, 2 = key with pos 0 lk / 1 rk). Replaces out_fn +
+    select-map with a single tuple build per output row."""
+    items = []
+    cspec = []
+    for e in exprs:
+        if isinstance(e, ex.IdExpression):
+            pos = ctx.id_pos.get(id(e.table))
+            if pos == nl + nr:
+                items.append("lk")
+                cspec.append((2, 0))
+            elif pos == nl + nr + 1:
+                items.append("rk")
+                cspec.append((2, 1))
+            else:
+                return None
+        elif type(e) is ex.ColumnReference:
+            try:
+                p = ctx.position(e)
+            except KeyError:
+                return None
+            if p < nl:
+                items.append(f"lrow[{p}]")
+                cspec.append((0, p))
+            else:
+                items.append(f"rrow[{p - nl}]")
+                cspec.append((1, p - nl))
+        else:
+            return None
+    body = f"({', '.join(items)},)" if items else "()"
+    if mode == "inner":  # both rows always present
+        fn = eval(f"lambda lk, lrow, rk, rrow: {body}")  # noqa: S307
+        return fn, tuple(cspec)
+    fn = eval(  # noqa: S307 — outer modes: absent side reads as None
+        f"lambda lk, lrow, rk, rrow, _ln=(None,) * {nl}, _rn=(None,) * {nr}: "
+        f"(lambda lrow, rrow: {body})("
+        "lrow if lrow is not None else _ln, "
+        "rrow if rrow is not None else _rn)")
+    return fn, tuple(cspec)
+
+
+# the group-value dtypes ColumnarGroupByOperator interns
+_COLUMNAR_GVAL_DTYPES = (
+    dt.INT, dt.BOOL, dt.STR, dt.FLOAT, dt.POINTER, dt.DATE_TIME_NAIVE,
+    dt.DATE_TIME_UTC, dt.DURATION)
+
+
+def _columnar_groupby_spec(gvals_exprs, reducers, ctx):
+    """Positions for ColumnarGroupByOperator, or None if ineligible — the
+    JAX package's choice, rule for rule.
+
+    Eligible: every group value is a plain column of hashable scalar dtype
+    and every reducer is count / integral sum / integral avg, or min /
+    max / argmin / argmax over plain columns of such dtypes. The hash
+    semantics are kept exactly: the operator aliases typed intern keys
+    through ``hash_values`` on first sight of each distinct value."""
+
+    def hashable_dtype(d) -> bool:
+        d = dt.unoptionalize(d)
+        if d in _COLUMNAR_GVAL_DTYPES:
+            return True
+        # concrete scalar tuples (window keys: (instance, start, end))
+        # intern fine — tuple hashing over hashable members
+        if isinstance(d, dt.Tuple):
+            return all(hashable_dtype(el) for el in d.args)
+        return False
+
+    gval_pos = []
+    for e in gvals_exprs:
+        if isinstance(e, ex.IdExpression) or type(e) is not ex.ColumnReference:
+            return None
+        try:
+            if not hashable_dtype(infer_dtype(e)):
+                return None
+        except Exception:
+            return None
+        gval_pos.append(ctx.position(e))
+    reducer_cols = []
+    for r in reducers:
+        name = r._name
+        if name == "count" and not r._args:
+            reducer_cols.append(("count", None))
+            continue
+        if name in ("sum", "int_sum", "avg") and len(r._args) == 1:
+            a = r._args[0]
+            if type(a) is not ex.ColumnReference:
+                return None
+            try:
+                d = dt.unoptionalize(infer_dtype(a))
+            except Exception:
+                return None
+            if d not in (dt.INT, dt.BOOL):
+                return None
+            reducer_cols.append(
+                ("avg" if name == "avg" else "sum", ctx.position(a)))
+            continue
+        if name in ("min", "max") and len(r._args) == 1:
+            # multiset side-state in the columnar operator: exact under
+            # retraction, values must be hashable scalars
+            a = r._args[0]
+            if type(a) is not ex.ColumnReference:
+                return None
+            try:
+                if not hashable_dtype(infer_dtype(a)):
+                    return None
+            except Exception:
+                return None
+            reducer_cols.append((name, ctx.position(a)))
+            continue
+        if name in ("argmin", "argmax") and len(r._args) in (1, 2):
+            # (cmp, payload) multiset; payload defaults to the row key
+            # (runner's argmin extract semantics, position -1)
+            positions = []
+            for a in r._args:
+                if type(a) is not ex.ColumnReference:
+                    return None
+                try:
+                    if not hashable_dtype(infer_dtype(a)):
+                        return None
+                except Exception:
+                    return None
+                positions.append(ctx.position(a))
+            if len(positions) == 1:
+                positions.append(-1)  # payload = row key
+            reducer_cols.append((name, tuple(positions)))
+            continue
+        return None
+    return gval_pos, reducer_cols
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,10 @@ until a GraphRunner (internals/runner.py) lowers and runs it. Ported:
 select / with_columns / without / rename* / filter / remove_errors /
 flatten / concat / concat_reindex / update_rows / update_cells (``<<``) /
 with_id / with_id_from / pointer_from / groupby / reduce / deduplicate /
-ix / ix_ref / cast_to_types / update_types / debug, the universe promises
-and ``_external_index_as_of_now`` (the plan DataIndex queries build).
+join / join_inner / join_left / join_right / join_outer (internals/joins.py)
+/ restrict / intersect / difference / having / ix / ix_ref /
+cast_to_types / update_types / debug, the universe promises and
+``_external_index_as_of_now`` (the plan DataIndex queries build).
 Every other Table method of the JAX package raises
 ``NotImplementedError`` naming the ROADMAP item that brings it
 (``_UNPORTED`` below).
@@ -282,6 +284,30 @@ class Table:
         pred = self._resolve(ex.wrap_arg(split_expression))
         return self.filter(pred), self.filter(~ex.wrap_arg(pred))
 
+    def restrict(self, other: "Table") -> "Table":
+        plan = Plan("key_filter", base=self, other=other, mode="restrict")
+        return Table(plan, self._schema, other._universe)
+
+    def intersect(self, *tables: "Table") -> "Table":
+        out = self
+        for t in tables:
+            plan = Plan("key_filter", base=out, other=t, mode="intersect")
+            out = Table(plan, self._schema, self._universe.subuniverse())
+        return out
+
+    def difference(self, other: "Table") -> "Table":
+        plan = Plan("key_filter", base=self, other=other, mode="difference")
+        return Table(plan, self._schema, self._universe.subuniverse())
+
+    def having(self, *indexers) -> "Table":
+        out = self
+        for indexer in indexers:
+            # keep the rows whose id is a value of the indexer expression
+            plan = Plan("having", base=out, indexer=indexer,
+                        indexer_table=indexer.table)
+            out = Table(plan, self._schema, self._universe.subuniverse())
+        return out
+
     def copy(self) -> "Table":
         return Table(Plan("identity", base=self), self._schema, self._universe)
 
@@ -369,6 +395,29 @@ class Table:
         plan = Plan("dedupe", base=self, value=value_e, instance=inst_e,
                     acceptor=acceptor)
         return Table(plan, self._schema, Universe())
+
+    # ------------------------------------------------------------------
+    # joins (internals/joins.py)
+    # ------------------------------------------------------------------
+    def join(self, other: "Table", *on, id=None, how="inner",
+             left_instance=None, right_instance=None):
+        from pathway_tpu_torch.internals.joins import JoinResult
+
+        mode = how if isinstance(how, str) else how.value
+        return JoinResult.create(self, other, on, mode, id,
+                                 left_instance, right_instance)
+
+    def join_inner(self, other, *on, **kw):
+        return self.join(other, *on, how="inner", **kw)
+
+    def join_left(self, other, *on, **kw):
+        return self.join(other, *on, how="left", **kw)
+
+    def join_right(self, other, *on, **kw):
+        return self.join(other, *on, how="right", **kw)
+
+    def join_outer(self, other, *on, **kw):
+        return self.join(other, *on, how="outer", **kw)
 
     # ------------------------------------------------------------------
     # set ops / combination
@@ -531,11 +580,9 @@ def _expr_base_table(expr) -> Table | None:
 # where each unported Table method of the JAX package comes from
 _DSL_REST = "ROADMAP queue 1, item 2d: the rest of the Table DSL"
 _UNPORTED = {name: _DSL_REST for name in (
-    "join", "join_inner", "join_left", "join_right", "join_outer",
     "asof_join", "asof_now_join", "interval_join", "window_join",
-    "windowby", "restrict", "intersect", "difference", "having", "sort",
-    "diff", "interpolate", "show", "plot", "live", "update_id_type",
-    "_gradual_broadcast", "_forget_immediately", "_buffer", "_forget",
+    "windowby", "sort", "diff", "interpolate", "show", "plot", "live",
+    "update_id_type", "_gradual_broadcast", "_forget_immediately", "_buffer", "_forget",
     "_freeze", "_filter_out_results_of_forgetting", "to", "from_columns")}
 
 

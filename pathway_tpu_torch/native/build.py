@@ -44,7 +44,7 @@ def library_path(name: str, python_api: bool = False) -> str:
 def ensure_built(name: str, python_api: bool = False) -> str:
     """Compile ``native/<name>.cpp`` unless its library is built; return
     the library's path. ``python_api=True`` builds a CPython extension
-    (the source defines ``PyInit_<name>``)."""
+    (the source defines ``PyInit_torch_<name>``)."""
     out = library_path(name, python_api)
     if os.path.exists(out):
         return out
@@ -69,15 +69,24 @@ def ensure_built(name: str, python_api: bool = False) -> str:
         return out
 
 
+# a port extension's module name: the JAX package builds its own
+# ``fastjoin`` / ``fastgroup`` from sources of the same name, and a process
+# that loads both packages' passes (the parity tests do) must get each
+# package its own module
+EXTENSION_PREFIX = "torch_"
+
+
 def load_extension(name: str):
     """Build and import a CPython extension module from
-    ``native/<name>.cpp``."""
+    ``native/<name>.cpp``, whose module is ``torch_<name>`` (the source
+    defines ``PyInit_torch_<name>``)."""
     import importlib.machinery
     import importlib.util
 
     path = ensure_built(name, python_api=True)
-    loader = importlib.machinery.ExtensionFileLoader(name, path)
-    spec = importlib.util.spec_from_file_location(name, path, loader=loader)
+    module = EXTENSION_PREFIX + name
+    loader = importlib.machinery.ExtensionFileLoader(module, path)
+    spec = importlib.util.spec_from_file_location(module, path, loader=loader)
     mod = importlib.util.module_from_spec(spec)
     loader.exec_module(mod)
     return mod

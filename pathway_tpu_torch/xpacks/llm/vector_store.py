@@ -9,9 +9,9 @@ queries answered against the live index (``query_as_of_now``). With
 index takes raw text and embeds it on the device (DeviceEmbeddingKnnIndex):
 the graph bench.py's ``bench_embed_framework`` measures.
 
-The statistics and inputs queries look the one statistics row up with
-``ix`` (the JAX package cross-joins it with ``join_left``; joins are not
-ported). ``run_server`` serves the three queries over HTTP
+The statistics and inputs queries join the one statistics row to each
+query with ``join_left(stats, id=queries.id)``, as the JAX package does.
+``run_server`` serves the three queries over HTTP
 (``/v1/retrieve``, ``/v1/statistics``, ``/v1/inputs``; io/http's stdlib
 webserver) under ``pw.run``, and ``VectorStoreClient`` is its blocking
 client. Not ported, each raising ``NotImplementedError`` naming its
@@ -29,18 +29,12 @@ import numpy as np
 
 import pathway_tpu_torch as pw
 from pathway_tpu_torch.internals import dtype as dt
-from pathway_tpu_torch.internals import expression as ex
 from pathway_tpu_torch.internals.json import Json
-from pathway_tpu_torch.internals.keys import hash_values
 from pathway_tpu_torch.stdlib.indexing import (
     DataIndex,
     default_usearch_knn_document_index,
 )
 from pathway_tpu_torch.xpacks.llm._utils import _unwrap_udf
-
-# the key groupby().reduce() with no grouping columns gives its one row
-_STATS_KEY = hash_values()
-
 
 class VectorStoreServer:
     """Builds the live indexing graph over one or more document sources
@@ -211,25 +205,19 @@ class VectorStoreServer:
         metadata_filter: str | None
         filepath_globpattern: str | None
 
-    def _stats_for(self, queries) -> "pw.Table":
-        """The statistics row beside each query (all None before the
-        first document), keyed by the query."""
-        return self._graph["stats"].ix(ex.ConstExpression(_STATS_KEY),
-                                       optional=True, context=queries)
-
     def statistics_query(self, info_queries) -> "pw.Table":
-        stats = self._stats_for(info_queries)
+        stats = self._graph["stats"]
 
         @pw.udf
         def format_stats(count, last_modified) -> Json:
             return Json({"file_count": count,
                          "last_modified": last_modified})
 
-        return stats.select(
+        return info_queries.join_left(stats, id=info_queries.id).select(
             result=format_stats(stats.count, stats.last_modified))
 
     def inputs_query(self, input_queries) -> "pw.Table":
-        stats = self._stats_for(input_queries)
+        stats = self._graph["stats"]
 
         @pw.udf
         def format_inputs(paths, metadata_filter, filepath_globpattern) -> Json:
@@ -241,7 +229,7 @@ class VectorStoreServer:
                        if fnmatch.fnmatch(p, str(filepath_globpattern))]
             return Json(out)
 
-        return stats.select(
+        return input_queries.join_left(stats, id=input_queries.id).select(
             result=format_inputs(stats.paths, input_queries.metadata_filter,
                                  input_queries.filepath_globpattern))
 

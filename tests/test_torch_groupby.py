@@ -5,11 +5,12 @@ captured events (key, row, time, diff), the result schema and the
 error-log messages must be equal exactly (tolerance: none; floats compare
 by their bits).
 
-The port lowers every groupby to ``GroupByOperator``; the JAX package runs
-some (count, integral sum/avg, min/max, argmin/argmax over plain columns)
-through its ``ColumnarGroupByOperator``. Events are compared sorted by
-(time, key, diff), so the two must emit the same events, in any order
-within a tick. ``p_columnar_eligible`` is such a groupby.
+Both packages run some groupbys (count, integral sum/avg, min/max,
+argmin/argmax over plain columns) through ``ColumnarGroupByOperator`` and
+the rest through ``GroupByOperator`` (tests/test_torch_columnar_groupby.py
+holds the choice). Events are compared sorted by (time, key, diff), so
+the two must emit the same events, in any order within a tick.
+``p_columnar_eligible`` is such a groupby.
 
 ``JoinOperator`` (``ix`` lowers to it) is also stepped directly on both
 sides over the same deltas, in every mode, with the default mixed output

@@ -15,7 +15,9 @@ queries arrive, then the stream paused and held queries answered by both.
     encoder, f32 and bf16 indexes: held ``/v1/retrieve`` replies (k = 3
     and k = 80, past K_MAX) equal the JAX package's within the tolerance
     of tests/test_torch_vector_store.py; ``/v1/statistics`` counts the
-    documents pushed; ``VectorStoreClient`` returns the raw POST's reply.
+    documents pushed (and, asked before the first document, the left
+    join's empty row, as the JAX package answers); ``VectorStoreClient``
+    returns the raw POST's reply.
 
 Every request has a deadline, every run ``stop_all()`` in a finally and
 a ``join`` whose timeout fails the test. The JAX side runs with
@@ -266,10 +268,15 @@ def _embedder(name: str, params):
 def _graph_b(name: str, params, dtype: str, texts: list) -> dict:
     pw, streaming, G = _side(name)
     docs = _docs()
-    loaded, paused = threading.Event(), threading.Event()
+    go, loaded, paused = threading.Event(), threading.Event(), \
+        threading.Event()
 
     class DocSubject(pw.io.python.ConnectorSubject):
         def run(self):
+            # no document before the empty statistics are asked for
+            while not go.wait(0.05):
+                if self._session.stopping.is_set():
+                    return
             for b in range(0, N_DOCS, DOC_CHUNK):
                 for d in docs[b:min(b + DOC_CHUNK, N_DOCS)]:
                     self.next(data=d)
@@ -312,8 +319,18 @@ def _graph_b(name: str, params, dtype: str, texts: list) -> dict:
                 return False
 
         _wait(up, "the webserver", served.errors)
-        _wait(loaded.is_set, "the bulk load", served.errors)
         ask = {"metadata_filter": None, "filepath_globpattern": None}
+        # before the first document: the left join's row without a match
+        # (the JAX package's webserver accepts connections before its
+        # routes are added: 404 until then)
+        def stats_routed():
+            out["stats_empty"] = _post(base + "/v1/statistics", {})
+            return out["stats_empty"][0] != 404
+
+        _wait(stats_routed, "the statistics route", served.errors)
+        out["inputs_empty"] = _post(base + "/v1/inputs", ask)
+        go.set()
+        _wait(loaded.is_set, "the bulk load", served.errors)
         for t in texts[:2]:
             out["live"].append(_post(base + "/v1/retrieve",
                                      {"query": t, "k": 3, **ask}))
@@ -382,6 +399,11 @@ def test_vector_store_server_equals_reference(dtype):
     # without them is a 400 in both packages
     assert port["two_keys"] == jax["two_keys"]
     assert port["two_keys"][0] == 400
+    # /v1/statistics and /v1/inputs go through join_left in both packages
+    assert port["stats_empty"] == jax["stats_empty"]
+    assert port["stats_empty"] == (200, {"file_count": None,
+                                         "last_modified": None})
+    assert port["inputs_empty"] == jax["inputs_empty"] == (200, [])
     assert port["stats"] == jax["stats"]
     assert port["stats"][1]["file_count"] == len(docs)
     assert port["inputs"] == jax["inputs"]

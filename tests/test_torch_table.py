@@ -334,12 +334,12 @@ def test_table_from_rows_keys_equal_reference():
 
 @pytest.mark.parametrize("call", [
     lambda t: t.windowby(t.a, window=None),
-    lambda t: t.restrict(t),
-    lambda t: t.join(t, t.a == t.a),
+    lambda t: t.asof_join(t, t.a, t.a),
+    lambda t: t.interval_join(t, t.a, t.a, None),
     lambda t: t.sort(t.a),
-    lambda t: t.difference(t),
+    lambda t: t.diff(t.a),
     lambda t: t.slice,
-], ids=["windowby", "restrict", "join", "sort", "difference", "slice"])
+], ids=["windowby", "asof_join", "interval_join", "sort", "diff", "slice"])
 def test_unported_operations_raise(call):
     t = _base(tpw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

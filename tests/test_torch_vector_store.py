@@ -207,6 +207,34 @@ def test_statistics_and_inputs_equal_reference(params, endpoint):
     assert len(out["torch"]) >= 3
 
 
+@pytest.mark.parametrize("endpoint", ["statistics_query", "inputs_query"])
+def test_statistics_and_inputs_lower_to_join_left(params, endpoint):
+    """Both packages answer statistics and inputs through
+    ``queries.join_left(stats, id=queries.id)``: the same operators in the
+    same order, a left join keyed by the query id (its per-group recompute
+    path) where the port once had an ``ix``, and the statistics groupby
+    the row operator in both."""
+    graphs = {}
+    for side in SIDES:
+        pw, Runner, _, _ = SIDES[side]
+        pw, store = _server(side, params, False, "float32", False)
+        schema = store.StatisticsQuerySchema if endpoint == \
+            "statistics_query" else store.InputsQuerySchema
+        queries = pw.debug.table_from_rows(schema, [], is_stream=True)
+        runner = Runner()
+        runner.capture(getattr(store, endpoint)(queries))
+        graphs[side] = runner.graph.nodes
+    types = {side: [type(n.op).__name__ for n in nodes]
+             for side, nodes in graphs.items()}
+    assert types["torch"] == types["jax"]
+    joins = [n for n in graphs["torch"] if n.name == "join:left"]
+    assert len(joins) == 1
+    assert joins[0].op.mode == "left" and not joins[0].op._bilinear
+    assert not any(n.name == "ix" for n in graphs["torch"])
+    assert types["torch"].count("GroupByOperator") == 1
+    assert "ColumnarGroupByOperator" not in types["torch"]
+
+
 def test_unported_parts_raise_naming_their_item(params):
     """The default usearch index, USearchKnn and the mesh-sharded index
     raise; they never fall back to another index or to the CPU. (The
