@@ -7,9 +7,10 @@ Drives the port's two live-RAG device paths, the engine's batch path
 with the encoder as a batch UDF, the engine's index path (the graph of
 bench.py's bench_embed_framework), the served path (``pw.run``'s
 streaming runtime behind HTTP: bench.py's bench_serving graph and a live
-RAG server) and the engine's relational core (bench.py's bench_etl
+RAG server), the engine's relational core (bench.py's bench_etl
 graph: the columnar groupby and the inner join with their native passes,
-host code), at BGE-small's full width with random weights from a seed,
+host code) and its temporal layer (bench_etl's windowed leg and every
+other temporal entry point, host code), at BGE-small's full width with random weights from a seed,
 and checks every kernel of those paths against its plain PyTorch version
 on the card. Phases (each failure exits
 non-zero, and no result line is printed):
@@ -35,6 +36,17 @@ non-zero, and no result line is printed):
    kernel launched. Prints bench.py's ``etl_rows_per_s_1w`` and
    ``etl_rows_per_s_1w_python_loops``, the host's CPU and cores and the
    garbage collector's collections;
+2c. etl windowed (bench.py's ``run_windowed``, host only): bench's
+   100,000 rows over 50 ticks with ``at`` drawn next (sorted, below
+   10,000), ``windowby(at, tumbling(100), instance=s{word % 200})``
+   reduced to sensor, start, sum and count under
+   ``run_batch(n_workers=1)``: native, the groupby's loops, loops,
+   native. Checks: the operators are the JAX package's (Source, Map,
+   ColumnarGroupByOperator, Map, Output), the native groupby pass taken on
+   every input tick (never with it off), the final table equal to a plain
+   sum and count per window (19,875), the native runs' consolidated
+   events (keys included) equal to the loops', no kernel launched. Prints
+   bench.py's ``etl_windowed_rows_per_s``;
 3. K1 (the encoder attention kernel) against ``attention_reference`` on
    the card: bf16 at the ingest shape, at S=512 and at the edges of its
    tensor-core tiling (S=16, S=100, S=1000, S=1024, D=40, D=128), f32,
@@ -221,7 +233,19 @@ non-zero, and no result line is printed):
    first 8 queries' top-10 with the bf16 index's;
 17. profile: torch.profiler over three encoder forwards of each path's
    dispatch, device time by kernel group (K1, GEMM, other) and the
-   device's busy share.
+   device's busy share;
+18. temporal (host only, on a machine without pandas; last, since its
+   graphs leave memoized keys and objects behind): sliding(50, 100)
+   over bench's rows; tumbling(100) under ``common_behavior(delay=50,
+   cutoff=200)`` and ``exactly_once_behavior()`` (against a tick-by-tick
+   simulation of the thresholds); ``session(max_gap=3)`` over the first
+   10,000 rows (cut from 100,000: sessions re-sort each instance's times
+   every tick); over two 10,000-row tables drawn next ``asof_now_join``
+   (inner, left), ``asof_join`` (backward, forward, nearest; inner,
+   outer), ``interval_join`` (four ``how``), ``window_join`` (tumbling,
+   session), ``sort``, ``diff``, ``interpolate``: every final table
+   against a plain Python computation, no kernel launched, pandas never
+   imported.
 
 The second-to-last line is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -236,6 +260,7 @@ import os
 import subprocess
 import sys
 import time
+import typing
 
 import numpy as np
 
@@ -439,52 +464,72 @@ def cpu_model() -> str:
     return f"{model or 'model not reported'} ({platform.machine()})"
 
 
+def graph_run(build) -> dict:
+    """Build a graph with ``build(pw)`` (a table, or a tuple of tables
+    whose first is the result), capture each table and time
+    ``run_batch(n_workers=1)`` on the host clock."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.runner import GraphRunner
+
+    G.clear()
+    try:
+        out = build(pw)
+        tables = out if isinstance(out, tuple) else (out,)
+        runner = GraphRunner()
+        caps = [runner.capture(t) for t in tables]
+        with GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            runner.run_batch(n_workers=1)
+            dt = time.perf_counter() - t0
+    finally:
+        G.clear()
+    return {"s": dt, "cap": caps[0], "caps": caps, "gc_n": gc_clock.n,
+            "gc_s": gc_clock.s,
+            "ops": [node.op for node in runner.graph.nodes],
+            "op_ms": op_ms_by_class(runner)}
+
+
+def op_ms_by_class(runner) -> dict:
+    """Host ms a run by operator class (summed over its nodes)."""
+    out: dict = {}
+    for node in runner.graph.nodes:
+        name = type(node.op).__name__
+        out[name] = out.get(name, 0.0) + \
+            runner._scheduler.stats[node.id]["total_ms"]
+    return out
+
+
 def etl_run(words, qtys, ticks) -> dict:
     """bench_etl's ``run_once(1)`` graph through the port
     (bench.py:1898-1934): the events table, the ``lex`` dimension table,
     ``events.groupby(events.word).reduce(word, n=count(), total=sum(qty))``
     joined with ``lex`` on the word; ``run_batch(n_workers=1)`` timed on
-    the host clock as bench.py times it. Returns the rate (rows/s), the
-    captured stream, the graph's operators and the garbage collector's
-    collections and time inside the timed run."""
-    import pathway_tpu_torch as pw
-    from pathway_tpu_torch.debug import table_from_rows
-    from pathway_tpu_torch.internals.parse_graph import G
-    from pathway_tpu_torch.internals.runner import GraphRunner
+    the host clock as bench.py times it (``graph_run``), with the rate
+    (rows/s)."""
+    def build(pw):
+        class S(pw.Schema):
+            word: str
+            qty: int
 
-    G.clear()
+        class L(pw.Schema):
+            word: str
+            cat: str
 
-    class S(pw.Schema):
-        word: str
-        qty: int
+        events = pw.debug.table_from_rows(
+            S, [(f"w{words[i]}", int(qtys[i]), int(ticks[i]) * 2, 1)
+                for i in range(len(words))], is_stream=True)
+        lex = pw.debug.table_from_rows(
+            L, [(f"w{i}", f"cat{i % 7}") for i in range(ETL_VOCAB)])
+        counts = events.groupby(events.word).reduce(
+            events.word, n=pw.reducers.count(),
+            total=pw.reducers.sum(events.qty))
+        return counts.join(lex, counts.word == lex.word).select(
+            counts.word, counts.n, counts.total, lex.cat)
 
-    class L(pw.Schema):
-        word: str
-        cat: str
-
-    events = table_from_rows(
-        S, [(f"w{words[i]}", int(qtys[i]), int(ticks[i]) * 2, 1)
-            for i in range(len(words))], is_stream=True)
-    lex = table_from_rows(
-        L, [(f"w{i}", f"cat{i % 7}") for i in range(ETL_VOCAB)])
-    counts = events.groupby(events.word).reduce(
-        events.word, n=pw.reducers.count(),
-        total=pw.reducers.sum(events.qty))
-    joined = counts.join(lex, counts.word == lex.word).select(
-        counts.word, counts.n, counts.total, lex.cat)
-    runner = GraphRunner()
-    cap = runner.capture(joined)
-    with GcClock() as gc_clock:
-        t0 = time.perf_counter()
-        runner.run_batch(n_workers=1)
-        dt = time.perf_counter() - t0
-    G.clear()
-    stats = runner._scheduler.stats
-    return {"rate": len(words) / dt, "cap": cap, "gc_n": gc_clock.n,
-            "gc_s": gc_clock.s,
-            "ops": [node.op for node in runner.graph.nodes],
-            "op_ms": {type(node.op).__name__: stats[node.id]["total_ms"]
-                      for node in runner.graph.nodes}}
+    run = graph_run(build)
+    run["rate"] = len(words) / run["s"]
+    return run
 
 
 def phase_etl(card: str) -> None:
@@ -608,6 +653,448 @@ def phase_etl(card: str) -> None:
           f"native consolidated events = Python loops' "
           f"({len(events[0])} events, keys included), 0 kernel launches",
           flush=True)
+
+
+WINDOW = 100            # bench.py's run_windowed: tumbling(100)
+SENSORS = 200           # its instance: s{word % 200}
+SESSION_ROWS = 10_000   # session windows over the first rows (cut: O(rows) a tick)
+JOIN_ROWS = 10_000      # phase_temporal's left and right tables
+JOIN_KEYS = 2000        # their join key: a draw below 2000
+JOIN_SPAN = 20_000      # their times: distinct draws below 20,000
+
+
+def etl_draws() -> tuple:
+    """bench.py's bench_etl draws in its order (bench.py:1857-1860, then
+    run_windowed's ``at``, bench.py:1943); returns the generator too, so
+    phase_temporal's tables are drawn after bench's."""
+    rng = np.random.default_rng(0)
+    words = rng.integers(0, ETL_VOCAB, size=ETL_ROWS)
+    qtys = rng.integers(1, 10, size=ETL_ROWS)
+    ticks = np.sort(rng.integers(0, ETL_TICKS, size=ETL_ROWS))
+    at = np.sort(rng.integers(0, ETL_ROWS // 10, size=ETL_ROWS))
+    return rng, [f"s{w % SENSORS}" for w in words], qtys, ticks, at
+
+
+def windowed_table(pw, sensors, qtys, ticks, at):
+    """bench.py's run_windowed source (bench.py:1941-1948): (sensor, v,
+    at) rows at time 2 x tick."""
+    class S(pw.Schema):
+        sensor: str
+        v: int
+        at: int
+
+    return pw.debug.table_from_rows(
+        S, [(sensors[i], int(qtys[i]), int(at[i]), int(ticks[i]) * 2, 1)
+            for i in range(len(at))], is_stream=True)
+
+
+def windowed_reduce(pw, t, window, behavior=None):
+    """bench.py's reduce (bench.py:1949-1953) over ``window``."""
+    return pw.temporal.windowby(
+        t, t.at, window=window, instance=t.sensor, behavior=behavior,
+    ).reduce(sensor=pw.this._pw_instance, start=pw.this._pw_window_start,
+             s=pw.reducers.sum(pw.this.v), c=pw.reducers.count())
+
+
+def window_sums(pairs) -> list:
+    """Plain (sensor, start, sum, count) from (sensor, v, start) triples,
+    one a row and window."""
+    acc: dict = {}
+    for sensor, v, start in pairs:
+        s, c = acc.get((sensor, start), (0, 0))
+        acc[(sensor, start)] = (s + int(v), c + 1)
+    return sorted((k[0], k[1], s, c) for k, (s, c) in acc.items())
+
+
+def snapshot_rows(run: dict) -> list:
+    return sorted(run["cap"].snapshot().values(), key=repr)
+
+
+def phase_etl_windowed(card: str) -> None:
+    """bench.py's bench_etl windowed leg (``run_windowed``,
+    bench.py:1936-1964) through the port at bench's sizes: 100,000 rows
+    over 50 ticks, ``at`` sorted draws below 10,000, ``tumbling(100)``
+    with instance ``s{word % 200}``, reduced to sensor, start,
+    ``s=sum(v)``, ``c=count()`` under ``run_batch(n_workers=1)``. Host
+    code: the window assignment is column arithmetic (the tumbling fast
+    path) and the groupby is ``ColumnarGroupByOperator`` with its native
+    pass. Runs native, Python loops, loops, native. Holds: the graph's
+    operators are the JAX package's (Source, Map, ColumnarGroupByOperator,
+    Map, Output), the native groupby pass taken on every input tick (never
+    with it off), the final table equal to a plain sum and count per
+    (sensor, at // 100 x 100) (19,875 windows), the native runs'
+    consolidated events (keys included) equal to the loops', and no
+    kernel launched. Prints bench.py's ``etl_windowed_rows_per_s``."""
+    from pathway_tpu_torch.engine import operators as ops
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+
+    label = "etl windowed"
+    fastjoin, fastgroup = ops._get_fastjoin(), ops._get_fastgroup()
+    if fastgroup is None:
+        fail(f"{label}: the native groupby pass did not load: "
+             f"{ops.NATIVE_ERRORS}")
+    _, sensors, qtys, ticks, at = etl_draws()
+    input_ticks = len(np.unique(ticks))
+    want = window_sums(zip(sensors, qtys, (at // WINDOW) * WINDOW))
+    if len(want) != 19_875:
+        fail(f"{label}: the plain windows are {len(want)}, not bench's "
+             "19,875: the draws are not bench.py's")
+    expect_ops = ["SourceOperator", "MapOperator", "ColumnarGroupByOperator",
+                  "MapOperator", "OutputOperator"]
+    for count in LAUNCH_COUNTS:
+        count.launches = 0
+    runs = []
+    for native in (True, False, False, True):
+        ops._FASTJOIN, ops._FASTGROUP = (fastjoin, fastgroup) if native \
+            else (None, None)
+        try:
+            run = graph_run(lambda pw: windowed_reduce(
+                pw, windowed_table(pw, sensors, qtys, ticks, at),
+                pw.temporal.tumbling(WINDOW)))
+        finally:
+            ops._FASTJOIN, ops._FASTGROUP = fastjoin, fastgroup
+        run["native"] = native
+        runs.append(run)
+    launched = {c.name: c.launches for c in LAUNCH_COUNTS if c.launches}
+    if launched:
+        fail(f"{label}: kernels launched in a host-only phase: {launched}")
+    events = []
+    for i, run in enumerate(runs):
+        kinds = [type(op).__name__ for op in run["ops"]]
+        if kinds != expect_ops:
+            fail(f"{label} run {i}: the graph's operators are {kinds}, not "
+                 f"the JAX package's {expect_ops}")
+        want_steps = input_ticks if run["native"] else 0
+        if run["ops"][2].native_steps != want_steps:
+            fail(f"{label} run {i}: the groupby's native pass ran "
+                 f"{run['ops'][2].native_steps} steps, not {want_steps}")
+        got = sorted(run["cap"].snapshot().values())
+        if got != want:
+            fail(f"{label} run {i}: the final table differs from the plain "
+                 f"sum and count per window ({len(got)} rows, {len(want)} "
+                 "wanted)")
+        events.append(sorted(
+            (time_, int(key), diff, row)
+            for key, row, time_, diff in run["cap"].consolidated_events()))
+    if not (events[0] == events[1] == events[2] == events[3]):
+        fail(f"{label}: the native runs' consolidated events differ from "
+             "the Python loops'")
+    rate = [ETL_ROWS / r["s"] for r in runs]
+    print(f"[{label}] bench.py's keys: etl_windowed_rows_per_s "
+          f"{rate[0]:.1f} (then {rate[3]:.1f}); with the groupby's Python "
+          f"loops {rate[1]:.1f} (then {rate[2]:.1f}); {ETL_ROWS} rows, "
+          f"{ETL_TICKS} ticks, tumbling({WINDOW}), {SENSORS} sensors; host "
+          f"CPU {cpu_model()}, {os.cpu_count()} cores [{card}]", flush=True)
+    print(f"[{label}] by run (native, loops, loops, native): "
+          + "; ".join(f"{r['s'] * 1e3:.1f} ms, {r['gc_n']} collections, "
+                      f"maps {r['op_ms']['MapOperator']:.1f} ms, "
+                      f"groupby "
+                      f"{r['op_ms']['ColumnarGroupByOperator']:.1f} ms, "
+                      f"capture {r['op_ms']['OutputOperator']:.1f} ms"
+                      for r in runs) + f" [{card}]", flush=True)
+    print(f"[{label}] holds: operators {', '.join(expect_ops)} (the JAX "
+          f"package's), native groupby steps = {input_ticks} input ticks "
+          f"(0 with the loops), final table = plain sum/count per window "
+          f"({len(want)} windows), native consolidated events = the loops' "
+          f"({len(events[0])} events, keys included), 0 kernel launches",
+          flush=True)
+
+
+def plain_behavior(ticks, at, buffer_thr, forget_thr) -> list:
+    """The rows a behavior's buffer -> forget -> filter chain admits
+    (engine/temporal_ops.py's semantics), simulated tick by tick over an
+    insert-only stream: the buffer holds a row while its threshold is above
+    the largest time it has seen, releasing everything at the end of the
+    stream; the forget step drops a released row whose threshold is at or
+    below the largest released time; the filter keeps every admitted
+    row's result."""
+    order = np.argsort(ticks, kind="stable")
+    bounds = np.searchsorted(ticks[order], np.unique(ticks), side="right")
+    held: list = []
+    wm_b = wm_f = None
+    admitted = []
+    start = 0
+    for end in [*bounds, None]:  # None: the end-of-stream flush tick
+        rows = [] if end is None else list(order[start:end])
+        start = start if end is None else end
+        if rows:
+            top = max(at[i] for i in rows)
+            wm_b = top if wm_b is None else max(wm_b, top)
+        pool = held + rows
+        if end is None:
+            out, held = pool, []
+        else:
+            out = [i for i in pool if buffer_thr(i) <= wm_b]
+            held = [i for i in pool if buffer_thr(i) > wm_b]
+        if out:
+            top = max(at[i] for i in out)
+            wm_f = top if wm_f is None else max(wm_f, top)
+        admitted += [i for i in out if forget_thr(i) > wm_f]
+    return sorted(admitted)
+
+
+def sessions_of(times: list, max_gap) -> list:
+    """(start, end) of each time's session: sorted times split where the
+    gap to the previous one is at least max_gap."""
+    out, cur = [], []
+    for t in sorted(times):
+        if cur and t - cur[-1] >= max_gap:
+            out.append(cur)
+            cur = []
+        cur.append(t)
+    if cur:
+        out.append(cur)
+    return {t: (s[0], s[-1]) for s in out for t in s}
+
+
+def join_side(rng, n: int) -> list:
+    """(k, v, at, tick) rows: key below JOIN_KEYS, distinct sorted times."""
+    keys = rng.integers(0, JOIN_KEYS, size=n)
+    vals = rng.integers(0, 1000, size=n)
+    at = np.sort(rng.choice(JOIN_SPAN, size=n, replace=False))
+    ticks = np.sort(rng.integers(0, ETL_TICKS, size=n))
+    return [(f"k{keys[i]}", int(vals[i]), int(at[i]), int(ticks[i]))
+            for i in range(n)]
+
+
+def side_table(pw, rows):
+    return pw.debug.table_from_rows(
+        pw.schema_from_types(k=str, v=int, at=int),
+        [(k, v, at, 2 * tick, 1) for k, v, at, tick in rows], is_stream=True)
+
+
+def plain_pairs(left, right, match) -> tuple[list, set, set]:
+    """(lv, lat, rv, rat) of every same-key pair ``match`` accepts, and
+    the left and right rows that have one."""
+    by_key: dict = {}
+    for j, r in enumerate(right):
+        by_key.setdefault(r[0], []).append(j)
+    pairs, lhit, rhit = [], set(), set()
+    for i, l in enumerate(left):
+        for j in by_key.get(l[0], ()):
+            if match(l, right[j]):
+                pairs.append((l[1], l[2], right[j][1], right[j][2]))
+                lhit.add(i)
+                rhit.add(j)
+    return pairs, lhit, rhit
+
+
+def padded(pairs, left, right, lhit, rhit, how: str) -> list:
+    rows = list(pairs)
+    if how in ("left", "outer"):
+        rows += [(l[1], l[2], None, None) for i, l in enumerate(left)
+                 if i not in lhit]
+    if how in ("right", "outer"):
+        rows += [(None, None, r[1], r[2]) for j, r in enumerate(right)
+                 if j not in rhit]
+    return sorted(rows, key=repr)
+
+
+def phase_temporal(card: str) -> None:
+    """Every other temporal entry point of the port once, on the card
+    machine (which has no pandas), each held against a plain Python
+    computation over the same rows:
+    - over bench's 100,000 rows: ``sliding(hop=50, duration=100)``; the
+      tumbling graph under ``common_behavior(delay=50, cutoff=200)`` and
+      ``exactly_once_behavior()`` (against a tick-by-tick simulation of
+      the buffer and forget thresholds);
+    - ``session(max_gap=3)`` over the first 10,000 rows (cut from 100,000:
+      sessions re-sort each instance's times every tick);
+    - over two 10,000-row tables drawn next from the same generator (key
+      below 2000, distinct times below 20,000, 50 ticks):
+      ``asof_now_join`` (inner, left: right rows up to the query's tick),
+      ``asof_join`` (backward, forward, nearest; inner, outer),
+      ``interval_join`` (interval(-30, 30), all four ``how``),
+      ``window_join`` (tumbling(100) and session(max_gap=40), inner),
+      ``sort``, ``diff`` and ``interpolate``.
+    Holds every final table, no kernel launched, and pandas never
+    imported. Prints each run's rows and host time."""
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+
+    label = "temporal"
+    for count in LAUNCH_COUNTS:
+        count.launches = 0
+    rng, sensors, qtys, ticks, at = etl_draws()
+    lines = []
+
+    def hold(name: str, build, want, got_of=snapshot_rows, n_in=ETL_ROWS):
+        run = graph_run(build)
+        got = got_of(run)
+        if callable(want):
+            want = want(run)
+        if got != want:
+            fail(f"{label} {name}: the port's final table differs from the "
+                 f"plain computation ({len(got)} rows, {len(want)} wanted)")
+        lines.append(f"{name} {n_in} rows -> {len(want)} in "
+                     f"{run['s'] * 1e3:.1f} ms ({n_in / run['s']:.1f} rows/s)")
+        return run
+
+    start0 = (at // 50) * 50
+    hold("sliding(50, 100)", lambda pw: windowed_reduce(
+        pw, windowed_table(pw, sensors, qtys, ticks, at),
+        pw.temporal.sliding(hop=50, duration=100)),
+        window_sums([*zip(sensors, qtys, start0),
+                     *zip(sensors, qtys, start0 - 50)]),
+        got_of=lambda r: sorted(r["cap"].snapshot().values()))
+    starts = (at // WINDOW) * WINDOW
+    for name, behavior, thr in (
+            ("common_behavior(delay=50, cutoff=200)",
+             lambda pw: pw.temporal.common_behavior(delay=50, cutoff=200),
+             (lambda i: starts[i] + 50, lambda i: starts[i] + WINDOW + 200)),
+            ("exactly_once_behavior()",
+             lambda pw: pw.temporal.exactly_once_behavior(),
+             (lambda i: starts[i] + WINDOW, lambda i: starts[i] + WINDOW))):
+        kept = plain_behavior(ticks, at, *thr)
+        want = window_sums((sensors[i], qtys[i], starts[i]) for i in kept)
+        hold(f"tumbling({WINDOW}) {name}", lambda pw, b=behavior:
+             windowed_reduce(pw, windowed_table(pw, sensors, qtys, ticks, at),
+                             pw.temporal.tumbling(WINDOW), b(pw)),
+             want, got_of=lambda r: sorted(r["cap"].snapshot().values()))
+        lines[-1] += f" ({len(kept)} rows admitted, {len(want)} windows)"
+    n = SESSION_ROWS
+    spans: dict = {}
+    for s in set(sensors[:n]):
+        idx = [i for i in range(n) if sensors[i] == s]
+        of = sessions_of([int(at[i]) for i in idx], 3)
+        for i in idx:
+            spans[i] = of[int(at[i])]
+    hold("session(max_gap=3)", lambda pw: windowed_reduce(
+        pw, windowed_table(pw, sensors[:n], qtys[:n], ticks[:n], at[:n]),
+        pw.temporal.session(max_gap=3)),
+        window_sums((sensors[i], qtys[i], spans[i][0]) for i in range(n)),
+        got_of=lambda r: sorted(r["cap"].snapshot().values()), n_in=n)
+
+    left, right = join_side(rng, JOIN_ROWS), join_side(rng, JOIN_ROWS)
+    n_in = 2 * JOIN_ROWS
+
+    def joined(call):
+        def build(pw):
+            lt, rt = side_table(pw, left), side_table(pw, right)
+            return call(pw, lt, rt).select(
+                lv=lt.v, lat=lt.at, rv=rt.v, rat=rt.at), rt
+        return build
+
+    for how in ("inner", "left"):
+        pairs, lhit, _ = plain_pairs(left, right, lambda l, r: r[3] <= l[3])
+        hold(f"asof_now_join {how}", joined(
+            lambda pw, lt, rt, how=how: pw.temporal.asof_now_join(
+                lt, rt, lt.k == rt.k, how=how)),
+            padded(pairs, left, right, lhit, set(), how), n_in=n_in)
+    by_key: dict = {}
+    for j, r in enumerate(right):
+        by_key.setdefault(r[0], []).append(j)
+
+    def asof_want(run, direction: str, how: str) -> list:
+        """The plain choice for each left row: the latest right row at or
+        before it (backward), the earliest at or after (forward), the
+        nearest (ties: the smaller right row key, the argmin reducer's
+        rule); unchosen right rows padded in outer mode."""
+        key_of = {row[2]: int(k)
+                  for k, row in run["caps"][1].snapshot().items()}
+        best = {}
+        for i, l in enumerate(left):
+            cands = [(abs(right[j][2] - l[2]), key_of[right[j][2]], j)
+                     for j in by_key.get(l[0], ())
+                     if direction == "nearest"
+                     or (direction == "backward" and right[j][2] <= l[2])
+                     or (direction == "forward" and right[j][2] >= l[2])]
+            if cands:
+                best[i] = min(cands)[2]
+        pairs = [(left[i][1], left[i][2], right[j][1], right[j][2])
+                 for i, j in best.items()]
+        return padded(pairs, left, right, set(best), set(best.values()), how)
+
+    for direction in ("backward", "forward", "nearest"):
+        for how in ("inner", "outer"):
+            hold(f"asof_join {direction} {how}", joined(
+                lambda pw, lt, rt, how=how, d=direction: pw.temporal.asof_join(
+                    lt, rt, lt.at, rt.at, lt.k == rt.k, how=how,
+                    direction=d)),
+                lambda run, how=how, d=direction: asof_want(run, d, how),
+                n_in=n_in)
+    for how in ("inner", "left", "right", "outer"):
+        pairs, lhit, rhit = plain_pairs(
+            left, right, lambda l, r: -30 <= r[2] - l[2] <= 30)
+        hold(f"interval_join {how}", joined(
+            lambda pw, lt, rt, how=how: pw.temporal.interval_join(
+                lt, rt, lt.at, rt.at, pw.temporal.interval(-30, 30),
+                lt.k == rt.k, how=how)),
+            padded(pairs, left, right, lhit, rhit, how), n_in=n_in)
+    pairs, _, _ = plain_pairs(
+        left, right, lambda l, r: l[2] // WINDOW == r[2] // WINDOW)
+    hold(f"window_join tumbling({WINDOW})", joined(
+        lambda pw, lt, rt: pw.temporal.window_join(
+            lt, rt, lt.at, rt.at, pw.temporal.tumbling(WINDOW),
+            lt.k == rt.k)), sorted(pairs, key=repr), n_in=n_in)
+    times: dict = {}
+    for r in left + right:
+        times.setdefault(r[0], []).append(r[2])
+    span = {k: sessions_of(ts, 40) for k, ts in times.items()}
+    pairs, _, _ = plain_pairs(
+        left, right, lambda l, r: span[l[0]][l[2]] == span[r[0]][r[2]])
+    hold("window_join session(max_gap=40)", joined(
+        lambda pw, lt, rt: pw.temporal.window_join(
+            lt, rt, lt.at, rt.at, pw.temporal.session(max_gap=40),
+            lt.k == rt.k)), sorted(pairs, key=repr), n_in=n_in)
+
+    def ordered_got(run):
+        """key -> row of the source, and the result's rows in time order."""
+        src, out = run["caps"][1].snapshot(), run["cap"].snapshot()
+        keys = sorted(src, key=lambda k: src[k][2])
+        return [(src[k][2], *out[k]) for k in keys], keys
+
+    def sort_want(run):
+        """prev / next: the neighbours in time order (times distinct)."""
+        got, keys = ordered_got(run)
+        return [(row[0], keys[i - 1] if i else None,
+                 keys[i + 1] if i + 1 < len(keys) else None)
+                for i, row in enumerate(got)]
+
+    hold("sort", lambda pw: (lambda t: (t.sort(t.at), t))(
+        side_table(pw, left)), sort_want,
+        got_of=lambda run: ordered_got(run)[0], n_in=JOIN_ROWS)
+    by_time = sorted(left, key=lambda r: r[2])
+    diffs = [(r[2], None if i == 0 else r[1] - by_time[i - 1][1])
+             for i, r in enumerate(by_time)]
+    hold("diff", lambda pw: (lambda t: (t.diff(t.at, t.v), t))(
+        side_table(pw, left)), diffs,
+        got_of=lambda run: ordered_got(run)[0], n_in=JOIN_ROWS)
+    gaps = rng.random(JOIN_ROWS) < 0.3
+    xs = [None if gaps[i] else float(r[1]) for i, r in enumerate(by_time)]
+    filled = []
+    for i, x in enumerate(xs):
+        if x is None:
+            p = next((j for j in range(i - 1, -1, -1) if xs[j] is not None),
+                     None)
+            q = next((j for j in range(i + 1, len(xs)) if xs[j] is not None),
+                     None)
+            if p is not None and q is not None:
+                t, tp, tq = by_time[i][2], by_time[p][2], by_time[q][2]
+                x = xs[p] + (xs[q] - xs[p]) * ((t - tp) / (tq - tp))
+            else:
+                x = xs[p] if p is not None else (xs[q] if q is not None
+                                                  else None)
+        filled.append((by_time[i][2], x))
+
+    def interp_build(pw):
+        t = pw.debug.table_from_rows(
+            pw.schema_from_types(at=int, x=typing.Optional[float]),
+            [(r[2], xs[i], 2 * r[3], 1) for i, r in enumerate(by_time)],
+            is_stream=True)
+        return t.interpolate(t.at, t.x)
+
+    hold("interpolate", interp_build, filled,
+         got_of=lambda run: sorted(run["cap"].snapshot().values()),
+         n_in=JOIN_ROWS)
+    launched = {c.name: c.launches for c in LAUNCH_COUNTS if c.launches}
+    if launched:
+        fail(f"{label}: kernels launched in a host-only phase: {launched}")
+    if "pandas" in sys.modules:
+        fail(f"{label}: pandas was imported")
+    for line in lines:
+        print(f"[{label}] {line} [{card}]", flush=True)
+    print(f"[{label}] holds: {len(lines)} runs, each final table = its plain "
+          "computation; 0 kernel launches; pandas never imported", flush=True)
 
 
 def phase_attention(card: str) -> dict:
@@ -4368,6 +4855,8 @@ def main() -> None:
 
     phase_etl(card)
     done("etl")
+    phase_etl_windowed(card)
+    done("etl windowed")
 
     k1 = phase_attention(card)
     k1_seg = phase_segments(card)
@@ -4414,6 +4903,10 @@ def main() -> None:
     k3.update(filt)
     done("int8 10M index")
     phase_profile(card)
+    # last: its 21 graphs leave ~200,000 memoized keys and twice the
+    # objects the collector scans, which slowed the timed phases after it
+    phase_temporal(card)
+    done("temporal")
     print(json.dumps({"kernels": [k1, k1_seg, k2, k3_topk, k3, k4,
                                   k2_score]}), flush=True)
     print(json.dumps({"ok": True, "device": {

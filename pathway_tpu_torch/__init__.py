@@ -24,6 +24,9 @@ the KNN kernels under the same ``run_batch``. The served path:
 ``pw.io.http.rest_connector``) under the streaming runtime
 (engine/streaming.py), and ``VectorStoreServer.run_server`` serves
 ``/v1/retrieve``, ``/v1/statistics`` and ``/v1/inputs`` over HTTP.
+The temporal layer: ``pw.temporal`` (alias ``pw.window``: windows,
+behaviors, as-of-now / as-of / interval / window joins), ``Table.sort``,
+``pw.stdlib.ordered.diff`` and ``pw.stdlib.statistical.interpolate``.
 
 Module paths and public names mirror ``pathway_tpu`` so each port module
 sits where its JAX counterpart does. The port imports torch and numpy,
@@ -70,6 +73,9 @@ _LAZY = {
     "global_error_log": ("pathway_tpu_torch.internals.error",
                          "global_error_log"),
     "debug": ("pathway_tpu_torch.debug", None),
+    "stdlib": ("pathway_tpu_torch.stdlib", None),
+    "temporal": ("pathway_tpu_torch.stdlib.temporal", None),
+    "window": ("pathway_tpu_torch.stdlib.temporal", None),
     "io": ("pathway_tpu_torch.io", None),
     "run": ("pathway_tpu_torch.internals.run", "run"),
     "MonitoringLevel": ("pathway_tpu_torch.internals.monitoring",

@@ -71,6 +71,9 @@ class Delta:
                 slot[2] += diff
         return Delta([(k, r, d) for k, r, d in acc.values() if d != 0])
 
+    def negate(self) -> "Delta":
+        return Delta([(k, r, -d) for k, r, d in self.entries])
+
     def keys_list(self) -> list[Pointer]:
         return [k for k, _, _ in self.entries]
 

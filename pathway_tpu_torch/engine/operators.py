@@ -22,9 +22,10 @@ count, integral sum/avg, min/max, argmin/argmax over plain columns),
 native passes of the inner bilinear join and of the columnar groupby
 (``native/fastjoin.cpp``, ``native/fastgroup.cpp``, built with g++ at first
 use; when a build fails, a warning is logged, ``NATIVE_ERRORS`` says why
-and the Python loops run). Not ported here: sharding (exchange specs,
-replicas), operator-state snapshots (ROADMAP queue 1, item 6a), and the
-operators of sort and the temporal behaviors (ROADMAP queue 1, item 2d).
+and the Python loops run). Also ``SortOperator`` (``Table.sort``: prev/next
+pointers); the temporal behaviors' operators are in engine/temporal_ops.py.
+Not ported here: sharding (exchange specs, replicas) and operator-state
+snapshots (ROADMAP queue 1, item 6a).
 """
 
 from __future__ import annotations
@@ -1277,6 +1278,61 @@ class DeduplicateOperator(Operator):
                 self.state[inst] = (key, row)
                 out.append(gkey, row, 1)
         return out.consolidate()
+
+
+class SortOperator(Operator):
+    """prev/next pointers within (instance, sort-key) order: a change
+    recomputes the neighbours of the instances it touches — O(n log n) a
+    touched instance, correct under retraction."""
+
+    def __init__(self, key_fn, instance_fn):
+        self.key_fn = key_fn
+        self.instance_fn = instance_fn
+        self.instances: dict[Any, dict[Pointer, Any]] = {}
+        self.out = Arrangement()
+
+    def step(self, time, in_deltas):
+        delta = in_deltas[0]
+        if not delta:
+            return Delta()
+        touched: dict[Any, None] = {}
+        removed: list[Pointer] = []
+        for key, row, diff in delta.entries:
+            inst = self.instance_fn(key, row)
+            grp = self.instances.setdefault(inst, {})
+            if diff > 0:
+                grp[key] = self.key_fn(key, row)
+            else:
+                if key in grp:
+                    grp.pop(key)
+                    removed.append(key)
+            touched[inst] = None
+        out = Delta()
+        for key in removed:
+            # only retract if the key wasn't re-inserted (possibly under
+            # another instance) in this same delta
+            if not any(key in g for g in self.instances.values()):
+                upsert_delta(self.out, key, None, out)
+        for inst in touched:
+            grp = self.instances.get(inst, {})
+            order = sorted(grp.items(),
+                           key=lambda kv: (_sortable(kv[1]), int(kv[0])))
+            for i, (key, _sk) in enumerate(order):
+                prev_k = order[i - 1][0] if i > 0 else None
+                next_k = order[i + 1][0] if i + 1 < len(order) else None
+                upsert_delta(self.out, key, (prev_k, next_k), out)
+        self.out.update(out)
+        return out
+
+
+def _sortable(v):
+    if v is None:
+        return (0, 0)
+    if isinstance(v, (bool, int, float, np.integer, np.floating)):
+        return (1, float(v))
+    if isinstance(v, str):
+        return (2, v)
+    return (3, repr(v))
 
 
 class OutputOperator(Operator):

@@ -12,11 +12,13 @@ reindex, flatten, concat, concat_reindex, update_cells, key_filter
 ``ColumnarGroupByOperator`` where ``_columnar_groupby_spec`` finds it
 columnar, as the JAX package chooses, else to ``GroupByOperator``),
 join_select (a ``JoinOperator``, which emits the projected row itself when
-every selected expression is a plain column or id), dedupe, ix (a
-``JoinOperator`` keyed by the left id) and external_index (the as-of-now
-index operator, engine/index_ops.py). Not ported: auto-jit's host/device
-map split, and the temporal and sort lowerings — a plan of those kinds
-raises ``NotImplementedError`` naming its ROADMAP item.
+every selected expression is a plain column or id), sort, dedupe, ix (a
+``JoinOperator`` keyed by the left id), the temporal behaviors' buffer /
+forget / freeze / forget_immediately / filter_out_forgetting
+(engine/temporal_ops.py) and external_index (the as-of-now index
+operator, engine/index_ops.py). Not ported: auto-jit's host/device map
+split, iterate and gradual_broadcast — a plan of those kinds raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 from typing import Any, Callable
 
 from pathway_tpu_torch.engine import operators as eng
+from pathway_tpu_torch.engine import temporal_ops as tops
 from pathway_tpu_torch.engine.delta import Delta
 from pathway_tpu_torch.engine.graph import (CapturedStream, EngineGraph,
                                             Node, Scheduler)
@@ -651,6 +654,23 @@ class GraphRunner:
 
         return self.graph.add_node(eng.FlattenOperator(fn), [node], "flatten")
 
+    def _lower_sort(self, table: Table, plan: Plan) -> Node:
+        base: Table = plan.params["base"]
+        key_e = plan.params["key"]
+        inst_e = plan.params["instance"]
+        # an instance expression raises TypeError in this truth test, as in
+        # the JAX package (ROADMAP queue 3, item 7)
+        node, ctx = self._row_space(base, [key_e] + ([inst_e] if inst_e else []))
+        comp = ExpressionCompiler(ctx)
+        kfn = comp.compile_row(key_e)
+        ifn = comp.compile_row(inst_e) if inst_e is not None else None
+
+        def instance_fn(key, row):
+            return ifn(key, row) if ifn is not None else None
+
+        return self.graph.add_node(
+            eng.SortOperator(kfn, instance_fn), [node], "sort")
+
     def _lower_dedupe(self, table: Table, plan: Plan) -> Node:
         base: Table = plan.params["base"]
         value_e = plan.params["value"]
@@ -704,6 +724,43 @@ class GraphRunner:
             eng.JoinOperator(mode, lkey_fn, rkey_fn, out_fn,
                              out_key_fn=lambda lk, rk, jk: lk),
             [lnode, rnode], "ix")
+
+    # -- temporal (engine/temporal_ops.py) ----------------------------------
+    def _lower_forget_immediately(self, table: Table, plan: Plan) -> Node:
+        node = self.lower(plan.params["base"])
+        return self.graph.add_node(tops.ForgetImmediatelyOperator(), [node],
+                                   "forget_now")
+
+    def _lower_filter_out_forgetting(self, table: Table, plan: Plan) -> Node:
+        node = self.lower(plan.params["base"])
+        return self.graph.add_node(tops.FilterOutForgettingOperator(), [node],
+                                   "filter_out_forgetting")
+
+    def _lower_buffer(self, table: Table, plan: Plan) -> Node:
+        return self._lower_time_column_op(table, plan, "buffer")
+
+    def _lower_forget(self, table: Table, plan: Plan) -> Node:
+        return self._lower_time_column_op(table, plan, "forget")
+
+    def _lower_freeze(self, table: Table, plan: Plan) -> Node:
+        return self._lower_time_column_op(table, plan, "freeze")
+
+    def _lower_time_column_op(self, table: Table, plan: Plan, kind: str) -> Node:
+        base: Table = plan.params["base"]
+        node, ctx = self._row_space(base, [plan.params["threshold"],
+                                           plan.params["time"]])
+        comp = ExpressionCompiler(ctx)
+        thr_fn = comp.compile_row(plan.params["threshold"])
+        time_fn = comp.compile_row(plan.params["time"])
+
+        if kind == "buffer":
+            op = tops.BufferOperator(thr_fn, time_fn)
+        elif kind == "forget":
+            op = tops.ForgetOperator(thr_fn, time_fn,
+                                     plan.params.get("mark", False))
+        else:
+            op = tops.FreezeOperator(thr_fn, time_fn)
+        return self.graph.add_node(op, [node], kind)
 
     # -- external index ------------------------------------------------------
     def _lower_external_index(self, table: Table, plan: Plan) -> Node:

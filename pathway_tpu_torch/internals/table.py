@@ -8,8 +8,12 @@ flatten / concat / concat_reindex / update_rows / update_cells (``<<``) /
 with_id / with_id_from / pointer_from / groupby / reduce / deduplicate /
 join / join_inner / join_left / join_right / join_outer (internals/joins.py)
 / restrict / intersect / difference / having / ix / ix_ref /
-cast_to_types / update_types / debug, the universe promises and
-``_external_index_as_of_now`` (the plan DataIndex queries build).
+cast_to_types / update_types / debug, the universe promises,
+``_external_index_as_of_now`` (the plan DataIndex queries build), the
+temporal entry points (windowby / asof_join / asof_now_join /
+interval_join / window_join, stdlib/temporal) and the behaviors' plans
+(``_buffer`` / ``_forget`` / ``_freeze`` / ``_forget_immediately`` /
+``_filter_out_results_of_forgetting``), sort / diff / interpolate.
 Every other Table method of the JAX package raises
 ``NotImplementedError`` naming the ROADMAP item that brings it
 (``_UNPORTED`` below).
@@ -419,6 +423,38 @@ class Table:
     def join_outer(self, other, *on, **kw):
         return self.join(other, *on, how="outer", **kw)
 
+    # temporal joins (stdlib/temporal)
+    def asof_join(self, other, t_left, t_right, *on, how="inner", defaults={},
+                  direction=None):
+        from pathway_tpu_torch.stdlib.temporal import asof_join as _asof
+
+        return _asof(self, other, t_left, t_right, *on, how=how,
+                     defaults=defaults, direction=direction)
+
+    def asof_now_join(self, other, *on, how="inner", id=None, **kw):
+        from pathway_tpu_torch.stdlib.temporal import asof_now_join as _anj
+
+        return _anj(self, other, *on, how=how, id=id, **kw)
+
+    def interval_join(self, other, self_time, other_time, interval, *on,
+                      how="inner"):
+        from pathway_tpu_torch.stdlib.temporal import interval_join as _ij
+
+        return _ij(self, other, self_time, other_time, interval, *on, how=how)
+
+    def window_join(self, other, self_time, other_time, window, *on,
+                    how="inner"):
+        from pathway_tpu_torch.stdlib.temporal import window_join as _wj
+
+        return _wj(self, other, self_time, other_time, window, *on, how=how)
+
+    def windowby(self, time_expr, *, window, behavior=None, instance=None,
+                 **kwargs):
+        from pathway_tpu_torch.stdlib.temporal import windowby as _windowby
+
+        return _windowby(self, time_expr, window=window, behavior=behavior,
+                         instance=instance, **kwargs)
+
     # ------------------------------------------------------------------
     # set ops / combination
     # ------------------------------------------------------------------
@@ -484,6 +520,31 @@ class Table:
         return Table(plan, schema, Universe())
 
     # ------------------------------------------------------------------
+    # ordering (engine SortOperator; stdlib/ordered, stdlib/statistical)
+    # ------------------------------------------------------------------
+    def sort(self, key: ex.ColumnExpression, instance=None) -> "Table":
+        key_e = self._resolve(ex.wrap_arg(key))
+        inst_e = self._resolve(ex.wrap_arg(instance)) if instance is not None else None
+        cols = {
+            "prev": sch.ColumnSchema(name="prev", dtype=dt.Optional(dt.POINTER)),
+            "next": sch.ColumnSchema(name="next", dtype=dt.Optional(dt.POINTER)),
+        }
+        schema = sch.schema_from_columns(cols)
+        plan = Plan("sort", base=self, key=key_e, instance=inst_e)
+        return Table(plan, schema, self._universe)
+
+    def diff(self, timestamp: ex.ColumnExpression, *values,
+             instance=None) -> "Table":
+        from pathway_tpu_torch.stdlib.ordered import diff as _diff
+
+        return _diff(self, timestamp, *values, instance=instance)
+
+    def interpolate(self, timestamp, *values, mode=None):
+        from pathway_tpu_torch.stdlib.statistical import interpolate as _interp
+
+        return _interp(self, timestamp, *values, mode=mode)
+
+    # ------------------------------------------------------------------
     # pointer lookup
     # ------------------------------------------------------------------
     def ix(self, expression, *, optional: bool = False, context=None) -> "Table":
@@ -529,6 +590,37 @@ class Table:
             revise=revise,
         )
         return Table(plan, schema, query_table._universe.subuniverse())
+
+    # ------------------------------------------------------------------
+    # temporal behaviors' plans (engine/temporal_ops.py)
+    # ------------------------------------------------------------------
+    def _forget_immediately(self) -> "Table":
+        plan = Plan("forget_immediately", base=self)
+        return Table(plan, self._schema, self._universe.subuniverse())
+
+    def _buffer(self, threshold_column, time_column) -> "Table":
+        plan = Plan("buffer", base=self,
+                    threshold=self._resolve(ex.wrap_arg(threshold_column)),
+                    time=self._resolve(ex.wrap_arg(time_column)))
+        return Table(plan, self._schema, self._universe.subuniverse())
+
+    def _forget(self, threshold_column, time_column,
+                mark_forgetting_records: bool = False) -> "Table":
+        plan = Plan("forget", base=self,
+                    threshold=self._resolve(ex.wrap_arg(threshold_column)),
+                    time=self._resolve(ex.wrap_arg(time_column)),
+                    mark=mark_forgetting_records)
+        return Table(plan, self._schema, self._universe.subuniverse())
+
+    def _freeze(self, threshold_column, time_column) -> "Table":
+        plan = Plan("freeze", base=self,
+                    threshold=self._resolve(ex.wrap_arg(threshold_column)),
+                    time=self._resolve(ex.wrap_arg(time_column)))
+        return Table(plan, self._schema, self._universe.subuniverse())
+
+    def _filter_out_results_of_forgetting(self) -> "Table":
+        plan = Plan("filter_out_forgetting", base=self)
+        return Table(plan, self._schema, self._universe.subuniverse())
 
     # ------------------------------------------------------------------
     # constructors
@@ -580,10 +672,8 @@ def _expr_base_table(expr) -> Table | None:
 # where each unported Table method of the JAX package comes from
 _DSL_REST = "ROADMAP queue 1, item 2d: the rest of the Table DSL"
 _UNPORTED = {name: _DSL_REST for name in (
-    "asof_join", "asof_now_join", "interval_join", "window_join",
-    "windowby", "sort", "diff", "interpolate", "show", "plot", "live",
-    "update_id_type", "_gradual_broadcast", "_forget_immediately", "_buffer", "_forget",
-    "_freeze", "_filter_out_results_of_forgetting", "to", "from_columns")}
+    "show", "plot", "live", "update_id_type", "_gradual_broadcast", "to",
+    "from_columns")}
 
 
 def _unported(name: str, item: str):

@@ -84,6 +84,78 @@ print("FORBIDDEN", bad)
 """
 
 
+_TEMPORAL = """
+import datetime
+import importlib.abc
+import sys
+
+attempts = []
+
+
+class NoPandas(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "pandas":
+            attempts.append(name)
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, NoPandas())
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.internals.runner import GraphRunner
+
+ticks = [(f"k{i % 3}", i, 2 * i + i % 5, 2 * (1 + i // 6), 1)
+         for i in range(40)]
+schema = pw.schema_from_types(k=str, v=int, at=int)
+t = pw.debug.table_from_rows(schema, ticks, is_stream=True)
+u = pw.debug.table_from_rows(schema, ticks[::3], is_stream=True)
+base = datetime.datetime(2024, 1, 1, tzinfo=datetime.timezone.utc)
+d_schema = pw.schema_from_types(k=str, v=int, at=datetime.datetime)
+dt = pw.debug.table_from_rows(
+    d_schema, [(k, v, base + datetime.timedelta(minutes=a), tick, diff)
+               for k, v, a, tick, diff in ticks], is_stream=True)
+minute = datetime.timedelta(minutes=1)
+outs = []
+for window in (pw.temporal.tumbling(10), pw.temporal.sliding(hop=5,
+               duration=10), pw.temporal.session(max_gap=3)):
+    outs.append(pw.temporal.windowby(
+        t, t.at, window=window, instance=t.k,
+        behavior=pw.temporal.common_behavior(delay=4, cutoff=20),
+    ).reduce(s=pw.reducers.sum(pw.this.v)))
+for window in (pw.temporal.tumbling(10 * minute),
+               pw.temporal.sliding(hop=5 * minute, duration=10 * minute)):
+    outs.append(pw.temporal.windowby(dt, dt.at, window=window).reduce(
+        s=pw.reducers.sum(pw.this.v)))
+outs.append(pw.temporal.asof_now_join(t, u, t.k == u.k, how="left").select(
+    a=t.v, b=u.v))
+outs.append(pw.temporal.asof_join_outer(t, u, t.at, u.at, t.k == u.k,
+            direction="nearest").select(a=t.v, b=u.v))
+outs.append(pw.temporal.interval_join_outer(
+    dt, dt, dt.at, dt.at, pw.temporal.interval(-minute, minute)).select(
+    a=pw.left.v))
+outs.append(pw.temporal.window_join_outer(
+    t, u, t.at, u.at, pw.temporal.session(max_gap=2)).select(a=t.v, b=u.v))
+outs.append(t.sort(t.at).select(pw.this.prev))
+outs.append(t.diff(t.at, t.v))
+outs.append(t.with_columns(x=pw.if_else(t.v % 2 == 0, None, 1.0 * t.v))
+            .interpolate(pw.this.at, pw.this.x))
+runner = GraphRunner()
+caps = [runner.capture(o) for o in outs]
+runner.run_batch(n_workers=1)
+assert all(c.events for c in caps), [len(c.events) for c in caps]
+print("PANDAS", attempts, "pandas" in sys.modules)
+"""
+
+
+def test_temporal_runs_with_pandas_blocked():
+    """Every temporal entry point, numeric and datetime times, runs in a
+    process where importing pandas raises (the chip machine has none)."""
+    proc = subprocess.run([sys.executable, "-c", _TEMPORAL], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "PANDAS [] False" in proc.stdout, proc.stdout
+
+
 def _is_forbidden(name: str) -> bool:
     return name.split(".")[0] in FORBIDDEN
 

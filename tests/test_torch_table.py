@@ -333,13 +333,14 @@ def test_table_from_rows_keys_equal_reference():
 
 
 @pytest.mark.parametrize("call", [
-    lambda t: t.windowby(t.a, window=None),
-    lambda t: t.asof_join(t, t.a, t.a),
-    lambda t: t.interval_join(t, t.a, t.a, None),
-    lambda t: t.sort(t.a),
-    lambda t: t.diff(t.a),
+    lambda t: t.update_id_type(int),
+    lambda t: t._gradual_broadcast(t, t.a, t.a, t.a),
+    lambda t: t.show(),
+    lambda t: t.plot(),
+    lambda t: t.live(),
     lambda t: t.slice,
-], ids=["windowby", "asof_join", "interval_join", "sort", "diff", "slice"])
+], ids=["update_id_type", "_gradual_broadcast", "show", "plot", "live",
+        "slice"])
 def test_unported_operations_raise(call):
     t = _base(tpw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
