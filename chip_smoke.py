@@ -9,8 +9,10 @@ bench.py's bench_embed_framework), the served path (``pw.run``'s
 streaming runtime behind HTTP: bench.py's bench_serving graph and a live
 RAG server), the engine's relational core (bench.py's bench_etl
 graph: the columnar groupby and the inner join with their native passes,
-host code) and its temporal layer (bench_etl's windowed leg and every
-other temporal entry point, host code), at BGE-small's full width with random weights from a seed,
+host code), its temporal layer (bench_etl's windowed leg and every
+other temporal entry point, host code) and the model layer's training
+paths (contrastive fine-tuning, a mixture-of-experts encoder served and
+trained, the CLIP dual encoder), at BGE-small's full width with random weights from a seed,
 and checks every kernel of those paths against its plain PyTorch version
 on the card. Phases (each failure exits
 non-zero, and no result line is printed):
@@ -234,6 +236,37 @@ non-zero, and no result line is printed):
 17. profile: torch.profiler over three encoder forwards of each path's
    dispatch, device time by kernel group (K1, GEMM, other) and the
    device's busy share;
+17b. train (``models/train.py``, after the card is freed): BGE-small's
+   contrastive step (InfoNCE, AdamW at the JAX package's defaults, float32
+   master weights, ``dense_attention``). One f32 step at B=8 S=64 on the
+   card and on the port's CPU path, same weights and batch: the loss
+   (rel 1e-4) and every gradient tensor (max error within 1e-3 of the
+   tensor's largest entry + 1e-5 of the model's). Then bf16 on one fixed batch of 128 pairs x
+   128 tokens a side (valid lengths drawn from [16, 128]): 3 warm-up and
+   20 timed steps, every loss finite and the last below the first. Prints
+   step ms p50/p90 (CUDA events), pairs/s, tokens/s, TFLOP/s (3 x
+   ``encoder_cost(256, 128)`` a step) and peak memory;
+17c. moe (``EncoderConfig.bge_small(num_experts=4)``): the padded
+   embedder into a bf16 index over 10,240 ``make_docs`` documents, then
+   64 text queries (K1 = 12 x encoder dispatches, every top 10 against a
+   plain scan, each copy's B=1 embedding within cosine 0.99 of its
+   document's row); 512 documents' embeddings through K1 against
+   ``attention_reference``, bf16 (min row cosine >= 0.99: top-1 routing
+   turns rounding into a change of expert for near-tied tokens, counted)
+   and f32 (>= 0.9999); the ragged embedder into an int8 index, one
+   chunk through path 2's graphed step after a warm-up (one replay, 0
+   graphs captured, K1 with segment ids 12, K4 1; ragged vs padded cosine
+   >= 0.99, bf16); then phase 17b's f32 hold and 10 bf16 steps on this
+   config;
+17d. clip (``ClipConfig()``: 224-pixel images, 16-pixel patches, a ViT
+   of 6 x 192, a BGE-small-wide text tower, embed_dim 128):
+   ``ClipEmbedder`` over 512 seeded images (ndarrays) and 512 texts
+   (finite unit rows; images/s, texts/s); both towers, ``clip_loss`` and
+   every gradient in f32 at B=4 on the card against the CPU; 10
+   ``clip_train_step``s (Adam 3e-5: at the default 1e-3 the towers
+   collapse to chance from random init) at B=64 in bf16 on one batch of
+   pairs (image i lights cell i of an 8 x 8 grid over noise, text i an
+   8-word caption), finite and falling (step ms, peak memory);
 18. temporal (host only, on a machine without pandas; last, since its
    graphs leave memoized keys and objects behind): sliding(50, 100)
    over bench's rows; tumbling(100) under ``common_behavior(delay=50,
@@ -4828,6 +4861,561 @@ def phase_profile(card: str) -> None:
                   f" ms x{e.count // reps:<4d} {e.key[:90]}", flush=True)
 
 
+# the model layer's training paths (phase_train, phase_moe, phase_clip)
+TRAIN_PAIRS = 128  # query/document pairs a step
+TRAIN_SEQ = 128    # tokens a side, valid lengths drawn from [16, 128]
+TRAIN_WARM, TRAIN_STEPS = 3, 20
+HOLD_B, HOLD_S = 8, 64  # the f32 card-against-CPU step
+MOE_EXPERTS = 4         # the JAX package's tests' E
+MOE_DOCS = 10_240
+MOE_QUERIES = 64
+MOE_HELD = 512          # documents whose K1 embeddings are held
+MOE_STEPS = 10
+CLIP_ITEMS = 512        # images and texts embedded
+CLIP_HOLD_B = 4
+CLIP_TRAIN_B = 64
+CLIP_STEPS = 10
+# Adam's rate for phase_clip's steps: at make_clip_optimizer's default,
+# 1e-3, both packages' steps collapse the towers to chance from random
+# init at ClipConfig()'s width (PERF.md, section 6); at 3e-5 the loss falls
+CLIP_LR = 3e-5
+
+
+def train_batch(pairs: int, seq: int, vocab: int, seed: int) -> dict:
+    """Token ids from the seed, both sides (pairs, seq), each row's valid
+    length drawn from [16, seq]: the mask and CLS pooling do real work."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for side in "qd":
+        lens = rng.integers(16, seq + 1, size=pairs)
+        mask = np.arange(seq)[None, :] < lens[:, None]
+        ids = rng.integers(1000, vocab, size=(pairs, seq))
+        out[f"{side}_ids"] = np.where(mask, ids, 0).astype(np.int32)
+        out[f"{side}_mask"] = mask
+    return out
+
+
+def hold_grads(card_grads: dict, cpu_grads: dict, label: str,
+               rel: float) -> float:
+    """Every gradient tensor of the card's step against the CPU's: the
+    largest error at most ``rel`` x the tensor's largest |grad| + 1e-5 x
+    the model's largest |grad|. The floor is for gradients that are
+    rounding noise on both sides: 0 (the key bias, to which the softmax
+    is blind) or a sum that nearly cancels (CLIP's logit scale near
+    uniform logits: 4.4e-5 with an error of 4.0e-8 at B=4, against a
+    largest |grad| of 6.0e-3). Returns the worst error over the tensor's
+    largest |grad|."""
+    floor = 1e-5 * max(float(g.abs().max()) for g in cpu_grads.values())
+    worst = 0.0
+    for name, ref in cpu_grads.items():
+        got = card_grads[name]
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        if not np.isfinite(err) or err > rel * scale + floor:
+            fail(f"{label}: gradient of {name} differs from the CPU's by "
+                 f"{err:.3e} (largest |grad| {scale:.3e}, tolerance "
+                 f"{rel} x that + {floor:.3e})")
+        if scale > floor:
+            worst = max(worst, err / scale)
+    return worst
+
+
+def hold_train_step(cfg, params: dict, label: str, card: str) -> None:
+    """One contrastive step in f32 at HOLD_B pairs x HOLD_S tokens and the
+    model's full width, on the card and on the port's CPU path, same
+    weights and batch: the losses and every gradient tensor."""
+    import dataclasses
+
+    import torch
+
+    from pathway_tpu_torch.models.train import (contrastive_train_step,
+                                                init_train_state)
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    batch = train_batch(HOLD_B, HOLD_S, cfg.vocab_size, seed=11)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        state = init_train_state(0, cfg32, params=params, device=dev)
+        state, loss = contrastive_train_step(state, batch)
+        runs[dev] = (float(loss), {n: p.grad.detach().cpu() for n, p in
+                                   state.model.named_parameters()},
+                     time.perf_counter() - t0)
+        del state
+    (l_gpu, g_gpu, _), (l_cpu, g_cpu, cpu_s) = runs["cuda"], runs["cpu"]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst = hold_grads(g_gpu, g_cpu, label, 1e-3)
+    print(f"[{label}] f32 step at B={HOLD_B} S={HOLD_S}, card vs the port's "
+          f"CPU path: loss {l_gpu:.7f} vs {l_cpu:.7f} (rel {rel:.2e}, "
+          f"tolerance 1e-4); {len(g_cpu)} gradient tensors, worst max|err| "
+          f"/ max|grad| {worst:.2e} (tolerance 1e-3, floor 1e-5 x the "
+          f"largest |grad|); CPU step {cpu_s:.1f} s"
+          f" (host) [{card}]", flush=True)
+    if not np.isfinite(l_gpu) or rel > 1e-4:
+        fail(f"{label}: the card's f32 loss differs from the CPU's")
+
+
+def timed_steps(step, n_warm: int, n_steps: int) -> tuple[list, list, float]:
+    """``step() -> loss tensor`` n_warm + n_steps times, each timed by
+    CUDA events; the losses are read after the last step. Returns (losses,
+    step ms of the timed steps, host wall ms a timed step)."""
+    import torch
+
+    losses, ms = [], []
+    for _ in range(n_warm):
+        losses.append(step())
+    torch.cuda.synchronize()
+    events = []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step())
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    ms = [s.elapsed_time(e) for s, e in events]
+    return [float(x) for x in losses], ms, wall_ms
+
+
+def profile_step(step, label: str, card: str, reps: int = 2) -> None:
+    """torch.profiler over ``reps`` training steps: device time by kernel
+    group (GEMM, the optimizer's multi-tensor kernels, the rest) and the
+    kernels that take the most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    if not events:
+        print(f"[{label}] torch.profiler recorded no device time",
+              flush=True)
+        return
+    groups = {"GEMM": 0.0, "optimizer": 0.0, "other": 0.0}
+    for e in events:
+        name = e.key.lower()
+        g = ("GEMM" if any(t in name for t in ("gemm", "xmma", "cutlass",
+                                               "nvjet"))
+             else "optimizer" if "multi_tensor" in name or "adam" in name
+             else "other")
+        groups[g] += e.self_device_time_total / reps / 1e3
+    busy = sum(groups.values())
+    print(f"[{label}] a step under torch.profiler: wall {wall_ms:.2f} ms, "
+          f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%): "
+          + ", ".join(f"{g} {v:.2f} ms" for g, v in groups.items())
+          + f" [{card}]", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"[{label}]   {e.self_device_time_total / reps / 1e3:8.3f} ms"
+              f" x{e.count // reps:<4d} {e.key[:90]}", flush=True)
+
+
+def hold_losses(losses: list, label: str) -> None:
+    if not np.all(np.isfinite(losses)):
+        fail(f"{label}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall: first {losses[0]:.6f}, last "
+             f"{losses[-1]:.6f}")
+
+
+def train_run(cfg, params: dict, steps: int, label: str, card: str,
+              flops_cfg=None) -> None:
+    """bf16 contrastive training on one fixed batch of TRAIN_PAIRS pairs x
+    TRAIN_SEQ tokens, AdamW at the JAX package's defaults: TRAIN_WARM
+    warm-up steps, then ``steps`` timed ones."""
+    import torch
+
+    from pathway_tpu_torch.models.encoder import encoder_cost
+    from pathway_tpu_torch.models.train import (as_batch,
+                                                contrastive_train_step,
+                                                init_train_state)
+
+    state = init_train_state(0, cfg, params=params, device="cuda")
+    batch = as_batch(train_batch(TRAIN_PAIRS, TRAIN_SEQ, cfg.vocab_size,
+                                 seed=12), next(state.model.parameters())
+                     .device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        return contrastive_train_step(state, batch)[1]
+
+    losses, ms, wall_ms = timed_steps(step, TRAIN_WARM, steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    hold_losses(losses, label)
+    p50, p90 = np.percentile(ms, 50), np.percentile(ms, 90)
+    fwd, _ = encoder_cost(flops_cfg or cfg, 2 * TRAIN_PAIRS, TRAIN_SEQ)
+    flops = 3 * fwd
+    tokens = 2 * TRAIN_PAIRS * TRAIN_SEQ
+    print(f"[{label}] bf16 AdamW steps on one batch of {TRAIN_PAIRS} pairs x"
+          f" {TRAIN_SEQ} tokens a side: step p50 {p50:.3f} ms p90 "
+          f"{p90:.3f} ms (CUDA events, {steps} steps after {TRAIN_WARM} "
+          f"warm-up), host wall {wall_ms:.3f} ms a step; "
+          f"{TRAIN_PAIRS / p50 * 1e3:.1f} pairs/s, {tokens / p50 * 1e3:.1f} "
+          f"tokens/s (padded); {flops / p50 / 1e9:.1f} TFLOP/s counting 3 x "
+          f"encoder_cost({2 * TRAIN_PAIRS}, {TRAIN_SEQ}) = "
+          f"{flops / 1e12:.3f} TFLOP a step; peak device memory "
+          f"{peak_gb:.2f} GiB [{card}]", flush=True)
+    print(f"[{label}] losses: first {losses[0]:.6f}, after warm-up "
+          f"{losses[TRAIN_WARM]:.6f}, last {losses[-1]:.6f}, all "
+          f"{len(losses)} finite [{card}]", flush=True)
+    profile_step(step, label, card)
+
+
+def phase_train(seed: int, card: str) -> None:
+    """Contrastive fine-tuning of BGE-small: the f32 step on the card
+    against the CPU, then bf16 training steps."""
+    from pathway_tpu_torch.models.encoder import (EncoderConfig,
+                                                  init_params_host)
+
+    cfg = EncoderConfig.bge_small()
+    params = init_params_host(seed, cfg)
+    hold_train_step(cfg, params, "train", card)
+    train_run(cfg, params, TRAIN_STEPS, "train", card)
+
+
+def routed(forward) -> tuple:
+    """``forward()``'s result and each MoE layer's top-1 expert per token
+    (``models.encoder._moe_route`` recorded while it runs)."""
+    from pathway_tpu_torch.models import encoder
+
+    tops, route = [], encoder._moe_route
+
+    def record(x, router):
+        gates, top = route(x, router)
+        tops.append(top)
+        return gates, top
+
+    encoder._moe_route = record
+    try:
+        return forward(), tops
+    finally:
+        encoder._moe_route = route
+
+
+def phase_moe(seed: int, card: str) -> tuple[int, int]:
+    """BGE-small's width with a 4-expert switch MoE in every layer:
+    serving (padded, into a bf16 index; ragged, one chunk through path 2's
+    graphed step), then training. Returns the launches of K1 in the
+    serving run and of K1 with segment ids in the ragged chunk."""
+    import dataclasses
+
+    import torch
+
+    from pathway_tpu_torch.internals.keys import Pointer
+    from pathway_tpu_torch.models.encoder import (Encoder, EncoderConfig,
+                                                  encode, init_params_host)
+    from pathway_tpu_torch.ops.attention import (ATTENTION,
+                                                 attention_reference)
+    from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
+                                           DeviceEmbeddingKnnIndex)
+    from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
+                                                   score_float_reference)
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+
+    cfg = EncoderConfig.bge_small(num_experts=MOE_EXPERTS)
+    params = init_params_host(seed, cfg)
+    emb = EncoderEmbedder(config=cfg, params=params, device="cuda")
+    index = DeviceEmbeddingKnnIndex(emb, BruteForceKnnIndex(
+        cfg.hidden, reserved_space=MOE_DOCS + 64, dtype="bfloat16",
+        device="cuda"))
+    docs = make_docs(MOE_DOCS, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    dup_ids = sorted(rng.choice(MOE_DOCS, size=MOE_QUERIES // 2,
+                                replace=False).tolist())
+    queries = [docs[i] for i in dup_ids] + make_docs(MOE_QUERIES // 2,
+                                                     seed=seed + 1)
+    ids, lens = emb.pack_tokens(docs[:INGEST_BATCH])
+    fwd_ms = cuda_ms(lambda: emb.device_producer(emb.model, ids, lens), 10)
+
+    # the counted run: ingest, then single-query searches
+    ATTENTION.launches = 0
+    emb.dispatches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b0 in range(0, MOE_DOCS, INGEST_BATCH):
+        sl = range(b0, min(b0 + INGEST_BATCH, MOE_DOCS))
+        index.add_batch([Pointer(i) for i in sl], [docs[i] for i in sl])
+    index.drain()
+    ingest_s = time.perf_counter() - t0
+    index.search([(Pointer(10**9), queries[0], 10, None)])  # warm-up
+    lat_ms, results = [], []
+    for qi, text in enumerate(queries):
+        t1 = time.perf_counter()
+        results.append(index.search([(Pointer(10**9 + qi), text, 10,
+                                      None)])[0])
+        lat_ms.append((time.perf_counter() - t1) * 1e3)
+    launches, dispatches = ATTENTION.launches, emb.dispatches
+    print(f"[moe] serving, padded embedder into a bf16 index: {MOE_DOCS} "
+          f"docs in {ingest_s:.2f} s, {MOE_DOCS / ingest_s:.1f} docs/s; "
+          f"forward per {INGEST_BATCH}-doc batch at width {ids.shape[1]} "
+          f"{fwd_ms:.2f} ms (CUDA events); query p50 "
+          f"{np.percentile(lat_ms, 50):.3f} ms over {len(queries)} "
+          f"single-query searches; K1 launches {launches}, encoder "
+          f"dispatches {dispatches} (x{N_LAYERS} = {N_LAYERS * dispatches})"
+          f" [{card}]", flush=True)
+    if len(index) != MOE_DOCS:
+        fail(f"MoE index holds {len(index)} docs, expected {MOE_DOCS}")
+    if dispatches == 0 or launches != N_LAYERS * dispatches:
+        fail("K1 did not run on every layer of the MoE encoder")
+    # every top 10 against a plain scan of the index's rows with the
+    # queries' embeddings (B=1, as the search embeds them)
+    inner = index.inner
+    exts = [e for e in inner._pool.extents if e.established]
+    rows = torch.cat([e.vectors for e in exts]).float()
+    valid = torch.cat([e.valid for e in exts])
+    base = np.concatenate([e.base + np.arange(e.rows) for e in exts])
+    keys_of = np.array([int(inner._slot_to_key.get(int(s), -1))
+                        for s in base])
+    qv = torch.from_numpy(np.stack([emb.embed_batch([t])[0]
+                                    for t in queries])).to(emb.device)
+    qv = qv.to(torch.bfloat16).float()
+    rank1 = check_top10(results, score_float_reference(
+        qv, rows, valid, inner.metric.value), keys_of, "moe")
+    # a copy's B=1 embedding against its document's row, embedded in a
+    # batch of 512 (bf16 in the index)
+    slot = {int(k): j for j, k in enumerate(keys_of)}
+    copy_rows = rows[[slot[d] for d in dup_ids]]
+    cos_copy = torch.nn.functional.cosine_similarity(
+        qv[:len(dup_ids)].double(), copy_rows.double())
+    found = sum(d in [int(k) for k, _ in results[qi]]
+                for qi, d in enumerate(dup_ids))
+    print(f"[moe] top-10 vs a plain scan of the index's rows: all "
+          f"{len(queries)} queries pass, rank 1 identical on {rank1}; "
+          f"copies: B=1 query embedding vs the document's row, min cosine "
+          f"{float(cos_copy.min()):.6f} (required >= 0.99), "
+          f"{found}/{len(dup_ids)} find their document in the top 10 "
+          f"[{card}]", flush=True)
+    if not float(cos_copy.min()) >= 0.99:
+        fail("MoE: a copy's B=1 embedding disagrees with its document's")
+
+    # K1 against the plain attention on the same documents and weights,
+    # in bf16 (the served model) and in f32; and how many token-layers the
+    # top-1 router sends to another expert between the two
+    held = docs[:MOE_HELD]
+    ids, lens = emb.pack_tokens(held)
+    dev = emb.device
+    ids_d = torch.from_numpy(ids).to(dev).long()
+    mask = torch.arange(ids.shape[1], device=dev)[None, :] < \
+        torch.from_numpy(lens).to(dev)[:, None]
+    model32 = Encoder.from_params(params, dataclasses.replace(
+        cfg, compute_dtype=torch.float32), device="cuda")
+    holds = {}
+    for dtype, model in (("bf16", emb.model), ("f32", model32)):
+        got, k1_tops = routed(lambda: encode(model, ids_d, mask))
+        ref, ref_tops = routed(lambda: encode(model, ids_d, mask,
+                                              attn_fn=attention_reference))
+        cos = float(torch.nn.functional.cosine_similarity(
+            got.double(), ref.double()).min())
+        flips = sum(int(((a != b) & mask).sum())
+                    for a, b in zip(k1_tops, ref_tops))
+        holds[dtype] = (cos, flips, bool(torch.isfinite(got).all()))
+    n_tok = int(mask.sum()) * cfg.layers
+    print(f"[moe] {MOE_HELD} docs' embeddings, K1 vs attention_reference on "
+          f"the card: bf16 min row cosine {holds['bf16'][0]:.6f} (required "
+          f">= 0.99), {holds['bf16'][1]} of {n_tok} token-layers routed to "
+          f"another expert; f32 min row cosine {holds['f32'][0]:.7f} "
+          f"(required >= 0.9999), {holds['f32'][1]} routed elsewhere "
+          f"[{card}]", flush=True)
+    # top-1 routing turns bf16 rounding into a discrete change of expert
+    # for near-tied tokens: the bf16 hold is looser than the dense
+    # encoder's 0.999, the f32 one (rounding 2^16 times finer) is not
+    if not (holds["bf16"][2] and holds["f32"][2]) \
+            or holds["bf16"][0] < 0.99 or holds["f32"][0] < 0.9999:
+        fail("MoE embeddings through K1 disagree with the plain attention")
+    del model32
+
+    # ragged: one chunk through path 2's graphed step, graphs captured in
+    # a warm-up first
+    remb = EncoderEmbedder(config=cfg, params=params, ragged=True,
+                           device="cuda")
+    rindex = DeviceEmbeddingKnnIndex(remb, BruteForceKnnIndex(
+        cfg.hidden, reserved_space=MOE_DOCS + 64, dtype="int8",
+        metric="cos", device="cuda"))
+    warm = docs[:INGEST_BATCH]
+    rindex.add_batch([Pointer(i) for i in range(len(warm))], warm)
+    rindex.drain()
+    step = rindex._fused.step
+    # one full chunk: make_docs' documents are WORDS_PER_DOC + 2 tokens
+    n_chunk = remb._ragged_max_seqs * (remb.max_len // (WORDS_PER_DOC + 2))
+    window = docs[INGEST_BATCH:INGEST_BATCH + n_chunk]
+    if len(remb.pack_ragged(window)) != 1:
+        fail("the ragged window is not one chunk")
+    captures, replays = step.captures, step.replays
+    ATTENTION.launches = QUANTIZE_SCATTER.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rindex.add_batch([Pointer(INGEST_BATCH + i) for i in range(n_chunk)],
+                     window)
+    rindex.drain()
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t0) * 1e3
+    seg_launches, k4 = ATTENTION.launches, QUANTIZE_SCATTER.launches
+    new_captures = step.captures - captures
+    print(f"[moe] ragged: one chunk of {n_chunk} docs through path 2's "
+          f"graphed step in {chunk_ms:.2f} ms (host, add_batch + drain): "
+          f"{step.replays - replays} replay, {new_captures} graphs captured "
+          f"in the window, K1 (segment ids) launches {seg_launches}, K4 "
+          f"{k4} [{card}]", flush=True)
+    if new_captures != 0 or step.replays - replays != 1:
+        fail("the ragged MoE chunk did not run as one replay of a graph "
+             "captured before the window")
+    if seg_launches != N_LAYERS or k4 != 1:
+        fail("the ragged MoE chunk did not launch K1 on every layer and K4")
+    a = remb.embed_batch(docs[:16]).astype(np.float64)
+    b = emb.embed_batch(docs[:16]).astype(np.float64)
+    rcos = np.sum(a * b, 1) / (np.linalg.norm(a, axis=1)
+                               * np.linalg.norm(b, axis=1))
+    # bf16 on both sides, other attention kernels: the routing caveat of
+    # the K1 hold above applies
+    print(f"[moe] ragged vs padded embeddings of 16 docs: min row cosine "
+          f"{rcos.min():.6f} (required >= 0.99) [{card}]", flush=True)
+    if not np.all(np.isfinite(a)) or rcos.min() < 0.99:
+        fail("ragged MoE embeddings disagree with padded ones")
+    del index, rindex, emb, remb
+
+    hold_train_step(cfg, params, "moe train", card)
+    # the dense dispatch runs every expert on every token: E MLPs' work
+    train_run(cfg, params, MOE_STEPS, "moe train", card,
+              flops_cfg=dataclasses.replace(
+                  cfg, intermediate=cfg.intermediate * MOE_EXPERTS))
+    return launches, seg_launches
+
+
+def phase_clip(seed: int, card: str) -> None:
+    """The CLIP dual encoder at ClipConfig(): ClipEmbedder over seeded
+    images (ndarrays) and texts, the f32 towers, loss and gradients on the
+    card against the CPU, then Adam steps."""
+    import dataclasses
+
+    import torch
+
+    from pathway_tpu_torch.models import clip
+    from pathway_tpu_torch.xpacks.llm.embedders import ClipEmbedder
+
+    cfg = clip.ClipConfig()
+    size = cfg.image_size
+    rng = np.random.default_rng(seed + 3)
+    images = list(rng.random((CLIP_ITEMS, size, size, cfg.channels),
+                             dtype=np.float32))
+    texts = make_docs(CLIP_ITEMS, seed=seed + 3)
+    emb = ClipEmbedder(config=cfg, seed=seed, device="cuda")
+    rates = {}
+    for kind, fn, items in (("images", emb.embed_image_batch, images),
+                            ("texts", emb.embed_text_batch, texts)):
+        fn(items)  # warm-up at the timed shape
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(items)
+            walls.append(time.perf_counter() - t0)
+        if out.shape != (CLIP_ITEMS, cfg.embed_dim) \
+                or not np.all(np.isfinite(out)) \
+                or np.abs(np.linalg.norm(out, axis=1) - 1).max() > 1e-3:
+            fail(f"CLIP {kind}: not {CLIP_ITEMS} finite unit rows")
+        rates[kind] = CLIP_ITEMS / float(np.median(walls))
+    print(f"[clip] ClipEmbedder, {CLIP_ITEMS} images of {size}x{size} "
+          f"({cfg.n_patches} patches): {rates['images']:.1f} images/s; "
+          f"{CLIP_ITEMS} texts: {rates['texts']:.1f} texts/s (host wall, "
+          f"median of 3, batch of {CLIP_ITEMS}) [{card}]", flush=True)
+    del emb
+
+    # f32 towers, loss and gradients: the card against the port's CPU path
+    cfg32 = dataclasses.replace(
+        cfg, compute_dtype=torch.float32,
+        text=dataclasses.replace(cfg.text, compute_dtype=torch.float32))
+    params = clip.init_clip_params(seed, cfg32)
+    hb = clip_batch(cfg32, CLIP_HOLD_B, seed=13)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = clip.ClipModel.from_params(params, cfg32, device=dev,
+                                           trainable=True)
+        b = {k: torch.as_tensor(v).to(model.vision_proj.device)
+             for k, v in hb.items()}
+        b["ids"], b["mask"] = b["ids"].long(), b["mask"].bool()
+        img = clip.encode_image(model, b["pixels"])
+        txt = clip.encode_text(model, b["ids"], b["mask"])
+        loss = clip.clip_loss(model, b)
+        loss.backward()
+        runs[dev] = (img.detach().cpu(), txt.detach().cpu(),
+                     float(loss.detach()),
+                     {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()})
+        del model
+    (gi, gt, gl, gg), (ci, ct, cl, cg) = runs["cuda"], runs["cpu"]
+    err = max(float((gi - ci).abs().max()), float((gt - ct).abs().max()))
+    rel = abs(gl - cl) / abs(cl)
+    worst = hold_grads(gg, cg, "clip", 1e-3)
+    print(f"[clip] f32 at B={CLIP_HOLD_B}, card vs the port's CPU path: "
+          f"tower outputs max_abs_err {err:.2e} (tolerance 1e-4, unit "
+          f"rows), clip_loss {gl:.7f} vs {cl:.7f} (rel {rel:.2e}, tolerance"
+          f" 1e-4), {len(cg)} gradient tensors, worst max|err| / max|grad| "
+          f"{worst:.2e} (tolerance 1e-3, floor 1e-5 x the largest |grad|) "
+          f"[{card}]", flush=True)
+    if not err <= 1e-4 or not rel <= 1e-4:
+        fail("CLIP's f32 towers or loss on the card disagree with the CPU")
+
+    # Adam steps at B=64 in bf16 on one fixed batch
+    params = clip.init_clip_params(seed, cfg)
+    model = clip.ClipModel.from_params(params, cfg, device="cuda",
+                                       trainable=True)
+    opt = clip.make_clip_optimizer(CLIP_LR)(model.parameters())
+    batch = clip_batch(cfg, CLIP_TRAIN_B, seed=14)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    def step():
+        return clip.clip_train_step(model, opt, batch)[2]
+
+    losses, ms, wall_ms = timed_steps(step, 0, CLIP_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    hold_losses(losses, "clip train")
+    print(f"[clip] {CLIP_STEPS} bf16 clip_train_steps (Adam {CLIP_LR}) at "
+          f"B={CLIP_TRAIN_B}: step p50 {np.percentile(ms, 50):.3f} ms "
+          f"(CUDA events; the first step and the batch's upload included), "
+          f"host wall {wall_ms:.3f} ms a step; loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f} (chance, log B: {np.log(CLIP_TRAIN_B):.6f}), "
+          f"all finite; peak device memory {peak_gb:.2f} GiB [{card}]",
+          flush=True)
+    profile_step(step, "clip train", card)
+
+
+def clip_batch(cfg, B: int, seed: int) -> dict:
+    """B image/text pairs from the seed, shaped like tests/test_clip.py's:
+    image i is noise in [0, 0.15) with cell i of a square grid lit (+0.8)
+    (uniform noise alone averages to the same patch mean in every image),
+    text i a caption of 8 words of its own through the text tower's
+    HashTokenizer."""
+    from pathway_tpu_torch.models.tokenizer import HashTokenizer
+
+    rng = np.random.default_rng(seed)
+    size = cfg.image_size
+    grid = int(np.ceil(np.sqrt(B)))
+    cell = size // grid
+    px = rng.uniform(0, 0.15, (B, size, size, cfg.channels)
+                     ).astype(np.float32)
+    for i in range(B):
+        r, c = divmod(i, grid)
+        px[i, r * cell:(r + 1) * cell, c * cell:(c + 1) * cell] += 0.8
+    words = rng.permutation(4096)[:8 * B].reshape(B, 8)
+    tok = HashTokenizer(vocab_size=cfg.text.vocab_size,
+                        max_len=cfg.text.max_len)
+    ids, mask = tok.batch([" ".join(f"word{w}" for w in row)
+                           for row in words])
+    return {"pixels": px, "ids": ids, "mask": mask}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=100_000,
@@ -4903,6 +5491,16 @@ def main() -> None:
     k3.update(filt)
     done("int8 10M index")
     phase_profile(card)
+    gc.collect()  # the profiled embedders
+    torch.cuda.empty_cache()
+    phase_train(args.seed, card)
+    done("train")
+    k1["launches_moe"], k1_seg["launches_moe"] = phase_moe(args.seed, card)
+    done("moe")
+    phase_clip(args.seed, card)
+    done("clip")
+    gc.collect()
+    torch.cuda.empty_cache()
     # last: its 21 graphs leave ~200,000 memoized keys and twice the
     # objects the collector scans, which slowed the timed phases after it
     phase_temporal(card)

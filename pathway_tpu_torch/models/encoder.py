@@ -17,8 +17,17 @@ models/convert.py transposes between the two.
 back into fixed-width sequences, with K1 given the per-token document
 ids as segment ids.
 
-Not ported yet: the mixture-of-experts MLP and tensor-parallel partition
-specs (ROADMAP).
+With ``num_experts > 0`` each layer's MLP is a top-1 switch
+mixture of experts (``MoeBlock``), dispatched densely as in the JAX
+package. The blocks cast every weight to the compute dtype where they use
+it, so one forward serves both a serving module (dense weights already in
+the compute dtype) and a trainable one (``from_params(...,
+trainable=True)``: every parameter in float32, as the JAX tree holds
+them). ``encode`` is the serving entry (no autograd); calling the module
+runs the same forward with autograd, and training passes
+``dense_attention``, since K1 has no backward.
+
+Not ported yet: tensor-parallel partition specs (ROADMAP).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ class EncoderConfig:
     layer_norm_eps: float = 1e-12
     pooling: str = "cls"  # "cls" (BGE) | "mean" (MiniLM/ST default)
     normalize: bool = True
+    num_experts: int = 0  # 0 -> dense MLP; >0 -> top-1 switch MoE
     compute_dtype: torch.dtype = torch.bfloat16
     # "auto": tanh-gelu under a 2-byte compute dtype, erf-gelu otherwise —
     # the JAX encoder's rule (its approximation error sits below bf16's own
@@ -92,7 +102,7 @@ def _build_params(config: EncoderConfig, dense, zeros, ones) -> dict:
         "layers": [],
     }
     for _ in range(config.layers):
-        params["layers"].append({
+        layer = {
             "attn": {
                 "wq": dense((H, H)), "bq": zeros((H,)),
                 "wk": dense((H, H)), "bk": zeros((H,)),
@@ -101,15 +111,28 @@ def _build_params(config: EncoderConfig, dense, zeros, ones) -> dict:
                 "ln_scale": ones((H,)),
                 "ln_bias": zeros((H,)),
             },
-            "mlp": {
+        }
+        if config.num_experts > 0:
+            E = config.num_experts
+            layer["moe"] = {
+                "router": dense((H, E)),
+                "w1": dense((E, H, I_)),
+                "b1": zeros((E, I_)),
+                "w2": dense((E, I_, H)),
+                "b2": zeros((E, H)),
+                "ln_scale": ones((H,)),
+                "ln_bias": zeros((H,)),
+            }
+        else:
+            layer["mlp"] = {
                 "w1": dense((H, I_)),
                 "b1": zeros((I_,)),
                 "w2": dense((I_, H)),
                 "b2": zeros((H,)),
                 "ln_scale": ones((H,)),
                 "ln_bias": zeros((H,)),
-            },
-        })
+            }
+        params["layers"].append(layer)
     return params
 
 
@@ -141,66 +164,96 @@ class Embeddings(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, dtype: torch.dtype):
         super().__init__()
-        H, cd = config.hidden, config.compute_dtype
-        self.wq = nn.Linear(H, H, dtype=cd)
-        self.wk = nn.Linear(H, H, dtype=cd)
-        self.wv = nn.Linear(H, H, dtype=cd)
-        self.wo = nn.Linear(H, H, dtype=cd)
+        H = config.hidden
+        self.wq = nn.Linear(H, H, dtype=dtype)
+        self.wk = nn.Linear(H, H, dtype=dtype)
+        self.wv = nn.Linear(H, H, dtype=dtype)
+        self.wo = nn.Linear(H, H, dtype=dtype)
         self.ln = nn.LayerNorm(H, eps=config.layer_norm_eps)
 
 
 class MlpBlock(nn.Module):
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig, dtype: torch.dtype):
         super().__init__()
-        H, I_, cd = config.hidden, config.intermediate, config.compute_dtype
-        self.w1 = nn.Linear(H, I_, dtype=cd)
-        self.w2 = nn.Linear(I_, H, dtype=cd)
+        H, I_ = config.hidden, config.intermediate
+        self.w1 = nn.Linear(H, I_, dtype=dtype)
+        self.w2 = nn.Linear(I_, H, dtype=dtype)
+        self.ln = nn.LayerNorm(H, eps=config.layer_norm_eps)
+
+
+class MoeBlock(nn.Module):
+    """Top-1 switch mixture of experts, in the JAX tree's layout (no
+    transpose): ``router`` (H, E) in float32, ``w1`` (E, H, I), ``b1``
+    (E, I), ``w2`` (E, I, H), ``b2`` (E, H)."""
+
+    def __init__(self, config: EncoderConfig, dtype: torch.dtype):
+        super().__init__()
+        H, I_, E = config.hidden, config.intermediate, config.num_experts
+        self.router = nn.Parameter(torch.empty(H, E, dtype=torch.float32))
+        self.w1 = nn.Parameter(torch.empty(E, H, I_, dtype=dtype))
+        self.b1 = nn.Parameter(torch.empty(E, I_, dtype=dtype))
+        self.w2 = nn.Parameter(torch.empty(E, I_, H, dtype=dtype))
+        self.b2 = nn.Parameter(torch.empty(E, H, dtype=dtype))
         self.ln = nn.LayerNorm(H, eps=config.layer_norm_eps)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, config: EncoderConfig):
+    """Attention, then ``mlp`` (dense) or ``moe`` (``num_experts > 0``),
+    the JAX layer's keys."""
+
+    def __init__(self, config: EncoderConfig, dtype: torch.dtype):
         super().__init__()
-        self.attn = AttentionBlock(config)
-        self.mlp = MlpBlock(config)
+        self.attn = AttentionBlock(config, dtype)
+        if config.num_experts > 0:
+            self.moe = MoeBlock(config, dtype)
+        else:
+            self.mlp = MlpBlock(config, dtype)
 
 
 class Encoder(nn.Module):
     """The encoder's parameters as a module tree. Dense weights and biases
-    are held in the compute dtype (the JAX forward casts them to it on
-    every call); embedding tables and layer-norm parameters stay float32.
-    ``forward`` is :func:`encode`."""
+    are held in ``param_dtype`` (the compute dtype unless given: the JAX
+    forward casts them to it on every call); embedding tables, layer-norm
+    parameters and the MoE router stay float32. ``forward`` runs the
+    encoder with autograd (a training step); :func:`encode` is the same
+    forward without it (serving)."""
 
-    def __init__(self, config: EncoderConfig):
+    def __init__(self, config: EncoderConfig,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.config = config
+        dtype = param_dtype or config.compute_dtype
         self.embeddings = Embeddings(config)
         self.layers = nn.ModuleList(
-            EncoderLayer(config) for _ in range(config.layers))
+            EncoderLayer(config, dtype) for _ in range(config.layers))
 
     @classmethod
     def from_params(cls, params: dict, config: EncoderConfig, *,
-                    device: str | torch.device = "cuda") -> "Encoder":
+                    device: str | torch.device = "cuda",
+                    trainable: bool = False) -> "Encoder":
         """Build on ``device`` from a JAX-layout numpy tree
         (``init_params_host`` output, or the JAX package's parameters
-        fetched to the host)."""
+        fetched to the host). A serving module (the default) is frozen in
+        eval mode with dense weights in the compute dtype; a
+        ``trainable`` one holds every parameter in float32 (the master
+        weights the optimizer updates) with gradients on."""
         from pathway_tpu_torch.models.convert import params_from_jax
 
         dev = resolve_device(device)
         with torch.device("meta"):
-            model = cls(config)
+            model = cls(config, torch.float32 if trainable else None)
         # meta construction skips nn's random init: every value comes
         # from ``params`` below
         model = model.to_empty(device=dev)
         model.load_state_dict(params_from_jax(params))
-        return model.requires_grad_(False).eval()
+        return model.requires_grad_(trainable).train(trainable)
 
     def forward(self, token_ids, attention_mask, *,
                 attn_fn: Callable | None = None, token_type_ids=None):
-        return encode(self, token_ids, attention_mask, attn_fn=attn_fn,
-                      token_type_ids=token_type_ids)
+        return _encode(self, token_ids, attention_mask, attn_fn=attn_fn,
+                       token_type_ids=token_type_ids)
 
 
 # ---------------------------------------------------------------------------
@@ -218,17 +271,46 @@ def _layer_norm(x, scale, bias, eps, out_dtype=None):
     return normed.to(out_dtype)
 
 
+def _linear(x, lin: nn.Linear, cd: torch.dtype):
+    """``x @ w + b`` with the weight and bias cast to the compute dtype
+    (a no-op for a serving module, whose weights are held in it)."""
+    return F.linear(x, lin.weight.to(cd), lin.bias.to(cd))
+
+
+def _masked_attention(q, k, v, valid):
+    """The JAX encoder's softmax attention: scores in the compute dtype,
+    a -1e9 bias where ``valid`` (broadcast against (B, H, S, S)) is
+    False, the max subtracted and the exp taken in float32, then cast back
+    and normalised in the compute dtype."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    scores = scores + torch.where(valid, 0.0, -1e9).to(scores.dtype)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp((scores - m).float()).to(scores.dtype)
+    probs = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def dense_attention(q, k, v, mask):
+    """Counterpart of the JAX encoder's ``_dense_attention`` (its default
+    attention, and the one its training step runs): q, k, v (B, S, H, D),
+    mask (B, S) key validity. Differentiable; not K1's plain version
+    (``ops.attention.attention_reference`` keeps scores in float32 with a
+    ``finfo.min`` fill)."""
+    return _masked_attention(q, k, v, mask[:, None, None, :])
+
+
 def _attention_block(x, p: AttentionBlock, mask, config: EncoderConfig,
                      attn_fn: Callable):
     cd = config.compute_dtype
     xc = x.to(cd)
     B, S, H = x.shape
-    q = p.wq(xc)
-    k = p.wk(xc)
-    v = p.wv(xc)
+    q = _linear(xc, p.wq, cd)
+    k = _linear(xc, p.wk, cd)
+    v = _linear(xc, p.wv, cd)
     shp = (B, S, config.heads, config.head_dim)
     out = attn_fn(q.view(shp), k.view(shp), v.view(shp), mask)
-    out = p.wo(out.reshape(B, S, H).to(cd))
+    out = _linear(out.reshape(B, S, H).to(cd), p.wo, cd)
     return _layer_norm(xc + out, p.ln.weight, p.ln.bias,
                        config.layer_norm_eps, out_dtype=cd)
 
@@ -246,9 +328,46 @@ def _use_tanh_gelu(config: EncoderConfig) -> bool:
 def _mlp_block(x, p: MlpBlock, config: EncoderConfig):
     cd = config.compute_dtype
     xc = x.to(cd)
-    h = F.gelu(p.w1(xc),
+    h = F.gelu(_linear(xc, p.w1, cd),
                approximate="tanh" if _use_tanh_gelu(config) else "none")
-    out = p.w2(h)
+    out = _linear(h, p.w2, cd)
+    return _layer_norm(xc + out, p.ln.weight, p.ln.bias,
+                       config.layer_norm_eps, out_dtype=cd)
+
+
+def _moe_route(x, router):
+    """(gates, top): the router's softmax in float32 from the block input
+    (B, S, E), and each token's expert (B, S), the first maximum (as
+    ``jnp.argmax``)."""
+    gates = torch.softmax(x.float() @ router.float(), dim=-1)
+    return gates, gates.argmax(dim=-1)
+
+
+def _moe_block(x, p: MoeBlock, config: EncoderConfig):
+    """The JAX encoder's top-1 switch MoE: router logits in float32 from
+    the block input, softmax, the first maximum's expert as a one-hot in
+    the compute dtype, and every expert applied to every token (a dense
+    dispatch with no data-dependent shape: CUDA graphs capture it). The
+    router learns through ``gate_val``; the argmax and one-hot carry no
+    gradient, as in JAX."""
+    cd = config.compute_dtype
+    E = config.num_experts
+    gates, top = _moe_route(x, p.router)
+    # a comparison, not F.one_hot, which reads the indices' range back to
+    # the host (a sync, fatal inside a CUDA graph capture)
+    onehot = (top[..., None] == torch.arange(E, device=x.device)).to(cd)
+    gate_val = (gates * onehot.float()).sum(dim=-1)
+    xc = x.to(cd)
+    h = torch.einsum("bsh,ehi->bsei", xc, p.w1.to(cd)) \
+        + p.b1.to(cd)[None, None]
+    if _use_tanh_gelu(config):
+        h = F.gelu(h, approximate="tanh")
+    else:
+        h = F.gelu(h.float()).to(cd)
+    out = torch.einsum("bsei,eih->bseh", h, p.w2.to(cd)) \
+        + p.b2.to(cd)[None, None]
+    out = torch.einsum("bseh,bse->bsh", out, onehot)
+    out = (out.float() * gate_val[..., None]).to(cd)
     return _layer_norm(xc + out, p.ln.weight, p.ln.bias,
                        config.layer_norm_eps, out_dtype=cd)
 
@@ -276,7 +395,10 @@ def _forward(model: Encoder, token_ids, mask, *, attn_fn: Callable,
                     out_dtype=cd)
     for layer in model.layers:
         x = _attention_block(x, layer.attn, mask, config, attn_fn)
-        x = _mlp_block(x, layer.mlp, config)
+        if config.num_experts > 0:
+            x = _moe_block(x, layer.moe, config)
+        else:
+            x = _mlp_block(x, layer.mlp, config)
     return x
 
 
@@ -287,16 +409,9 @@ def _normalized(pooled, config: EncoderConfig):
     return pooled
 
 
-@torch.no_grad()
-def encode(model: Encoder, token_ids, attention_mask, *,
-           attn_fn: Callable | None = None, token_type_ids=None):
-    """Forward pass -> pooled, (optionally) L2-normalised float32
-    embeddings on the model's device.
-
-    token_ids, attention_mask: (B, S) integer / bool tensors on that
-    device. ``attn_fn(q, k, v, mask)`` takes (B, S, H, D) tensors; the
-    default is ops.attention.flash_attention (the CUDA kernel on a CUDA
-    tensor, its plain version on a CPU tensor)."""
+def _encode(model: Encoder, token_ids, attention_mask, *,
+            attn_fn: Callable | None = None, token_type_ids=None):
+    """:func:`encode`'s body, under whatever grad mode the caller set."""
     if attn_fn is None:
         from pathway_tpu_torch.ops.attention import flash_attention
 
@@ -312,6 +427,21 @@ def encode(model: Encoder, token_ids, attention_mask, *,
         m = mask.float()[..., None]
         pooled = (xf * m).sum(dim=1) / torch.clamp_min(m.sum(dim=1), 1.0)
     return _normalized(pooled, config)
+
+
+@torch.no_grad()
+def encode(model: Encoder, token_ids, attention_mask, *,
+           attn_fn: Callable | None = None, token_type_ids=None):
+    """Forward pass -> pooled, (optionally) L2-normalised float32
+    embeddings on the model's device, without autograd (serving; calling
+    the module runs it with autograd).
+
+    token_ids, attention_mask: (B, S) integer / bool tensors on that
+    device. ``attn_fn(q, k, v, mask)`` takes (B, S, H, D) tensors; the
+    default is ops.attention.flash_attention (the CUDA kernel on a CUDA
+    tensor, its plain version on a CPU tensor)."""
+    return _encode(model, token_ids, attention_mask, attn_fn=attn_fn,
+                   token_type_ids=token_type_ids)
 
 
 def encoder_cost(config: EncoderConfig, batch: int,
@@ -330,15 +460,8 @@ def _segment_attention(q, k, v, seg):
     compute dtype with a -1e9 bias on other segments' and padding keys.
     The ragged forward runs K1 with ``seg`` instead
     (ops/attention.py flash_attention); this stays as an oracle."""
-    scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     same = (seg[:, :, None] == seg[:, None, :]) & (seg >= 0)[:, None, :]
-    bias = torch.where(same[:, None], 0.0, -1e9).to(scores.dtype)
-    scores = scores + bias
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.exp((scores - m).float()).to(scores.dtype)
-    probs = p / p.sum(dim=-1, keepdim=True)
-    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    return _masked_attention(q, k, v, same[:, None])
 
 
 @torch.no_grad()

@@ -114,7 +114,18 @@ def flash_attention(q, k, v, mask, seg=None):
 
     CUDA tensors launch the Hopper kernel on the current stream (counted
     in ``ATTENTION.launches``); CPU tensors take ``attention_reference``
-    (``segment_attention_reference`` with ``seg``)."""
+    (``segment_attention_reference`` with ``seg``).
+
+    The kernel has no backward (neither has the JAX package's Pallas
+    kernel), so under autograd, with q, k or v requiring grad, it raises
+    on either device rather than return an output that passes no
+    gradient back: training runs models.encoder.dense_attention."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: q, k or v requires grad "
+            "under autograd; pass attn_fn=models.encoder.dense_attention "
+            "to train, or run under torch.no_grad()")
     if q.device.type == "cpu":
         if seg is not None:
             return segment_attention_reference(q, k, v, seg)

@@ -1,5 +1,5 @@
-"""Encoder embedder — port of pathway_tpu/xpacks/llm/embedders.py
-``BaseEmbedder`` and ``JaxEncoderEmbedder``.
+"""Encoder embedders — port of pathway_tpu/xpacks/llm/embedders.py
+``BaseEmbedder``, ``JaxEncoderEmbedder`` and ``ClipEmbedder``.
 
 ``EncoderEmbedder`` tokenizes on the host (HashTokenizer by default) and
 runs the encoder (models/encoder.py) on the device, either padding each
@@ -10,6 +10,10 @@ column expression, ``emb(pw.this.text)``, it builds the UDF expression the
 engine runs once per tick over the whole column. Direct callers use
 ``embed_batch``. Checkpoint loading by model name is a later slice
 (ROADMAP).
+
+``ClipEmbedder`` embeds texts (the UDF itself) and images (its
+``image()`` UDF) into one space with the CLIP dual encoder
+(models/clip.py), so one index serves cross-modal retrieval.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from pathway_tpu_torch._device import PinnedStaging, resolve_device
 from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.config import _env_int
+from pathway_tpu_torch.models import clip as _clip
 from pathway_tpu_torch.models.encoder import (Encoder, EncoderConfig, encode,
                                               encode_ragged,
                                               init_params_host)
@@ -272,3 +277,91 @@ class EncoderEmbedder(BaseEmbedder):
 
     def get_embedding_dimension(self, **kwargs) -> int:
         return int(self.config.hidden)
+
+
+class ClipEmbedder(BaseEmbedder):
+    """Multimodal embedder over the port's CLIP dual encoder, a batch
+    device UDF like ``EncoderEmbedder``: called on a column it embeds
+    texts; ``image()`` is a UDF embedding images (bytes, decoded by
+    ``load_image``, or (H, W, C) float arrays in [0, 1]) into the same
+    space. ``params`` is a JAX-layout numpy tree (the JAX package's
+    ``init_clip_params`` fetched to the host, say); without it the
+    weights are ``init_clip_params(seed, config)``. Runs on ``device``
+    ("cuda" unless the caller passes "cpu")."""
+
+    _BUCKETS = EncoderEmbedder._BUCKETS
+
+    def __init__(self, *, config: _clip.ClipConfig | None = None,
+                 params: dict | None = None, tokenizer=None, seed: int = 0,
+                 device: str | torch.device = "cuda", **kwargs):
+        kwargs.setdefault("batch", True)
+        kwargs.setdefault("deterministic", True)
+        super().__init__(device=True, **kwargs)
+        self.device = resolve_device(device)
+        self.config = config or _clip.ClipConfig()
+        if params is None:
+            params = _clip.init_clip_params(seed, self.config)
+        self.model = _clip.ClipModel.from_params(params, self.config,
+                                                 device=self.device)
+        self.tokenizer = tokenizer or HashTokenizer(
+            vocab_size=self.config.text.vocab_size,
+            max_len=self.config.text.max_len)
+
+    @torch.no_grad()
+    def embed_text_batch(self, texts: list[str]) -> np.ndarray:
+        """(B, embed_dim) float32 text embeddings, each batch padded to
+        the first of ``_BUCKETS`` that holds its longest row (the JAX
+        embedder's widths)."""
+        max_len = self.config.text.max_len
+        ids, mask = self.tokenizer.batch(
+            [t or "." for t in texts], max_len=max_len)
+        pad_to = next((min(b, max_len) for b in self._BUCKETS
+                       if ids.shape[1] <= b), max_len)
+        if ids.shape[1] < pad_to:
+            pad = ((0, 0), (0, pad_to - ids.shape[1]))
+            ids, mask = np.pad(ids, pad), np.pad(mask, pad)
+        else:
+            ids, mask = ids[:, :pad_to], mask[:, :pad_to]
+        dev = self.device
+        out = _clip.encode_text(self.model,
+                                torch.from_numpy(ids).to(dev).long(),
+                                torch.from_numpy(mask).to(dev).bool())
+        return out.cpu().numpy()
+
+    @torch.no_grad()
+    def embed_image_batch(self, images: list) -> np.ndarray:
+        """(B, embed_dim) float32 image embeddings."""
+        px = np.stack([
+            _clip.load_image(im, config=self.config)
+            if isinstance(im, bytes) else np.asarray(im, np.float32)
+            for im in images
+        ])
+        out = _clip.encode_image(self.model,
+                                 torch.from_numpy(px).to(self.device))
+        return out.cpu().numpy()
+
+    def __wrapped__(self, texts: list[str], **kwargs) -> list[np.ndarray]:
+        # row views of the one batch transfer
+        return list(self.embed_text_batch(list(texts)))
+
+    def image(self) -> BaseEmbedder:
+        """A batch device UDF embedding image bytes or arrays into the
+        shared space."""
+        outer = self
+
+        class _ImageUDF(BaseEmbedder):
+            def __init__(self):
+                super().__init__(batch=True, deterministic=True,
+                                 device=True)
+
+            def __wrapped__(self, images: list, **kwargs):
+                # row views of the one batch transfer
+                return list(outer.embed_image_batch(list(images)))
+
+            def get_embedding_dimension(self, **kwargs) -> int:
+                return int(outer.config.embed_dim)
+
+        return _ImageUDF()
+
+    def get_embedding_dimension(self, **kwargs) -> int:
+        return int(self.config.embed_dim)

@@ -1,8 +1,9 @@
 """The port stands alone: pathway_tpu_torch (and chip_smoke.py) import
-neither jax nor anything of pathway_tpu, nor aiohttp or any other package
-the chip machine lacks (it has Python's standard library, torch, triton,
-numpy, scipy, einops, pytest and hypothesis), and its entry points never
-drop to the CPU unless asked."""
+neither jax nor anything of pathway_tpu, nor aiohttp, optax or any other
+package the chip machine lacks (it has Python's standard library, torch,
+triton, numpy, scipy, einops, pytest and hypothesis; PIL only inside the
+function that decodes image bytes), and its entry points never drop to
+the CPU unless asked."""
 
 import ast
 import os
@@ -13,7 +14,10 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "pathway_tpu", "aiohttp")
+FORBIDDEN = ("jax", "jaxlib", "pathway_tpu", "aiohttp", "optax")
+# imported only inside the function that needs it (models/clip.py
+# load_image): a machine without it fails in that call and nowhere else
+LAZY_PACKAGES = frozenset(("PIL",))
 # what the chip machine has besides Python's standard library
 CHIP_PACKAGES = frozenset(("torch", "triton", "numpy", "scipy", "einops",
                            "pytest", "hypothesis", "pathway_tpu_torch"))
@@ -194,10 +198,23 @@ def _guarded_imports(tree) -> set[int]:
     return guarded
 
 
+def _in_functions(tree) -> set[int]:
+    """ids of the nodes inside a function body: imported at call time,
+    not when the module is."""
+    inside = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for stmt in node.body:
+                inside |= {id(n) for n in ast.walk(stmt)}
+    return inside
+
+
 def _imports(path):
+    """(module, guarded by ``except ImportError``, inside a function) for
+    every absolute import of the file."""
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), path)
-    guarded = _guarded_imports(tree)
+    guarded, lazy = _guarded_imports(tree), _in_functions(tree)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -206,57 +223,122 @@ def _imports(path):
         else:
             continue
         for n in names:
-            yield n, id(node) in guarded
+            yield n, id(node) in guarded, id(node) in lazy
 
 
 def test_no_forbidden_import_in_port_sources():
     offenders = [(path, n) for path in _port_files()
-                 for n, _guarded in _imports(path) if _is_forbidden(n)]
+                 for n, _guarded, _lazy in _imports(path)
+                 if _is_forbidden(n)]
     assert not offenders
 
 
 def test_port_imports_only_what_the_chip_machine_has():
     """Every import of the port and of chip_smoke.py is of the standard
     library or of a package the chip machine has, unless the module runs
-    without it (an import guarded by ``except ImportError``)."""
+    without it (an import guarded by ``except ImportError``, or one of
+    LAZY_PACKAGES inside a function)."""
     offenders = []
     for path in _port_files():
-        for n, guarded in _imports(path):
+        for n, guarded, lazy in _imports(path):
             top = n.split(".")[0]
             if top in sys.stdlib_module_names or top in CHIP_PACKAGES:
                 continue
-            if not guarded:
+            if not guarded and not (lazy and top in LAZY_PACKAGES):
                 offenders.append((os.path.relpath(path, REPO), n))
     assert not offenders
 
 
 def test_the_isolation_checks_catch_an_offender(tmp_path):
     """The two checks above on a file that imports aiohttp and yaml at the
-    top and pandas under ``except ImportError``."""
+    top, pandas under ``except ImportError``, and optax and PIL inside a
+    function."""
     bad = tmp_path / "bad.py"
     bad.write_text("import aiohttp\nfrom yaml import safe_dump\n"
                    "try:\n    import pandas\nexcept ImportError:\n"
-                   "    pandas = None\n")
-    got = list(_imports(str(bad)))
-    assert got == [("aiohttp", False), ("yaml", False), ("pandas", True)]
-    assert [n for n, _ in got if _is_forbidden(n)] == ["aiohttp"]
+                   "    pandas = None\n"
+                   "def f():\n    import optax\n    from PIL import Image\n")
+    got = sorted(_imports(str(bad)))
+    assert got == [("PIL", False, True), ("aiohttp", False, False),
+                   ("optax", False, True), ("pandas", True, False),
+                   ("yaml", False, False)]
+    assert [n for n, _, _ in got if _is_forbidden(n)] == ["aiohttp",
+                                                          "optax"]
+
+
+_BLOCKED = """
+import importlib
+import importlib.abc
+import pkgutil
+import sys
+
+attempts = []
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("optax", "PIL"):
+            attempts.append(name)
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import pathway_tpu_torch
+
+names = [m.name for m in pkgutil.walk_packages(pathway_tpu_torch.__path__,
+                                               "pathway_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from pathway_tpu_torch.models import clip
+
+try:
+    clip.load_image(b"not an image", config=clip.ClipConfig.tiny())
+except ImportError as e:
+    print("LOAD_IMAGE", e)
+print("MODULES", len(names), "ATTEMPTS", attempts)
+"""
+
+
+def test_port_modules_import_with_optax_and_pil_blocked():
+    """Every module of the port imports in a process where importing
+    optax or PIL raises (the chip machine has neither); load_image fails
+    in its own call, naming PIL."""
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOAD_IMAGE PIL is blocked" in proc.stdout, proc.stdout
+    assert "ATTEMPTS ['PIL']" in proc.stdout, proc.stdout
 
 
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
+    from pathway_tpu_torch.models import clip, train
     from pathway_tpu_torch.models.encoder import (Encoder, EncoderConfig,
                                                   init_params_host)
     from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
-    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+    from pathway_tpu_torch.xpacks.llm.embedders import (ClipEmbedder,
+                                                        EncoderEmbedder)
 
     cfg = EncoderConfig.tiny()
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        EncoderEmbedder(config=cfg)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        BruteForceKnnIndex(8)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Encoder.from_params(init_params_host(0, cfg), cfg)
+    ccfg = clip.ClipConfig.tiny()
+    params = init_params_host(0, cfg)
+    calls = [
+        lambda: EncoderEmbedder(config=cfg),
+        lambda: BruteForceKnnIndex(8),
+        lambda: Encoder.from_params(params, cfg),
+        lambda: Encoder.from_params(params, cfg, trainable=True),
+        lambda: train.init_train_state(0, cfg),
+        lambda: train.train_state_from_jax(
+            {"params": params, "opt_state": (), "step": 0}, cfg),
+        lambda: clip.ClipModel.from_params(clip.init_clip_params(0, ccfg),
+                                           ccfg),
+        lambda: ClipEmbedder(config=ccfg),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_cuda_device_carries_its_index(monkeypatch):
