@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--docs N] [--seed S]
 
-Drives the port's two live-RAG device paths, the engine's batch path
+Drives bench.py's headline leg (bench_embed: docs_per_s, tokens_per_s,
+both MFU keys), the port's two live-RAG device paths, the engine's batch path
 with the encoder as a batch UDF, the engine's index path (the graph of
 bench.py's bench_embed_framework), the served path (``pw.run``'s
 streaming runtime behind HTTP: bench.py's bench_serving graph and a live
@@ -97,6 +98,37 @@ non-zero, and no result line is printed):
    exact rows (cos and l2sq), and its times beside the bound, torch.matmul
    per chunk, the route before it (score_float_reference + a stable sort
    per chunk) and the route now, at k=80;
+7b. embed (bench.py's ``bench_embed``, bench.py:926-1057, as bench.py runs
+   it, nothing cut): the local BGE-small checkpoint if one is on disk,
+   else ``init_params_host(0)`` and bench's synthetic WordPiece vocabulary
+   (native engine); ``BruteForceKnnIndex(384, reserved_space=1 << 20,
+   metric="cos", dtype="bfloat16")``; ``make_fused_ingest`` over a
+   producer of int16 ids and row lengths (the mask rebuilt on the card);
+   batches of 2048 ``make_docs`` documents padded to a multiple of 16 up
+   to 128; four warm batches, the self-retrieval probe (doc 3 finds
+   itself), then at least 15 s and 8 batches with batch i+1 tokenized
+   while batch i runs, ``drain()``, the first batch dropped; then 3 x 8
+   forwards at 2048 x 128 with no host sync (best of 3). Prints bench.py's
+   ``docs_per_s``, ``tokens_per_s``, ``mfu_est``, ``mfu_device_only``,
+   ``mfu_peak_tflops`` (engine/profiler.py ``machine_params``) and, as
+   bench.py's ``_DeviceEventCounter`` counts them over the leg,
+   ``embed_compile_count`` (CUDA graph captures: must be 0) and
+   ``embed_transfer_count`` (implicit host syncs, report mode). Checks:
+   every ingest fused, K1 = 12 x batches in the timed window and nothing
+   else, K1 = 12 x forwards and K2 = 1 over the leg;
+7c. warmup: ``pw.warmup`` on BGE-small under PATHWAY_DEVICE_SANITIZER=1
+   (raise mode), padded (bench's framework embedder, max_len 128, batches
+   of 512) into a bf16 index holding 512 documents with ``ks=(10,)``, and
+   ragged (sequences of 512) into an empty int8 index (one CUDA graph a
+   chunk bucket, counted as warm-up: captures = ``len(ragged_buckets())``);
+   after each, 512 fresh documents and a text search in steady state
+   raise nothing, capture nothing and the copy finds its document;
+7d. loader: a random BGE-small checkpoint in BertModel's key layout
+   (``torch.save`` to ``pytorch_model.bin``, ``config.json``,
+   ``vocab.txt``, ``1_Pooling/config.json``; no ``transformers``) loaded
+   by ``EncoderEmbedder(model=dir)`` on the card: the tree exact, 64
+   documents' bf16 embeddings (K1) against the CPU's float32 plain
+   forward at row cosine >= 0.999;
 8. path 1: ``DeviceEmbeddingKnnIndex(EncoderEmbedder(bge_small),
    BruteForceKnnIndex(384, bf16 paged))`` ingests ``--docs`` synthetic
    documents in batches of 512 through the fused path, then answers 64
@@ -153,7 +185,8 @@ non-zero, and no result line is printed):
    engine-built index equal bit for bit to the direct one with the same
    tokenizer, the launches inside ``run_batch`` equal to the counts the
    code gives (stated before the runs), no CUDA graph captured inside any
-   timed window, and legs on the bridge in the bridged runs. Prints
+   timed window (the device sanitizer's capture count), and legs on the
+   bridge in the bridged runs. Prints
    bench.py's keys (``framework_docs_per_s``,
    ``framework_device_inflight``, ``framework_bridge_legs``,
    ``framework_bridge_overlap_ratio``, ``framework_bridge_queue_wait_ms``),
@@ -297,9 +330,6 @@ import typing
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate and HBM
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
 INGEST_BATCH = 512
 N_LAYERS = 12
 RAGGED_DOCS = 100_000  # path 2's documents, never cut
@@ -360,6 +390,10 @@ def phase_device():
     print(card, flush=True)
     if cap != (9, 0):
         fail(f"capability {cap}: the kernels are built for sm_90a (H100)")
+    peak_flops, peak_bytes = peaks()
+    print(f"[device] bounds and MFU read {peak_flops / 1e12} TFLOP/s dense "
+          f"bf16, {peak_bytes / 1e9} GB/s (engine/profiler.py "
+          f"machine_params)", flush=True)
     return name, card
 
 
@@ -401,9 +435,30 @@ def sass_mma_counts(lib_path: str) -> dict:
     return counts
 
 
+def peaks() -> tuple[float, float]:
+    """The card's dense bf16 rate (FLOP/s) and memory rate (bytes/s):
+    engine/profiler.py's ``machine_params``, the port's one table. The
+    bounds and MFU keys here are the H100's own, so a BENCH_PEAK_TFLOPS or
+    BENCH_HBM_GBPS override that moves them away from the H100 SXM's
+    data-sheet rates fails the run instead of rescaling every bound."""
+    from pathway_tpu_torch.engine.profiler import (H100_HBM_GBPS,
+                                                   H100_PEAK_TFLOPS,
+                                                   machine_params)
+
+    mp = machine_params()
+    if (mp["peak_tflops"], mp["hbm_gbps"]) != (H100_PEAK_TFLOPS,
+                                               H100_HBM_GBPS):
+        fail(f"BENCH_PEAK_TFLOPS / BENCH_HBM_GBPS set machine_params to "
+             f"{mp['peak_tflops']} TFLOP/s, {mp['hbm_gbps']} GB/s; the "
+             f"smoke's bounds use the H100 SXM's {H100_PEAK_TFLOPS} "
+             f"TFLOP/s, {H100_HBM_GBPS} GB/s: unset them")
+    return mp["peak_tflops"] * 1e12, mp["hbm_gbps"] * 1e9
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """The least time (ms) the card could take, and what sets it."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    peak_flops, peak_bytes = peaks()
+    t_ops, t_bytes = flops / peak_flops, nbytes / peak_bytes
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1224,7 +1279,8 @@ def phase_attention(card: str) -> dict:
             qt, kt, vt, attn_mask=amask), 50)
         ATTENTION.launches = launches_before  # comparisons don't count
         flops, nbytes = attention_cost(B, S, H, D, itemsize=2)
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+        peak_flops, peak_bytes = peaks()
+        t_ops, t_bytes = flops / peak_flops, nbytes / peak_bytes
         bound_ms = max(t_ops, t_bytes) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         print(f"[K1] B={B} S={S} H={H} D={D} bf16: kernel {ms:.4f} ms, "
@@ -2245,6 +2301,487 @@ def phase_score_bf16(card: str) -> dict:
                     "route_ms": route64}}
 
 
+# bench.py's bench_embed (bench.py:926-1057): its batch, width cap,
+# vocabulary and clock, never cut
+EMBED_BATCH = 2048        # bench.py's BATCH
+EMBED_SEQ = 128           # bench.py's SEQ
+EMBED_WINDOW_S = 15.0     # the timed loop runs at least this long ...
+EMBED_MIN_BATCHES = 8     # ... and at least this many batches
+EMBED_MFU_REPS = 8        # _device_only_mfu: forwards a loop, best of 3
+EMBED_MODEL = "BAAI/bge-small-en-v1.5"
+
+
+def embed_pack(ids: np.ndarray, mask: np.ndarray) -> tuple:
+    """bench.py's ``pack`` (bench.py:973-980): int16 ids cut to the batch's
+    longest row rounded up to a multiple of 16 (at most SEQ), and per-row
+    lengths."""
+    lens = mask.sum(axis=1).astype(np.int32)
+    width = min(EMBED_SEQ, max(16, int(-(-int(lens.max()) // 16) * 16)))
+    return ids[:, :width].astype(np.int16), lens
+
+
+def embed_model(card: str) -> tuple:
+    """bench_embed's model (bench.py:941-951): the local BGE-small
+    checkpoint when one is on disk, else random weights at BGE-small's
+    shape (``init_params_host(0)``) and bench's synthetic vocabulary, which
+    the native WordPiece engine tokenizes either way."""
+    from pathway_tpu_torch.models.encoder import (EncoderConfig,
+                                                  init_params_host)
+    from pathway_tpu_torch.models.hf_loader import (find_local_checkpoint,
+                                                    load_model)
+
+    path = find_local_checkpoint(EMBED_MODEL)
+    if path:
+        params, config, tokenizer = load_model(EMBED_MODEL)
+        tokenizer.max_len = EMBED_SEQ
+        print(f"[embed] weights and vocabulary: the local checkpoint of "
+              f"{EMBED_MODEL} at {path}", flush=True)
+    else:
+        config = EncoderConfig.bge_small()
+        params = init_params_host(0, config)
+        tokenizer = framework_tokenizer(EMBED_SEQ)
+        print(f"[embed] no local checkpoint of {EMBED_MODEL}: random "
+              f"BGE-small weights (init_params_host(0)) and bench's "
+              f"synthetic vocabulary, native WordPiece {tokenizer.native} "
+              f"[{card}]", flush=True)
+    return params, config, tokenizer
+
+
+def device_only_mfu(model, config, peak: float) -> tuple[float, float]:
+    """bench.py's ``_device_only_mfu`` (bench.py:1063-1103): EMBED_MFU_REPS
+    forwards at EMBED_BATCH x EMBED_SEQ of ``ids + i``, each folded into a
+    device accumulator, no host sync between them; best of 3 after a warm
+    run. The ids are drawn below ``vocab - reps`` so ``ids + i`` stays in the
+    table (the JAX gather clamps an index past it; torch's would fault).
+    Returns (MFU, best seconds)."""
+    import torch
+
+    from pathway_tpu_torch._device import upload
+    from pathway_tpu_torch.engine import device_sanitizer as ds
+    from pathway_tpu_torch.engine.profiler import encoder_flops_per_token
+    from pathway_tpu_torch.models.encoder import encode
+
+    B, W, reps = EMBED_BATCH, EMBED_SEQ, EMBED_MFU_REPS
+    dev = model.embeddings.token.weight.device
+    ids = upload(torch.from_numpy(np.random.default_rng(0).integers(
+        0, config.vocab_size - reps, (B, W))), dev)
+    lens = torch.full((B,), W - 5, dtype=torch.int32, device=dev)
+
+    def loop() -> float:
+        acc = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(reps):
+            mask = torch.arange(W, device=dev)[None, :] < lens[:, None]
+            acc = acc + encode(model, ids + i, mask).sum()
+        with ds.explicit_sync("device-only MFU"):
+            return float(acc)
+
+    loop()  # warm
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loop()
+        best = min(best, time.perf_counter() - t0)
+    flops = reps * B * W * encoder_flops_per_token(
+        config.hidden, config.intermediate, config.layers, W)
+    return flops / best / peak, best
+
+
+def phase_embed(card: str) -> tuple[int, int]:
+    """bench.py's bench_embed, as bench.py runs it, on one card: the
+    model (``embed_model``), ``BruteForceKnnIndex(384, reserved_space=1 <<
+    20, metric="cos", dtype="bfloat16")`` (paged), ``make_fused_ingest``
+    over ``EncoderEmbedder.device_producer`` (int16 ids and row lengths up
+    through pinned staging, the mask rebuilt on the card: bench's
+    producer), bench's ``pack``, ``make_docs(BATCH * 4)``; one batch and
+    three more to warm, the self-retrieval probe (doc 3 finds itself),
+    then the timed loop: at least 15 s and 8 batches or until the index is
+    full, batch i+1 tokenized while batch i runs, ``drain()`` at the end,
+    the first batch dropped; then ``device_only_mfu``. Every ingest must
+    take the fused path (True). Over the whole leg, as bench.py's
+    ``_DeviceEventCounter`` counts them, CUDA graph captures
+    (``embed_compile_count``: must be 0) and implicit host syncs
+    (``embed_transfer_count``, report mode). Returns the launches of K1 and
+    K2 over the leg (counts set to 0 at its start)."""
+    import torch
+
+    from pathway_tpu_torch.engine import device_sanitizer as ds
+    from pathway_tpu_torch.engine.profiler import encoder_flops_per_token
+    from pathway_tpu_torch.internals.keys import Pointer
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+    from pathway_tpu_torch.ops.knn_kernels import TOPK_BF16
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+
+    peak_tflops = peaks()[0] / 1e12
+    params, config, tokenizer = embed_model(card)
+    t_leg = time.perf_counter()
+    compiles = ds.install_compile_counter()
+    c0 = compiles()
+    for count in LAUNCH_COUNTS:
+        count.launches = 0
+    with ds.count_syncs() as syncs:
+        with ds.explicit_sync("weights upload"):
+            emb = EncoderEmbedder(config=config, params=params,
+                                  tokenizer=tokenizer, max_len=EMBED_SEQ,
+                                  device="cuda")
+        index = BruteForceKnnIndex(config.hidden, reserved_space=1 << 20,
+                                   metric="cos", dtype="bfloat16")
+        ingest = index.make_fused_ingest(emb.device_producer)
+        docs = make_docs(EMBED_BATCH * 4)
+
+        def run_batch(ids16, lens, key_base: int) -> None:
+            keys = [Pointer(key_base + i) for i in range(len(ids16))]
+            if not ingest(keys, emb.model, ids16, lens):
+                fail(f"embed: the fused ingest of keys from {key_base} did "
+                     f"not take the fused path")
+
+        def packed(batch_docs):
+            return embed_pack(*tokenizer.batch(batch_docs, pad_to=EMBED_SEQ))
+
+        # warm-up: one batch and three more, then the self-retrieval probe
+        for _ in range(4):
+            run_batch(*packed(docs[:EMBED_BATCH]), 0)
+        ids, mask = tokenizer.batch(docs[:8], pad_to=EMBED_SEQ)
+        probe = emb.device_producer(emb.model, ids.astype(np.int16),
+                                    mask.sum(axis=1).astype(np.int32))
+        with ds.explicit_sync("probe embeddings"):
+            probe = probe.cpu().numpy()
+        res = index.search([(Pointer(10**9), probe[3], 1, None)])
+        if not (res and res[0] and res[0][0][0] == Pointer(3)):
+            fail(f"embed: self-retrieval failed: {res}")
+        print(f"[embed] self-retrieval probe: doc 3's embedding finds doc 3 "
+              f"first (distance {res[0][0][1]:.3e})", flush=True)
+
+        # the timed loop (bench.py:1000-1036)
+        window = {c: c.launches for c in LAUNCH_COUNTS}
+        widths = []
+        n_batches, key_base = 0, EMBED_BATCH
+        batch_times, batch_tokens, batch_flops = [], [], []
+        ids16, lens = packed(docs[:EMBED_BATCH])
+        start = last_t = time.perf_counter()
+        while True:
+            run_batch(ids16, lens, key_base)
+            widths.append(ids16.shape[1])
+            batch_tokens.append(ids16.shape[0] * ids16.shape[1])
+            batch_flops.append(batch_tokens[-1] * encoder_flops_per_token(
+                config.hidden, config.intermediate, config.layers,
+                ids16.shape[1]))
+            nxt = docs[((n_batches + 1) % 4) * EMBED_BATCH:][:EMBED_BATCH]
+            ids16, lens = packed(nxt)
+            now = time.perf_counter()
+            batch_times.append(now - last_t)
+            last_t = now
+            n_batches += 1
+            key_base += EMBED_BATCH
+            if (now - start > EMBED_WINDOW_S
+                    and len(batch_times) >= EMBED_MIN_BATCHES) or \
+                    key_base + EMBED_BATCH > index.capacity:
+                break
+        index.drain()
+        now = time.perf_counter()
+        batch_times[-1] += now - last_t
+        window = {c: c.launches - window[c] for c in LAUNCH_COUNTS}
+        sustained = batch_times[1:]
+        docs_per_s = EMBED_BATCH * len(sustained) / float(np.sum(sustained))
+        tokens_per_s = float(np.sum(batch_tokens[1:]) / np.sum(sustained))
+        mfu = float(np.sum(batch_flops[1:]) / np.sum(sustained)) \
+            / (peak_tflops * 1e12)
+        mfu_dev, best_s = device_only_mfu(emb.model, config,
+                                          peak_tflops * 1e12)
+    forwards = emb.dispatches + 4 * EMBED_MFU_REPS
+    k1, k2 = ATTENTION.launches, TOPK_BF16.launches
+    n_compiles = compiles() - c0
+    keys = {"docs_per_s": docs_per_s,
+            "tokens_per_s": round(tokens_per_s, 0),
+            "mfu_est": round(mfu, 3),
+            "mfu_device_only": round(mfu_dev, 3),
+            "mfu_peak_tflops": peak_tflops,
+            "embed_compile_count": n_compiles,
+            "embed_transfer_count": syncs.count}
+    print(f"[embed] bench.py's keys: {json.dumps(keys)} [{card}]",
+          flush=True)
+    print(f"[embed] unrounded: tokens_per_s {tokens_per_s:.1f}, mfu_est "
+          f"{mfu:.5f}, mfu_device_only {mfu_dev:.5f} (best of 3 loops of "
+          f"{EMBED_MFU_REPS} forwards at {EMBED_BATCH}x{EMBED_SEQ}: "
+          f"{best_s * 1e3:.2f} ms, {best_s / EMBED_MFU_REPS * 1e3:.2f} ms a "
+          f"forward) [{card}]", flush=True)
+    print(f"[embed] timed window: {n_batches} batches of {EMBED_BATCH} "
+          f"(the first dropped), widths {sorted(set(widths))}, "
+          f"{float(np.sum(batch_times)):.2f} s; batch ms p50 "
+          f"{np.percentile(np.array(sustained) * 1e3, 50):.2f} p90 "
+          f"{np.percentile(np.array(sustained) * 1e3, 90):.2f}; launches "
+          f"in the window: K1 {window[ATTENTION]} ({N_LAYERS} x "
+          f"{n_batches} = {N_LAYERS * n_batches}), K2 {window[TOPK_BF16]}; "
+          f"over the leg K1 {k1} ({N_LAYERS} x {forwards} forwards), K2 "
+          f"{k2} (the probe); "
+          f"leg {time.perf_counter() - t_leg:.1f} s [{card}]", flush=True)
+    if n_compiles != 0:
+        fail(f"embed: {n_compiles} CUDA graphs captured in the leg")
+    if window[ATTENTION] != N_LAYERS * n_batches or window[TOPK_BF16] != 0 \
+            or any(n for c, n in window.items()
+                   if c not in (ATTENTION, TOPK_BF16)):
+        fail(f"embed: launches in the timed window {window}, expected K1 "
+             f"{N_LAYERS * n_batches} and nothing else")
+    if k1 != N_LAYERS * forwards or k2 != 1:
+        fail(f"embed: K1 launched {k1} times over the leg (expected "
+             f"{N_LAYERS * forwards}), K2 {k2} (expected 1)")
+    if not (np.isfinite(docs_per_s) and docs_per_s > 0 and 0 < mfu_dev):
+        fail(f"embed: keys out of range: {keys}")
+    # free the leg's device state (the extent, the model) before the
+    # phases after it, as bench.py frees it before its 10M leg
+    del index, ingest, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k1, k2
+
+
+WARMUP_DOCS = 512         # documents ingested in steady state after warm-up
+
+
+def phase_warmup(seed: int, card: str) -> None:
+    """``pw.warmup`` on BGE-small under PATHWAY_DEVICE_SANITIZER=1 (raise
+    mode), twice: padded (bench's framework embedder, max_len 128, batches
+    of 512) into a bf16 ``DeviceEmbeddingKnnIndex`` already holding 512
+    documents, with ``ks=(10,)``; and ragged (sequences of 512) into an
+    empty int8 index, whose ladder captures one CUDA graph per chunk bucket.
+    After each, in steady state, 512 fresh documents are ingested and a
+    text query searched: nothing may raise (no capture, no implicit host
+    sync), ``post_warmup_compiles()`` must read 0, the copy must find its
+    document, and for the ragged run the warm-up captures must equal
+    ``len(ragged_buckets())``. The sanitizer is closed after each run."""
+    import traceback
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import device_sanitizer as ds
+    from pathway_tpu_torch.internals.keys import Pointer
+    from pathway_tpu_torch.models.encoder import (EncoderConfig,
+                                                  init_params_host)
+    from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
+                                           DeviceEmbeddingKnnIndex)
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+
+    cfg = EncoderConfig.bge_small()
+    params = init_params_host(seed, cfg)
+    docs = make_docs(3 * WARMUP_DOCS, seed=seed + 5)
+    saved = os.environ.get("PATHWAY_DEVICE_SANITIZER")
+    os.environ["PATHWAY_DEVICE_SANITIZER"] = "1"
+    try:
+        for ragged in (False, True):
+            label = "ragged, int8" if ragged else "padded, bf16"
+            if ragged:
+                emb = EncoderEmbedder(config=cfg, params=params, ragged=True,
+                                      max_len=RAGGED_SEQ,
+                                      tokenizer=framework_tokenizer(
+                                          RAGGED_SEQ), device="cuda")
+            else:
+                emb = EncoderEmbedder(config=cfg, params=params,
+                                      max_len=BENCH_SEQ,
+                                      max_batch_size=WARMUP_DOCS,
+                                      tokenizer=framework_tokenizer(
+                                          BENCH_SEQ), device="cuda")
+            index = DeviceEmbeddingKnnIndex(emb, BruteForceKnnIndex(
+                cfg.hidden, reserved_space=4 * WARMUP_DOCS, metric="cos",
+                dtype="int8" if ragged else "bfloat16", device="cuda"))
+            held = [] if ragged else list(range(WARMUP_DOCS))
+            if held:
+                index.add_batch([Pointer(i) for i in held],
+                                [docs[i] for i in held])
+            w0 = ds.warmup_compiles()
+            t0 = time.perf_counter()
+            out = pw.warmup(emb, index=index, ks=(10,))
+            warm_s = time.perf_counter() - t0
+            captures = ds.warmup_compiles() - w0
+            fresh = range(WARMUP_DOCS, 2 * WARMUP_DOCS)
+            try:
+                t0 = time.perf_counter()
+                index.add_batch([Pointer(i) for i in fresh],
+                                [docs[i] for i in fresh])
+                res = index.search([(Pointer(10**9), docs[WARMUP_DOCS + 7],
+                                     10, None)])
+                index.drain()
+                steady_s = time.perf_counter() - t0
+            except Exception as e:
+                traceback.print_exc()
+                fail(f"warmup ({label}): the steady state raised "
+                     f"{type(e).__name__}: {e}")
+            finally:
+                ds.disarm()
+            kinds = sorted({k for k, _ in out["compiled"]})
+            print(f"[warmup] {label}: pw.warmup walked "
+                  f"{len(out['compiled'])} entries {kinds} in {warm_s:.2f} "
+                  f"s, {captures} CUDA graphs captured as warm-up"
+                  f"{' (buckets ' + str(emb.ragged_buckets()) + ')' if ragged else ''}; "
+                  f"steady state: {len(fresh)} fresh documents ingested and "
+                  f"one text search in {steady_s * 1e3:.1f} ms, "
+                  f"post-warm-up captures {ds.post_warmup_compiles()}, "
+                  f"violations {len(ds.violations())}, index "
+                  f"{len(index)} documents [{card}]", flush=True)
+            if ds.post_warmup_compiles() != 0 or ds.violations():
+                fail(f"warmup ({label}): {ds.post_warmup_compiles()} "
+                     f"post-warm-up captures, violations {ds.violations()}")
+            if ragged and captures != len(emb.ragged_buckets()):
+                fail(f"warmup (ragged): {captures} captures, expected one "
+                     f"a bucket ({len(emb.ragged_buckets())})")
+            if not ragged and ("search", (10,)) not in [
+                    (k, tuple(s)) for k, s in out["compiled"]]:
+                fail(f"warmup (padded): no search warmed: {out['compiled']}")
+            if len(index) != len(held) + len(fresh):
+                fail(f"warmup ({label}): the index holds {len(index)} "
+                     f"documents, expected {len(held) + len(fresh)}")
+            if not res[0] or res[0][0][0] != Pointer(WARMUP_DOCS + 7):
+                fail(f"warmup ({label}): the copy of document "
+                     f"{WARMUP_DOCS + 7} found {res[0][:3]}")
+            del index, emb
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        ds.disarm()
+        if saved is None:
+            os.environ.pop("PATHWAY_DEVICE_SANITIZER", None)
+        else:
+            os.environ["PATHWAY_DEVICE_SANITIZER"] = saved
+
+
+LOADER_DOCS = 64
+
+
+def bert_state_dict(params: dict, gen) -> dict:
+    """A BertModel's state dict (its key names, torch ``Linear`` weights
+    as (out, in)) holding the JAX-layout tree ``params``; the pooler, which
+    the encoder never reads, random from ``gen``."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+    e = params["embeddings"]
+    sd = {"embeddings.word_embeddings.weight": t(e["token"]),
+          "embeddings.position_embeddings.weight": t(e["position"]),
+          "embeddings.token_type_embeddings.weight": t(e["token_type"]),
+          "embeddings.LayerNorm.weight": t(e["ln_scale"]),
+          "embeddings.LayerNorm.bias": t(e["ln_bias"])}
+    names = {"attention.self.query": ("attn", "wq", "bq"),
+             "attention.self.key": ("attn", "wk", "bk"),
+             "attention.self.value": ("attn", "wv", "bv"),
+             "attention.output.dense": ("attn", "wo", "bo"),
+             "intermediate.dense": ("mlp", "w1", "b1"),
+             "output.dense": ("mlp", "w2", "b2")}
+    for i, layer in enumerate(params["layers"]):
+        pre = f"encoder.layer.{i}."
+        for name, (block, w, b) in names.items():
+            sd[pre + name + ".weight"] = t(layer[block][w].T)
+            sd[pre + name + ".bias"] = t(layer[block][b])
+        for name, block in (("attention.output.LayerNorm", "attn"),
+                            ("output.LayerNorm", "mlp")):
+            sd[pre + name + ".weight"] = t(layer[block]["ln_scale"])
+            sd[pre + name + ".bias"] = t(layer[block]["ln_bias"])
+    H = e["token"].shape[1]
+    sd["pooler.dense.weight"] = t(gen.normal(size=(H, H)) * 0.02)
+    sd["pooler.dense.bias"] = t(np.zeros(H))
+    return sd
+
+
+def phase_loader(seed: int, card: str) -> None:
+    """The HF checkpoint loader on the card: a random BGE-small checkpoint
+    in BertModel's layout written with ``torch.save`` to
+    ``pytorch_model.bin``, beside ``config.json``, ``vocab.txt`` (bench's
+    synthetic vocabulary) and ``1_Pooling/config.json`` (CLS), with no
+    ``transformers``; loaded through ``EncoderEmbedder(model=dir)`` on the
+    card. Held: the loaded tree equal to the written one (exact), the
+    config, the tokenizer's vocabulary, and LOADER_DOCS documents' bf16
+    embeddings (K1) against the same weights' plain float32 forward on the
+    CPU (``attention_reference``) at row cosine >= 0.999."""
+    import tempfile
+
+    import torch
+
+    from pathway_tpu_torch.models.encoder import (Encoder, EncoderConfig,
+                                                  encode, init_params_host)
+    from pathway_tpu_torch.models.hf_loader import load_checkpoint
+    from pathway_tpu_torch.models.tokenizer import make_synthetic_vocab
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+
+    cfg = EncoderConfig.bge_small()
+    params = init_params_host(seed + 7, cfg)
+    vocab = make_synthetic_vocab([f"word{i}" for i in range(4096)],
+                                 vocab_size=cfg.vocab_size)
+    docs = make_docs(LOADER_DOCS, seed=seed + 8)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        torch.save(bert_state_dict(params, np.random.default_rng(seed)),
+                   os.path.join(d, "pytorch_model.bin"))
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"model_type": "bert", "architectures": ["BertModel"],
+                       "vocab_size": cfg.vocab_size,
+                       "hidden_size": cfg.hidden,
+                       "num_hidden_layers": cfg.layers,
+                       "num_attention_heads": cfg.heads,
+                       "intermediate_size": cfg.intermediate,
+                       "max_position_embeddings": cfg.max_len,
+                       "type_vocab_size": cfg.type_vocab_size,
+                       "layer_norm_eps": cfg.layer_norm_eps,
+                       "hidden_act": "gelu"}, f)
+        with open(os.path.join(d, "vocab.txt"), "w") as f:
+            f.write("\n".join(vocab) + "\n")
+        os.makedirs(os.path.join(d, "1_Pooling"))
+        with open(os.path.join(d, "1_Pooling", "config.json"), "w") as f:
+            json.dump({"pooling_mode_cls_token": True,
+                       "pooling_mode_mean_tokens": False}, f)
+        size_mb = os.path.getsize(os.path.join(d, "pytorch_model.bin")) \
+            / 2**20
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        emb = EncoderEmbedder(model=d, device="cuda")
+        load_s = time.perf_counter() - t0
+        loaded, lcfg, ltok = load_checkpoint(d)
+    bad = [f"{name}[{i}]" if i is not None else name
+           for name, i, a, b in _tree_pairs(loaded, params)
+           if not np.array_equal(a, b)]
+    if bad or lcfg != cfg or emb.config != cfg:
+        fail(f"loader: the loaded checkpoint differs: tensors {bad[:5]}, "
+             f"config {lcfg}")
+    if emb.tokenizer.vocab_list != vocab or not emb.tokenizer.native:
+        fail("loader: the tokenizer is not the checkpoint's vocabulary "
+             "under the native WordPiece engine")
+    ATTENTION.launches = 0
+    got = emb.embed_batch(docs)
+    launches = ATTENTION.launches
+    ids, lens = emb.pack_tokens(docs)
+    ref_model = Encoder.from_params(
+        params, EncoderConfig.bge_small(compute_dtype=torch.float32),
+        device="cpu")
+    lens_t = torch.from_numpy(lens)
+    mask = torch.arange(ids.shape[1])[None, :] < lens_t[:, None]
+    want = encode(ref_model, torch.from_numpy(ids).long(), mask).numpy()
+    cos = np.sum(got * want, 1) / (np.linalg.norm(got, axis=1)
+                                   * np.linalg.norm(want, axis=1))
+    print(f"[loader] BGE-small checkpoint ({size_mb:.1f} MiB "
+          f"pytorch_model.bin, BertModel keys, written in {write_s:.2f} s) "
+          f"loaded by EncoderEmbedder(model=dir) in {load_s:.2f} s: tree and "
+          f"config exact, {LOADER_DOCS} documents at width {ids.shape[1]}, "
+          f"card (bf16, K1 launches {launches}) vs the CPU's float32 plain "
+          f"forward: min row cosine {cos.min():.6f} [{card}]", flush=True)
+    if launches != N_LAYERS or cos.min() < 0.999 or not np.isfinite(
+            got).all():
+        fail(f"loader: K1 launches {launches} (expected {N_LAYERS}), min "
+             f"row cosine {cos.min():.6f} (expected >= 0.999)")
+
+
+def _tree_pairs(a: dict, b: dict):
+    """(name, layer or None, array of a, array of b) over two JAX-layout
+    encoder trees."""
+    for k in a["embeddings"]:
+        yield f"embeddings/{k}", None, a["embeddings"][k], b["embeddings"][k]
+    for i, (la, lb) in enumerate(zip(a["layers"], b["layers"])):
+        for block in la:
+            for k in la[block]:
+                yield f"layers/{block}/{k}", i, la[block][k], lb[block][k]
+
+
 def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int, int]:
     """Path 1. Returns the launches of K1, K2 and K2's score twin in the
     counted run."""
@@ -2765,6 +3302,7 @@ def framework_run(emb, dtype: str, rows: list, qspec: list, widths: list,
 
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.debug import table_from_rows
+    from pathway_tpu_torch.engine import device_sanitizer
     from pathway_tpu_torch.engine.device_bridge import \
         device_inflight_from_env
     from pathway_tpu_torch.engine.index_ops import ExternalIndexOperator
@@ -2825,9 +3363,11 @@ def framework_run(emb, dtype: str, rows: list, qspec: list, widths: list,
     index.inner.search = timed(search, "index inner search")
     index.search = timed(index.search, "index search")
     step = getattr(index._fused, "step", None)
-    # the warm-up's captures and replays are not the window's
-    captures0, replays0 = (step.captures, step.replays) if step is not None \
-        else (0, 0)
+    # the warm-up's captures and replays are not the window's: captures are
+    # the device sanitizer's count (every capture site reports to it)
+    compiles = device_sanitizer.install_compile_counter()
+    captures0 = compiles()
+    replays0 = step.replays if step is not None else 0
     saved = os.environ.pop("PATHWAY_DEVICE_INFLIGHT", None)
     if window is not None:
         os.environ["PATHWAY_DEVICE_INFLIGHT"] = str(window)
@@ -2852,8 +3392,7 @@ def framework_run(emb, dtype: str, rows: list, qspec: list, widths: list,
             "wall": wall, "op_s": op_s, "leg_s": leg_s, "gc": gc_clock.s,
             "gc_n": gc_clock.n, "dispatches": emb.dispatches,
             "launches": {c: c.launches for c in LAUNCH_COUNTS},
-            "captures": (step.captures if step is not None else 0)
-            - captures0,
+            "captures": compiles() - captures0,
             "replays": (step.replays if step is not None else 0) - replays0,
             "inflight": inflight,
             "bridge": runner._scheduler.bridge_stats()}
@@ -2868,6 +3407,7 @@ def framework_direct(emb, dtype: str, texts: list[str], keys: list,
     captured inside it."""
     import torch
 
+    from pathway_tpu_torch.engine import device_sanitizer
     from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
                                            DeviceEmbeddingKnnIndex)
 
@@ -2875,8 +3415,8 @@ def framework_direct(emb, dtype: str, texts: list[str], keys: list,
         emb.get_embedding_dimension(), reserved_space=len(texts) + 64,
         metric="cos", dtype=dtype, device="cuda"))
     framework_warm(index, emb, widths)
-    step = getattr(index._fused, "step", None)
-    captures0 = step.captures if step is not None else 0
+    compiles = device_sanitizer.install_compile_counter()
+    captures0 = compiles()
     gc.collect()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2885,9 +3425,7 @@ def framework_direct(emb, dtype: str, texts: list[str], keys: list,
                         texts[b0:b0 + FRAMEWORK_BATCH])
     index.drain()
     wall = time.perf_counter() - t0
-    return {"index": index, "wall": wall,
-            "captures": (step.captures if step is not None else 0)
-            - captures0}
+    return {"index": index, "wall": wall, "captures": compiles() - captures0}
 
 
 def same_index(a, b) -> bool:
@@ -5453,6 +5991,12 @@ def main() -> None:
     k2 = phase_topk_bf16(card)
     k2_score = phase_score_bf16(card)
     done("kernel phases")
+    k1["launches_embed"], k2["launches_embed"] = phase_embed(card)
+    done("embed")
+    phase_warmup(args.seed, card)
+    done("warmup")
+    phase_loader(args.seed, card)
+    done("loader")
     k1["launches"], k2["launches"], k2_score["launches"] = phase_slice(
         args.docs, args.seed, card)
     done("path 1")

@@ -27,6 +27,9 @@ the KNN kernels under the same ``run_batch``. The served path:
 The temporal layer: ``pw.temporal`` (alias ``pw.window``: windows,
 behaviors, as-of-now / as-of / interval / window joins), ``Table.sort``,
 ``pw.stdlib.ordered.diff`` and ``pw.stdlib.statistical.interpolate``.
+``pw.warmup(embedder, index=...)`` walks the serving shapes before the
+first tick and, under ``PATHWAY_DEVICE_SANITIZER``, declares the steady
+state that engine/device_sanitizer.py guards.
 
 Module paths and public names mirror ``pathway_tpu`` so each port module
 sits where its JAX counterpart does. The port imports torch and numpy,
@@ -78,6 +81,9 @@ _LAZY = {
     "window": ("pathway_tpu_torch.stdlib.temporal", None),
     "io": ("pathway_tpu_torch.io", None),
     "run": ("pathway_tpu_torch.internals.run", "run"),
+    "warmup": ("pathway_tpu_torch.warmup", "warmup"),
+    "enable_compilation_cache": ("pathway_tpu_torch.warmup",
+                                 "enable_compilation_cache"),
     "MonitoringLevel": ("pathway_tpu_torch.internals.monitoring",
                         "MonitoringLevel"),
     **{name: ("pathway_tpu_torch.internals.expression", name) for name in (

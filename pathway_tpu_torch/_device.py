@@ -1,9 +1,14 @@
 """Device selection for the port's entry points, and the host-to-device
-upload that never waits for the card (``PinnedStaging``).
+uploads that never wait for the card (``upload``, ``PinnedStaging``).
 
 Every entry point takes an explicit ``device`` that defaults to CUDA. The
 CPU runs only when the caller asks for it (the CPU tests do): a missing
 card is an error, never a silent fallback.
+
+Which upload: ``upload`` everywhere, except where a CUDA graph captured
+over the device tensors needs them at fixed addresses. Only there, and
+only for a bounded set of shapes (ragged chunk buckets), ``PinnedStaging``
+keeps buffers per shape, for as long as it lives.
 """
 
 from __future__ import annotations
@@ -41,6 +46,18 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A CPU tensor on ``device`` without a host wait: on a CUDA device
+    the values go through a pinned copy (PyTorch's caching host allocator,
+    which keeps the block until the copy has run) and a ``non_blocking``
+    copy on the current stream. A blocking copy out of pageable memory
+    would make the host wait for the whole stream. On the CPU the tensor
+    itself."""
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class _Done:
     """An event that is always complete: the CPU's copies finish before
     ``upload`` returns."""
@@ -53,7 +70,9 @@ class _Done:
 
 
 class PinnedStaging:
-    """Host arrays into fixed device tensors, with no host wait.
+    """Host arrays into fixed device tensors, with no host wait: for the
+    inputs of a captured CUDA graph over a bounded set of shapes only (it
+    never frees a shape's buffers; any other upload is ``upload``'s).
 
     ``upload(arrays)`` copies a tuple of numpy arrays into the device
     tensors kept for their shapes and dtypes: the same tensors at every call
@@ -65,7 +84,10 @@ class PinnedStaging:
     before the set is written again, so a buffer is never rewritten while
     its copy is still queued, and the host runs up to ``depth`` uploads
     ahead of the card. On the CPU the buffers are plain memory and
-    ``event()`` (default: always complete) stands in for the CUDA event."""
+    ``event()`` (default: always complete) stands in for the CUDA event.
+    The device tensors are shared by every call with their shapes, so the
+    caller serializes an upload with the work that reads it (the graphed
+    ingest step runs under its index's lock)."""
 
     def __init__(self, device: torch.device, depth: int = 2,
                  event: Callable | None = None):

@@ -1,10 +1,45 @@
 """Framework-neutral analytic cost model of pathway_tpu/engine/profiler.py:
 (flops, bytes moved) per encoder forward and per KNN search, from shapes
-alone. ``chip_smoke.py`` and PERF.md use them for the H100 bounds. The
-live profiler (sampling, dispatch records, gauges) is not ported yet.
+alone, and the machine parameters they are read against
+(``machine_params``: the card's peak rate and memory rate, shared by
+bench-style MFU keys and ``chip_smoke.py``'s bounds). The live profiler
+(sampling, dispatch records, gauges) is not ported yet (ROADMAP queue 1,
+step 8).
 """
 
 from __future__ import annotations
+
+import os
+
+# NVIDIA H100 SXM5 (NVIDIA H100 Tensor Core GPU data sheet): dense bf16
+# tensor-core rate without sparsity, and HBM3 bandwidth
+H100_PEAK_TFLOPS = 989.0
+H100_HBM_GBPS = 3350.0
+
+
+def machine_params() -> dict:
+    """{"peak_tflops", "hbm_gbps"} from the BENCH_PEAK_TFLOPS and
+    BENCH_HBM_GBPS environment variables, defaulting to the H100 SXM's
+    dense bf16 peak and HBM rate. Read on each call; an unparsable value
+    falls back to the default."""
+    try:
+        peak = float(os.environ.get("BENCH_PEAK_TFLOPS",
+                                    H100_PEAK_TFLOPS))
+    except ValueError:
+        peak = H100_PEAK_TFLOPS
+    try:
+        bw = float(os.environ.get("BENCH_HBM_GBPS", H100_HBM_GBPS))
+    except ValueError:
+        bw = H100_HBM_GBPS
+    return {"peak_tflops": peak, "hbm_gbps": bw}
+
+
+def machine_balance() -> float:
+    """Machine balance in FLOP/byte: the arithmetic intensity at which the
+    roofline's compute and bandwidth ceilings meet. A kernel whose
+    intensity sits below it is bound by memory on this card."""
+    mp = machine_params()
+    return (mp["peak_tflops"] * 1e12) / (mp["hbm_gbps"] * 1e9)
 
 
 def encoder_flops_per_token(hidden: int, intermediate: int, layers: int,

@@ -6,7 +6,7 @@ a result column. Sync UDFs run once per batch; async UDFs gather the whole
 batch on one event loop. Numeric columns use numpy fast paths; object
 columns fall back to per-row Python with ERROR-sentinel propagation per
 cell. The reference's auto-jit tier (internals/autojit.py, an XLA fusion of
-traceable UDF chains) is not ported (ROADMAP queue 2, "other device code"):
+traceable UDF chains) is not ported (ROADMAP queue 1, step 8: auto-jit):
 every expression runs interpreted, which is the reference's own result
 with ``PATHWAY_AUTO_JIT=0``.
 """

@@ -164,7 +164,8 @@ def pandas_for_dt():
     except ImportError:
         raise NotImplementedError(
             "the .dt expression namespace needs pandas, which is not "
-            "installed (ROADMAP queue 1, the engine's temporal slice)"
+            "installed (ROADMAP queue 1, step 9: the .dt expression "
+            "namespace)"
         ) from None
     return pandas
 

@@ -3,7 +3,7 @@
 ``class MySchema(pw.Schema): x: int = pw.column_definition(primary_key=True)``
 plus builders: schema_from_types / schema_from_dict / schema_builder,
 schema union via ``|``. The pandas and CSV builders are not ported
-(ROADMAP, the engine's connectors).
+(ROADMAP queue 1, step 9: pandas I/O).
 """
 
 from __future__ import annotations

@@ -31,10 +31,16 @@ Numerics held to the JAX package:
   slot) keys (``knn_kernels.score_keys``), or K2's and K3's keys, which
   rank the same way.
 
+Host syncs: uploads go through pinned memory without a host wait
+(``_device.upload``, ``PinnedStaging``); the host waits only in explicit
+fetches (a search's results, ``drain()``, a host read of the mirror),
+each inside ``device_sanitizer.explicit_sync`` so a steady-state guard
+(engine/device_sanitizer.py) lets them through.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: the contiguous slab (``paged=False``), string (jmespath) filters,
-tenants/quotas. The semantic result cache and operator snapshots are
-absent."""
+tenants/quotas (queue 1, step 6). The semantic result cache and operator
+snapshots are absent."""
 
 from __future__ import annotations
 
@@ -46,7 +52,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from pathway_tpu_torch._device import PinnedStaging, resolve_device
+from pathway_tpu_torch._device import PinnedStaging, resolve_device, upload
+from pathway_tpu_torch.engine import device_sanitizer
 from pathway_tpu_torch.engine.locking import create_rlock
 from pathway_tpu_torch.engine.paged_store import (DevicePagePool,
                                                   paged_store_enabled)
@@ -81,7 +88,7 @@ def _round_up(n: int, mult: int) -> int:
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to pathway_tpu_torch yet (ROADMAP.md, "
-        "PyTorch/CUDA port queue)")
+        "queue 1, step 6: item 4, index features the engine reaches)")
 
 
 def passes_filter(filter_data: dict, key: Pointer, filt: Any) -> bool:
@@ -217,15 +224,15 @@ def _fused_step_fn(producer: Callable, dtype: str, device: torch.device):
     slots as a host int64 array; a slot >= the extent's rows is the
     sentinel of a ragged padding row and is dropped (JAX's
     ``mode="drop"``). int8 quantizes and writes through K4, which drops
-    sentinels itself, with the slots uploaded from pinned staging; the
-    float slabs select the in-range rows and ``index_copy_`` them."""
+    sentinels itself; the float slabs select the in-range rows and
+    ``index_copy_`` them. Slots and selections go up without a host wait
+    (``upload``)."""
 
     if dtype == "int8":
-        staging = PinnedStaging(device)
 
         def step_i8(ext, slots, *args) -> None:
             out = producer(*args)
-            (loc,) = staging.upload((slots,))
+            loc = upload(torch.from_numpy(slots), device)
             quantize_scatter(out.float().contiguous(), loc, None,
                              ext.vectors, ext.scales, ext.vsq, ext.valid)
 
@@ -236,9 +243,9 @@ def _fused_step_fn(producer: Callable, dtype: str, device: torch.device):
         keep = slots < ext.rows
         if not keep.all():
             idx = np.flatnonzero(keep)
-            out = out[torch.from_numpy(idx).to(out.device)]
+            out = out[upload(torch.from_numpy(idx), out.device)]
             slots = slots[idx]
-        loc = torch.from_numpy(slots).to(ext.vectors.device)
+        loc = upload(torch.from_numpy(slots), ext.vectors.device)
         ext.vectors.index_copy_(0, loc, out.to(ext.vectors.dtype))
         ext.valid.index_fill_(0, loc, True)
 
@@ -277,7 +284,9 @@ class GraphedIngestStep:
     ``(object, attribute)`` pair the body raises, such as the embedder's
     ``dispatches``) what the capture counted; the warm-up and the capture
     themselves count nothing. ``captures`` and ``replays`` count graphs
-    captured and replayed."""
+    captured and replayed; each capture is also reported to
+    ``device_sanitizer.note_capture``, where it is warm-up or, after steady
+    state, a violation."""
 
     def __init__(self, forward: Callable, device: torch.device,
                  counters: tuple = ()):
@@ -316,6 +325,8 @@ class GraphedIngestStep:
                ext.vsq.data_ptr(), ext.valid.data_ptr())
         entry = self.graphs.get(key)
         if entry is None:
+            device_sanitizer.note_capture(
+                f"ingest step, shapes {key[0]}, extent of {ext.rows} rows")
             entry = self.graphs[key] = self._capture(body, dev[0].device)
             self.captures += 1
         graph, adds = entry
@@ -611,9 +622,9 @@ class BruteForceKnnIndex:
             fetch_cap = self._fetch_cap()
             fetch_k = min(fetch_cap, max_k * 4 if has_filter else max_k)
             fetch_k = max(fetch_k, 1)
-            qmat = torch.from_numpy(np.stack(
+            qmat = upload(torch.from_numpy(np.stack(
                 [np.asarray(q[1], dtype=np.float32).reshape(-1)
-                 for q in queries])).to(self.device)
+                 for q in queries])), self.device)
 
             while True:
                 top_scores, top_idx = self._device_topk_parts(qmat, fetch_k)
@@ -714,13 +725,14 @@ class BruteForceKnnIndex:
                     acc = acc + ts.sum() + ti.sum().float()
                 return acc
 
-            float(probe())  # warm
-            t0 = time.perf_counter()
-            acc = probe()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            total = time.perf_counter() - t0
-            float(acc)
+            with device_sanitizer.explicit_sync("latency probe"):
+                float(probe())  # warm
+                t0 = time.perf_counter()
+                acc = probe()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                total = time.perf_counter() - t0
+                float(acc)
             return total / reps * 1e3
 
     def _passes_filter(self, key: Pointer, filt: Any) -> bool:
@@ -809,9 +821,9 @@ class PagedKnnIndex(BruteForceKnnIndex):
             if len(groups) == 1:
                 vsub, valsub = vals, valid_vals
             else:
-                p = torch.from_numpy(pos).to(self.device)
+                p = upload(torch.from_numpy(pos), self.device)
                 vsub, valsub = vals[p], valid_vals[p]
-            loc = torch.from_numpy(local).to(self.device)
+            loc = upload(torch.from_numpy(local), self.device)
             if self._is_int8:
                 quantize_scatter(vsub.float().contiguous(), loc, valsub,
                                  ext.vectors, ext.scales, ext.vsq, ext.valid)
@@ -833,15 +845,16 @@ class PagedKnnIndex(BruteForceKnnIndex):
                 # valid False (int8 rows are quantized on the device, so
                 # they always take the scatter)
                 rng = slice(ext.base, ext.base + ext.rows)
-                ext.vectors = self._host_vectors[rng].to(self.device)
-                ext.valid = self._host_valid[rng].to(self.device)
+                with device_sanitizer.explicit_sync("bulk extent upload"):
+                    ext.vectors = self._host_vectors[rng].to(self.device)
+                    ext.valid = self._host_valid[rng].to(self.device)
             else:
                 scatter_rows.append(idxs[pos])
         if scatter_rows:
             rows = np.concatenate(scatter_rows)
             r = torch.from_numpy(rows)
-            self._scatter(rows, self._host_vectors[r].to(self.device),
-                          self._host_valid[r].to(self.device))
+            self._scatter(rows, upload(self._host_vectors[r], self.device),
+                          upload(self._host_valid[r], self.device))
 
     def _sync_mirror(self) -> None:
         """Pull device-authoritative rows back into the host mirror (lock
@@ -853,11 +866,12 @@ class PagedKnnIndex(BruteForceKnnIndex):
         for ext, local, pos in self._pool.split_by_extent(idxs):
             if not ext.established:
                 continue
-            loc = torch.from_numpy(local).to(self.device)
+            loc = upload(torch.from_numpy(local), self.device)
             rows = ext.vectors[loc]
             if self._is_int8:  # dequantize: codes x scale, in float32
                 rows = rows.float() * ext.scales[loc][:, None]
-            self._host_vectors[torch.from_numpy(idxs[pos])] = rows.cpu()
+            with device_sanitizer.explicit_sync("host mirror read"):
+                self._host_vectors[torch.from_numpy(idxs[pos])] = rows.cpu()
 
     # -- search over the page table --------------------------------------
     def _fetch_cap(self) -> int:
@@ -878,7 +892,8 @@ class PagedKnnIndex(BruteForceKnnIndex):
             k_e = min(fetch_k, ext.rows, _CHUNK_ROWS)
             ts, ti = search_extent(qmat, ext.vectors, ext.valid, k_e,
                                    self.metric, self._extent_extras(ext))
-            parts.append((ts.cpu().numpy(), ti.cpu().numpy() + ext.base))
+            with device_sanitizer.explicit_sync("search results"):
+                parts.append((ts.cpu().numpy(), ti.cpu().numpy() + ext.base))
         if not parts:
             B = int(qmat.shape[0])
             return (np.full((B, fetch_k), -np.inf, np.float32),
@@ -935,7 +950,7 @@ class PagedKnnIndex(BruteForceKnnIndex):
 
     def drain(self) -> None:
         """Block until every queued device write has finished."""
-        with self._lock:
+        with self._lock, device_sanitizer.explicit_sync("drain"):
             for ext in self._pool.extents:
                 if ext.established:
                     ext.valid[:1].cpu()

@@ -8,8 +8,9 @@ back into ``max_len``-wide sequences (``encode_ragged``). It is a batch
 device UDF (``batch=True, deterministic=True``, device-bound): called on a
 column expression, ``emb(pw.this.text)``, it builds the UDF expression the
 engine runs once per tick over the whole column. Direct callers use
-``embed_batch``. Checkpoint loading by model name is a later slice
-(ROADMAP).
+``embed_batch``. ``model=`` loads a local HuggingFace checkpoint (a name
+in the local HF cache or a directory): weights, config and WordPiece
+tokenizer through models/hf_loader.py.
 
 ``ClipEmbedder`` embeds texts (the UDF itself) and images (its
 ``image()`` UDF) into one space with the CLIP dual encoder
@@ -24,7 +25,8 @@ import os
 import numpy as np
 import torch
 
-from pathway_tpu_torch._device import PinnedStaging, resolve_device
+from pathway_tpu_torch._device import resolve_device, upload
+from pathway_tpu_torch.engine import device_sanitizer
 from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.config import _env_int
 from pathway_tpu_torch.models import clip as _clip
@@ -53,7 +55,9 @@ class EncoderEmbedder(BaseEmbedder):
 
     ``params`` is a JAX-layout numpy tree (e.g. ``init_params_host``
     output or the JAX package's parameters fetched to the host); without
-    it the weights are ``init_params_host(seed, config)``. Runs on
+    it the weights are ``init_params_host(seed, config)``. ``model``, a
+    model name or a checkpoint directory, loads params, config and
+    tokenizer instead (``hf_loader.load_model``; offline). Runs on
     ``device`` ("cuda" unless the caller passes "cpu"): here ``device`` is
     the torch device, and the UDF is always device-bound
     (``device_bound``). ``ragged=None`` reads ``PATHWAY_RAGGED_ENCODER``
@@ -63,13 +67,20 @@ class EncoderEmbedder(BaseEmbedder):
 
     _BUCKETS = (32, 64, 128, 256, 512)
 
-    def __init__(self, *, config: EncoderConfig | None = None,
+    def __init__(self, *, model: str | None = None,
+                 config: EncoderConfig | None = None,
                  params: dict | None = None, tokenizer=None, seed: int = 0,
                  max_len: int = 512, ragged: bool | None = None,
                  device: str | torch.device = "cuda", **kwargs):
         kwargs.setdefault("batch", True)
         kwargs.setdefault("deterministic", True)
         super().__init__(device=True, **kwargs)
+        if model is not None:
+            # the JAX embedder's name-based convenience: weights, config
+            # and WordPiece vocabulary from a local checkpoint
+            from pathway_tpu_torch.models.hf_loader import load_model
+
+            params, config, tokenizer = load_model(model)
         if ragged is None:
             ragged = os.environ.get("PATHWAY_RAGGED_ENCODER", "0").lower() \
                 in ("1", "true", "on", "yes")
@@ -93,7 +104,6 @@ class EncoderEmbedder(BaseEmbedder):
         self._ragged_doc_cap = max(1, self.max_len // 16)
         # encoder forwards run (ingest and query), for launch accounting
         self.dispatches = 0
-        self._staging = PinnedStaging(self.device)
 
     def _bucket(self, n: int) -> int:
         """Pad target for a batch whose longest row has ``n`` tokens:
@@ -135,16 +145,17 @@ class EncoderEmbedder(BaseEmbedder):
     def device_producer(self, model: Encoder, ids: np.ndarray,
                         lens: np.ndarray) -> torch.Tensor:
         """Forward over packed host tokens -> (B, hidden) f32 embeddings on
-        the device. The mask is rebuilt on the device from ``lens``. The
-        index's fused ingest (ops/knn.py) writes the result straight into
-        its device extent."""
-        dev = self.device
-        ids_d = torch.from_numpy(ids).to(dev).long()
-        lens_d = torch.from_numpy(lens).to(dev)
-        mask = torch.arange(ids_d.shape[1], device=dev)[None, :] \
+        the device. The arrays go up through pinned memory without a host
+        wait (``_device.upload``: nothing kept per batch shape) and the
+        mask is rebuilt on the device from ``lens``. The index's fused
+        ingest (ops/knn.py) writes the result straight into its device
+        extent."""
+        ids_d = upload(torch.from_numpy(ids), self.device)
+        lens_d = upload(torch.from_numpy(lens), self.device)
+        mask = torch.arange(ids_d.shape[1], device=self.device)[None, :] \
             < lens_d[:, None]
         self.dispatches += 1
-        return encode(model, ids_d, mask)
+        return encode(model, ids_d.long(), mask)
 
     def ragged_device_forward(self, model: Encoder, ids, doc_map, pos_ids,
                               doc_seq, doc_off) -> torch.Tensor:
@@ -161,12 +172,12 @@ class EncoderEmbedder(BaseEmbedder):
                                doc_seq, doc_off) -> torch.Tensor:
         """Forward over one ragged-packed chunk (host arrays from
         :meth:`pack_ragged`) -> (n_docs_padded, hidden) f32 embeddings on
-        the device: the arrays are copied into fixed device tensors of
-        their bucket's shape from pinned staging, without a host wait
-        (``PinnedStaging``), then :meth:`ragged_device_forward` runs
-        eagerly."""
-        return self.ragged_device_forward(model, *self._staging.upload(
-            (ids, doc_map, pos_ids, doc_seq, doc_off)))
+        the device: the arrays go up through pinned memory without a host
+        wait (``_device.upload``), then :meth:`ragged_device_forward` runs
+        eagerly. (The graphed ingest step stages its own fixed tensors.)"""
+        return self.ragged_device_forward(model, *(
+            upload(torch.from_numpy(a), self.device)
+            for a in (ids, doc_map, pos_ids, doc_seq, doc_off)))
 
     def ragged_buckets(self) -> list[int]:
         """Sequence-count buckets the ragged path dispatches: powers of two
@@ -266,8 +277,11 @@ class EncoderEmbedder(BaseEmbedder):
         return self.device_producer(self.model, ids, lens)
 
     def embed_batch(self, texts: list[str]) -> np.ndarray:
-        """(B, hidden) float32 embeddings as one host array."""
-        return self.encode_batch_device(texts).cpu().numpy()
+        """(B, hidden) float32 embeddings as one host array (an explicit
+        fetch: ``device_sanitizer.explicit_sync``)."""
+        out = self.encode_batch_device(texts)
+        with device_sanitizer.explicit_sync("embedder result"):
+            return out.cpu().numpy()
 
     def __wrapped__(self, texts: list[str], **kwargs) -> list[np.ndarray]:
         """The batch UDF body: ONE device-to-host transfer for the whole

@@ -16,8 +16,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "pathway_tpu", "aiohttp", "optax")
 # imported only inside the function that needs it (models/clip.py
-# load_image): a machine without it fails in that call and nowhere else
-LAZY_PACKAGES = frozenset(("PIL",))
+# load_image, models/hf_loader.py's safetensors read): a machine without it
+# fails in that call and nowhere else
+LAZY_PACKAGES = frozenset(("PIL", "safetensors", "transformers"))
 # what the chip machine has besides Python's standard library
 CHIP_PACKAGES = frozenset(("torch", "triton", "numpy", "scipy", "einops",
                            "pytest", "hypothesis", "pathway_tpu_torch"))
