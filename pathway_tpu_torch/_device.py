@@ -18,6 +18,16 @@ from typing import Callable
 import torch
 
 
+class ReplicaShared:
+    """Mixin for an object that every worker replica of an operator shares
+    by identity (a UDF or embedder, an index on the card, a CUDA graph,
+    pinned buffers): ``Operator.replicate`` deep-copies the operator, and
+    such an object deep-copies to itself."""
+
+    def __deepcopy__(self, memo):
+        return self
+
+
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``device`` as a torch.device, after checking it can be used.
 
@@ -69,7 +79,7 @@ class _Done:
         pass
 
 
-class PinnedStaging:
+class PinnedStaging(ReplicaShared):
     """Host arrays into fixed device tensors, with no host wait: for the
     inputs of a captured CUDA graph over a bounded set of shapes only (it
     never frees a shape's buffers; any other upload is ``upload``'s).

@@ -1,5 +1,4 @@
-"""Engine graph + microbatch scheduler — port of pathway_tpu/engine/graph.py
-with one worker.
+"""Engine graph + microbatch scheduler — port of pathway_tpu/engine/graph.py.
 
 Logical timestamps are totally ordered ints; at each committed timestamp
 the scheduler pushes source deltas through the nodes in topological order —
@@ -21,18 +20,33 @@ passes a flight recorder (engine/flight_recorder.py): operator spans, and
 the request tracker's host-leg stamp for every query picked up in a tick.
 With no recorder each step pays one branch for it.
 
-Not ported: sharded workers (``n_workers > 1``, ROADMAP queue 1 item 2d),
-iteration, the snapshot sanitizer and the profiler hooks.
+With ``n_workers > 1`` the dataflow runs sharded in this process: every
+node gets one operator replica a worker, rows route between workers at
+each stateful operator's exchange (``Exchange`` specs: by key, by a
+routing value, broadcast or gathered to worker 0), and sources partition
+by row key. Each tick is bulk-synchronous, node by node, so the per-time
+consistency guarantee is unchanged and the consolidated streams equal the
+one-worker run's. The device bridge stays single-worker: a sharded tick is
+one host leg. ``PATHWAY_WORKER_THREADS=1`` steps the replicas of
+``parallel_safe`` operators on a thread pool.
+
+Not ported: the multi-process cluster (``cluster=``, ROADMAP queue 1 item
+6f), iteration, the snapshot sanitizer and the profiler hooks.
 """
 
 from __future__ import annotations
 
+import os
+import threading
 import time as _time
 
 from pathway_tpu_torch.engine.delta import Delta, row_fingerprint
 from pathway_tpu_torch.engine.device_bridge import (DeviceBridge,
                                                     device_inflight_from_env)
-from pathway_tpu_torch.engine.operators import Operator, SourceOperator
+from pathway_tpu_torch.engine.operators import (Exchange, Operator,
+                                                SourceOperator)
+from pathway_tpu_torch.internals.config import _env_int
+from pathway_tpu_torch.internals.keys import hash_values
 from pathway_tpu_torch.internals.trace import add_trace_note
 
 
@@ -76,10 +90,14 @@ class CapturedStream:
     def __init__(self):
         self._chunks: list[tuple[int, list]] = []
         self._events: list[tuple] = []  # flattened (key, row, time, diff)
+        # the sharded replicas of the capture share it, possibly from the
+        # worker pool's threads: one lock operation a tick, not a row
+        self._lock = threading.Lock()
 
     @property
     def events(self) -> list[tuple]:
-        chunks, self._chunks = self._chunks, []
+        with self._lock:
+            chunks, self._chunks = self._chunks, []
         for time, entries in chunks:
             self._events.extend(
                 [(key, row, time, diff)
@@ -88,7 +106,8 @@ class CapturedStream:
 
     def on_delta(self, time: int, delta: Delta) -> None:
         if delta.entries:
-            self._chunks.append((time, delta.entries))
+            with self._lock:
+                self._chunks.append((time, delta.entries))
 
     def snapshot(self) -> dict:
         state: dict = {}
@@ -121,25 +140,68 @@ class CapturedStream:
 
 
 class Scheduler:
-    """Single-worker microbatch scheduler for an EngineGraph: the host leg of
-    each tick on the calling thread, its device leg on the device bridge
-    when the window is 2 or more (``device_inflight``; None reads
-    ``PATHWAY_DEVICE_INFLIGHT``)."""
+    """Microbatch scheduler for an EngineGraph.
+
+    One worker: the host leg of each tick on the calling thread, its
+    device leg on the device bridge when the window is 2 or more
+    (``device_inflight``; None reads ``PATHWAY_DEVICE_INFLIGHT``).
+
+    ``n_workers > 1``: the dataflow runs sharded — one operator replica a
+    worker and node (``_replicas``; gather nodes keep one, on worker 0),
+    rows routed by key at each exchange (reference: timely worker threads
+    + exchange pacts, src/engine/dataflow/shard.rs), sources partitioned
+    by row key. ``parallel_threads`` (None reads
+    ``PATHWAY_WORKER_THREADS``) steps the replicas of ``parallel_safe``
+    operators on a thread pool. ``cluster`` (the multi-process run) is not
+    ported and raises.
+    """
 
     def __init__(self, graph: EngineGraph, n_workers: int = 1,
+                 parallel_threads: bool | None = None, cluster=None,
                  device_inflight: int | None = None, recorder=None):
-        if n_workers != 1:
+        if cluster is not None:
             raise NotImplementedError(
-                f"n_workers={n_workers}: the port's scheduler runs one "
-                "worker (ROADMAP queue 1, item 2d: sharded execution)")
+                "Scheduler(cluster=...) is not ported to pathway_tpu_torch "
+                "yet (ROADMAP queue 1, item 6f: the multi-process cluster)")
         self.graph = graph
-        self.n_workers = 1
+        self.n_workers = max(1, int(n_workers))
         # flight recorder (engine/flight_recorder.py): None or disabled is
         # the hot-path default — one branch per operator step
         self.recorder = recorder
+        if parallel_threads is None:
+            parallel_threads = os.environ.get(
+                "PATHWAY_WORKER_THREADS", "0") not in ("0", "", "false")
+        # the replicas' state is disjoint, so stepping them on a pool is
+        # safe; it pays only where operator work releases the GIL
+        # (numpy, the card), hence opt-in
+        self._pool = None
+        if parallel_threads and self.n_workers > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(max_workers=self.n_workers)
+        self._stats_lock = threading.Lock()
+        # value -> worker memo per exchanged edge, bounded so that a
+        # high-cardinality routing column does not grow it without end:
+        # at the cap the edge's memo is dropped whole
+        self._route_cache: dict[tuple[int, int], dict] = {}
+        self._route_cache_max = max(
+            1024, _env_int("PATHWAY_ROUTE_CACHE_MAX", 1 << 16))
         self._topo = self._topo_sort()
+        # worker replicas per node; replica 0 is node.op itself. A gather
+        # node (unpartitionable state) keeps one replica, worker 0's
+        self._replicas: dict[int, list[Operator]] = {}
+        self._gather: dict[int, bool] = {}
+        for node in graph.nodes:
+            gather = any(spec == Exchange.GATHER
+                         for spec in node.op.exchange_specs())
+            self._gather[node.id] = gather
+            if gather or self.n_workers == 1:
+                self._replicas[node.id] = [node.op]
+            else:
+                self._replicas[node.id] = node.op.replicate(self.n_workers)
         # per-operator counters (reference: OperatorStats, read by
-        # bench.py's serving leg as serving_ingested_rows)
+        # bench.py's serving leg as serving_ingested_rows); under sharding
+        # the replicas add into their node's
         self.stats: dict[int, dict] = {
             n.id: {"insertions": 0, "retractions": 0,
                    "latency_ms": 0.0, "total_ms": 0.0}
@@ -152,7 +214,10 @@ class Scheduler:
         self._deferred_ids: frozenset[int] = frozenset()
         device_nodes = [n.id for n in graph.nodes
                         if getattr(n.op, "device_bound", False)]
-        if self.device_inflight >= 2 and device_nodes:
+        # the bridge is single-worker: a sharded tick is bulk-synchronous,
+        # its exchanges the consistency points
+        if self.device_inflight >= 2 and self.n_workers == 1 \
+                and device_nodes:
             self._deferred_ids = self._downstream_closure(device_nodes)
             self._bridge = DeviceBridge(self.device_inflight,
                                         recorder=recorder)
@@ -214,14 +279,36 @@ class Scheduler:
         return None
 
     def close(self) -> None:
-        """Drain the bridge and stop its worker (idempotent). The bridge
-        object survives so its counters stay readable."""
+        """Drain the bridge, stop its worker and release the worker pool
+        (idempotent). The bridge object survives so its counters stay
+        readable."""
         if self._bridge is not None:
             self._bridge.close()
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
+    # -- sharding helpers --------------------------------------------------
+    def _route_value(self, v) -> int:
+        if not isinstance(v, int):  # Pointer subclasses int
+            v = hash_values(v)
+        return int(v) % self.n_workers
 
     def push_source(self, node: Node, delta: Delta) -> None:
-        """Feed a source node for the next committed timestamp."""
-        node.op.push(delta)
+        """Feed a source node for the next committed timestamp, its rows
+        partitioned across the workers by key (the in-process analogue of
+        per-worker source reads, reference src/connectors/mod.rs:400)."""
+        reps = self._replicas[node.id]
+        if len(reps) == 1:
+            reps[0].push(delta)
+            return
+        n = self.n_workers
+        parts: list[list] = [[] for _ in reps]
+        for key, row, diff in delta.entries:
+            parts[int(key) % n].append((key, row, diff))
+        for rep, part in zip(reps, parts):
+            if part:
+                rep.push(Delta(part))
 
     def _topo_sort(self) -> list[Node]:
         seen: dict[int, int] = {}
@@ -250,6 +337,8 @@ class Scheduler:
         release them, and the releases propagate downstream within the same
         tick.
         """
+        if self.n_workers > 1:
+            return self._run_time_sharded(time, flush)
         if self._bridge is not None:
             return self._run_time_pipelined(time, flush)
         outputs: dict[int, Delta] = {}
@@ -264,7 +353,7 @@ class Scheduler:
                 requests.host_done(time)
                 host_pending = False
             in_deltas = [outputs.get(up.id, _EMPTY) for up in node.inputs]
-            delta = self._step_op(node, time, in_deltas, flush)
+            delta = self._step_op(node, node.op, time, in_deltas, flush)
             outputs[node.id] = delta
             self._count(node.id, delta)
         if host_pending:
@@ -298,7 +387,7 @@ class Scheduler:
                 deferred.append(node)
                 continue
             in_deltas = [outputs.get(up.id, _EMPTY) for up in node.inputs]
-            delta = self._step_op(node, time, in_deltas, flush)
+            delta = self._step_op(node, node.op, time, in_deltas, flush)
             outputs[node.id] = delta
             self._count(node.id, delta)
         requests = self._tracked_requests()
@@ -310,7 +399,7 @@ class Scheduler:
         def body() -> None:
             for node in deferred:
                 in_deltas = [outputs.get(up.id, _EMPTY) for up in node.inputs]
-                delta = self._step_op(node, time, in_deltas, flush)
+                delta = self._step_op(node, node.op, time, in_deltas, flush)
                 outputs[node.id] = delta
                 self._count(node.id, delta)
 
@@ -329,9 +418,8 @@ class Scheduler:
             self._bridge.barrier()
         return _PipelinedOutputs(self._bridge, outputs)
 
-    def _step_op(self, node: Node, time: int, in_deltas: list[Delta],
-                 flush: bool) -> Delta:
-        op = node.op
+    def _step_op(self, node: Node, op: Operator, time: int,
+                 in_deltas: list[Delta], flush: bool) -> Delta:
         rec = self.recorder
         recording = rec is not None and rec.enabled
         if recording:
@@ -357,8 +445,10 @@ class Scheduler:
             raise
         ms = (_time.perf_counter() - t0) * 1e3
         st = self.stats[node.id]
-        st["latency_ms"] = ms
-        st["total_ms"] += ms
+        # replicas stepped on the pool add into one node's counters
+        with self._stats_lock:
+            st["latency_ms"] = ms
+            st["total_ms"] += ms
         if recording:
             rows_in = 0
             for d in in_deltas:
@@ -386,6 +476,151 @@ class Scheduler:
             st["insertions"] += ins
             st["retractions"] += rets
 
+    def _run_time_sharded(self, time: int, flush: bool) -> "_MergedOutputs":
+        """One tick over the workers, node by node in topological order:
+        each input is routed as its spec says, the replicas step (on the
+        pool when the operator is ``parallel_safe`` and the pool is on),
+        and their outputs stay per worker until a consumer routes them."""
+        outputs: dict[int, list[Delta]] = {}  # node.id -> per-worker deltas
+        for node in self._topo:
+            reps = self._replicas[node.id]
+            if self._gather[node.id]:
+                outs = self._step_gather(node, reps, time, flush, outputs)
+            else:
+                outs = self._step_replicas(node, reps, time, flush, outputs)
+            outputs[node.id] = outs
+            for d in outs:
+                self._count(node.id, d)
+        requests = self._tracked_requests()
+        if requests is not None:
+            # sharded execution is bulk-synchronous: the whole tick is one
+            # host leg (its device stage reads 0)
+            requests.host_done(time)
+        return _MergedOutputs(outputs)
+
+    def _step_replicas(self, node: Node, reps: list, time: int, flush: bool,
+                       outputs: dict) -> list[Delta]:
+        n = self.n_workers
+        op0 = reps[0]
+        specs = op0.exchange_specs()
+        consolidate = op0.consolidate_inputs
+        per_worker: list[list[Delta]] = [
+            [_EMPTY] * len(node.inputs) for _ in range(n)]
+        for j, up in enumerate(node.inputs):
+            parts = outputs.get(up.id) or [_EMPTY] * n
+            spec = specs[j]
+            if spec is None:
+                for w in range(n):
+                    per_worker[w][j] = parts[w]
+                continue
+            if spec == Exchange.BROADCAST:
+                # every worker sees the complete delta
+                ents: list = []
+                for p in parts:
+                    ents.extend(p.entries)
+                if ents:
+                    merged = Delta(_retractions_first(ents))
+                    if consolidate:
+                        merged = merged.consolidate()
+                    for w in range(n):
+                        per_worker[w][j] = merged
+                continue
+            routed: list[list] = [[] for _ in range(n)]
+            if spec == Exchange.BY_KEY:
+                for p in parts:
+                    for e in p.entries:  # inline: keys are ints
+                        routed[int(e[0]) % n].append(e)
+            else:
+                # routing values (instance columns, group values) repeat
+                # tick after tick: memoize value -> worker per edge. Ints
+                # (Pointers included) route directly, and tuples are the
+                # per-row null sentinels that would never hit
+                cache = self._route_cache.setdefault((node.id, j), {})
+                for p in parts:
+                    for e in p.entries:
+                        v = spec(e[0], e[1])
+                        if isinstance(v, int):
+                            w = int(v) % n
+                        elif isinstance(v, tuple):
+                            w = self._route_value(v)
+                        else:
+                            try:
+                                w = cache.get(v)
+                            except TypeError:  # unhashable
+                                w = self._route_value(v)
+                            else:
+                                if w is None:
+                                    w = self._route_value(v)
+                                    if len(cache) >= self._route_cache_max:
+                                        cache.clear()
+                                    cache[v] = w
+                        routed[w].append(e)
+            self._merge_routed(per_worker, routed, j, consolidate)
+        # temporal operators share one watermark across workers (global,
+        # as a timely frontier is): advance it from every worker's input
+        # before any replica releases rows on it
+        if hasattr(op0, "_advance_watermark_value"):
+            wm = None
+            for up in node.inputs:
+                for p in outputs.get(up.id) or ():
+                    wm = _wm_max(wm, op0._watermark_candidate(p))
+            op0._advance_watermark_value(wm)
+        if self._pool is not None and op0.parallel_safe:
+            return list(self._pool.map(
+                lambda w: self._step_op(node, reps[w], time, per_worker[w],
+                                        flush), range(n)))
+        return [self._step_op(node, reps[w], time, per_worker[w], flush)
+                for w in range(n)]
+
+    def exchange_rounds_per_tick(self) -> int:
+        """Exchange rounds one tick would cost a cluster after coalescing
+        (a static count from the graph): exchanged and watermark nodes
+        share one round a topological level; a gather node closes the open
+        batch and pays its own round. bench.py reads it from the
+        one-worker scheduler too."""
+        rounds = 0
+        pending: set[int] = set()
+        for node in self._topo:
+            if self._gather[node.id]:
+                if pending:
+                    rounds += 1
+                    pending = set()
+                rounds += 1
+                continue
+            op0 = self._replicas[node.id][0]
+            exchanged = any(spec is not None
+                            for spec in op0.exchange_specs())
+            wm_node = hasattr(op0, "_advance_watermark")
+            if pending and any(up.id in pending for up in node.inputs):
+                rounds += 1
+                pending = set()
+            if exchanged or wm_node:
+                pending.add(node.id)
+        return rounds + (1 if pending else 0)
+
+    @staticmethod
+    def _merge_routed(per_worker, routed, j, consolidate: bool = True) -> None:
+        for w, ents in enumerate(routed):
+            if not ents:
+                continue
+            cur = per_worker[w][j]
+            merged = Delta(_retractions_first(
+                ents if cur is _EMPTY else cur.entries + ents))
+            per_worker[w][j] = merged.consolidate() if consolidate \
+                else merged
+
+    def _step_gather(self, node: Node, reps: list, time: int, flush: bool,
+                     outputs: dict) -> list[Delta]:
+        """Gather node: one owner replica on worker 0, fed every worker's
+        input; the other workers emit nothing."""
+        ins_entries: list[list] = [[] for _ in node.inputs]
+        for j, up in enumerate(node.inputs):
+            for p in outputs.get(up.id) or ():
+                ins_entries[j].extend(p.entries)
+        ins = [Delta(e).consolidate() if e else _EMPTY for e in ins_entries]
+        delta = self._step_op(node, reps[0], time, ins, flush)
+        return [delta] + [_EMPTY] * (self.n_workers - 1)
+
 
 class _PipelinedOutputs:
     """Per-tick output view under pipelined execution: deferred-node
@@ -412,3 +647,69 @@ class _PipelinedOutputs:
 
 
 _EMPTY = Delta()
+
+
+def _retractions_first(ents: list) -> list:
+    """A worker's merged input with each key's (key, row) pairs
+    consolidated, the entries of a key made adjacent and its retractions
+    before its insertions (keys keep their first-seen order; most ticks
+    have no repeated key and pass unchanged).
+
+    An upsert of a reindexed key arrives as a retraction and an insertion
+    of different rows with different source keys, so the exchange may
+    bring them from two workers in either order; an operator that drops a
+    key's live row on a retraction (the join's per-key state) would lose
+    the insertion that came first. One worker sees them in the order its
+    source gave. Only such true upserts reorder: an insertion and a
+    retraction of the same row cancel first, since a non-consolidating
+    operator (the inner bilinear join) ignores a retraction of an absent
+    row and would keep the insertion moved after it."""
+    first: dict = {}
+    for i, e in enumerate(ents):
+        first.setdefault(e[0], i)
+    if len(first) == len(ents):
+        return ents
+    ents = Delta(ents).consolidate().entries
+    return sorted(ents, key=lambda e: (first[e[0]], e[2] > 0))
+
+
+def _wm_max(a, b):
+    """Max of two watermark candidates, tolerant of None and of event-time
+    types that do not compare (as temporal_ops._gt is)."""
+    if b is None:
+        return a
+    if a is None:
+        return b
+    try:
+        return b if b > a else a
+    except TypeError:
+        return a
+
+
+class _MergedOutputs:
+    """Node-output view over per-worker deltas: the runtimes ignore
+    run_time's return value, so a node's partitions are concatenated and
+    consolidated only when a caller asks for it — the consolidated delta
+    the one-worker path returns."""
+
+    __slots__ = ("_per_worker",)
+
+    def __init__(self, per_worker: dict[int, list[Delta]]):
+        self._per_worker = per_worker
+
+    def get(self, node_id: int, default: Delta = _EMPTY) -> Delta:
+        outs = self._per_worker.get(node_id)
+        if outs is None:
+            return default
+        entries: list = []
+        for d in outs:
+            entries.extend(d.entries)
+        return Delta(entries).consolidate()
+
+    def __getitem__(self, node_id: int) -> Delta:
+        if node_id not in self._per_worker:
+            raise KeyError(node_id)
+        return self.get(node_id)
+
+    def __contains__(self, node_id: int) -> bool:
+        return node_id in self._per_worker

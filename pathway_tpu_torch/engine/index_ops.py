@@ -9,18 +9,21 @@ and live RAG serving. ``revise=True`` gives DataIndex.query: standing
 queries are answered again whenever the data changes.
 
 The index is pluggable (protocol below); the device-resident brute-force
-KNN lives in pathway_tpu_torch/ops/knn.py. Not ported: the semantic result
-cache (ROADMAP queue 1, item 4), operator-state snapshots, replicas under
-sharded execution (item 2d), the QoS coalescing counters and the mesh
-placement warning.
+KNN lives in pathway_tpu_torch/ops/knn.py. Under sharded execution
+(engine/graph.py) the data stream is broadcast and queries stay on the
+worker that holds them; the replicas share the one index object (one copy
+on the card) and only replica 0 maintains it. Not ported: the semantic
+result cache (ROADMAP queue 1, item 4), operator-state snapshots, the QoS
+coalescing counters and the mesh placement warning.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Protocol
 
 from pathway_tpu_torch.engine.delta import Delta
-from pathway_tpu_torch.engine.operators import Operator
+from pathway_tpu_torch.engine.operators import Exchange, Operator
 from pathway_tpu_torch.internals.error import ERROR, global_error_log
 from pathway_tpu_torch.internals.keys import Pointer
 
@@ -39,12 +42,22 @@ class ExternalIndex(Protocol):
 
 class ExternalIndexOperator(Operator):
     arity = 2  # [data, queries]
+    # replicas share one index and replica 0 mutates it: the per-worker
+    # steps stay sequential
+    parallel_safe = False
 
     @property
     def device_bound(self) -> bool:
         """True when the index itself is device-resident (the KNN slab):
         the operator then runs in the tick's device leg."""
         return bool(getattr(self.index, "device_bound", False))
+
+    def exchange_specs(self):
+        # the reference's semantics (operators/external_index.rs:97): the
+        # data stream is broadcast so that every worker can answer, and
+        # queries stay where they live. The replicas share one index on
+        # the card instead of the reference's per-worker copies.
+        return [Exchange.BROADCAST, None]
 
     def __init__(self, index, data_vec_pos: int, data_filter_pos: int | None,
                  query_vec_pos: int, query_limit_pos: int | None,
@@ -62,6 +75,18 @@ class ExternalIndexOperator(Operator):
         self.revise = revise
         self.answers: dict[Pointer, tuple] = {}
         self.live_queries: dict[Pointer, tuple] = {}  # key → (vec, limit, filt)
+        # replica 0 maintains the shared index; the others only search
+        self._is_primary = True
+
+    def replicate(self, n: int):
+        reps = [self]
+        for _ in range(n - 1):
+            r = copy.copy(self)  # shares the index object
+            r.answers = {}
+            r.live_queries = {}
+            r._is_primary = False
+            reps.append(r)
+        return reps
 
     def step(self, time, in_deltas):
         data_delta, query_delta = in_deltas
@@ -81,6 +106,10 @@ class ExternalIndexOperator(Operator):
                 add_filts.clear()
 
         data_changed = bool(data_delta.entries)
+        if not self._is_primary:
+            # every replica sees the broadcast data delta (revise mode
+            # answers again on it), but only the primary writes the index
+            data_delta = Delta()
         for key, row, diff in data_delta.entries:
             if diff > 0:
                 vec = row[self.data_vec_pos]
@@ -100,7 +129,8 @@ class ExternalIndexOperator(Operator):
                 flush_adds()  # preserve add/remove ordering within the batch
                 self.index.remove(key)
         flush_adds()
-        if data_changed and hasattr(self.index, "flush_device"):
+        if data_changed and self._is_primary and \
+                hasattr(self.index, "flush_device"):
             # push this tick's page writes to the device now, so that an
             # ingest-only tick does not leave them to the next query's tick
             self.index.flush_device()

@@ -24,12 +24,17 @@ native passes of the inner bilinear join and of the columnar groupby
 use; when a build fails, a warning is logged, ``NATIVE_ERRORS`` says why
 and the Python loops run). Also ``SortOperator`` (``Table.sort``: prev/next
 pointers); the temporal behaviors' operators are in engine/temporal_ops.py.
-Not ported here: sharding (exchange specs, replicas) and operator-state
+
+Sharded execution (engine/graph.py, ``n_workers > 1``): each operator
+states one ``Exchange`` spec per input and is replicated once per worker
+(``replicate``); replicas share every device-resident object they reach
+(``_device.ReplicaShared``). Not ported here: operator-state
 snapshots (ROADMAP queue 1, item 6a).
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 from typing import Any, Callable, Sequence
@@ -41,19 +46,63 @@ from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.engine.delta import (Arrangement, Delta,
                                             row_fingerprint, upsert_delta)
 from pathway_tpu_torch.engine.reducers import _orderable, make_reducer_state
-from pathway_tpu_torch.internals.keys import Pointer, hash_values, mix_pointers
+from pathway_tpu_torch.internals.keys import (Pointer, canonical_shard_value,
+                                              hash_values, mix_pointers)
+
+
+class Exchange:
+    """Per-input exchange contracts for sharded execution (reference:
+    src/engine/dataflow/shard.rs — keys route to workers by hash). A spec
+    is one of:
+
+    - ``None``: no data movement — the input is processed on whichever
+      worker holds each row (stateless operators),
+    - ``Exchange.BY_KEY``: route each entry by its row key,
+    - ``Exchange.GATHER``: send everything to worker 0 (operators whose
+      state cannot be partitioned),
+    - ``Exchange.BROADCAST``: every worker sees the complete input delta
+      (the external index's data stream),
+    - a callable ``(key, row) -> routing value``: route by the hash of the
+      returned value (join keys, group keys, instances).
+    """
+
+    BY_KEY = "by_key"
+    GATHER = "gather"
+    BROADCAST = "broadcast"
 
 
 class Operator:
     arity = 1
+    # False for ops whose replicas share mutable state (one device index):
+    # their per-worker steps must not run on the thread pool
+    parallel_safe = True
     # True for ops whose step dispatches accelerator work (a batch UDF
     # with device=True, a device-resident index): the scheduler runs them
     # and their downstream closure as the tick's device leg, on the device
     # bridge's worker when PATHWAY_DEVICE_INFLIGHT >= 2
     device_bound = False
+    # consulted only for exchanged inputs (the sharded merge points in
+    # graph.py): False for ops whose step is exact on unconsolidated input
+    consolidate_inputs = True
 
     def step(self, time: int, in_deltas: list[Delta]) -> Delta:
         raise NotImplementedError
+
+    def exchange_specs(self) -> list:
+        """One exchange spec per input (see Exchange). Default: stateless —
+        rows are processed wherever they already live."""
+        return [None] * self.arity
+
+    def replicate(self, n: int) -> list["Operator"]:
+        """Return n worker replicas of this operator, self as worker 0.
+
+        Called before any data has flowed (state empty), so a deepcopy
+        clones configuration with fresh state. Functions are atomic to
+        the copy (closures are shared by reference), and every
+        ``ReplicaShared`` object the operator reaches (a UDF or embedder,
+        an index, the graphed ingest step, the pinned staging) deep-copies
+        to itself: no replica copies a model, an index or a CUDA graph."""
+        return [self] + [copy.deepcopy(self) for _ in range(n - 1)]
 
     def on_time_advance(self, time: int) -> Delta:
         """Called for every committed timestamp (even with no input) so
@@ -216,6 +265,9 @@ class BinaryKeyOperator(Operator):
         self.left = Arrangement()
         self.right = Arrangement()
 
+    def exchange_specs(self):
+        return [Exchange.BY_KEY, Exchange.BY_KEY]
+
     def step(self, time, in_deltas):
         dl, dr = in_deltas
         if not dl and not dr:
@@ -253,6 +305,9 @@ class NAryConcatOperator(Operator):
         self.states = [Arrangement() for _ in range(n)]
         self.combine_rows = combine_rows
         self.update = update
+
+    def exchange_specs(self):
+        return [Exchange.BY_KEY] * self.arity
 
     def step(self, time, in_deltas):
         if not any(in_deltas):
@@ -376,6 +431,13 @@ class GroupByOperator(Operator):
         self._array_sum_idx = [i for i, (name, _, _)
                                in enumerate(reducer_specs)
                                if name in ("array_sum", "sum")]
+        # ticks whose array_sum reducers went through device_segsum
+        self.segsum_steps = 0
+
+    def exchange_specs(self):
+        # route rows to the worker owning their group (reference: group_by
+        # exchanges by group key, dataflow.rs:2904)
+        return [lambda key, row: self.group_fn(key, row)[0]]
 
     def _device_array_sums(self, entries, routed):
         """One ``device_segsum`` per array_sum reducer for the whole tick
@@ -459,6 +521,8 @@ class GroupByOperator(Operator):
             handled[idx] = {
                 gkey: (totals[g].reshape(shape), counts[gkey])
                 for g, gkey in enumerate(gkeys)}
+        if handled:
+            self.segsum_steps += 1
         return handled
 
     def step(self, time, in_deltas):
@@ -594,6 +658,7 @@ class ColumnarGroupByOperator(Operator):
 
     _GROW = 1024
     _INT_GUARD = 1 << 62  # |sum| beyond this migrates to exact python ints
+    consolidate_inputs = False  # purely additive array state
 
     def __init__(self, gval_pos: list, reducer_cols: list):
         # gval_pos: row positions of the group-value columns
@@ -645,6 +710,18 @@ class ColumnarGroupByOperator(Operator):
         self._kinds = tuple(
             0 if kind == "count" else (2 if kind == "avg" else 1)
             for kind, _ in reducer_cols)
+
+    def exchange_specs(self):
+        # route by the canonical group value: the scheduler's route cache
+        # memoizes value -> worker, and canonicalization sends hash-equal
+        # values (1, 1.0, np.int64(1): one group in _add_group) to one
+        # worker. Tuples route through hash_values, whose encoding
+        # collapses the same equivalences element-wise.
+        if len(self.gval_pos) == 1:
+            p = self.gval_pos[0]
+            return [lambda key, row: canonical_shard_value(row[p])]
+        ps = self.gval_pos
+        return [lambda key, row: tuple(row[p] for p in ps)]
 
     def snapshot_state(self):
         raise NotImplementedError(
@@ -919,6 +996,11 @@ class JoinOperator(Operator):
         self.rkey_pos = rkey_pos
         self.rkey_fb = rkey_fb
         self._bilinear = out_key_fn is None
+        # only the inner bilinear path fuses same-tick retract + insert
+        # pairs; other modes would forward an uncancelled net-zero pair to
+        # sinks as phantom delete + insert events, so they keep
+        # consolidation of their exchanged inputs
+        self.consolidate_inputs = not (self._bilinear and mode == "inner")
         self.native_steps = 0
         # live (lk, rk) pairs recur every tick in dimension joins: a dict
         # probe beats re-mixing 128-bit ints per emitted row
@@ -926,6 +1008,12 @@ class JoinOperator(Operator):
         self.out_key_fn = out_key_fn or self._default_out_key
         self.left: dict[Any, dict[Pointer, tuple]] = {}
         self.right: dict[Any, dict[Pointer, tuple]] = {}
+
+    def exchange_specs(self):
+        # both sides route by join key, so each key group is wholly owned
+        # by one worker (reference: join exchanges, dataflow.rs:2276)
+        return [lambda k, r: self.lkey_fn(k, r),
+                lambda k, r: self.rkey_fn(k, r)]
 
     def _default_out_key(self, lkey, rkey, jk):
         ck = (lkey, rkey)
@@ -1248,6 +1336,11 @@ class DeduplicateOperator(Operator):
         self.acceptor = acceptor
         self.state: dict[Any, tuple[Pointer, tuple]] = {}
 
+    def exchange_specs(self):
+        # per-instance acceptance is order-sensitive: one worker owns each
+        # instance (reference: deduplicate exchanges by instance)
+        return [lambda k, r: self.instance_fn(k, r)]
+
     def step(self, time, in_deltas):
         from pathway_tpu_torch.internals.error import global_error_log
 
@@ -1290,6 +1383,11 @@ class SortOperator(Operator):
         self.instance_fn = instance_fn
         self.instances: dict[Any, dict[Pointer, Any]] = {}
         self.out = Arrangement()
+
+    def exchange_specs(self):
+        # prev/next neighbours are computed within an instance: one worker
+        # owns each instance (reference: operators/prev_next.rs)
+        return [lambda k, r: self.instance_fn(k, r)]
 
     def step(self, time, in_deltas):
         delta = in_deltas[0]
@@ -1340,6 +1438,12 @@ class OutputOperator(Operator):
 
     def __init__(self, callback: Callable[[int, Delta], None]):
         self.callback = callback
+
+    def replicate(self, n):
+        # every worker funnels into the same sink: share the callback (a
+        # deepcopy of a bound method would clone its receiver, and the
+        # replicas' outputs would vanish into the copy)
+        return [self] + [OutputOperator(self.callback) for _ in range(n - 1)]
 
     def step(self, time, in_deltas):
         delta = in_deltas[0]

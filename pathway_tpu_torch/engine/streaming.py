@@ -1,5 +1,5 @@
 """Realtime microbatch runtime — port of pathway_tpu/engine/streaming.py,
-trimmed to one process and one worker.
+trimmed to one process.
 
 Replaces the reference's worker hot loop (dataflow.rs:5519-5572 —
 ``loop { probers; flushers; pollers; step_or_park }``): connector threads
@@ -7,7 +7,9 @@ feed sessions; every autocommit interval the runtime drains all sessions,
 advances the logical timestamp, and runs one scheduler step. Totally
 ordered timestamps + whole-batch steps give the same consistency
 guarantee as timely's progress frontiers (every time is complete when
-processed).
+processed). ``n_workers`` (None reads ``PATHWAY_THREADS``) above 1 runs the
+dataflow sharded in this process (engine/graph.py): each source's rows are
+partitioned by key as they are fed.
 
 The commit interval is the smallest ``autocommit_duration_ms`` of the
 sources (``default_commit_ms`` for a source without one). Device legs go
@@ -83,7 +85,8 @@ class StreamingRuntime:
     def __init__(self, runner, *, monitoring_level=None,
                  with_http_server=False, persistence_config=None,
                  terminate_on_error=True, default_commit_ms: int = 100,
-                 n_workers: int = 1, cluster=None, connector_policy=None,
+                 n_workers: int | None = None, cluster=None,
+                 connector_policy=None,
                  watchdog=None, trace_path: str | None = None, replica=None,
                  qos=None):
         refuse_unported(persistence_config=persistence_config,
@@ -96,6 +99,10 @@ class StreamingRuntime:
         # uncaught exceptions in ANY engine thread land in the ErrorLog
         # instead of dying silently on stderr
         install_excepthook()
+        if n_workers is None:
+            from pathway_tpu_torch.internals.config import get_pathway_config
+
+            n_workers = get_pathway_config().threads
         self.runner = runner
         self.default_commit_ms = default_commit_ms
         self.terminate_on_error = terminate_on_error
@@ -142,6 +149,12 @@ class StreamingRuntime:
             for _node, _session, ds in self.sessions:
                 if hasattr(ds, "request_tracker"):
                     ds.request_tracker = self._request_tracker
+
+    def stats(self) -> dict:
+        """The run's shape and progress: its workers (``n_workers``) and
+        the last tick ``run_time`` returned for."""
+        return {"n_workers": self.scheduler.n_workers,
+                "last_completed_tick": self._last_completed_tick}
 
     def stop(self) -> None:
         self._stop.set()

@@ -7,9 +7,11 @@ threshold is an event-time value the behavior computes. ``BufferOperator``
 holds rows until the watermark reaches their threshold, ``ForgetOperator``
 retracts them once it passes, ``FreezeOperator`` drops late updates.
 
-One worker only: the sharded watermark (exchange specs, replicas sharing
-one watermark) is not ported (ROADMAP queue 1, item 2d), and neither are
-operator-state snapshots (item 6a).
+Under sharded execution (engine/graph.py) rows route by key and the
+replicas of a watermark operator share one boxed watermark, global across
+workers as a timely frontier is: the scheduler advances it from every
+worker's input before any replica steps. Not ported: operator-state
+snapshots (ROADMAP queue 1, item 6a).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 from typing import Any, Callable
 
 from pathway_tpu_torch.engine.delta import Delta, row_fingerprint
-from pathway_tpu_torch.engine.operators import Operator
+from pathway_tpu_torch.engine.operators import Exchange, Operator
 
 NEG_INF = float("-inf")
 
@@ -65,18 +67,44 @@ class _WatermarkOp(Operator):
     def __init__(self, threshold_fn: Callable, time_fn: Callable):
         self.threshold_fn = threshold_fn
         self.time_fn = time_fn
-        self.watermark: Any = NEG_INF
+        # boxed, so that the sharded replicas share one global watermark
+        self._wm_box: list = [NEG_INF]
+
+    @property
+    def watermark(self) -> Any:
+        return self._wm_box[0]
+
+    @watermark.setter
+    def watermark(self, v: Any) -> None:
+        self._wm_box[0] = v
+
+    def exchange_specs(self):
+        return [Exchange.BY_KEY]
+
+    def replicate(self, n):
+        reps = super().replicate(n)
+        for r in reps[1:]:
+            r._wm_box = self._wm_box
+        return reps
 
     def _advance_watermark(self, delta: Delta) -> None:
         """Raise the watermark to the largest event time inserted."""
+        self._advance_watermark_value(self._watermark_candidate(delta))
+
+    def _watermark_candidate(self, delta: Delta) -> Any:
+        """The largest event time a delta inserts (None: none): one
+        worker's contribution to the global watermark."""
         best = None
         for key, row, diff in delta.entries:
             if diff > 0:
                 t = self.time_fn(key, row)
                 if t is not None and (best is None or _gt(t, best)):
                     best = t
-        if best is not None and _gt(best, self.watermark):
-            self.watermark = best
+        return best
+
+    def _advance_watermark_value(self, v: Any) -> None:
+        if v is not None and _gt(v, self.watermark):
+            self.watermark = v
 
 
 def _gt(a, b):

@@ -25,7 +25,8 @@ def run(*, debug: bool = False, monitoring_level=None,
     (``pw.io.python.read``, ``pw.io.http.rest_connector``) enter the
     realtime microbatch loop (engine/streaming.py) until all sources
     finish or the run is stopped (``engine.streaming.stop_all()``).
-    Returns the runner.
+    Both run sharded over ``PATHWAY_THREADS`` in-process workers (default
+    1; engine/graph.py). Returns the runner.
 
     ``trace_path`` (or ``PATHWAY_TRACE_PATH``) turns on the flight
     recorder (engine/flight_recorder.py) and writes the run's span buffer

@@ -109,26 +109,35 @@ class GraphRunner:
         node = self.lower(table)
         self.graph.add_node(eng.OutputOperator(callback), [node], "subscribe")
 
-    def run_batch(self, n_workers: int = 1, recorder=None) -> None:
+    def run_batch(self, n_workers: int | None = None, cluster=None,
+                  recorder=None) -> None:
         """Run all static feeds to completion (batch mode: one pass over the
-        totally-ordered times present in the inputs + a flush tick). The
-        device legs run on the device bridge at ``PATHWAY_DEVICE_INFLIGHT``'s
-        window (default 2; 1 steps every operator on the calling thread);
-        the flush tick waits for every leg, and a leg's failure re-raises
-        here. The scheduler stays as ``_scheduler``, its bridge closed, so
-        ``bridge_stats()`` reads after the run. ``n_workers`` other than 1
-        raises ``NotImplementedError`` (ROADMAP queue 1, item 2d).
+        totally-ordered times present in the inputs + a flush tick).
+        ``n_workers`` (None reads ``PATHWAY_THREADS``, default 1) above 1
+        runs the dataflow sharded over that many in-process workers
+        (engine/graph.py). At one worker the device legs run on the
+        device bridge at ``PATHWAY_DEVICE_INFLIGHT``'s window (default 2;
+        1 steps every operator on the calling thread); the flush tick
+        waits for every leg, and a leg's failure re-raises here. The
+        scheduler stays as ``_scheduler``, its bridge and worker pool
+        closed, so ``bridge_stats()`` and ``exchange_rounds_per_tick()``
+        read after the run. ``cluster`` (the multi-process run) raises
+        ``NotImplementedError`` (ROADMAP queue 1, item 6f).
 
         ``recorder`` threads a flight recorder through the scheduler
         (engine/flight_recorder.py); when omitted, the environment
         (``PATHWAY_TRACE_PATH`` / ``PATHWAY_FLIGHT_RECORDER``) decides —
         by default there is none."""
+        if n_workers is None:
+            from pathway_tpu_torch.internals.config import get_pathway_config
+
+            n_workers = get_pathway_config().threads
         if recorder is None:
             from pathway_tpu_torch.engine.flight_recorder import \
                 FlightRecorder
 
             recorder = FlightRecorder.from_env()
-        sched = Scheduler(self.graph, n_workers=n_workers,
+        sched = Scheduler(self.graph, n_workers=n_workers, cluster=cluster,
                           recorder=recorder)
         by_time, feed_times = self.static_feeds_by_time()
         times = {0} | feed_times

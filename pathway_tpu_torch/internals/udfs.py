@@ -20,6 +20,7 @@ import os
 import pickle
 from typing import Any, Callable
 
+from pathway_tpu_torch._device import ReplicaShared
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import expression as ex
 
@@ -275,7 +276,7 @@ def _wrap_async(fn, executor: Executor, cache_strategy: CacheStrategy | None):
     return wrapped
 
 
-class UDF:
+class UDF(ReplicaShared):
     """User-defined function usable in expressions: ``my_udf(t.a, t.b)``.
 
     Subclass and define ``__wrapped__``, or produce via the ``@pw.udf``

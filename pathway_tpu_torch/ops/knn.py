@@ -52,7 +52,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from pathway_tpu_torch._device import PinnedStaging, resolve_device, upload
+from pathway_tpu_torch._device import (PinnedStaging, ReplicaShared,
+                                      resolve_device, upload)
 from pathway_tpu_torch.engine import device_sanitizer
 from pathway_tpu_torch.engine.locking import create_rlock
 from pathway_tpu_torch.engine.paged_store import (DevicePagePool,
@@ -258,7 +259,7 @@ def _fused_step_fn(producer: Callable, dtype: str, device: torch.device):
 _STAGING_DEPTH = 32
 
 
-class GraphedIngestStep:
+class GraphedIngestStep(ReplicaShared):
     """The int8 fused-ingest step of a staged producer as one CUDA graph per
     chunk shape and extent: the port's counterpart of the JAX package's
     ``step_i8``, one donated ``jax.jit`` dispatch per ragged chunk.
@@ -386,7 +387,7 @@ class GraphedIngestStep:
         return graph
 
 
-class BruteForceKnnIndex:
+class BruteForceKnnIndex(ReplicaShared):
     """Incremental exact KNN over device-resident vectors.
 
     add/remove mutate a host mirror and enqueue dirty slots; search
@@ -994,7 +995,7 @@ class PagedKnnIndex(BruteForceKnnIndex):
         return True
 
 
-class DeviceEmbeddingKnnIndex:
+class DeviceEmbeddingKnnIndex(ReplicaShared):
     """External index whose add/search take raw TEXT: tokenization runs on
     the host, the encoder forward on the device, and the fresh embeddings
     are written straight into the device extents — they never visit the

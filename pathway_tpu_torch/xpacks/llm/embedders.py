@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import asyncio
 import os
+import threading
 
 import numpy as np
 import torch
@@ -104,6 +105,10 @@ class EncoderEmbedder(BaseEmbedder):
         self._ragged_doc_cap = max(1, self.max_len // 16)
         # encoder forwards run (ingest and query), for launch accounting
         self.dispatches = 0
+        # sharded workers share the embedder, and under
+        # PATHWAY_WORKER_THREADS=1 the replicas of its map call it from
+        # the pool's threads at once: one device call at a time
+        self._device_lock = threading.RLock()
 
     def _bucket(self, n: int) -> int:
         """Pad target for a batch whose longest row has ``n`` tokens:
@@ -269,6 +274,10 @@ class EncoderEmbedder(BaseEmbedder):
         """Tokenize + encoder forward, returning the (B, hidden) embeddings
         still on the device. The ragged path runs one forward per packed
         chunk and keeps each chunk's real documents."""
+        with self._device_lock:
+            return self._encode_batch_device(texts)
+
+    def _encode_batch_device(self, texts: list[str]) -> torch.Tensor:
         if self.ragged:
             outs = [self.ragged_device_producer(self.model, *args)[:n_docs]
                     for args, n_docs, _n_pad in self.pack_ragged(texts)]
@@ -279,9 +288,10 @@ class EncoderEmbedder(BaseEmbedder):
     def embed_batch(self, texts: list[str]) -> np.ndarray:
         """(B, hidden) float32 embeddings as one host array (an explicit
         fetch: ``device_sanitizer.explicit_sync``)."""
-        out = self.encode_batch_device(texts)
-        with device_sanitizer.explicit_sync("embedder result"):
-            return out.cpu().numpy()
+        with self._device_lock:
+            out = self._encode_batch_device(texts)
+            with device_sanitizer.explicit_sync("embedder result"):
+                return out.cpu().numpy()
 
     def __wrapped__(self, texts: list[str], **kwargs) -> list[np.ndarray]:
         """The batch UDF body: ONE device-to-host transfer for the whole
@@ -320,6 +330,8 @@ class ClipEmbedder(BaseEmbedder):
         self.tokenizer = tokenizer or HashTokenizer(
             vocab_size=self.config.text.vocab_size,
             max_len=self.config.text.max_len)
+        # one device call at a time (see EncoderEmbedder._device_lock)
+        self._device_lock = threading.Lock()
 
     @torch.no_grad()
     def embed_text_batch(self, texts: list[str]) -> np.ndarray:
@@ -337,10 +349,11 @@ class ClipEmbedder(BaseEmbedder):
         else:
             ids, mask = ids[:, :pad_to], mask[:, :pad_to]
         dev = self.device
-        out = _clip.encode_text(self.model,
-                                torch.from_numpy(ids).to(dev).long(),
-                                torch.from_numpy(mask).to(dev).bool())
-        return out.cpu().numpy()
+        with self._device_lock:
+            out = _clip.encode_text(self.model,
+                                    torch.from_numpy(ids).to(dev).long(),
+                                    torch.from_numpy(mask).to(dev).bool())
+            return out.cpu().numpy()
 
     @torch.no_grad()
     def embed_image_batch(self, images: list) -> np.ndarray:
@@ -350,9 +363,10 @@ class ClipEmbedder(BaseEmbedder):
             if isinstance(im, bytes) else np.asarray(im, np.float32)
             for im in images
         ])
-        out = _clip.encode_image(self.model,
-                                 torch.from_numpy(px).to(self.device))
-        return out.cpu().numpy()
+        with self._device_lock:
+            out = _clip.encode_image(self.model,
+                                     torch.from_numpy(px).to(self.device))
+            return out.cpu().numpy()
 
     def __wrapped__(self, texts: list[str], **kwargs) -> list[np.ndarray]:
         # row views of the one batch transfer

@@ -351,7 +351,7 @@ def test_unported_runner_options_raise():
     t = _base(tpw)
     runner = TRunner()
     runner.capture(t.select(t.a))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.run_batch(n_workers=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6f"):
+        runner.run_batch(n_workers=2, cluster=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpw.debug.table_from_pandas(None)
