@@ -8,7 +8,9 @@ both MFU keys), the port's two live-RAG device paths, the engine's batch path
 with the encoder as a batch UDF, the engine's index path (the graph of
 bench.py's bench_embed_framework), the served path (``pw.run``'s
 streaming runtime behind HTTP: bench.py's bench_serving graph and a live
-RAG server), the engine's relational core (bench.py's bench_etl
+RAG server), BASELINE.md's configs 3 and 1 (the Adaptive-RAG template
+served over streamed files with its reranker, and the classic KNNIndex
+over a CSV), the engine's relational core (bench.py's bench_etl
 graph: the columnar groupby and the inner join with their native passes,
 host code, at one and at eight sharded workers, and the exchange's wire
 codec), graph A of bench_embed_framework at four sharded workers, its temporal layer (bench_etl's windowed leg and every
@@ -155,8 +157,9 @@ non-zero, and no result line is printed):
    document, ``search_extent`` at k in ROUTE_KS against the plain scan +
    stable sort, and card-vs-CPU embeddings; times K2 at the index's shape
    at B=1 and B=64 beside the old route;
-9. engine (the engine's batch path): the same documents as
-   ``table_from_rows(..., is_stream=True)``, one tick per 512 (196
+9. engine (the engine's batch path): the first 50,000 of those
+   documents (cut from 100,000 for the script's clock) as
+   ``table_from_rows(..., is_stream=True)``, one tick per 512 (98
    ticks), through ``select(embedding=emb(pw.this.data))`` under
    ``GraphRunner.run_batch(n_workers=1)`` with the padded embedder as a
    batch device UDF (its map runs on the device bridge at the default
@@ -172,7 +175,8 @@ non-zero, and no result line is printed):
    a tick outside the UDF body, the garbage collector's time, peak device
    memory and the bridge's window and counters;
 10. framework (bench.py's ``bench_embed_framework`` graph, as bench.py
-   runs it): the same documents as ``table_from_rows(data,
+   runs it, over 50,000 documents, cut from path 1's 100,000 for the
+   script's clock): the documents as ``table_from_rows(data,
    _metadata=Json({"path": ...}), is_stream=True)``, one tick per 2048
    (bench.py's BATCH), through ``VectorStoreServer(docs, embedder=emb,
    index_builder=... default_brute_force_knn_document_index(chunks.text,
@@ -245,6 +249,34 @@ non-zero, and no result line is printed):
    tracker's stages, ingest docs/s, launches (K1, K2, K2 score) and peak
    memory. Both runs stop through ``stop_all()``, and an error in a run
    fails the phase;
+11b. adaptive rag (BASELINE.md config 3, the Adaptive-RAG template):
+   10,000 text files of 6 ``make_docs`` texts each, written in batches of
+   2,000 while ``pw.io.fs.read(plaintext_by_file, streaming,
+   with_metadata)`` reads them, through ``TokenCountSplitter(max_tokens=
+   120)`` (50,000 chunks) and framework A's embedder into bf16 cos
+   indexes (one a query route, as in the JAX package), answered by
+   ``AdaptiveRAGQuestionAnswerer(n_starting_documents=2, factor=2,
+   max_iterations=3)`` behind ``run_server(threaded=True)`` with an
+   offline chat that answers when a document of its prompt holds the
+   question's marker. 64 ``POST /v1/pw_ai_answer`` aimed at 2, 4, 8
+   documents and never, then 500 new files written while it serves and
+   16 questions on them; every answer and its chat calls against the
+   plain path (the plain encoder's query embedding, a plain scan of the
+   index's rows, the geometric strategy on the host); ``/v1/retrieve``,
+   ``/v1/statistics`` (file_count = files written) and ``RAGClient``
+   against the raw POSTs; ``EncoderReranker`` and ``rerank_topk_filter``
+   under ``run_batch`` against the plain encoder's cosines. Prints answer
+   latency, chunks indexed a second, chat calls a question, K1 and K2
+   launches (``launches_adaptive_rag``), peak memory and seconds;
+11c. knn index (BASELINE.md config 1, the classic ``stdlib.ml``
+   KNNIndex, batch mode): a 10,000-row CSV of an id and 384 floats read
+   with ``pw.io.csv.read(static)``; ``KNNIndex`` cosine and euclidean
+   (float32 slabs: ``torch.matmul`` and the key selection), 256 queries
+   through ``get_nearest_items(k=3, with_distances=True)``,
+   ``get_nearest_items_asof_now``, a ``metadata_filter`` and
+   ``collapse_rows=False``, each against an exact float64 scan with ties
+   held as tests/test_torch_knn_bf16.py holds them. Prints rows ingested
+   a second, the search's p50 for one query and seconds;
 12. array_sum (``GroupByOperator``'s device segment sum, off by default):
    ``device_segsum`` on the card bit for bit against the sequential numpy
    loop; then ``groupby(g).reduce(g, a=npsum(v))`` over two ticks of each
@@ -3177,6 +3209,10 @@ def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int, int]:
 
 
 ENGINE_RAGGED_DOCS = 10_240  # 20 ticks of the ragged embedder
+# the engine and framework phases' documents: 98 ticks of 512 and 25 of
+# 2048 (cut from --docs, 100,000, when configs 1 and 3 joined the run, so
+# that the script keeps inside its clock)
+ENGINE_DOCS = 50_000
 
 
 class GcClock:
@@ -3289,8 +3325,8 @@ def hold_engine(events, docs: list[str], direct: np.ndarray, label: str
 def phase_engine(n_docs: int, seed: int, card: str) -> tuple[int, int]:
     """The engine's batch path: BGE-small as a batch device UDF,
     ``select(embedding=emb(pw.this.data))`` under
-    ``GraphRunner.run_batch``, over path 1's documents (padded, bf16;
-    100,000 by default: 196 ticks of 512), then the ragged embedder over
+    ``GraphRunner.run_batch``, over the first ``ENGINE_DOCS`` of path 1's
+    documents (padded, bf16; 98 ticks of 512), then the ragged embedder over
     the first 10,240 of them in 20 ticks; each held bit for bit against its own
     ``embed_batch`` over the same 512-document batches. Returns K1's
     launches in the padded and in the ragged engine run."""
@@ -4870,6 +4906,804 @@ def phase_serving_rag(seed: int, card: str, n_docs: int = SERVING_N) -> dict:
           f"clock, a device-leg step includes its waits on the card): "
           f"{where} [{card}]", flush=True)
     return launches
+
+
+RAG_FILES = 10_000       # BASELINE.md config 3's corpus, one text file each
+RAG_TEXTS_PER_FILE = 6   # make_docs texts a file: 540 words
+RAG_FILE_BATCH = 2000    # files written at once (each batch one backlog tick)
+RAG_MAX_TOKENS = 120     # TokenCountSplitter(max_tokens=120): 5 chunks a file
+RAG_QUESTIONS = 64       # aimed in turn at 2, 4, 8 documents and never
+RAG_NEW_FILES = 500      # written while the server runs
+RAG_NEW_QUESTIONS = 16   # whose marker only a new file holds
+RAG_RETRIEVES = 4
+RAG_BASE_WORDS = 60      # a question: 60 words of one chunk + a marker
+RAG_RERANK_K = 4
+# EncoderReranker's cosines through K1 against the plain attention in
+# all 12 layers, bf16: the row cosine of the two embeddings is >= 0.999
+# (the earlier phases' bound), and at that bound two unit vectors differ
+# by up to 0.045; 2^-7 asks far less
+RERANK_TOL = 2.0 ** -7
+
+
+def rag_texts(n_files: int, first: int, seed: int) -> list[str]:
+    """``n_files`` file texts of ``RAG_TEXTS_PER_FILE`` make_docs texts
+    each, a marker word ``ж<file>x<chunk>`` before every 119 words, so
+    that each of the splitter's 120-token chunks starts with its own
+    marker. Bench's WordPiece reads every marker as [UNK]: which marker a
+    text holds does not move its embedding."""
+    texts = make_docs(n_files * RAG_TEXTS_PER_FILE, seed=seed)
+    k, step = RAG_TEXTS_PER_FILE, RAG_MAX_TOKENS - 1
+    out = []
+    for f in range(n_files):
+        words = " ".join(texts[f * k:(f + 1) * k]).split()
+        parts = []
+        for c, w0 in enumerate(range(0, len(words), step)):
+            parts.append(f"ж{first + f}x{c}")
+            parts.extend(words[w0:w0 + step])
+        out.append(" ".join(parts))
+    return out
+
+
+def write_files(docs_dir: str, stage: str, texts: list[str], first: int
+                ) -> None:
+    """Each text to ``docs_dir/f<first + i>.txt``, written in ``stage``
+    and renamed in, so the reader never sees half a file."""
+    for i, text in enumerate(texts):
+        name = f"f{first + i:05d}.txt"
+        tmp = os.path.join(stage, name)
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(text)
+        os.replace(tmp, os.path.join(docs_dir, name))
+
+
+def prompt_parts(prompt: str) -> tuple[list[str], str]:
+    """The documents and the question of a ``prompt_qa_geometric_rag``
+    prompt."""
+    import re
+
+    m = re.search(r"Documents:\n(.*)\n\nQuestion: (.*)\nAnswer:$", prompt,
+                  re.S)
+    if m is None:
+        raise ValueError("not a geometric RAG prompt")
+    body, question = m.groups()
+    return re.split(r"(?:^|\n\n)\[doc \d+\]\n", body)[1:], question
+
+
+def marker_answer(docs: list[str], question: str) -> str:
+    """The offline chat's rule: the question's marker is its word holding
+    ``ж``; the answer names the first document holding that word, else it
+    is ``NO_INFO_ANSWER``."""
+    from pathway_tpu_torch.xpacks.llm.prompts import NO_INFO_ANSWER
+
+    marker = next(w for w in question.split() if "ж" in w)
+    for i, doc in enumerate(docs):
+        if f" {marker} " in f" {doc} ":
+            return f"{marker}: document {i + 1} of {len(docs)}"
+    return NO_INFO_ANSWER
+
+
+def plain_geometric(docs: list[str], question: str, n0: int, factor: int,
+                    iterations: int) -> tuple[str, list[int]]:
+    """``answer_with_geometric_rag_strategy`` on the host over ``docs``
+    with ``marker_answer`` as the chat: (answer, documents a call)."""
+    from pathway_tpu_torch.xpacks.llm.prompts import NO_INFO_ANSWER
+
+    calls, n = [], n0
+    for _ in range(iterations):
+        ctx = docs[:n]
+        calls.append(len(ctx))
+        answer = marker_answer(ctx, question)
+        if answer != NO_INFO_ANSWER:
+            return answer, calls
+        if n >= len(docs):
+            break
+        n *= factor
+    return NO_INFO_ANSWER, calls
+
+
+def post_text(url: str, payload, timeout: float = 120.0):
+    """One POST whose reply is text (a route answering a string): (text,
+    client ms)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        body = resp.read().decode("utf-8")
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def plain_embed(emb, texts: list[str]):
+    """The plain encoder (``attention_reference`` in every layer, padded)
+    over ``texts`` on the embedder's device: (B, hidden) float64 on the
+    host."""
+    import torch
+
+    from pathway_tpu_torch.models.encoder import encode
+    from pathway_tpu_torch.ops.attention import attention_reference
+
+    out = []
+    for b in range(0, len(texts), 256):
+        ids, lens = emb.pack_tokens(texts[b:b + 256])
+        ids_d = torch.from_numpy(ids).to(emb.device).long()
+        lens_d = torch.from_numpy(lens).to(emb.device)
+        mask = torch.arange(ids_d.shape[1], device=emb.device)[None, :] \
+            < lens_d[:, None]
+        out.append(encode(emb.model, ids_d, mask,
+                          attn_fn=attention_reference).float().cpu().numpy())
+    return np.concatenate(out).astype(np.float64)
+
+
+def bf16_scan(vecs, slab, valid):
+    """``score_float_reference`` of the queries ``vecs`` (B, D) as the
+    bf16 cos index takes them (unit rows, bf16) over the index's rows."""
+    import torch
+
+    from pathway_tpu_torch.ops.knn_kernels import score_float_reference
+
+    q = torch.from_numpy(np.asarray(vecs, np.float32)).to(slab.device)
+    q = q / (torch.linalg.vector_norm(q, dim=1, keepdim=True) + 1e-12)
+    return score_float_reference(q.to(torch.bfloat16).float(), slab, valid,
+                                 "cos")
+
+
+def marker_chat():
+    """A deterministic offline chat in the manner of the JAX package's
+    tests' ``FakeChat`` (tests/test_llm_xpack.py:37): ``marker_answer``
+    over the prompt's documents; every call's document count recorded by
+    question."""
+    import threading
+
+    from pathway_tpu_torch.xpacks.llm import llms
+
+    class Chat(llms.BaseChat):
+        def __init__(self):
+            super().__init__()
+            self.calls: dict = {}
+            self._lock = threading.Lock()
+
+        async def __wrapped__(self, messages, **kwargs):
+            prompt = self._as_messages(messages)[-1]["content"]
+            docs, question = prompt_parts(prompt)
+            with self._lock:
+                self.calls.setdefault(question, []).append(len(docs))
+            return marker_answer(docs, question)
+
+    return Chat()
+
+
+def tap_index(index) -> dict:
+    """Records what an engine index (a ``DeviceEmbeddingKnnIndex``) is
+    fed and asked: ``added`` (key -> text), ``adds`` (rows and host
+    seconds of each ``add_batch``) and ``searches`` ((batch, replies) of
+    its inner index, whose batch holds the query vectors)."""
+    rec = {"inner": index.inner, "added": {}, "searches": [], "adds": []}
+    add_batch, search = index.add_batch, index.inner.search
+
+    def tapped_add(keys, texts, filter_data=None):
+        for k, t in zip(keys, texts):
+            rec["added"][int(k)] = str(t)
+        t0 = time.perf_counter()
+        out = add_batch(keys, texts, filter_data)
+        rec["adds"].append((len(keys), time.perf_counter() - t0))
+        return out
+
+    def tapped_search(batch):
+        replies = search(batch)
+        rec["searches"].append((batch, replies))
+        return replies
+
+    index.add_batch = tapped_add
+    index.inner.search = tapped_search
+    return rec
+
+
+def index_rows(inner) -> tuple:
+    """(key of each slot or -1, the slab's rows, their valid flags) over
+    an index's established extents."""
+    import torch
+
+    exts = [e for e in inner._pool.extents if e.established]
+    slots = np.concatenate([e.base + np.arange(e.rows) for e in exts])
+    keys_of = np.array([int(inner._slot_to_key.get(int(s), -1))
+                        for s in slots])
+    return (keys_of, torch.cat([e.vectors for e in exts]),
+            torch.cat([e.valid for e in exts]))
+
+
+def phase_adaptive_rag(seed: int, card: str) -> dict:
+    """BASELINE.md config 3, the Adaptive-RAG template, at BGE-small's
+    full width through the port's normal entry points: ``RAG_FILES`` text
+    files (``RAG_TEXTS_PER_FILE`` make_docs texts each) written into a
+    directory in batches of ``RAG_FILE_BATCH`` while ``pw.io.fs.read(dir,
+    format="plaintext_by_file", mode="streaming", with_metadata=True)``
+    reads it; ``VectorStoreServer`` with ``TokenCountSplitter(max_tokens=
+    120)``, bench's ``EncoderEmbedder`` (padded, max_len 128, bench's
+    WordPiece) and a bf16 cos ``default_brute_force_knn_document_index``;
+    ``AdaptiveRAGQuestionAnswerer(n_starting_documents=2, factor=2,
+    max_iterations=3)`` with an offline chat (``marker_chat``: it answers
+    when a document of its prompt holds the question's marker, its last
+    three words) behind ``run_server(threaded=True)`` on a free port.
+
+    Every chunk starts with its own marker word (``rag_texts``), which
+    bench's WordPiece reads as [UNK]. A question is 60 words of a chunk
+    and the marker of that chunk's 2nd-ranked neighbour, its 3rd or 4th,
+    its 5th to 8th, or of a random chunk (ranked by the plain encoder and
+    a plain scan), so that the plain path answers some at 2 documents,
+    some at 4, some at 8 and some never. ``RAG_QUESTIONS`` ``POST
+    /v1/pw_ai_answer``; then ``RAG_NEW_FILES`` files written while the
+    server runs, and ``RAG_NEW_QUESTIONS`` (a new file's first chunk,
+    whose marker no other chunk holds), asked once a tick has passed. Each answer and its chat
+    calls are held against the plain path: the engine's query embedding
+    against the plain encoder (row cosine >= 0.999), the engine's 8
+    documents against a plain scan of the index's own rows (keys in rank
+    order up to 1e-6 score ties), and the geometric strategy on the host
+    over those documents (the same answer, the same documents in each
+    call). Also ``/v1/retrieve`` (k=8, against the plain scan),
+    ``/v1/statistics`` (file_count = files written) and ``RAGClient``
+    against the raw POSTs; then ``EncoderReranker(emb)`` over the
+    retrieved (document, question) pairs and ``rerank_topk_filter`` under
+    ``run_batch``, the scores against the plain encoder and a numpy
+    cosine (``RERANK_TOL``). Prints answer latency, chunks indexed a
+    second, chat calls a question, K1 and K2 launches, peak memory and
+    the phase's seconds; returns the launches by LaunchCount."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_ops import ExternalIndexOperator
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.runner import GraphRunner
+    from pathway_tpu_torch.models.encoder import EncoderConfig, init_params_host
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+    from pathway_tpu_torch.ops.knn_kernels import TOPK_BF16
+    from pathway_tpu_torch.stdlib.indexing import \
+        default_brute_force_knn_document_index
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+    from pathway_tpu_torch.xpacks.llm.prompts import NO_INFO_ANSWER
+    from pathway_tpu_torch.xpacks.llm.question_answering import (
+        AdaptiveRAGQuestionAnswerer, RAGClient)
+    from pathway_tpu_torch.xpacks.llm.rerankers import (EncoderReranker,
+                                                       rerank_topk_filter)
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+    label = "adaptive rag"
+    t_phase = time.perf_counter()
+    n0, factor, iters = 2, 2, 3
+    top_n = n0 * factor ** (iters - 1)
+    cfg = EncoderConfig.bge_small()
+    emb = EncoderEmbedder(
+        config=cfg, params=init_params_host(seed, cfg),
+        tokenizer=framework_tokenizer(BENCH_SEQ), max_len=BENCH_SEQ,
+        max_batch_size=FRAMEWORK_BATCH, device="cuda")
+    splitter = TokenCountSplitter(max_tokens=RAG_MAX_TOKENS)
+    files = rag_texts(RAG_FILES, 0, seed + 31)
+    new_files = rag_texts(RAG_NEW_FILES, RAG_FILES, seed + 32)
+    file_chunks = [splitter.chunk(t) for t in files + new_files]
+    if any(c.split()[0] != f"ж{f}x{i}"
+           for f, fc in enumerate(file_chunks) for i, (c, _) in enumerate(fc)):
+        fail(f"{label}: a chunk of the splitter does not start with its "
+             "marker")
+    n_chunks = sum(len(c) for c in file_chunks[:RAG_FILES])
+    n_new_chunks = sum(len(c) for c in file_chunks[RAG_FILES:])
+    root = tempfile.mkdtemp(prefix="smoke_rag_")
+    docs_dir, stage = os.path.join(root, "docs"), os.path.join(root, "stage")
+    os.makedirs(docs_dir)
+    os.makedirs(stage)
+
+    G.clear()
+    docs = pw.io.fs.read(docs_dir, format="plaintext_by_file",
+                         mode="streaming", with_metadata=True)
+    store = VectorStoreServer(
+        docs, embedder=emb, splitter=splitter,
+        index_builder=lambda chunks: default_brute_force_knn_document_index(
+            chunks.text, chunks, embedder=emb,
+            dimensions=emb.get_embedding_dimension(),
+            reserved_space=n_chunks + n_new_chunks + 64, dtype="bfloat16"))
+    chat = marker_chat()
+    rag = AdaptiveRAGQuestionAnswerer(chat, store, n_starting_documents=n0,
+                                      factor=factor, max_iterations=iters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served = Served(label, lambda: rag.run_server(
+        host="127.0.0.1", port=0, threaded=True, with_cache=False))
+    ask_none = {"metadata_filter": None, "filepath_globpattern": None}
+    try:
+        wait_for(lambda: rag.server is not None, "run_server", served)
+        rt = served.runtime(rag.server.webserver)
+        base = f"http://127.0.0.1:{rag.server.webserver.port}"
+        # one index a query route, as in the JAX package: the answers'
+        # and /v1/retrieve's, each fed every chunk
+        taps = [tap_index(n.op.index) for n in rt.runner.graph.nodes
+                if isinstance(n.op, ExternalIndexOperator)]
+        if len(taps) != 2:
+            fail(f"{label}: {len(taps)} engine indexes, not the answer "
+                 "route's and the retrieve route's")
+        inners = [t["inner"] for t in taps]
+        for count in LAUNCH_COUNTS:
+            count.launches = 0
+        t_go = time.perf_counter()
+        before = {st["id"]: (st["count"], st["sum_ms"])
+                  for st in rt.recorder.op_stats()}
+        tick0 = rt._last_completed_tick
+        batch_s = []
+        for b in range(0, RAG_FILES, RAG_FILE_BATCH):
+            write_files(docs_dir, stage, files[b:b + RAG_FILE_BATCH], b)
+            want = sum(len(c) for c in file_chunks[:b + RAG_FILE_BATCH])
+            wait_for(lambda: min(len(x._key_to_slot) for x in inners)
+                     >= want, f"{want} chunks in both indexes", served,
+                     timeout=300)
+            batch_s.append(time.perf_counter() - t_go - sum(batch_s))
+        ingest_s = time.perf_counter() - t_go
+        ingest_where = window_attribution(rt.recorder, before, tick0)
+        want_chunks = sorted(c for fc in file_chunks[:RAG_FILES]
+                             for c, _ in fc)
+        for t in taps:
+            if len(t["inner"]._key_to_slot) != n_chunks or \
+                    sorted(t["added"].values()) != want_chunks:
+                fail(f"{label}: an index holds {len(t['added'])} texts, not "
+                     f"the {n_chunks} chunks of {RAG_FILES} files")
+        added = taps[0]["added"]
+
+        # the questions, aimed by the plain path (plain encoder, plain
+        # scan): every marker is [UNK] to the tokenizer, so a question's
+        # neighbours do not depend on which marker it ends with
+        keys_of, slab, valid = index_rows(inners[0])
+        old_keys = set(added)
+        col_text = [added.get(int(k), "") for k in keys_of]
+        rng = np.random.default_rng(seed + 33)
+        live = np.flatnonzero(valid.cpu().numpy())
+        picks = rng.choice(live, RAG_QUESTIONS, replace=False)
+        bases = [" ".join(col_text[c].split()[1:RAG_BASE_WORDS + 1])
+                 for c in picks]
+        near = torch.topk(bf16_scan(plain_embed(
+            emb, [f"{b} ж" for b in bases]), slab, valid), 12,
+            dim=1).indices.cpu().numpy()
+        aims = [(1,), (2, 3), (4, 5, 6, 7), None]
+        questions = []
+        for qi, c in enumerate(picks):
+            aim = aims[qi % 4]
+            if aim is None:
+                target = int(rng.choice(live))
+                while target in near[qi]:
+                    target = int(rng.choice(live))
+            else:
+                target = int(near[qi][aim[(qi // 4) % len(aim)]])
+            questions.append(f"{bases[qi]} {col_text[target].split()[0]}")
+        answers, answer_ms = [], []
+        s0 = [len(t["searches"]) for t in taps]
+        for q in questions:
+            text, ms = post_text(base + "/v1/pw_ai_answer", {"prompt": q})
+            answers.append(text)
+            answer_ms.append(ms)
+        ans_tap = max(range(2), key=lambda i: len(taps[i]["searches"])
+                      - s0[i])
+        searches = taps[ans_tap]["searches"]
+        ret_searches = taps[1 - ans_tap]["searches"]
+        asked = searches[s0[ans_tap]:]
+        # incremental re-index: new files while the server runs
+        t_new = time.perf_counter()
+        write_files(docs_dir, stage, new_files, RAG_FILES)
+        wait_for(lambda: min(len(x._key_to_slot) for x in inners)
+                 >= n_chunks + n_new_chunks,
+                 "the new files' chunks in both indexes", served,
+                 timeout=300)
+        new_s = time.perf_counter() - t_new
+        tick = rt._last_completed_tick
+        wait_for(lambda: rt.scheduler.bridge_stats()["resolved_watermark"]
+                 > tick, "a tick after the new files", served)
+        # a new file's first chunk, word for word: its marker is in no
+        # other chunk
+        new_questions = [
+            file_chunks[RAG_FILES + f][0][0] for f in range(
+                0, RAG_NEW_FILES, RAG_NEW_FILES // RAG_NEW_QUESTIONS)
+        ][:RAG_NEW_QUESTIONS]
+        s1 = len(searches)
+        new_answers = [post_text(base + "/v1/pw_ai_answer",
+                                 {"prompt": q})[0] for q in new_questions]
+        new_asked = searches[s1:]
+        calls = {q: list(chat.calls.get(q, [])) for q in
+                 questions + new_questions}
+        # retrieve, statistics and the client against the raw POSTs
+        s2 = len(ret_searches)
+        retrieved = [post_json(base + "/v1/retrieve", {
+            "query": q, "k": top_n, **ask_none})[0]
+            for q in questions[:RAG_RETRIEVES]]
+        retrieve_searches = ret_searches[s2:]
+        stats = post_json(base + "/v1/statistics", {})[0]
+        client = RAGClient(url=base, timeout=120)
+        via_client = (client.retrieve(questions[0], k=top_n),
+                      client.statistics(), client.answer(questions[0]))
+        raw = (post_json(base + "/v1/retrieve", {
+            "query": questions[0], "k": top_n, **ask_none})[0],
+            post_json(base + "/v1/statistics", {})[0],
+            post_text(base + "/v1/pw_ai_answer",
+                      {"prompt": questions[0]})[0])
+        keys_of, slab, valid = index_rows(inners[ans_tap])
+        r_rows = index_rows(inners[1 - ans_tap])
+    finally:
+        served.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    # the reranker over the retrieved (document, question) pairs
+    key_text = dict(added)
+    pairs = []
+    for qi, (q, (batch, replies)) in enumerate(zip(questions, asked)):
+        for r, (k, _) in enumerate(replies[0]):
+            pairs.append((key_text[int(k)], q, qi, r))
+    rr = EncoderReranker(emb)
+    pair_t = pw.debug.table_from_rows(
+        pw.schema_from_types(doc=str, q=str, qi=int, r=int), pairs)
+    runner = GraphRunner()
+    cap = runner.capture(pair_t.select(pw.this.qi, pw.this.r,
+                                       score=rr(pw.this.doc, pw.this.q)))
+    runner.run_batch(n_workers=1)
+    scored = {(qi, r): s for _, (qi, r, s), _, _ in cap.events}
+    lists = [(tuple(p[0] for p in pairs if p[2] == qi),
+              tuple(scored[(qi, r)] for r in range(top_n)), RAG_RERANK_K)
+             for qi in range(len(questions))]
+    list_t = pw.debug.table_from_rows(
+        pw.schema_from_types(docs=tuple, scores=tuple, k=int), lists)
+    runner = GraphRunner()
+    kept_cap = runner.capture(list_t.select(kept=rerank_topk_filter(
+        pw.this.docs, pw.this.scores, pw.this.k)))
+    runner.run_batch(n_workers=1)
+    launches = {c: c.launches for c in LAUNCH_COUNTS}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+    # the holds
+    if len(asked) != len(questions) or any(len(b) != 1 for b, _ in asked):
+        fail(f"{label}: {len(questions)} questions made {len(asked)} "
+             "searches, not one each")
+    if len(new_asked) != len(new_questions):
+        fail(f"{label}: the new questions made {len(new_asked)} searches")
+    all_q = questions + new_questions
+    all_s = asked + new_asked
+    got_q = np.stack([np.asarray(b[0][1], np.float64) for b, _ in all_s])
+    ref_q = plain_embed(emb, all_q)
+    q_cos = np.sum(got_q * ref_q, 1) / (np.linalg.norm(got_q, axis=1)
+                                        * np.linalg.norm(ref_q, axis=1))
+    if not np.all(np.isfinite(got_q)) or q_cos.min() < 0.999:
+        fail(f"{label}: a question's embedding is off the plain encoder's "
+             f"(min row cosine {q_cos.min():.6f})")
+    # the first questions were answered before the new files came
+    old_rows = torch.from_numpy(np.array(
+        [int(k) in old_keys for k in keys_of])).to(valid.device)
+    n_q = len(questions)
+    scan = torch.cat([bf16_scan(got_q[:n_q], slab, valid & old_rows),
+                      bf16_scan(got_q[n_q:], slab, valid)])
+    category = {}
+    for qi, (q, (batch, replies)) in enumerate(zip(all_q, all_s)):
+        got = list(replies[0])
+        check_top10([got], scan[qi:qi + 1], keys_of,
+                    f"{label} question {qi}", n=top_n)
+        docs_got = [key_text[int(k)] for k, _ in got]
+        want, want_calls = plain_geometric(docs_got, q, n0, factor, iters)
+        reply = (answers + new_answers)[qi]
+        if reply != want or calls[q] != want_calls:
+            fail(f"{label} question {qi}: answer {reply!r} after calls "
+                 f"{calls[q]}, the plain path's {want!r} after {want_calls}")
+        category[qi] = want_calls[-1] if want != NO_INFO_ANSWER else None
+    counts = {c: sum(1 for qi in range(len(questions))
+                     if category[qi] == c) for c in (2, 4, 8, None)}
+    if min(counts.values()) == 0:
+        fail(f"{label}: answered at 2 / 4 / 8 documents / never: "
+             f"{list(counts.values())}, each must be > 0")
+    unanswered = [qi for qi in range(len(questions), len(all_q))
+                  if category[qi] is None]
+    if unanswered:
+        fail(f"{label}: {len(unanswered)} questions on the new files were "
+             "not answered once a tick had passed")
+    for qi, reply in enumerate(retrieved):
+        batch, replies = retrieve_searches[qi]
+        if len(reply) != top_n:
+            fail(f"{label} retrieve {qi}: {len(reply)} matches")
+        text_key = {t: k for k, t in key_text.items()}
+        got = [(text_key[m["text"]], m["dist"]) for m in reply]
+        rs = bf16_scan(np.asarray(batch[0][1], np.float64)[None, :],
+                       r_rows[1], r_rows[2])
+        check_top10([got], rs, r_rows[0], f"{label} retrieve {qi}", n=top_n)
+        cols = [int(np.flatnonzero(r_rows[0] == int(k))[0]) for k, _ in got]
+        err = float(np.abs(np.array([d for _, d in got])
+                           - (1.0 - rs[0, cols].cpu().numpy())).max())
+        if not err <= 1e-5:
+            fail(f"{label} retrieve {qi}: dist off the scan by {err:.3e}")
+        for m in reply:
+            f = int(os.path.basename(m["metadata"]["path"])[1:6])
+            if m["text"] not in [c for c, _ in file_chunks[f]]:
+                fail(f"{label} retrieve {qi}: a match's path is not its "
+                     "file's")
+    if stats.get("file_count") != RAG_FILES + RAG_NEW_FILES:
+        fail(f"{label}: /v1/statistics file_count {stats.get('file_count')}"
+             f", {RAG_FILES + RAG_NEW_FILES} files written")
+    if via_client != raw:
+        fail(f"{label}: RAGClient's replies differ from the raw POSTs'")
+    # the reranker's scores against the plain encoder and numpy
+    if len(scored) != len(pairs):
+        fail(f"{label}: {len(scored)} reranker scores for {len(pairs)} pairs")
+    d_emb = plain_embed(emb, [p[0] for p in pairs])
+    q_emb = plain_embed(emb, questions)[[p[2] for p in pairs]]
+    plain = np.sum(d_emb * q_emb, 1) / (np.linalg.norm(d_emb, axis=1)
+                                        * np.linalg.norm(q_emb, axis=1))
+    engine = np.array([scored[(p[2], p[3])] for p in pairs])
+    rerank_err = float(np.abs(engine - plain).max())
+    if not rerank_err <= RERANK_TOL:
+        fail(f"{label}: reranker scores off the plain encoder's cosine by "
+             f"{rerank_err:.3e} (> {RERANK_TOL})")
+    for _, (kept,), _, _ in kept_cap.events:
+        kept_docs, kept_scores = kept
+        if len(kept_docs) != RAG_RERANK_K or list(kept_scores) != sorted(
+                kept_scores, reverse=True):
+            fail(f"{label}: rerank_topk_filter kept {kept_scores}")
+    if len(kept_cap.events) != len(questions):
+        fail(f"{label}: {len(kept_cap.events)} reranked lists")
+    for c in (ATTENTION, TOPK_BF16):
+        if not launches[c]:
+            fail(f"{label}: {c.name} was not launched in the phase")
+    n_calls = sum(len(calls[q]) for q in questions)
+    seconds = time.perf_counter() - t_phase
+    ms = np.array(answer_ms)
+    print(f"[{label}] pw.io.fs.read(plaintext_by_file, streaming, "
+          f"with_metadata) of {RAG_FILES} files -> TokenCountSplitter("
+          f"max_tokens={RAG_MAX_TOKENS}) -> bench's embedder (WordPiece, "
+          f"padded, max_len {BENCH_SEQ}) into a bf16 cos index -> "
+          f"AdaptiveRAGQuestionAnswerer({n0}, {factor}, {iters}) behind "
+          f"run_server: {n_chunks} chunks indexed in {ingest_s:.2f} s, "
+          f"{n_chunks / ingest_s:.1f} chunks/s (files written in batches of "
+          f"{RAG_FILE_BATCH}); /v1/pw_ai_answer from the client p50 "
+          f"{np.percentile(ms, 50):.2f} ms, p99 {np.percentile(ms, 99):.2f} "
+          f"ms over {len(questions)} questions; chat calls a question "
+          f"{n_calls / len(questions):.3f} ({n_calls} calls); answered at 2 "
+          f"/ 4 / 8 documents / never: {counts[2]} / {counts[4]} / "
+          f"{counts[8]} / {counts[None]}; {RAG_NEW_FILES} new files "
+          f"({n_new_chunks} chunks) indexed in {new_s:.2f} s [{card}]",
+          flush=True)
+    adds = [a for t in taps for a in t["adds"]]
+    print(f"[{label}] ingest by batch of files: "
+          + ", ".join(f"{s:.2f}" for s in batch_s)
+          + f" s; add_batch calls {len(adds)} (both indexes), rows "
+          f"{sum(n for n, _ in adds)}, host seconds inside "
+          f"{sum(t for _, t in adds):.2f}; by operator (flight recorder, "
+          f"host clock): {ingest_where} [{card}]", flush=True)
+    print(f"[{label}] holds: {len(all_q)} answers and their chat calls equal "
+          f"the plain path's (plain encoder: min row cosine "
+          f"{q_cos.min():.6f} >= 0.999; a plain scan of the index's own "
+          f"rows: keys in rank order up to 1e-6 score ties; the geometric "
+          f"strategy on the host); the {len(new_questions)} questions on the "
+          f"new files all answered a tick after their files; "
+          f"{len(retrieved)} /v1/retrieve k={top_n} equal the scan (dist "
+          f"within 1e-5); /v1/statistics file_count {stats['file_count']} = "
+          f"files written; RAGClient = the raw POSTs; EncoderReranker over "
+          f"{len(pairs)} pairs within {rerank_err:.3e} of the plain "
+          f"encoder's cosine (<= {RERANK_TOL}), rerank_topk_filter keeps "
+          f"{RAG_RERANK_K} in order; launches in the phase: "
+          + ", ".join(f"{c.name} {n}" for c, n in launches.items() if n)
+          + f"; peak device memory {peak_mb:.1f} MiB; phase {seconds:.1f} s "
+          f"[{card}]", flush=True)
+    return launches
+
+
+KNN_ROWS = 10_000        # BASELINE.md config 1: an in-memory CSV of 10k rows
+KNN_DIM = 384
+KNN_QUERIES = 256       # in one batch
+KNN_SINGLE = 32         # one a tick, their searches timed
+KNN_K = 3
+
+
+def knn_groups_hold(got_ids, got_d, ref_ids, ref_d, tol_d: float,
+                    label: str) -> None:
+    """One query's ``k`` ids and distances against an exact scan's first
+    ``k + extra`` (ids by rank, float64 distances, ascending), as
+    tests/test_torch_knn_bf16.py holds the float32 probe: distances
+    within ``tol_d``; ids equal rank by rank outside tie groups (runs of
+    scan distances each within ``tol_d`` of the one before, whose order
+    the float32 sums may set either way), the group's set inside one (a
+    subset where rank k cuts it)."""
+    k = len(got_ids)
+    if not np.allclose(got_d, ref_d[:k], rtol=0, atol=tol_d):
+        fail(f"{label}: distances {got_d} off the exact scan's "
+             f"{ref_d[:k]} (atol {tol_d:.1e})")
+    start = 0
+    while start < k:
+        end = start + 1
+        while end < len(ref_d) and ref_d[end] - ref_d[end - 1] <= tol_d:
+            end += 1
+        got, want = list(got_ids[start:min(end, k)]), list(
+            ref_ids[start:end])
+        if (end - start == 1 and got != want) or not set(got) <= set(want) \
+                or (end <= k and sorted(got) != sorted(want)):
+            fail(f"{label} ranks {start}-{end - 1}: ids {got}, the exact "
+                 f"scan's {want}")
+        start = end
+
+
+def phase_knn_index(seed: int, card: str) -> None:
+    """BASELINE.md config 1, the classic ``stdlib.ml`` KNNIndex in batch
+    mode over an in-memory CSV: ``KNN_ROWS`` rows of ``doc_id`` and 384
+    float32 values (``default_rng(seed + 41)``) written to a temporary CSV
+    and read with ``pw.io.csv.read(..., mode="static")`` (schema from the
+    file), the vector made from the 384 columns by one ``apply``, a Json
+    metadata column (``{"parity": doc_id % 2}``). ``KNNIndex(vec, data,
+    n_dimensions=384, metadata=...)`` twice, ``distance_type="cosine"``
+    and ``"euclidean"`` (float32 slabs on the card: ``torch.matmul`` plus
+    the key selection, no hand-written kernel). ``KNN_QUERIES`` queries in
+    one batch: ``get_nearest_items(k=3, with_distances=True)`` on both, and
+    on the cosine index ``get_nearest_items_asof_now``, a
+    ``metadata_filter`` (even ``doc_id``) and ``collapse_rows=False``; then
+    ``KNN_SINGLE`` queries one a tick through ``get_nearest_items_asof_now``,
+    whose searches are timed one query each; all in one ``run_batch``.
+    Each reply against an exact float64 numpy scan (``knn_groups_hold``:
+    distances within 1e-5 for cosine, 1e-5 of the largest squared norm for
+    euclidean, ids in rank order outside tie groups). Prints rows ingested
+    a second, the index search's p50 for one query and the phase's
+    seconds."""
+    import tempfile
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.runner import GraphRunner
+    from pathway_tpu_torch.ops import knn as knn_mod
+    from pathway_tpu_torch.stdlib.ml import KNNIndex
+
+    label = "knn index"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 41)
+    rows = rng.standard_normal((KNN_ROWS, KNN_DIM)).astype(np.float32)
+    queries = rng.standard_normal((KNN_QUERIES, KNN_DIM)).astype(np.float32)
+    root = tempfile.mkdtemp(prefix="smoke_knn_")
+    path = os.path.join(root, "vectors.csv")
+    t0 = time.perf_counter()
+    header = "doc_id," + ",".join(f"v{j}" for j in range(KNN_DIM))
+    np.savetxt(path, np.column_stack([np.arange(KNN_ROWS), rows]),
+               fmt=["%d"] + ["%.9g"] * KNN_DIM, delimiter=",",
+               header=header, comments="")
+    write_s = time.perf_counter() - t0
+    exact = np.loadtxt(path, delimiter=",", skiprows=1)[:, 1:]
+
+    G.clear()
+    t0 = time.perf_counter()
+    table = pw.io.csv.read(path, mode="static")
+    read_s = time.perf_counter() - t0
+    os.remove(path)
+    os.rmdir(root)
+    cols = [table[f"v{j}"] for j in range(KNN_DIM)]
+    data = table.select(
+        doc_id=pw.this.doc_id,
+        vec=pw.apply_with_type(lambda *xs: np.array(xs), np.ndarray, *cols),
+        meta=pw.apply_with_type(lambda i: {"parity": i % 2}, pw.Json,
+                                pw.this.doc_id))
+    even = (lambda m: (m.value if hasattr(m, "value") else m)["parity"]
+            == 0)
+    q_t = pw.debug.table_from_rows(
+        pw.schema_from_types(qid=int, q=np.ndarray, filt=object),
+        [(i, queries[i].astype(np.float64), even)
+         for i in range(KNN_QUERIES)])
+    single = pw.debug.table_from_rows(
+        pw.schema_from_types(q=np.ndarray),
+        [(queries[i].astype(np.float64), 2 * i + 2, 1)
+         for i in range(KNN_SINGLE)], is_stream=True)
+    cos = KNNIndex(data.vec, data, n_dimensions=KNN_DIM,
+                   distance_type="cosine", metadata=data.meta)
+    l2 = KNNIndex(data.vec, data, n_dimensions=KNN_DIM,
+                  distance_type="euclidean", metadata=data.meta)
+    outs = {
+        "cos": cos.get_nearest_items(q_t.q, k=KNN_K, with_distances=True),
+        "l2": l2.get_nearest_items(q_t.q, k=KNN_K, with_distances=True),
+        "asof": cos.get_nearest_items_asof_now(q_t.q, k=KNN_K,
+                                               with_distances=True),
+        "filter": cos.get_nearest_items(q_t.q, k=KNN_K, with_distances=True,
+                                        metadata_filter=q_t.filt),
+        "flat": cos.get_nearest_items(q_t.q, k=KNN_K, collapse_rows=False),
+        "single": cos.get_nearest_items_asof_now(single.q, k=KNN_K,
+                                                 with_distances=True),
+        "queries": q_t.select(pw.this.qid),
+    }
+    adds, search_ms = [], []
+    add_batch, search = (knn_mod.BruteForceKnnIndex.add_batch,
+                         knn_mod.BruteForceKnnIndex.search)
+
+    def timed_add(self, *args, **kwargs):
+        t = time.perf_counter()
+        out = add_batch(self, *args, **kwargs)
+        self.flush_device()
+        torch.cuda.synchronize()
+        adds.append((len(args[0]), time.perf_counter() - t))
+        return out
+
+    def timed_search(self, batch):
+        t = time.perf_counter()
+        out = search(self, batch)
+        search_ms.append((len(batch), (time.perf_counter() - t) * 1e3))
+        return out
+
+    knn_mod.BruteForceKnnIndex.add_batch = timed_add
+    knn_mod.BruteForceKnnIndex.search = timed_search
+    try:
+        runner = GraphRunner()
+        caps = {name: runner.capture(t) for name, t in outs.items()}
+        t0 = time.perf_counter()
+        runner.run_batch(n_workers=1)
+        run_s = time.perf_counter() - t0
+    finally:
+        knn_mod.BruteForceKnnIndex.add_batch = add_batch
+        knn_mod.BruteForceKnnIndex.search = search
+        G.clear()
+
+    # the exact float64 scans
+    unit = exact / np.linalg.norm(exact, axis=1, keepdims=True)
+    qd = queries.astype(np.float64)
+    qunit = qd / np.linalg.norm(qd, axis=1, keepdims=True)
+    extra = KNN_K + 16
+    scans = {
+        "cos": 1.0 - qunit @ unit.T,
+        "l2": ((qd ** 2).sum(1)[:, None] + (exact ** 2).sum(1)[None, :]
+               - 2.0 * qd @ exact.T),
+    }
+    scans["filter"] = np.where(np.arange(KNN_ROWS)[None, :] % 2 == 0,
+                               scans["cos"], np.inf)
+    l2_tol = 1e-5 * float((exact ** 2).sum(1).max())
+    qid_of = {int(k): row[0] for k, row, _, _ in caps["queries"].events}
+    for name, cap in caps.items():
+        if any(diff != 1 for _, _, _, diff in cap.events):
+            fail(f"{label} {name}: a retraction in a batch run")
+    for name in ("cos", "l2", "asof", "filter", "single"):
+        if name == "single":
+            got = [(t // 2 - 1, row) for _, row, t, _ in caps[name].events]
+            n_want = KNN_SINGLE
+        else:
+            got = [(qid_of[int(k)], row) for k, row, _, _ in
+                   caps[name].events]
+            n_want = KNN_QUERIES
+        if sorted(q for q, _ in got) != list(range(n_want)):
+            fail(f"{label} {name}: {len(got)} replies, not one a query")
+        scan = scans["cos" if name in ("asof", "single") else name]
+        for qi, (dist, doc_ids, _vec, _meta) in got:
+            order = np.argsort(scan[qi], kind="stable")[:extra]
+            knn_groups_hold(
+                np.asarray(doc_ids), np.asarray(dist, np.float64),
+                order, scan[qi][order],
+                l2_tol if name == "l2" else 1e-5,
+                f"{label} {name} query {qi}")
+    flat = sorted((int(row[0]), int(k)) for k, row, _, _ in
+                  caps["flat"].events)
+    collapsed = sorted((int(i), int(k)) for k, row, _, _ in
+                       caps["cos"].events for i in row[1])
+    if [i for i, _ in flat] != [i for i, _ in collapsed] or \
+            len(flat) != KNN_QUERIES * KNN_K:
+        fail(f"{label}: collapse_rows=False's rows differ from the collapsed"
+             " replies'")
+    one = [ms for n, ms in search_ms if n == 1]
+    if len(one) != KNN_SINGLE:
+        fail(f"{label}: {len(one)} one-query searches, {KNN_SINGLE} sent")
+    n_added = sum(n for n, _ in adds)
+    add_s = sum(s for _, s in adds)
+    seconds = time.perf_counter() - t_phase
+    print(f"[{label}] KNNIndex over pw.io.csv.read(static) of {KNN_ROWS} "
+          f"rows x {KNN_DIM} floats, cosine and euclidean (float32 slabs on "
+          f"the card): CSV written in {write_s:.2f} s, read in "
+          f"{read_s:.2f} s ({KNN_ROWS / read_s:.1f} rows/s); index ingest "
+          f"{n_added} rows in {add_s:.3f} s ({n_added / add_s:.1f} rows/s, "
+          f"{len(adds)} add_batch calls, one a query route's index); "
+          f"run_batch {run_s:.2f} s ({KNN_QUERIES} queries in one batch through 5 query routes, "
+          f"then {KNN_SINGLE} one a tick); the index search for one query "
+          f"p50 {np.percentile(one, 50):.3f} ms, p99 "
+          f"{np.percentile(one, 99):.3f} ms, for {KNN_QUERIES} p50 "
+          f"{np.percentile([ms for n, ms in search_ms if n > 1], 50):.3f} ms"
+          f" (host clock, results on the host) [{card}]", flush=True)
+    print(f"[{label}] holds: get_nearest_items (cosine, euclidean), "
+          f"get_nearest_items_asof_now, a metadata_filter (even doc_id) and "
+          f"collapse_rows=False over {KNN_QUERIES} queries, and "
+          f"{KNN_SINGLE} one a tick, equal an exact float64 scan "
+          f"(distances within 1e-5, euclidean within {l2_tol:.3e}; ids in "
+          f"rank order outside groups of distances within those of each "
+          f"other); phase {seconds:.1f} s [{card}]", flush=True)
 
 
 # (D, rows a tick, groups a tick, rows of one large group): each case runs
@@ -6518,9 +7352,9 @@ def main() -> None:
         args.docs, args.seed, card)
     done("path 1")
     k1["launches_engine"], k1_seg["launches_engine"] = phase_engine(
-        args.docs, args.seed, card)
+        min(args.docs, ENGINE_DOCS), args.seed, card)
     done("engine")
-    fw = phase_framework(args.docs, args.seed, card)
+    fw = phase_framework(min(args.docs, ENGINE_DOCS), args.seed, card)
     for rec, key in ((k1, (ATTENTION, False)), (k1_seg, (ATTENTION, True)),
                      (k2, TOPK_BF16), (k2_score, SCORE_BF16),
                      (k3_topk, TOPK_I8), (k3, SCORE_I8),
@@ -6535,9 +7369,15 @@ def main() -> None:
     for rec, key in ((k1, ATTENTION), (k2, TOPK_BF16),
                      (k2_score, SCORE_BF16)):
         rec["launches_serving"] = sum(run[key] for run in served)
-    gc.collect()  # graph B's index and encoder, and their cached blocks
-    torch.cuda.empty_cache()
     done("serving")
+    rag = phase_adaptive_rag(args.seed, card)
+    k1["launches_adaptive_rag"], k2["launches_adaptive_rag"] = (
+        rag[ATTENTION], rag[TOPK_BF16])
+    done("adaptive rag")
+    phase_knn_index(args.seed, card)
+    gc.collect()  # graph B's and the RAG phase's indexes and encoders
+    torch.cuda.empty_cache()
+    done("knn index")
     phase_array_sum(args.seed, card)
     done("array_sum")
     (k1_seg["launches"], k3_topk_path2, k3["launches"],

@@ -27,6 +27,12 @@ the KNN kernels under the same ``run_batch``. The served path:
 The temporal layer: ``pw.temporal`` (alias ``pw.window``: windows,
 behaviors, as-of-now / as-of / interval / window joins), ``Table.sort``,
 ``pw.stdlib.ordered.diff`` and ``pw.stdlib.statistical.interpolate``.
+Files come in through ``pw.io.fs`` (and ``pw.io.csv``,
+``pw.io.plaintext``, ``pw.io.jsonlines``), static or streaming; the
+classic ``pw.stdlib.ml.KNNIndex`` and the Adaptive-RAG template
+(``xpacks.llm.question_answering.AdaptiveRAGQuestionAnswerer`` with its
+splitter, chats, rerankers and REST server) run BASELINE.md's configs 1
+and 3.
 ``pw.warmup(embedder, index=...)`` walks the serving shapes before the
 first tick and, under ``PATHWAY_DEVICE_SANITIZER``, declares the steady
 state that engine/device_sanitizer.py guards.

@@ -1,13 +1,14 @@
 """Class-based schemas — port of pathway_tpu/internals/schema.py.
 
 ``class MySchema(pw.Schema): x: int = pw.column_definition(primary_key=True)``
-plus builders: schema_from_types / schema_from_dict / schema_builder,
-schema union via ``|``. The pandas and CSV builders are not ported
+plus builders: schema_from_types / schema_from_dict / schema_builder /
+schema_from_csv, schema union via ``|``. The pandas builder is not ported
 (ROADMAP queue 1, step 9: pandas I/O).
 """
 
 from __future__ import annotations
 
+import csv as _csv
 import typing
 from dataclasses import dataclass
 from typing import Any, Mapping
@@ -241,3 +242,48 @@ def schema_builder(columns: dict[str, ColumnDefinition], *,
     out = schema_from_columns(cols, name=name)
     out.__properties__ = properties
     return out
+
+
+def schema_from_csv(path: str, *, name: str = "Schema", properties=None,
+                    delimiter: str = ",", comment_character: str | None = None,
+                    quote: str = '"', double_quote_escapes: bool = True,
+                    num_parsed_rows: int | None = None) -> type[Schema]:
+    with open(path, newline="") as f:
+        reader = _csv.reader(f, delimiter=delimiter, quotechar=quote)
+        rows = []
+        header = None
+        for row in reader:
+            if comment_character and row and row[0].startswith(comment_character):
+                continue
+            if header is None:
+                header = row
+                continue
+            rows.append(row)
+            if num_parsed_rows is not None and len(rows) >= num_parsed_rows:
+                break
+    assert header is not None, "empty csv"
+    cols = {}
+    for i, cname in enumerate(header):
+        values = [r[i] for r in rows if i < len(r)]
+        cols[cname] = ColumnSchema(name=cname, dtype=_infer_str_dtype(values))
+    return schema_from_columns(cols, name=name)
+
+
+def _infer_str_dtype(values: list[str]) -> dt.DType:
+    def all_parse(fn):
+        try:
+            for v in values:
+                fn(v)
+            return True
+        except ValueError:
+            return False
+
+    if not values:
+        return dt.STR
+    if all_parse(int):
+        return dt.INT
+    if all_parse(float):
+        return dt.FLOAT
+    if all(v.lower() in ("true", "false") for v in values):
+        return dt.BOOL
+    return dt.STR

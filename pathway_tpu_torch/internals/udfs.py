@@ -356,6 +356,19 @@ class UDF(ReplicaShared):
         self._prepared = fn
         return fn, self._is_async
 
+    def prepared_async(self) -> Callable:
+        """Async callable with this UDF's retry/timeout/capacity/cache
+        wrapping applied — for direct (non-column) invocation, e.g. the
+        adaptive RAG loop calling a chat model outside the engine."""
+        fn, is_async = self._prepare()
+        if is_async:
+            return fn
+
+        async def as_async(*args, **kwargs):
+            return fn(*args, **kwargs)
+
+        return as_async
+
     def __call__(self, *args, **kwargs) -> ex.ColumnExpression:
         fn, is_async = self._prepare()
         ret = self._infer_return_type(self.func)
@@ -407,3 +420,75 @@ def udf(fun: Callable | None = None, /, *, return_type: Any = None,
     if fun is not None:
         return wrapper(fun)
     return wrapper
+
+
+def coerce_async(fn: Callable) -> Callable:
+    """``fn`` as a coroutine function (a sync one is wrapped)."""
+    if inspect.iscoroutinefunction(fn):
+        return fn
+
+    @functools.wraps(fn)  # keep name/doc/annotations for type inference
+    async def as_async(*args, **kwargs):
+        return fn(*args, **kwargs)
+
+    return as_async
+
+
+# -- deprecated public aliases/helpers (reference udfs __all__) -------------
+
+def udf_async(fun=None, *, capacity=None, timeout=None,
+              retry_strategy=None, cache_strategy=None, **kwargs):
+    """Deprecated alias of ``udf`` for async callables; the reference's
+    capacity/timeout/retry_strategy kwargs map onto an async executor."""
+    if capacity is not None or timeout is not None \
+            or retry_strategy is not None:
+        kwargs.setdefault("executor", async_executor(
+            capacity=capacity, timeout=timeout,
+            retry_strategy=retry_strategy))
+    if cache_strategy is not None:
+        kwargs.setdefault("cache_strategy", cache_strategy)
+    return udf(fun, **kwargs) if fun is not None else udf(**kwargs)
+
+
+class UDFSync(UDF):
+    """Deprecated alias of UDF (sync path)."""
+
+
+class UDFAsync(UDF):
+    """Deprecated alias of UDF (async path)."""
+
+
+def _rewrapped(fn, options: dict):
+    exec_ = async_executor(
+        capacity=options.get("capacity"),
+        timeout=options.get("timeout"),
+        retry_strategy=options.get("retry_strategy"))
+    return _wrap_async(coerce_async(fn), exec_,
+                       options.get("cache_strategy"))
+
+
+def async_options(**options):
+    """Decorator applying async-execution options (capacity/timeout/
+    retry_strategy/cache_strategy) to a coroutine function
+    (reference: udfs.async_options)."""
+
+    def wrapper(fn):
+        return _rewrapped(fn, options)
+
+    return wrapper
+
+
+def with_capacity(fn, capacity: int):
+    return _rewrapped(fn, {"capacity": capacity})
+
+
+def with_timeout(fn, timeout: float):
+    return _rewrapped(fn, {"timeout": timeout})
+
+
+def with_retry_strategy(fn, retry_strategy):
+    return _rewrapped(fn, {"retry_strategy": retry_strategy})
+
+
+def with_cache_strategy(fn, cache_strategy):
+    return _rewrapped(fn, {"cache_strategy": cache_strategy})

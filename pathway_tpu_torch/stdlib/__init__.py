@@ -1,13 +1,13 @@
 """Port counterpart of the same-named pathway_tpu subpackage.
 
-``indexing``, ``ordered``, ``statistical`` and ``temporal`` load on first
-attribute access (``pw.stdlib.temporal``)."""
+``indexing``, ``ml``, ``ordered``, ``statistical`` and ``temporal`` load on
+first attribute access (``pw.stdlib.temporal``)."""
 
 from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("indexing", "ordered", "statistical", "temporal")
+_SUBMODULES = ("indexing", "ml", "ordered", "statistical", "temporal")
 
 
 def __getattr__(name: str):

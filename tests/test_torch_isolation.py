@@ -1,6 +1,6 @@
 """The port stands alone: pathway_tpu_torch (and chip_smoke.py) import
-neither jax nor anything of pathway_tpu, nor aiohttp, optax or any other
-package the chip machine lacks (it has Python's standard library, torch,
+neither jax nor anything of pathway_tpu, nor aiohttp, optax, pandas or any
+other package the chip machine lacks (it has Python's standard library, torch,
 triton, numpy, scipy, einops, pytest and hypothesis; PIL only inside the
 function that decodes image bytes), and its entry points never drop to
 the CPU unless asked."""
@@ -159,6 +159,88 @@ def test_temporal_runs_with_pandas_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "PANDAS [] False" in proc.stdout, proc.stdout
+
+
+_CONFIGS = """
+import os
+import sys
+import tempfile
+
+BLOCKED = ("pandas", "pyarrow", "jax", "pathway_tpu", "aiohttp", "optax")
+for name in BLOCKED:  # importing any of them raises; find_spec says absent
+    sys.modules[name] = None
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.internals.runner import GraphRunner
+from pathway_tpu_torch.models.encoder import EncoderConfig
+from pathway_tpu_torch.stdlib.indexing import (
+    default_brute_force_knn_document_index)
+from pathway_tpu_torch.stdlib.ml import KNNIndex
+from pathway_tpu_torch.xpacks.llm import llms, prompts, rerankers
+from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+from pathway_tpu_torch.xpacks.llm.question_answering import (
+    AdaptiveRAGQuestionAnswerer)
+from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+root = tempfile.mkdtemp()
+# config 1: a CSV into KNNIndex
+with open(os.path.join(root, "v.csv"), "w") as f:
+    f.write("doc_id,a,b,c\\n" + "".join(
+        f"{i},{i % 3},{i % 5},{i % 7}\\n" for i in range(30)))
+t = pw.io.csv.read(os.path.join(root, "v.csv"), mode="static")
+data = t.select(pw.this.doc_id, vec=pw.apply_with_type(
+    lambda *xs: np.array(xs, float), np.ndarray, t.a, t.b, t.c))
+qs = pw.debug.table_from_rows(pw.schema_from_types(q=np.ndarray),
+                              [(np.array([1.0, 2.0, 3.0]),)])
+near = KNNIndex(data.vec, data, n_dimensions=3, device="cpu"
+                ).get_nearest_items(qs.q, k=2, with_distances=True)
+# config 3: files into the adaptive answerer, with its reranker
+docs_dir = os.path.join(root, "docs")
+os.makedirs(docs_dir)
+for i in range(6):
+    with open(os.path.join(docs_dir, f"f{i}.txt"), "w") as f:
+        f.write(f"document {i} about word{i} and word{i + 1}")
+
+
+class Chat(llms.BaseChat):
+    async def __wrapped__(self, messages, **kwargs):
+        prompt = self._as_messages(messages)[-1]["content"]
+        return "yes" if prompt.count("[doc ") >= 2 else prompts.NO_INFO_ANSWER
+
+
+emb = EncoderEmbedder(config=EncoderConfig.tiny(), device="cpu")
+store = VectorStoreServer(
+    pw.io.fs.read(docs_dir, format="plaintext_by_file", mode="static",
+                  with_metadata=True),
+    embedder=emb, splitter=TokenCountSplitter(max_tokens=5),
+    index_builder=lambda c: default_brute_force_knn_document_index(
+        c.text, c, embedder=emb, dimensions=64, dtype="bfloat16"))
+rag = AdaptiveRAGQuestionAnswerer(Chat(), store, n_starting_documents=1)
+questions = pw.debug.table_from_rows(
+    pw.schema_from_types(prompt=str, filters=str | None), [("word3", None)])
+scored = questions.select(s=rerankers.EncoderReranker(emb)(
+    pw.this.prompt, pw.this.prompt))
+runner = GraphRunner()
+caps = [runner.capture(x) for x in (near, rag.answer_query(questions),
+                                    scored)]
+runner.run_batch(n_workers=1)
+assert [len(c.events) for c in caps] == [1, 1, 1], caps
+assert caps[1].events[0][1] == ("yes",), caps[1].events
+print("LOADED", sorted(m for m, mod in sys.modules.items()
+                      if mod is not None and m.split(".")[0] in BLOCKED))
+"""
+
+
+def test_configs_1_and_3_run_without_jax_pandas_or_aiohttp():
+    """BASELINE.md's configs 1 (a CSV into ``KNNIndex``) and 3 (files into
+    the adaptive answerer and its reranker) run on the CPU in a process
+    where importing jax, pathway_tpu, pandas, pyarrow, aiohttp or optax
+    raises, and none of them is loaded."""
+    proc = subprocess.run([sys.executable, "-c", _CONFIGS], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
 
 
 def _is_forbidden(name: str) -> bool:
@@ -340,6 +422,21 @@ def test_entry_points_default_to_cuda():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+    # the classic KNNIndex: its index is built when the graph is lowered
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.runner import GraphRunner
+    from pathway_tpu_torch.stdlib.ml import KNNIndex
+
+    G.clear()
+    t = pw.debug.table_from_rows(pw.schema_from_types(v=np.ndarray),
+                                 [(np.ones(4),)])
+    out = KNNIndex(t.v, t, n_dimensions=4).get_nearest_items(t.v, k=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GraphRunner().capture(out)
+    G.clear()
 
 
 def test_cuda_device_carries_its_index(monkeypatch):

@@ -250,16 +250,60 @@ def _filled_pair(dtype: str, metric: str, n: int = 3000, seed: int = 5):
     return j, t, queries
 
 
+def _assert_order_up_to_ties(ti, wide_i, wide_s, k):
+    """The port's top-k slots ``ti`` against the reference's, read from
+    a wider reference search (``wide_i``, ``wide_s``: the first k + more
+    columns, so a tie group cut at column k is seen whole). A tie group
+    is a run of finite reference scores each within ``TOL`` of the one
+    before. Outside a group every column's slot is equal; inside one, the
+    port's slots are the group's (the same set where the group ends
+    before column k, a subset of it where column k cuts it)."""
+    for q in range(ti.shape[0]):
+        s = wide_s[q]
+        start = 0
+        while start < k:
+            end = start + 1
+            while (end < len(s) and np.isfinite(s[end])
+                   and np.isclose(s[end], s[end - 1], **TOL)):
+                end += 1
+            assert end < len(s), "widen the reference search"
+            stop = min(end, k)
+            got, want = ti[q, start:stop], wide_i[q, start:end]
+            if end - start == 1:
+                assert got[0] == want[0], (q, start)
+            elif end <= k:
+                assert sorted(got) == sorted(want), (q, start, got, want)
+            else:
+                assert set(got) <= set(want), (q, start, got, want)
+            start = end
+
+
 @pytest.mark.parametrize("k", [10, 64, 100])
 @pytest.mark.parametrize("metric", ["cos", "l2sq"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_probe_searcher_matches_jax(dtype, metric, k):
+    """Slots, the finite pattern and the scores (``TOL``) against the
+    JAX paged index's probe searcher. bf16 and int8: every slot equal.
+    float32: the cos query is normalised before the dot product, so on
+    these integer rows its f32 sum rounds, and each package splits the
+    sum its own way (torch by thread count); rows whose exact scores are
+    equal (float64: 0.4534866514042875 for slots 908 and 2027 of query 4,
+    0.5788798839232548 for 2043 and 1766 of query 5) then come out one
+    ulp apart in either order. So float32 compares slots up to such tie
+    groups (``_assert_order_up_to_ties``), every other column exactly."""
     j, t, queries = _filled_pair(dtype, metric)
     jrun, jops = j._probe_searcher(k)
     js, ji = jrun(jnp.asarray(queries), jops)
     run, ops = t._probe_searcher(k)
     ts, ti = run(torch.from_numpy(queries), ops)
-    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    if dtype == "float32":
+        wrun, wops = j._probe_searcher(k + 32)
+        ws, wi = wrun(jnp.asarray(queries), wops)
+        np.testing.assert_array_equal(np.asarray(wi)[:, :k], np.asarray(ji))
+        _assert_order_up_to_ties(ti.numpy(), np.asarray(wi), np.asarray(ws),
+                                 k)
+    else:
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(np.isfinite(ts.numpy()),
                                   np.isfinite(np.asarray(js)))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), **TOL)
