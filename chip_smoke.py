@@ -8,9 +8,10 @@ both MFU keys), the port's two live-RAG device paths, the engine's batch path
 with the encoder as a batch UDF, the engine's index path (the graph of
 bench.py's bench_embed_framework), the served path (``pw.run``'s
 streaming runtime behind HTTP: bench.py's bench_serving graph and a live
-RAG server), BASELINE.md's configs 3 and 1 (the Adaptive-RAG template
-served over streamed files with its reranker, and the classic KNNIndex
-over a CSV), the engine's relational core (bench.py's bench_etl
+RAG server), BASELINE.md's configs 3, 1 and 5 (the Adaptive-RAG
+template served over streamed files with its reranker, the classic
+KNNIndex over a CSV, and a Kafka stream into the mesh-sharded index at
+four workers), the engine's relational core (bench.py's bench_etl
 graph: the columnar groupby and the inner join with their native passes,
 host code, at one and at eight sharded workers, and the exchange's wire
 codec), graph A of bench_embed_framework at four sharded workers, its temporal layer (bench_etl's windowed leg and every
@@ -157,9 +158,9 @@ non-zero, and no result line is printed):
    document, ``search_extent`` at k in ROUTE_KS against the plain scan +
    stable sort, and card-vs-CPU embeddings; times K2 at the index's shape
    at B=1 and B=64 beside the old route;
-9. engine (the engine's batch path): the first 50,000 of those
+9. engine (the engine's batch path): the first 24,576 of those
    documents (cut from 100,000 for the script's clock) as
-   ``table_from_rows(..., is_stream=True)``, one tick per 512 (98
+   ``table_from_rows(..., is_stream=True)``, one tick per 512 (48
    ticks), through ``select(embedding=emb(pw.this.data))`` under
    ``GraphRunner.run_batch(n_workers=1)`` with the padded embedder as a
    batch device UDF (its map runs on the device bridge at the default
@@ -168,14 +169,14 @@ non-zero, and no result line is printed):
    direct, engine. Checks: every document once, diff +1, at its tick's
    time, under its ``hash_values_uncached("row", i, doc)`` key, its
    embedding equal to the direct call's bit for bit (both engine runs);
-   K1 launches = 12 x encoder dispatches = 12 x 196 in the counted run and
+   K1 launches = 12 x encoder dispatches in the counted run and
    no other kernel. Then the ragged embedder over the first 10,240
    documents (20 ticks) the same way (its K1 launches are K1 with segment
    ids). Prints engine and direct docs/s, their ratio, the engine's wall
    a tick outside the UDF body, the garbage collector's time, peak device
    memory and the bridge's window and counters;
 10. framework (bench.py's ``bench_embed_framework`` graph, as bench.py
-   runs it, over 50,000 documents, cut from path 1's 100,000 for the
+   runs it, over 24,576 documents, cut from path 1's 100,000 for the
    script's clock): the documents as ``table_from_rows(data,
    _metadata=Json({"path": ...}), is_stream=True)``, one tick per 2048
    (bench.py's BATCH), through ``VectorStoreServer(docs, embedder=emb,
@@ -222,6 +223,22 @@ non-zero, and no result line is printed):
    by rank, the launches as the code gives them, and the 4-worker peak
    device memory within the one-worker run's plus half the model's
    bytes. Prints docs/s at 1 and 4 workers, launches and peak memory;
+10c. config 5 (BASELINE.md:30, multi-worker KNN over a Kafka stream):
+   50,000 ``make_docs`` documents produced as JSON to a 4-partition topic
+   of ``LogBroker`` (a one-node broker on 127.0.0.1 on the port's wire
+   codecs) and read by ``pw.io.kafka.read`` under ``pw.run`` at
+   PATHWAY_THREADS=4; phase 10's padded embedder as the DataIndex's UDF
+   (K1) into ``default_brute_force_knn_document_index(..., mesh="auto",
+   dtype="bfloat16")`` under ``use_mesh`` of 4 shards on cuda:0 (the
+   port's sharded index, K2 on each shard); once it holds every document,
+   256 queries (half copies) produced one at a time to a second topic and
+   answered ``query_as_of_now`` (k=10). Checks: one sharded index of 4
+   shards holding each document once, every answer its search's reply,
+   each top-1 against an exact f32 search of the query's embedding over
+   the index's host mirror (near-ties within 2^-6 counted), K1 = 12 x
+   encoder dispatches and K2 = searches x 4 shards x extents. Prints
+   docs/s from the first produce to the last document indexed, answer p50
+   / p99, peak memory and seconds;
 11. serving (the served path, ``pw.run``'s streaming runtime, with the
    flight recorder's request tracker on): graph A, bench.py's
    ``bench_serving`` graph as it builds it (bench.py:1280-1453): an
@@ -236,7 +253,8 @@ non-zero, and no result line is printed):
    ingested, K2's launches and no CUDA graph captured in the timed window
    held. Graph B, a live RAG server: ``VectorStoreServer(...).
    run_server(threaded=True)`` with framework A's embedder and bf16 index
-   over 100,000 ``make_docs`` documents from a ``ConnectorSubject`` and a
+   over 25,000 ``make_docs`` documents (``SERVING_B_DOCS``, cut from
+   100,000 for the script's clock) from a ``ConnectorSubject`` and a
    trickle of 64 every 20 ms, warmed through the built index; 8 warm-up
    and 48 timed ``/v1/retrieve`` (k=3), then the trickle paused and 8 held
    retrieves and one k=80 held against a plain scan of the index's rows
@@ -250,10 +268,10 @@ non-zero, and no result line is printed):
    memory. Both runs stop through ``stop_all()``, and an error in a run
    fails the phase;
 11b. adaptive rag (BASELINE.md config 3, the Adaptive-RAG template):
-   10,000 text files of 6 ``make_docs`` texts each, written in batches of
-   2,000 while ``pw.io.fs.read(plaintext_by_file, streaming,
+   5,000 text files of 6 ``make_docs`` texts each, written in batches of
+   1,000 while ``pw.io.fs.read(plaintext_by_file, streaming,
    with_metadata)`` reads them, through ``TokenCountSplitter(max_tokens=
-   120)`` (50,000 chunks) and framework A's embedder into bf16 cos
+   120)`` (25,000 chunks) and framework A's embedder into bf16 cos
    indexes (one a query route, as in the JAX package), answered by
    ``AdaptiveRAGQuestionAnswerer(n_starting_documents=2, factor=2,
    max_iterations=3)`` behind ``run_server(threaded=True)`` with an
@@ -282,7 +300,7 @@ non-zero, and no result line is printed):
    loop; then ``groupby(g).reduce(g, a=npsum(v))`` over two ticks of each
    ARRAY_SUM_CASES shape (D 384 or 64; 512 to 32,768 rows a tick; one
    group to one a row, and a skewed tick) with the route forced on and
-   off (device, host, host, device) and under ``_segsum_pays``: events bit
+   off (device, host) and under ``_segsum_pays``: events bit
    for bit equal, ``device_segsum`` called as the route says; prints the
    operator's host ms a tick, the route's pre-pass and the per-row adds
    it replaces. Then a 4-worker leg with the row gate off: every worker's
@@ -318,6 +336,20 @@ non-zero, and no result line is printed):
    ROUTE_KS against the plain scan + stable sort, and its times beside a
    stable sort per chunk of the same scores at B=1 and 64, k in
    SELECT_KS;
+15b. sharded knn (config 5's index at bench_knn's size), after the bf16
+   index is freed: ``ShardedKnnIndex(384, mesh=<4 shards on cuda:0>,
+   bf16, cos)`` fed the same rows through ``add_batch`` from host f32
+   (``rows_that_fit`` cuts them where the host cannot hold the f32
+   mirror), searched with bench_knn's 64 queries at B=1 and B=64 (k=10)
+   and filtered (limit 20: fetch 80, K2's score twin). Checks: the first
+   8 queries' top-10 equal the bf16 index's outside tie groups, every
+   top-10 / top-20 against a plain scan of the shards, B=64 equal to B=1,
+   K2 = searches x 4 shards x extents, K2 score = filtered searches x 4 x
+   chunks a shard; then an int8 sharded index over the first 1,048,576
+   rows: codes, scales and vsq bit for bit the host divide quantizer's,
+   top-10 against ``score_i8_reference`` over the same shard tensors, K3
+   top-k = 4. Prints rows/s added, p50 / p99, filtered p50s, peak memory,
+   launches and seconds;
 16. bench_knn's int8 deployment (bench.py:2547-2579), after the bf16
    index is freed: the same rows (each chunk made again from its seed)
    into an int8 cos index, searched, probed (knn_int8_p50_ms,
@@ -364,7 +396,7 @@ non-zero, and no result line is printed):
    cutoff=200)`` and ``exactly_once_behavior()`` (against a tick-by-tick
    simulation of the thresholds); ``session(max_gap=3)`` over the first
    10,000 rows (cut from 100,000: sessions re-sort each instance's times
-   every tick); over two 10,000-row tables drawn next ``asof_now_join``
+   every tick); over two 5,000-row tables drawn next ``asof_now_join``
    (inner, left), ``asof_join`` (backward, forward, nearest; inner,
    outer), ``interval_join`` (four ``how``), ``window_join`` (tumbling,
    session), ``sort``, ``diff``, ``interpolate``: every final table
@@ -381,6 +413,7 @@ import argparse
 import gc
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -957,7 +990,8 @@ def phase_etl_sharded(card: str) -> None:
 WINDOW = 100            # bench.py's run_windowed: tumbling(100)
 SENSORS = 200           # its instance: s{word % 200}
 SESSION_ROWS = 10_000   # session windows over the first rows (cut: O(rows) a tick)
-JOIN_ROWS = 10_000      # phase_temporal's left and right tables
+JOIN_ROWS = 5_000       # phase_temporal's left and right tables (cut from
+                        # 10,000 for the script's clock)
 JOIN_KEYS = 2000        # their join key: a draw below 2000
 JOIN_SPAN = 20_000      # their times: distinct draws below 20,000
 
@@ -1199,7 +1233,7 @@ def phase_temporal(card: str) -> None:
       the buffer and forget thresholds);
     - ``session(max_gap=3)`` over the first 10,000 rows (cut from 100,000:
       sessions re-sort each instance's times every tick);
-    - over two 10,000-row tables drawn next from the same generator (key
+    - over two JOIN_ROWS-row tables drawn next from the same generator (key
       below 2000, distinct times below 20,000, 50 ticks):
       ``asof_now_join`` (inner, left: right rows up to the query's tick),
       ``asof_join`` (backward, forward, nearest; inner, outer),
@@ -3209,10 +3243,12 @@ def phase_slice(n_docs: int, seed: int, card: str) -> tuple[int, int, int]:
 
 
 ENGINE_RAGGED_DOCS = 10_240  # 20 ticks of the ragged embedder
-# the engine and framework phases' documents: 98 ticks of 512 and 25 of
-# 2048 (cut from --docs, 100,000, when configs 1 and 3 joined the run, so
-# that the script keeps inside its clock)
+# config 5's documents
 ENGINE_DOCS = 50_000
+# the engine and framework phases' documents: 48 ticks of 512 and 12 of
+# 2048 (cut from --docs, 100,000, as configs 1, 3 and 5 joined the run, so
+# that the script keeps inside its clock)
+FRAMEWORK_DOCS = 24_576
 
 
 class GcClock:
@@ -3325,8 +3361,8 @@ def hold_engine(events, docs: list[str], direct: np.ndarray, label: str
 def phase_engine(n_docs: int, seed: int, card: str) -> tuple[int, int]:
     """The engine's batch path: BGE-small as a batch device UDF,
     ``select(embedding=emb(pw.this.data))`` under
-    ``GraphRunner.run_batch``, over the first ``ENGINE_DOCS`` of path 1's
-    documents (padded, bf16; 98 ticks of 512), then the ragged embedder over
+    ``GraphRunner.run_batch``, over the first ``FRAMEWORK_DOCS`` of path
+    1's documents (padded, bf16; 48 ticks of 512), then the ragged embedder over
     the first 10,240 of them in 20 ticks; each held bit for bit against its own
     ``embed_batch`` over the same 512-document batches. Returns K1's
     launches in the padded and in the ragged engine run."""
@@ -4269,7 +4305,412 @@ def phase_framework_sharded(n_docs: int, seed: int, card: str) -> dict:
     return out
 
 
+C5_PARTITIONS = 4       # the document topic's partitions
+C5_QUERIES = 256        # query texts, once the index holds every document
+C5_PRODUCE_BATCH = 500  # documents a produce call (one record batch)
+C5_COMMIT_MS = 20       # both readers' autocommit_duration_ms
+C5_QUERY_GAP_S = 0.01   # between two query produces
+C5_TIE_TOL = 2.0 ** -6  # an answer's top-1 against the exact search
+
+
+class LogBroker:
+    """A one-node Kafka broker on 127.0.0.1, built on the port's wire codecs
+    (``pathway_tpu_torch/io/kafka/_protocol.py``), as
+    tests/test_kafka_native.py builds the JAX package's: Metadata,
+    ListOffsets, Fetch and Produce. Like a real broker it keeps each
+    partition's record batches as they were produced (the base offset
+    rewritten; the CRC does not cover it) and serves a fetch the stored
+    batches from the one holding its offset, up to the partition's max
+    bytes, without decoding them. ``close()`` closes the listening socket
+    and every connection, which ends the threads serving them."""
+
+    def __init__(self, topics: dict[str, int]):
+        import socket
+        import threading
+
+        from pathway_tpu_torch.io.kafka import _protocol as kp
+
+        self.kp = kp
+        self.lock = threading.Lock()
+        # topic -> partition -> [(base offset, record count, batch bytes)]
+        self.logs = {t: [[] for _ in range(n)] for t, n in topics.items()}
+        self.conns: list = []
+        self.server = socket.create_server(("127.0.0.1", 0))
+        self.port = self.server.getsockname()[1]
+        threading.Thread(target=self._accept, daemon=True,
+                         name="smoke-broker").start()
+
+    def end(self, topic: str, pid: int) -> int:
+        log = self.logs[topic][pid]
+        return log[-1][0] + log[-1][1] if log else 0
+
+    def _accept(self) -> None:
+        import threading
+
+        while True:
+            try:
+                conn, _ = self.server.accept()
+            except OSError:
+                return
+            self.conns.append(conn)
+            threading.Thread(target=self._serve, args=(conn,), daemon=True,
+                             name="smoke-broker-conn").start()
+
+    def _serve(self, conn) -> None:
+        kp = self.kp
+        try:
+            while True:
+                (length,) = struct.unpack(">i", self._read_exact(conn, 4))
+                r = kp.Reader(self._read_exact(conn, length))
+                api_key, _version, corr = r.int16(), r.int16(), r.int32()
+                r.string()  # client id
+                body = self._dispatch(api_key, r)
+                resp = kp.enc_int32(corr) + body
+                conn.sendall(kp.enc_int32(len(resp)) + resp)
+        except (ConnectionError, OSError):
+            return
+
+    @staticmethod
+    def _read_exact(conn, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = conn.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("closed")
+            buf += chunk
+        return buf
+
+    def _dispatch(self, api_key: int, r) -> bytes:
+        kp = self.kp
+        if api_key == kp.API_METADATA:
+            wanted = [r.string() for _ in range(r.int32())]
+            out = (kp.enc_int32(1) + kp.enc_int32(0)
+                   + kp.enc_string("127.0.0.1") + kp.enc_int32(self.port)
+                   + kp.enc_string(None) + kp.enc_int32(0)
+                   + kp.enc_int32(len(wanted)))
+            for t in wanted:
+                logs = self.logs.get(t) or []
+                out += (kp.enc_int16(0 if t in self.logs else 3)
+                        + kp.enc_string(t) + kp.enc_int8(0)
+                        + kp.enc_int32(len(logs)))
+                for pid in range(len(logs)):
+                    out += (kp.enc_int16(0) + kp.enc_int32(pid)
+                            + kp.enc_int32(0) + kp.enc_int32(0)
+                            + kp.enc_int32(0))
+            return out
+        if api_key == kp.API_LIST_OFFSETS:
+            r.int32(), r.int32()  # replica, topics (one)
+            topic = r.string()
+            r.int32()  # partitions (one)
+            pid, ts = r.int32(), r.int64()
+            with self.lock:
+                offset = 0 if ts == -2 else self.end(topic, pid)
+            return (kp.enc_int32(1) + kp.enc_string(topic) + kp.enc_int32(1)
+                    + kp.enc_int32(pid) + kp.enc_int16(0) + kp.enc_int64(-1)
+                    + kp.enc_int64(offset))
+        if api_key == kp.API_FETCH:
+            r.int32(), r.int32(), r.int32(), r.int32(), r.int8(), r.int32()
+            topic = r.string()
+            wanted = [(r.int32(), r.int64(), r.int32())
+                      for _ in range(r.int32())]
+            out = (kp.enc_int32(0) + kp.enc_int32(1) + kp.enc_string(topic)
+                   + kp.enc_int32(len(wanted)))
+            for pid, offset, max_bytes in wanted:
+                with self.lock:
+                    log = list(self.logs[topic][pid])
+                    end = self.end(topic, pid)
+                blobs, size = [], 0
+                for base, count, blob in log:
+                    if base + count <= offset:
+                        continue
+                    if blobs and size + len(blob) > max_bytes:
+                        break
+                    blobs.append(blob)
+                    size += len(blob)
+                out += (kp.enc_int32(pid) + kp.enc_int16(0)
+                        + kp.enc_int64(end) + kp.enc_int64(end)
+                        + kp.enc_int32(0) + kp.enc_bytes(b"".join(blobs)))
+            return out
+        if api_key == kp.API_PRODUCE:
+            r.string(), r.int16(), r.int32(), r.int32()
+            topic = r.string()
+            r.int32()  # partitions (one)
+            pid = r.int32()
+            batch = r.bytes_()
+            # RecordBatch v2: lastOffsetDelta at byte 23 of the batch
+            count = struct.unpack(">i", batch[23:27])[0] + 1
+            with self.lock:
+                base = self.end(topic, pid)
+                self.logs[topic][pid].append(
+                    (base, count, kp.enc_int64(base) + batch[8:]))
+            return (kp.enc_int32(1) + kp.enc_string(topic) + kp.enc_int32(1)
+                    + kp.enc_int32(pid) + kp.enc_int16(0)
+                    + kp.enc_int64(base) + kp.enc_int64(-1))
+        raise ValueError(f"the broker does not speak api {api_key}")
+
+    def close(self) -> None:
+        self.server.close()
+        for conn in self.conns:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+
+def phase_config5(seed: int, card: str) -> dict:
+    """BASELINE.md config 5 (BASELINE.md:30, "multi-worker distributed KNN
+    over Kafka stream"): ``ENGINE_DOCS`` ``make_docs`` documents produced
+    as JSON ``{"doc_id", "doc"}`` to a 4-partition topic of a
+    ``LogBroker`` on 127.0.0.1, in record batches of C5_PRODUCE_BATCH,
+    before ``pw.run`` starts (the producer encodes in Python under the
+    same GIL as the workers, so it stays off the clock), then read by
+    ``pw.io.kafka.read(format="json")`` under ``pw.run`` at
+    PATHWAY_THREADS=4; bench's framework embedder (padded
+    BGE-small, bench's WordPiece; K1 in every forward) as the DataIndex's
+    UDF into ``default_brute_force_knn_document_index(..., mesh="auto",
+    dtype="bfloat16", metric cos)`` inside ``use_mesh`` of 4 shards on
+    cuda:0 (the port's sharded index: K2 on every shard a search). Once
+    the index holds every document, C5_QUERIES texts (half copies of
+    documents, half fresh) are produced one at a time to a second topic
+    and answered ``query_as_of_now`` (k=10), recorded by
+    ``pw.io.subscribe``. Holds: the built index is the sharded one over 4
+    shards; it holds each document once (its keys are the document
+    table's, each doc_id once); every query answered, with the keys its
+    search returned; each answer's top-1 equals an exact float32 search of
+    the query's embedding (the one the engine passed to the index) over
+    the index's own host mirror, or scores within C5_TIE_TOL of the exact
+    best (a near-tie, counted: bf16 rows and queries); K1 = 12 x encoder
+    dispatches and K2 = searches x 4 shards x extents, both non-zero, no
+    other kernel. Prints docs/s from the readers' first fetched record to
+    the last document indexed (and the producer's seconds apart), answer
+    p50 / p99 (produce to subscribe), peak device
+    memory and seconds. Returns each kernel's launches, by LaunchCount."""
+    import threading
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.io.kafka._protocol import KafkaClient
+    from pathway_tpu_torch.models.encoder import (EncoderConfig,
+                                                  init_params_host)
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+    from pathway_tpu_torch.ops.knn_kernels import TOPK_BF16
+    from pathway_tpu_torch.parallel import (MeshConfig, ShardedKnnIndex,
+                                            make_mesh, use_mesh)
+    from pathway_tpu_torch.stdlib.indexing import (
+        default_brute_force_knn_document_index, nearest_neighbors)
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+
+    label = "config 5"
+    clock = time.perf_counter
+    t_phase = clock()
+    n_docs = ENGINE_DOCS
+    docs = make_docs(n_docs, seed=seed + 50)
+    copies = np.random.default_rng(seed + 51).choice(
+        n_docs, C5_QUERIES // 2, replace=False).tolist()
+    queries = [docs[i] for i in copies] + make_docs(
+        C5_QUERIES - len(copies), seed=seed + 52)
+    cfg = EncoderConfig.bge_small()
+    emb = EncoderEmbedder(config=cfg, params=init_params_host(seed, cfg),
+                          tokenizer=framework_tokenizer(BENCH_SEQ),
+                          max_len=BENCH_SEQ, max_batch_size=FRAMEWORK_BATCH,
+                          device="cuda")
+    for w in emb.bucket_widths():  # cuBLAS and the allocator warm
+        emb.device_producer(emb.model,
+                            np.zeros((FRAMEWORK_BATCH, w), np.int16),
+                            np.full(FRAMEWORK_BATCH, w, np.int32))
+    mesh = make_mesh(MeshConfig(data=SHARDED_WORKERS),
+                     devices=[torch.device("cuda")] * SHARDED_WORKERS)
+    broker = LogBroker({"docs": C5_PARTITIONS, "queries": 1})
+    settings = {"bootstrap.servers": f"127.0.0.1:{broker.port}"}
+    built, searches, doc_keys = [], [], {}
+    answers: dict[int, tuple] = {}
+    lock = threading.Lock()
+    build = nearest_neighbors.BruteForceKnnFactory.build
+    fetch_many, first_fetch = KafkaClient.fetch_many, []
+
+    def tapped_build(factory):
+        index = build(factory)
+        search = index.search
+
+        def tapped_search(batch):
+            replies = search(batch)
+            searches.append((batch, replies))
+            return replies
+
+        index.search = tapped_search
+        built.append(index)
+        return index
+
+    def tapped_fetch(client, topic, offsets, *args, **kwargs):
+        got = fetch_many(client, topic, offsets, *args, **kwargs)
+        if topic == "docs" and any(got.values()):
+            first_fetch.append(clock())
+        return got
+
+    def on_doc(key, row, time, is_addition):
+        with lock:
+            doc_keys[int(key)] = row["doc_id"]
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            with lock:
+                answers[row["query_id"]] = (clock(), int(key), row["ids"])
+
+    saved = os.environ.get("PATHWAY_THREADS")
+    os.environ["PATHWAY_THREADS"] = str(SHARDED_WORKERS)
+    nearest_neighbors.BruteForceKnnFactory.build = tapped_build
+    G.clear()
+    served = None
+    try:
+        with use_mesh(mesh):
+            table = pw.io.kafka.read(
+                settings, topic="docs", format="json",
+                schema=pw.schema_from_types(doc_id=int, doc=str),
+                autocommit_duration_ms=C5_COMMIT_MS)
+            qs = pw.io.kafka.read(
+                settings, topic="queries", format="json",
+                schema=pw.schema_from_types(query_id=int, query=str),
+                autocommit_duration_ms=C5_COMMIT_MS)
+            index = default_brute_force_knn_document_index(
+                table.doc, table, embedder=emb, dimensions=384,
+                reserved_space=n_docs + 1024, mesh="auto",
+                dtype="bfloat16")
+            res = index.query_as_of_now(qs.query, number_of_matches=10)
+            pw.io.subscribe(table, on_doc)
+            pw.io.subscribe(res.select(query_id=qs.restrict(res).query_id,
+                                       ids=res._pw_index_reply_id),
+                            on_answer)
+            producer = KafkaClient(settings["bootstrap.servers"])
+            t_produce = clock()
+            for b in range(0, n_docs, C5_PRODUCE_BATCH):
+                producer.produce("docs", (b // C5_PRODUCE_BATCH)
+                                 % C5_PARTITIONS, [
+                    (None, json.dumps({"doc_id": i, "doc": docs[i]}).encode())
+                    for i in range(b, min(b + C5_PRODUCE_BATCH, n_docs))])
+            produce_s = clock() - t_produce
+            KafkaClient.fetch_many = tapped_fetch
+            gc.collect()
+            for count in LAUNCH_COUNTS:
+                count.launches = 0
+            emb.dispatches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t_run = clock()
+            served = Served(label, pw.run)
+            wait_for(lambda: built and len(built[0]) == n_docs,
+                     "every document indexed", served)
+            t_indexed = clock()
+            sent = {}
+            for qi, text in enumerate(queries):
+                producer.produce("queries", 0, [(None, json.dumps(
+                    {"query_id": qi, "query": text}).encode())])
+                sent[qi] = time.perf_counter()
+                time.sleep(C5_QUERY_GAP_S)
+            wait_for(lambda: len(answers) == len(queries), "every answer",
+                     served)
+            producer.close()
+            launches = {c: c.launches for c in LAUNCH_COUNTS if c.launches}
+            dispatches = emb.dispatches
+            peak = torch.cuda.max_memory_allocated()
+            served.stop()
+            served = None
+    finally:
+        nearest_neighbors.BruteForceKnnFactory.build = build
+        KafkaClient.fetch_many = fetch_many
+        if served is not None:
+            served.stop()
+        broker.close()
+        os.environ.pop("PATHWAY_THREADS", None)
+        if saved is not None:
+            os.environ["PATHWAY_THREADS"] = saved
+    idx = built[0]
+    if not isinstance(idx, ShardedKnnIndex) or idx.n_shards != \
+            SHARDED_WORKERS or len(built) != 1:
+        fail(f"{label}: mesh='auto' built {[type(b).__name__ for b in built]}"
+             f", not one sharded index over {SHARDED_WORKERS} shards")
+    index_keys = sorted(int(k) for k in idx._key_to_slot)
+    if index_keys != sorted(doc_keys) or len(idx) != n_docs or sorted(
+            doc_keys.values()) != list(range(n_docs)) or \
+            int(idx._host_valid.sum()) != n_docs:
+        fail(f"{label}: the index holds {len(idx)} rows for {len(doc_keys)} "
+             f"documents: not each document once")
+    # every answer is the reply of the search that carried its query
+    replies = {}
+    for batch, reps in searches:
+        for (qkey, qvec, limit, _), rep in zip(batch, reps):
+            replies[int(qkey)] = (np.asarray(qvec, np.float32), rep)
+    if len(replies) != len(queries):
+        fail(f"{label}: {len(replies)} queries searched, not "
+             f"{len(queries)}")
+    # exact float32 cos over the index's host mirror
+    live = np.flatnonzero(idx._host_valid)
+    mirror = idx._host_vectors[live]
+    mirror = mirror / (np.linalg.norm(mirror, axis=1, keepdims=True) + 1e-12)
+    slot_key = np.array([int(idx._slot_to_key[int(s)]) for s in live])
+    near_ties = found = 0
+    for qi in range(len(queries)):
+        _, qkey, ids = answers[qi]
+        ids = tuple(int(k) for k in ids)
+        qv, rep = replies.get(qkey, (None, ()))
+        if ids != tuple(int(k) for k, _ in rep) or len(ids) != 10:
+            fail(f"{label}: query {qi}'s answer is not its search's reply")
+        scores = mirror @ (qv / (np.linalg.norm(qv) + 1e-12))
+        best = int(np.argmax(scores))
+        got = int(np.flatnonzero(slot_key == ids[0])[0])
+        if slot_key[best] != ids[0]:
+            if scores[best] - scores[got] > C5_TIE_TOL:
+                fail(f"{label}: query {qi}'s top-1 scores "
+                     f"{scores[got]:.5f} exactly, the best "
+                     f"{scores[best]:.5f}")
+            near_ties += 1
+        if qi < len(copies) and doc_keys[ids[0]] == copies[qi]:
+            found += 1
+    n_ext = len(idx._extents)
+    want = {ATTENTION: N_LAYERS * dispatches,
+            TOPK_BF16: len(searches) * SHARDED_WORKERS * n_ext}
+    got = {c: launches.get(c, 0) for c in want}
+    others = {c.name: v for c, v in launches.items() if c not in want}
+    if got != want or others or not all(got.values()):
+        fail(f"{label}: launches {({c.name: v for c, v in got.items()})}, "
+             f"the code gives {({c.name: v for c, v in want.items()})}; "
+             f"others {others}")
+    lat = [(answers[qi][0] - sent[qi]) * 1e3 for qi in range(len(queries))]
+    t_first = min(first_fetch)
+    docs_per_s = n_docs / (t_indexed - t_first)
+    print(f"[{label}] {n_docs} documents on a {C5_PARTITIONS}-partition "
+          f"Kafka topic (LogBroker on 127.0.0.1, batches of "
+          f"{C5_PRODUCE_BATCH}, produced before pw.run in {produce_s:.2f} s)"
+          f", pw.io.kafka.read at PATHWAY_THREADS={SHARDED_WORKERS}, "
+          f"BGE-small into mesh='auto' over {SHARDED_WORKERS} shards on "
+          f"cuda:0 (bf16 cos): {docs_per_s:.1f} docs/s from the readers' "
+          f"first fetched record to the last document indexed "
+          f"({t_indexed - t_first:.2f} s; {t_indexed - t_run:.2f} s from "
+          f"pw.run's start) [{card}]", flush=True)
+    print(f"[{label}] {len(queries)} queries (k=10), one produce each "
+          f"{C5_QUERY_GAP_S * 1e3:.0f} ms apart: answer p50 "
+          f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f}"
+          f" ms (produce to subscribe); peak device memory "
+          f"{peak / 2**20:.1f} MiB; launches K1 {got[ATTENTION]} (12 x "
+          f"{dispatches} encoder dispatches), K2 {got[TOPK_BF16]} "
+          f"({len(searches)} searches x {SHARDED_WORKERS} shards x {n_ext} "
+          f"extent(s)); {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    print(f"[{label}] holds: one sharded index over {SHARDED_WORKERS} "
+          f"shards holding each of the {n_docs} documents once; every "
+          f"answer its search's reply; top-1 against an exact f32 search "
+          f"of the host mirror: {len(queries) - near_ties} identical, "
+          f"{near_ties} near-ties within {C5_TIE_TOL}; {found} of "
+          f"{len(copies)} copies find their document first", flush=True)
+    del emb, idx, built, searches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
 SERVING_N = 100_000     # bench.py's SERVING_N: graph A's vectors, B's docs
+SERVING_B_DOCS = 25_000  # graph B's documents in the script (cut: clock)
 SERVING_DIM = 384       # bench.py's SERVING_DIM
 SERVING_WARMUP, SERVING_QUERIES = 8, 48  # bench.py's defaults
 SERVING_TRICKLE = 64    # rows a trickle burst, one burst every 20 ms
@@ -4908,9 +5349,10 @@ def phase_serving_rag(seed: int, card: str, n_docs: int = SERVING_N) -> dict:
     return launches
 
 
-RAG_FILES = 10_000       # BASELINE.md config 3's corpus, one text file each
+RAG_FILES = 5_000        # BASELINE.md config 3's corpus, one text file each
+                         # (cut from 10,000 for the script's clock)
 RAG_TEXTS_PER_FILE = 6   # make_docs texts a file: 540 words
-RAG_FILE_BATCH = 2000    # files written at once (each batch one backlog tick)
+RAG_FILE_BATCH = 1000    # files written at once (each batch one backlog tick)
 RAG_MAX_TOKENS = 120     # TokenCountSplitter(max_tokens=120): 5 chunks a file
 RAG_QUESTIONS = 64       # aimed in turn at 2, 4, 8 documents and never
 RAG_NEW_FILES = 500      # written while the server runs
@@ -5887,9 +6329,8 @@ def phase_array_sum(seed: int, card: str) -> None:
     form of the JAX package's ``_device_segsum_fn``: one in-order f32 add
     launch a row position over the padded (G, M, D) rows) on the card,
     bit for bit against the sequential numpy loop; then, for each case of
-    ARRAY_SUM_CASES, the route forced on ("device") and off ("host") in
-    the order device, host, host, device, and once under the rule alone
-    ("rule"): the operator's host ms a tick, the device route's pre-pass
+    ARRAY_SUM_CASES, the route forced on ("device"), off ("host") and
+    under the rule alone ("rule"), once each in that order: the operator's host ms a tick, the device route's pre-pass
     and the per-row adds it replaces. Every run's events must be equal bit
     for bit, and each run must call ``device_segsum`` as its route says.
     The route is off by default (``PATHWAY_ARRAY_SUM_DEVICE_MIN`` 0)."""
@@ -5927,7 +6368,7 @@ def phase_array_sum(seed: int, card: str) -> None:
         vecs = rng.standard_normal((2 * r, d)).astype(np.float32)
         vecs[::7, 1] = -0.0
         runs = {}
-        for route in ("device", "host", "host", "device", "rule"):
+        for route in ("device", "host", "rule"):
             runs.setdefault(route, []).append(array_sum_run(gids, vecs, route))
         want = {"device": 2, "host": 0,
                 "rule": 2 * ops._segsum_pays(r, g_n, m)}
@@ -5942,12 +6383,10 @@ def phase_array_sum(seed: int, card: str) -> None:
         print(f"[array_sum] D={d} R={r} rows a tick in G={g_n} groups, "
               f"longest M={m} (padded {g_n * m * d * 4 / 2**20:.1f} MiB); "
               f"host ms a tick: GroupByOperator step, device route "
-              f"{dev[0]['step']:.3f} / {dev[1]['step']:.3f}, per-row loop "
-              f"{host[0]['step']:.3f} / {host[1]['step']:.3f}; the device "
-              f"route's pre-pass {dev[0]['pre-pass']:.3f} / "
-              f"{dev[1]['pre-pass']:.3f} against the per-row adds it "
-              f"replaces {host[0]['adds']:.3f} / {host[1]['adds']:.3f}; the "
-              f"rule takes the {'device' if want['rule'] else 'host'} route "
+              f"{dev[0]['step']:.3f}, per-row loop {host[0]['step']:.3f}; "
+              f"the device route's pre-pass {dev[0]['pre-pass']:.3f} "
+              f"against the per-row adds it replaces "
+              f"{host[0]['adds']:.3f}; the rule takes the {'device' if want['rule'] else 'host'} route "
               f"({runs['rule'][0]['step']:.3f}); events bit for bit equal "
               f"[{card}]", flush=True)
     array_sum_sharded(seed, card)
@@ -6684,6 +7123,226 @@ def phase_bf16_10m(card: str) -> tuple[int, list, dict, tuple]:
         qs, top8, n)
 
 
+SHARDED_KNN_SHARDS = 4      # config 5's data axis, four shards on one card
+SHARDED_I8_ROWS = 1 << 20   # the int8 sharded index: the first 2 chunks
+
+
+def hold_outside_ties(results, ref_top: list, label: str) -> int:
+    """Each query's keys (``results``: [(key, distance)] best first)
+    against ``ref_top`` (the same queries' keys from another index over the
+    same rows): equal at every rank, except at a rank whose distance equals
+    a neighbouring rank's (a tie group, which two indexes may order
+    differently) or at the last rank (which may tie with the next). Returns
+    the queries whose keys are identical."""
+    same = 0
+    for qi, ref in enumerate(ref_top):
+        got = results[qi]
+        keys, ref = [int(k) for k, _ in got], [int(k) for k in ref]
+        if len(keys) != len(ref):
+            fail(f"{label} query {qi}: {len(keys)} keys, not {len(ref)}")
+        same += keys == ref
+        for r in range(len(keys)):
+            tied = r == len(keys) - 1 or any(
+                0 <= j < len(keys) and got[j][1] == got[r][1]
+                for j in (r - 1, r + 1))
+            if keys[r] != ref[r] and not tied:
+                fail(f"{label} query {qi} rank {r}: key {keys[r]} against "
+                     f"{ref[r]}, not in a tie group")
+    return same
+
+
+def slot_keys(index) -> np.ndarray:
+    """The key of each global slot of a sharded index (-1: none), the
+    column order of a scan of its extents and shards in turn."""
+    keys_of = np.full(index.total_capacity, -1, dtype=np.int64)
+    n = len(index._slot_to_key)
+    keys_of[np.fromiter(index._slot_to_key.keys(), np.int64, n)] = \
+        np.fromiter(index._slot_to_key.values(), np.int64, n)
+    return keys_of
+
+
+def phase_sharded_knn(bf16_rows: tuple, card: str) -> dict:
+    """The mesh-sharded index of BASELINE.md config 5 at bench_knn's size:
+    ``ShardedKnnIndex(384, mesh=<4 shards on cuda:0>, reserved_space=n,
+    dtype="bfloat16", metric="cos")`` (paged, the default) fed bench_knn's
+    rows (``bench_knn_rows``, the bf16 10M phase's n rows, chunk by chunk,
+    through ``add_batch`` from host float32: the per-key allocation to the
+    emptiest shard, then one upload a shard on the first search). The host
+    mirror is f32 (16.1 GB at 10M rows); ``rows_that_fit`` cuts n where
+    the machine cannot hold it. Searches: bench_knn's 64 queries at B=1
+    (64 calls after a warm-up) and B=64 (5 calls), k=10, then the filtered
+    run (limit 20, a filter every row passes: fetch 80, past K_MAX, K2's
+    score twin a chunk of each shard). Holds: the first 8 queries' top-10
+    keys equal the bf16 10M phase's outside tie groups (same bf16 rows and
+    queries, the same K2 arithmetic a row), every top-10 and filtered
+    top-20 against a plain scan of the shards, each B=64 search equal to
+    the B=1 ones, K2 = searches x 4 shards x extents, K2 score = filtered
+    searches x 4 shards x chunks a shard. Then an int8 sharded index over
+    the first SHARDED_I8_ROWS rows: codes, scales and vsq bit for bit the
+    host quantizer's (``_quantize_i8_np``, the divide) of the mirror,
+    every top-10 at B=64 against ``score_i8_reference`` over the same
+    shard tensors, K3 top-k = searches x 4 shards; K1 and K3's score twin
+    never launch. Prints rows/s added, p50 / p99 at B=1, p50 at B=64, the
+    filtered p50s, peak device memory, launches and seconds. Returns each
+    kernel's launches, by LaunchCount, K1's 0 included."""
+    import torch
+
+    from pathway_tpu_torch.internals.keys import Pointer
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.ops.knn import _CHUNK_ROWS
+    from pathway_tpu_torch.ops.knn_kernels import (SCORE_BF16, SCORE_I8,
+                                                   TOPK_BF16, TOPK_I8,
+                                                   score_float_reference,
+                                                   score_i8_reference)
+    from pathway_tpu_torch.parallel import (MeshConfig, ShardedKnnIndex,
+                                            make_mesh)
+    from pathway_tpu_torch.parallel.sharded_knn import _quantize_i8_np
+
+    label = "sharded knn"
+    t_phase = time.perf_counter()
+    qs, top8, n_bf16 = bf16_rows
+    D, chunk, S = 384, 1 << 19, SHARDED_KNN_SHARDS
+    n = rows_that_fit(label, n_bf16, D * 4)
+    mesh = make_mesh(MeshConfig(data=S), devices=[torch.device("cuda")] * S)
+    counts = (ATTENTION, TOPK_BF16, SCORE_BF16, TOPK_I8, SCORE_I8)
+    for c in counts:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = ShardedKnnIndex(D, mesh=mesh, reserved_space=n,
+                            dtype="bfloat16", metric="cos")
+    for ci, base in enumerate(range(0, n, chunk)):
+        m = min(chunk, n - base)
+        index.add_batch(list(map(Pointer, range(base, base + m))),
+                        bench_knn_rows(ci, m, D).float().cpu().numpy())
+    t_host = time.perf_counter()
+    index.flush_device()
+    index.drain()
+    add_s = time.perf_counter() - t0
+    exts = index._extents
+    print(f"[{label}] {len(index):,} rows added in {add_s:.2f} s "
+          f"({n / add_s:,.1f} rows/s; add_batch {t_host - t0:.2f} s, the "
+          f"upload {add_s - (t_host - t0):.2f} s) over {S} shards of "
+          f"{index.cap_per_shard:,} rows on cuda:0 ({len(exts)} extent(s)) "
+          f"[{card}]", flush=True)
+    if len(index) != n:
+        fail(f"{label}: the index holds {len(index)} rows, not {n}")
+    results, batch_res, lat1, lat64 = timed_searches(index, qs, 10**10, 10,
+                                                     None)
+    k2 = TOPK_BF16.launches
+    f_res, f_batch, f_lat1, f_lat64 = timed_searches(
+        index, qs, 2 * 10**10, 20, lambda data: True)
+    k2_score, k2_after = SCORE_BF16.launches, TOPK_BF16.launches - k2
+    chunks = sum(-(-e.cap_per_shard // _CHUNK_ROWS) for e in exts)
+    print(f"[{label}] search p50 (host merge included) at B=1 "
+          f"{np.percentile(lat1, 50):.3f} ms (p99 {np.percentile(lat1, 99):.3f}"
+          f"), at B=64 {np.percentile(lat64, 50):.3f} ms per call; filtered "
+          f"(limit 20, fetch 80): B=1 {np.percentile(f_lat1, 50):.3f} ms "
+          f"(p99 {np.percentile(f_lat1, 99):.3f}), B=64 "
+          f"{np.percentile(f_lat64, 50):.3f} ms [{card}]", flush=True)
+    print(f"[{label}] launches: K2 {k2} ({FILTERED_10M} searches x {S} "
+          f"shards x {len(exts)} extent(s)), K2 score {k2_score} "
+          f"({FILTERED_10M} filtered searches x {chunks} chunks over the "
+          f"shards' extents), K2 in the filtered run {k2_after}", flush=True)
+    if k2 != FILTERED_10M * S * len(exts) or k2_after or \
+            k2_score != FILTERED_10M * S * chunks:
+        fail(f"{label}: K2 or its score twin did not launch once a shard "
+             "and extent (chunk) a search")
+    if n == n_bf16:
+        same = hold_outside_ties(results, top8,
+                                 f"{label} vs the bf16 10M index")
+        print(f"[{label}] the first 8 queries' top-10 against the unsharded "
+              f"bf16 10M index over the same rows: equal outside tie groups "
+              f"({same}/8 identical)", flush=True)
+    else:
+        print(f"[{label}] CUT: {n:,} of the bf16 10M index's {n_bf16:,} "
+              "rows, so its top-10 is not compared with that index's",
+              flush=True)
+    qraw = torch.from_numpy(qs).cuda()
+    qf = (qraw / (qraw.norm(dim=1, keepdim=True) + 1e-12)).to(
+        torch.bfloat16).float()
+    keys_of = slot_keys(index)
+    scan = torch.cat([score_float_reference(qf, e.vectors[s], e.valid[s],
+                                            "cos")
+                      for e in exts for s in range(S)], dim=1)
+    for res, bres, k, what in ((results, batch_res, 10, "top-10"),
+                               (f_res, f_batch, 20, "filtered top-20")):
+        rank1 = check_top10(res, scan, keys_of, f"{label} {what}", n=k)
+        if [[int(x) for x, _ in r] for r in bres] != \
+                [[int(x) for x, _ in r] for r in res]:
+            fail(f"{label} {what}: a B=64 search differs from the B=1 ones")
+        print(f"[{label}] {what} vs a plain scan of the shards: all 64 "
+              f"queries pass (rank 1 identical on {rank1}/64); the B=64 "
+              "search returns the same keys", flush=True)
+    peak_bf16 = torch.cuda.max_memory_allocated()
+    del index, scan, results, batch_res, f_res, f_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # int8: the first SHARDED_I8_ROWS rows, quantized on the host
+    t1 = time.perf_counter()
+    n8 = min(SHARDED_I8_ROWS, n)
+    i8 = ShardedKnnIndex(D, mesh=mesh, reserved_space=n8, dtype="int8",
+                         metric="cos")
+    for ci, base in enumerate(range(0, n8, chunk)):
+        m = min(chunk, n8 - base)
+        i8.add_batch(list(map(Pointer, range(base, base + m))),
+                     bench_knn_rows(ci, m, D).float().cpu().numpy())
+    i8.flush_device()
+    i8.drain()
+    add8_s = time.perf_counter() - t1
+    for e in i8._extents:
+        for s in range(S):
+            lo = e.base + s * e.cap_per_shard
+            q8, scale, vsq = _quantize_i8_np(
+                i8._host_vectors[lo:lo + e.cap_per_shard])
+            valid = i8._host_valid[lo:lo + e.cap_per_shard]
+            for got, want, what in ((e.vectors[s], q8, "codes"),
+                                    (e.scales[s], scale, "scales"),
+                                    (e.vsq[s], vsq, "vsq")):
+                got = got.cpu().numpy()[valid]
+                if not np.array_equal(got.view(np.uint8),
+                                      want[valid].view(np.uint8)):
+                    fail(f"{label} int8: shard {s}'s {what} differ from "
+                         "the host quantizer's")
+    k3_before = TOPK_I8.launches
+    res8 = i8.search([(Pointer(3 * 10**10 + i), qs[i], 10, None)
+                      for i in range(64)])
+    k3 = TOPK_I8.launches - k3_before
+    qb = qf.to(torch.bfloat16)
+    keys8 = slot_keys(i8)
+    scan8 = torch.cat([score_i8_reference(qb, e.vectors[s], e.scales[s],
+                                          e.vsq[s], e.valid[s], "cos")
+                       for e in i8._extents for s in range(S)], dim=1)
+    rank1 = check_top10(res8, scan8, keys8, f"{label} int8 top-10")
+    n8_ext = len(i8._extents)
+    if k3 != S * n8_ext or SCORE_I8.launches:
+        fail(f"{label} int8: K3 top-k launched {k3} times for one search "
+             f"over {S} shards x {n8_ext} extent(s)")
+    print(f"[{label}] int8 over the first {n8:,} rows: added in "
+          f"{add8_s:.2f} s; codes, scales and vsq of every shard bit for "
+          f"bit the host quantizer's (the divide); the 64 queries' top-10 "
+          f"(B=64) against score_i8_reference over the same shard tensors:"
+          f" all pass (rank 1 identical on {rank1}/64); K3 top-k {k3} "
+          f"({S} shards x {n8_ext} extent(s))", flush=True)
+    launches = {c: c.launches for c in counts}
+    if launches[ATTENTION]:
+        fail(f"{label}: K1 launched {launches[ATTENTION]} times in a phase "
+             "that runs no encoder")
+    print(f"[{label}] peak device memory {peak_bf16 / 2**20:.1f} MiB (bf16 "
+          f"index); launches K1 {launches[ATTENTION]}, K2 "
+          f"{launches[TOPK_BF16]}, K2 score {launches[SCORE_BF16]}, K3 top-k "
+          f"{launches[TOPK_I8]}, K3 score {launches[SCORE_I8]}; "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    del i8, scan8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rows_per_s": n / add_s,
+            "p50_ms": [float(np.percentile(lat1, 50)),
+                       float(np.percentile(lat64, 50))],
+            "filtered_p50_ms": [float(np.percentile(f_lat1, 50)),
+                                float(np.percentile(f_lat64, 50))]}
+
+
 def phase_profile(card: str) -> None:
     """torch.profiler over three encoder forwards of each path's dispatch
     (path 1: 512 x 96 padded; path 2: one ragged chunk of 8 x 512 with
@@ -7352,9 +8011,9 @@ def main() -> None:
         args.docs, args.seed, card)
     done("path 1")
     k1["launches_engine"], k1_seg["launches_engine"] = phase_engine(
-        min(args.docs, ENGINE_DOCS), args.seed, card)
+        min(args.docs, FRAMEWORK_DOCS), args.seed, card)
     done("engine")
-    fw = phase_framework(min(args.docs, ENGINE_DOCS), args.seed, card)
+    fw = phase_framework(min(args.docs, FRAMEWORK_DOCS), args.seed, card)
     for rec, key in ((k1, (ATTENTION, False)), (k1_seg, (ATTENTION, True)),
                      (k2, TOPK_BF16), (k2_score, SCORE_BF16),
                      (k3_topk, TOPK_I8), (k3, SCORE_I8),
@@ -7365,7 +8024,15 @@ def main() -> None:
     k1["launches_sharded"], k2["launches_sharded"] = (sharded["k1"],
                                                       sharded["k2"])
     done("framework sharded")
-    served = [phase_serving_knn(card), phase_serving_rag(args.seed, card)]
+    c5 = phase_config5(args.seed, card)
+    for rec, key in ((k1, ATTENTION), (k2, TOPK_BF16), (k2_score, SCORE_BF16),
+                     (k3_topk, TOPK_I8)):
+        rec["launches_config5"] = c5.get(key, 0)
+    done("config 5")
+    # graph B over SERVING_B_DOCS documents (cut from SERVING_N for the
+    # script's clock: its statistics step is O(documents) a tick)
+    served = [phase_serving_knn(card), phase_serving_rag(
+        args.seed, card, n_docs=min(args.docs, SERVING_B_DOCS))]
     for rec, key in ((k1, ATTENTION), (k2, TOPK_BF16),
                      (k2_score, SCORE_BF16)):
         rec["launches_serving"] = sum(run[key] for run in served)
@@ -7390,6 +8057,12 @@ def main() -> None:
     done("bf16 10M index")
     gc.collect()  # the 10M bf16 index and its host mirror are gone
     torch.cuda.empty_cache()
+    sk = phase_sharded_knn(bf16_rows, card)
+    for rec, key in ((k1, ATTENTION), (k2, TOPK_BF16), (k2_score, SCORE_BF16),
+                     (k3_topk, TOPK_I8)):
+        rec["launches_sharded_knn"] = sk["launches"][key]
+    k2["sharded_knn"] = {k: v for k, v in sk.items() if k != "launches"}
+    done("sharded knn")
     (k3_topk["launches"], _, _), k3_topk["probe_ms"], filt = phase_int8_10m(
         *bf16_rows, card)
     k3_topk["launches_path2"] = k3_topk_path2

@@ -13,8 +13,9 @@ KNN lives in pathway_tpu_torch/ops/knn.py. Under sharded execution
 (engine/graph.py) the data stream is broadcast and queries stay on the
 worker that holds them; the replicas share the one index object (one copy
 on the card) and only replica 0 maintains it. Not ported: the semantic
-result cache (ROADMAP queue 1, item 4), operator-state snapshots, the QoS
-coalescing counters and the mesh placement warning.
+result cache (ROADMAP queue 1, item 4), operator-state snapshots and the
+QoS coalescing counters. An index on a mesh other than the active one
+logs the PWT104 placement warning, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -77,6 +78,30 @@ class ExternalIndexOperator(Operator):
         self.live_queries: dict[Pointer, tuple] = {}  # key → (vec, limit, filt)
         # replica 0 maintains the shared index; the others only search
         self._is_primary = True
+        self._warn_mesh_placement(index)
+
+    @staticmethod
+    def _warn_mesh_placement(index) -> None:
+        """The PWT104 warning at run time: an index slab on a mesh of
+        another shape than the process-wide active one makes every query
+        batch cross topologies."""
+        slab_mesh = getattr(index, "_mesh", None)
+        if slab_mesh is None:
+            return
+        from pathway_tpu_torch.parallel.mesh import current_mesh
+
+        active = current_mesh()
+        if active is None or active is slab_mesh:
+            return
+        if dict(active.shape) != dict(slab_mesh.shape):
+            import logging
+
+            logging.getLogger("pathway_tpu_torch.shard_check").warning(
+                "[PWT104] external index slab lives on a %s mesh while the "
+                "active mesh is %s — every query batch pays a "
+                "cross-topology transfer; build the index with mesh='auto' "
+                "or the active mesh",
+                dict(slab_mesh.shape), dict(active.shape))
 
     def replicate(self, n: int):
         reps = [self]

@@ -120,6 +120,31 @@ class PageAllocator:
         are full). Raises RuntimeError when nothing is available —
         callers ensure_free first."""
         region_ok = None if regions is None else set(regions)
+        page = self._open_page(region_ok) or self._claim_page(region_ok)
+        return self._take_from(page)
+
+    def take_slots(self, n: int,
+                   regions: list[Hashable] | None = None) -> np.ndarray:
+        """The slots of ``n`` successive ``take_slot(regions)`` calls, in
+        order, taken a page at a time."""
+        region_ok = None if regions is None else set(regions)
+        out = []
+        while n:
+            page = self._open_page(region_ok) or self._claim_page(region_ok)
+            k = min(n, len(page.free))
+            # take_slot pops offsets from the end of the page's free list
+            out.append(page.base + np.array(page.free[:-k - 1:-1],
+                                            dtype=np.int64))
+            del page.free[-k:]
+            page.live += k
+            self.live_rows += k
+            n -= k
+        return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+    def _open_page(self, region_ok) -> _Page | None:
+        """The open page with a free slot that ``take_slot`` takes from
+        next (dropping filled pages from the open lists as it goes), or
+        None."""
         for r in list(self._open.keys()):
             if region_ok is not None and r not in region_ok:
                 continue
@@ -127,10 +152,10 @@ class PageAllocator:
             while pids:
                 page = self.pages[pids[-1]]
                 if page.free:
-                    return self._take_from(page)
+                    return page
                 pids.pop()  # page filled up — no longer open
             del self._open[r]
-        return self._take_from(self._claim_page(region_ok))
+        return None
 
     def _claim_page(self, region_ok) -> _Page:
         for r, pids in self._free_pages.items():

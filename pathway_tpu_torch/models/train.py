@@ -11,8 +11,8 @@ default ``_dense_attention`` (here ``dense_attention``); K1 has no
 backward in either package.
 
 The sharded step (``train_state_pspecs``, ``make_sharded_train_step``:
-data, tensor and expert parallelism over a mesh) is not ported: it
-belongs to ``parallel/`` (ROADMAP queue 1, item 5).
+data, tensor and expert parallelism over a mesh) is not ported: it is
+the training half of ``parallel/`` (ROADMAP queue 1, item 5: step 5b).
 """
 
 from __future__ import annotations
@@ -109,14 +109,14 @@ def _adam_state(node):
 
 def train_state_pspecs(*args, **kwargs):
     raise NotImplementedError(
-        "train_state_pspecs: sharded training belongs to parallel/, not "
-        "ported yet (ROADMAP queue 1, item 5)")
+        "train_state_pspecs: sharded training, the training half of "
+        "parallel/, is not ported yet (ROADMAP queue 1, item 5: step 5b)")
 
 
 def make_sharded_train_step(*args, **kwargs):
     raise NotImplementedError(
-        "make_sharded_train_step: sharded training belongs to parallel/, "
-        "not ported yet (ROADMAP queue 1, item 5)")
+        "make_sharded_train_step: sharded training, the training half of "
+        "parallel/, is not ported yet (ROADMAP queue 1, item 5: step 5b)")
 
 
 def info_nce_loss(q_emb, d_emb, temperature: float = 0.05):

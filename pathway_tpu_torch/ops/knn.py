@@ -38,9 +38,10 @@ each inside ``device_sanitizer.explicit_sync`` so a steady-state guard
 (engine/device_sanitizer.py) lets them through.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the contiguous slab (``paged=False``), string (jmespath) filters,
-tenants/quotas (queue 1, step 6). The semantic result cache and operator
-snapshots are absent."""
+item: this unsharded index's contiguous slab (``paged=False``; the
+mesh-sharded index in parallel/sharded_knn.py has one), string (jmespath)
+filters, tenants/quotas (queue 1, step 6). The semantic result cache and
+operator snapshots are absent."""
 
 from __future__ import annotations
 

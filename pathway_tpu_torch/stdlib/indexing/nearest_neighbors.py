@@ -6,9 +6,11 @@ BruteForceKnn and LshKnn run on the port's device brute-force index
 (ops/knn.py): an exact scan. With an embedder that has
 ``encode_batch_device`` (EncoderEmbedder), the factory wraps the index in
 the port's ``DeviceEmbeddingKnnIndex``, which takes raw text and embeds it
-on the device. Not ported, each raising ``NotImplementedError`` naming its
-ROADMAP item: ``mesh`` (the sharded index), tenants and page quotas, and
-USearchKnn's native HNSW.
+on the device. With ``mesh`` set (or ``mesh='auto'`` and a mesh whose data
+axis is larger than 1) it builds the mesh-sharded index
+(parallel/sharded_knn.py) instead, fed vectors by the DataIndex's embedder
+UDF. Not ported, each raising ``NotImplementedError`` naming its ROADMAP
+item: tenants and page quotas, and USearchKnn's native HNSW.
 """
 
 from __future__ import annotations
@@ -16,12 +18,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+import torch
+
 from pathway_tpu_torch.internals import expression as ex
 from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
                                        DeviceEmbeddingKnnIndex, KnnMetric)
 from pathway_tpu_torch.stdlib.indexing.data_index import InnerIndex
 
-_MESH = "ROADMAP queue 1, item 5: parallel/ (the mesh-sharded index)"
 _TENANTS = "ROADMAP queue 1, item 4: tenants and quotas in the page allocator"
 _HNSW = "ROADMAP queue 1, item 4: USearchKnn's native HNSW"
 
@@ -31,11 +34,7 @@ class BruteForceKnnMetricKind:
     COS = KnnMetric.COS
 
 
-def _check_ported(mesh, tenant, tenant_quotas) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"BruteForceKnn(mesh=...) is not ported to pathway_tpu_torch yet "
-            f"({_MESH})")
+def _check_ported(tenant, tenant_quotas) -> None:
     if tenant is not None or tenant_quotas:
         raise NotImplementedError(
             "BruteForceKnn(tenant=..., tenant_quotas=...) is not ported to "
@@ -49,7 +48,13 @@ class BruteForceKnnFactory:
     slab's bytes and its scan time; ``dtype='int8'`` halves them again
     (per-row quantization on the device, host mirror exact f32). The
     index lives on the embedder's device when it has one, else on
-    ``device`` (default "cuda")."""
+    ``device`` (default "cuda"). ``mesh`` (a ``parallel.mesh.Mesh``, or
+    ``'auto'``) builds the mesh-sharded index on the mesh's devices.
+    ``'auto'`` takes the active mesh (``use_mesh``), else the default mesh
+    over the cards (``get_mesh``; a CPU index with no active mesh stays
+    unsharded), and shards only when its data axis is larger than 1 — so
+    on one card it is the unsharded index, as the JAX factory is on one
+    chip."""
 
     dimensions: int | None = None
     reserved_space: int = 1024
@@ -66,10 +71,17 @@ class BruteForceKnnFactory:
     device: str = "cuda"
 
     def build(self):
-        _check_ported(self.mesh, self.tenant, self.tenant_quotas)
+        _check_ported(self.tenant, self.tenant_quotas)
         dim = self.dimensions
         if dim is None:
             dim = _probe_embedder_dimension(self.embedder)
+        mesh = self._resolve_mesh()
+        if mesh is not None:
+            from pathway_tpu_torch.parallel.sharded_knn import ShardedKnnIndex
+
+            return ShardedKnnIndex(dim, mesh=mesh,
+                                   reserved_space=self.reserved_space,
+                                   metric=self.metric, dtype=self.dtype)
         inner = BruteForceKnnIndex(
             dim, reserved_space=self.reserved_space, metric=self.metric,
             dtype=self.dtype,
@@ -77,10 +89,28 @@ class BruteForceKnnFactory:
         # device-capable embedder: the engine index takes raw text and
         # embeds on the device; embeddings never visit the host. The gate
         # mirrors BruteForceKnn.embeds_internally, which decides whether
-        # the DataIndex feeds text or vectors
-        if self.fuse and hasattr(self.embedder, "encode_batch_device"):
+        # the DataIndex feeds text or vectors (self.mesh, not the resolved
+        # mesh: 'auto' may resolve to None here while the planner already
+        # chose the vector column)
+        if self.fuse and self.mesh is None and hasattr(
+                self.embedder, "encode_batch_device"):
             return DeviceEmbeddingKnnIndex(self.embedder, inner)
         return inner
+
+    def _resolve_mesh(self):
+        mesh = self.mesh
+        if mesh != "auto":
+            return mesh
+        from pathway_tpu_torch.parallel.mesh import (DATA_AXIS, current_mesh,
+                                                     get_mesh)
+
+        m = current_mesh()
+        if m is None:
+            device = getattr(self.embedder, "device", None) or self.device
+            if torch.device(device).type != "cuda":
+                return None
+            m = get_mesh()
+        return m if int(m.shape.get(DATA_AXIS, 1)) > 1 else None
 
 
 def _probe_embedder_dimension(embedder) -> int:
@@ -100,11 +130,12 @@ class BruteForceKnn(InnerIndex):
                  tenant: Any = None, tenant_quotas: dict | None = None,
                  device: str = "cuda"):
         super().__init__(data_column, metadata_column)
-        _check_ported(mesh, tenant, tenant_quotas)
+        _check_ported(tenant, tenant_quotas)
         self.dimensions = dimensions
         self.reserved_space = reserved_space
         self.metric = metric
         self.embedder = embedder
+        self.mesh = mesh
         self.dtype = dtype
         # the index's device when there is no embedder (with one, the
         # embedder's device wins)
@@ -113,8 +144,8 @@ class BruteForceKnn(InnerIndex):
     def factory(self) -> BruteForceKnnFactory:
         return BruteForceKnnFactory(
             dimensions=self.dimensions, reserved_space=self.reserved_space,
-            metric=self.metric, embedder=self.embedder, dtype=self.dtype,
-            device=self.device)
+            metric=self.metric, embedder=self.embedder, mesh=self.mesh,
+            dtype=self.dtype, device=self.device)
 
     @property
     def query_embedder(self):
@@ -124,8 +155,10 @@ class BruteForceKnn(InnerIndex):
     def embeds_internally(self) -> bool:
         """True when the engine index embeds raw text on the device itself
         (DeviceEmbeddingKnnIndex): the DataIndex then skips the UDF
-        embedding column for both data and queries."""
-        return hasattr(self.embedder, "encode_batch_device")
+        embedding column for both data and queries. Never with a mesh: the
+        sharded index takes vectors."""
+        return self.mesh is None and hasattr(self.embedder,
+                                             "encode_batch_device")
 
 
 class USearchKnn(BruteForceKnn):

@@ -37,11 +37,14 @@ def default_brute_force_knn_document_index(
         tenant: Any = None,
         tenant_quotas: dict | None = None,
         device: str = "cuda") -> DataIndex:
-    """``dtype='bfloat16'`` halves the slab's bytes and scan time;
-    ``dtype='int8'`` halves them again (quantized on the device, host
-    mirror exact f32). The index lives on the embedder's device, else on
-    ``device`` (default "cuda"). ``mesh`` and ``tenant``/``tenant_quotas``
-    are not ported and raise."""
+    """``mesh='auto'`` shards the slab over the active mesh's data axis
+    when it has more than one shard (parallel/sharded_knn.py; on one card
+    the index stays unsharded), and so does a mesh passed in.
+    ``dtype='bfloat16'`` halves the slab's bytes and scan time;
+    ``dtype='int8'`` halves them again (quantized on the device, or on the
+    host for a sharded index; host mirror exact f32). The index lives on
+    the embedder's device, else on ``device`` (default "cuda").
+    ``tenant``/``tenant_quotas`` are not ported and raise."""
     inner = BruteForceKnn(
         data_column, metadata_column, dimensions=dimensions,
         reserved_space=reserved_space, metric=metric, embedder=embedder,

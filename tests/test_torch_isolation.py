@@ -1,6 +1,6 @@
 """The port stands alone: pathway_tpu_torch (and chip_smoke.py) import
-neither jax nor anything of pathway_tpu, nor aiohttp, optax, pandas or any
-other package the chip machine lacks (it has Python's standard library, torch,
+neither jax nor anything of pathway_tpu, nor aiohttp, optax, pandas, a
+Kafka client package or any other package the chip machine lacks (it has Python's standard library, torch,
 triton, numpy, scipy, einops, pytest and hypothesis; PIL only inside the
 function that decodes image bytes), and its entry points never drop to
 the CPU unless asked."""
@@ -14,7 +14,8 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "pathway_tpu", "aiohttp", "optax")
+FORBIDDEN = ("jax", "jaxlib", "pathway_tpu", "aiohttp", "optax", "kafka",
+             "confluent_kafka")
 # imported only inside the function that needs it (models/clip.py
 # load_image, models/hf_loader.py's safetensors read): a machine without it
 # fails in that call and nowhere else
@@ -239,6 +240,91 @@ def test_configs_1_and_3_run_without_jax_pandas_or_aiohttp():
     raises, and none of them is loaded."""
     proc = subprocess.run([sys.executable, "-c", _CONFIGS], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+_CONFIG5 = """
+import json
+import sys
+import threading
+import time
+
+BLOCKED = ("jax", "pathway_tpu", "kafka", "confluent_kafka", "pandas",
+           "aiohttp", "optax")
+for name in BLOCKED:  # importing any of them raises; find_spec says absent
+    sys.modules[name] = None
+import torch
+import pathway_tpu_torch as pw
+from chip_smoke import LogBroker
+from pathway_tpu_torch.engine import streaming
+from pathway_tpu_torch.io.kafka._protocol import KafkaClient
+from pathway_tpu_torch.models.encoder import EncoderConfig
+from pathway_tpu_torch.parallel import (MeshConfig, ShardedKnnIndex,
+                                        make_mesh, use_mesh)
+from pathway_tpu_torch.stdlib.indexing import (
+    default_brute_force_knn_document_index, nearest_neighbors)
+from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+
+docs = [f"doc {i} word{i} word{i * 7} word{i * 3}" for i in range(32)]
+broker = LogBroker({"docs": 4, "queries": 1})
+settings = {"bootstrap.servers": f"127.0.0.1:{broker.port}"}
+client = KafkaClient(settings["bootstrap.servers"])
+for p in range(4):
+    client.produce("docs", p, [(None, json.dumps({"doc": docs[i]}).encode())
+                               for i in range(p, 32, 4)])
+built = []
+build = nearest_neighbors.BruteForceKnnFactory.build
+nearest_neighbors.BruteForceKnnFactory.build = \
+    lambda self: built.append(build(self)) or built[-1]
+emb = EncoderEmbedder(config=EncoderConfig.tiny(), device="cpu")
+t = pw.io.kafka.read(settings, topic="docs", format="json",
+                     schema=pw.schema_from_types(doc=str),
+                     autocommit_duration_ms=20)
+q = pw.io.kafka.read(settings, topic="queries", format="json",
+                     schema=pw.schema_from_types(query=str),
+                     autocommit_duration_ms=20)
+index = default_brute_force_knn_document_index(
+    t.doc, t, embedder=emb, dimensions=64, mesh="auto", dtype="bfloat16",
+    device="cpu")
+res = index.query_as_of_now(q.query, number_of_matches=2)
+answers = []
+pw.io.subscribe(res, lambda key, row, time, is_addition:
+                answers.append(row["doc"]))
+with use_mesh(make_mesh(MeshConfig(data=4), devices=["cpu"] * 4)):
+    th = threading.Thread(target=pw.run, daemon=True)
+    th.start()
+    deadline = time.monotonic() + 60
+    while not (built and len(built[0]) == 32):
+        assert time.monotonic() < deadline and th.is_alive()
+        time.sleep(0.02)
+    client.produce("queries", 0, [(None, json.dumps({"query": docs[5]})
+                                   .encode())])
+    while not answers:
+        assert time.monotonic() < deadline and th.is_alive()
+        time.sleep(0.02)
+    streaming.stop_all()
+    th.join(30)
+client.close()
+broker.close()
+assert not th.is_alive()
+assert isinstance(built[0], ShardedKnnIndex) and built[0].n_shards == 4
+assert answers[0][0] == docs[5], answers
+print("LOADED", sorted(m for m, mod in sys.modules.items()
+                      if mod is not None and m.split(".")[0] in BLOCKED))
+"""
+
+
+def test_config5_runs_without_jax_or_a_kafka_package():
+    """BASELINE.md config 5 on the CPU — a Kafka topic (chip_smoke.py's
+    broker on 127.0.0.1) read by ``pw.io.kafka`` at 4 workers into
+    ``mesh="auto"`` under a 4-shard CPU mesh — runs in a process where
+    importing jax, pathway_tpu, kafka, confluent_kafka, pandas, aiohttp or
+    optax raises, and none of them is loaded."""
+    env = dict(os.environ, PATHWAY_THREADS="4")
+    proc = subprocess.run([sys.executable, "-c", _CONFIG5], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
 

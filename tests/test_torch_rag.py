@@ -292,6 +292,12 @@ def _serve(side: str):
                    or ws._started.is_set()) or not ws.port:
             assert time.monotonic() < deadline, f"{side} never served"
             time.sleep(0.02)
+        # each rest_connector registers its route from its own reader
+        # thread, and the first one starts the server: wait for them all
+        deadline = time.monotonic() + DEADLINE_S
+        while not all(("POST", route) in ws._routes for route, _ in ROUTES):
+            assert time.monotonic() < deadline, f"{side} never routed"
+            time.sleep(0.02)
         # a tick for the documents before the first question
         deadline = time.monotonic() + DEADLINE_S
         while _post(ws.port, "/v1/statistics", {})[2] in (

@@ -236,9 +236,10 @@ def test_statistics_and_inputs_lower_to_join_left(params, endpoint):
 
 
 def test_unported_parts_raise_naming_their_item(params):
-    """The default usearch index, USearchKnn and the mesh-sharded index
-    raise; they never fall back to another index or to the CPU. (The
-    server and its client are ported: tests/test_torch_serving.py.)"""
+    """The default usearch index, USearchKnn and tenant quotas raise; they
+    never fall back to another index or to the CPU. (The server and its
+    client are ported: tests/test_torch_serving.py; the mesh-sharded index
+    too: tests/test_torch_sharded_knn.py.)"""
     from pathway_tpu_torch.stdlib.indexing import USearchKnn
 
     emb = _embedder("torch", params, False)
@@ -249,4 +250,5 @@ def test_unported_parts_raise_naming_their_item(params):
         USearchKnn(store._graph["chunks"].text, embedder=emb)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdefault_index(store._graph["chunks"].text, store._graph["chunks"],
-                       embedder=emb, mesh="auto")
+                       embedder=emb, tenant="acme",
+                       tenant_quotas={"acme": 1024})
