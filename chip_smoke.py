@@ -16,8 +16,9 @@ graph: the columnar groupby and the inner join with their native passes,
 host code, at one and at eight sharded workers, and the exchange's wire
 codec), graph A of bench_embed_framework at four sharded workers, its temporal layer (bench_etl's windowed leg and every
 other temporal entry point, host code) and the model layer's training
-paths (contrastive fine-tuning, a mixture-of-experts encoder served and
-trained, the CLIP dual encoder), at BGE-small's full width with random weights from a seed,
+paths (contrastive fine-tuning, its sharded form over a device mesh with
+ring and Ulysses attention and a GPipe pipeline, a mixture-of-experts
+encoder served and trained, the CLIP dual encoder), at BGE-small's full width with random weights from a seed,
 and checks every kernel of those paths against its plain PyTorch version
 on the card. Phases (each failure exits
 non-zero, and no result line is printed):
@@ -369,7 +370,19 @@ non-zero, and no result line is printed):
    20 timed steps, every loss finite and the last below the first. Prints
    step ms p50/p90 (CUDA events), pairs/s, tokens/s, TFLOP/s (3 x
    ``encoder_cost(256, 128)`` a step) and peak memory;
-17c. moe (``EncoderConfig.bge_small(num_experts=4)``): the padded
+17c. parallel (the training half of ``parallel/``, every mesh shards of
+   cuda:0, BGE-small's width): ring attention over a data axis of 4 and
+   Ulysses over 2 at B=8, S=512, 6 heads of 64, f32 and bf16, causal and
+   not, against ``reference_attention`` (f32 1e-4, bf16 2^-5; ms beside
+   it); the GPipe pipeline, 12 layers over 4 stages, 8 micro-batches of
+   8 x 128 tokens, bf16, bit for bit against the sequential blocks (ms of
+   each, in turns; the bubble 3/11); the sharded train step on a (data
+   2, model 2) mesh, dense and 4 experts: one f32 step at B=8 S=64
+   against the single-device step on the card from the same weights
+   (loss rel 1e-4, gradients as in 17b), then 5 timed bf16 steps at 128
+   pairs x 128 tokens (p50 beside 17b's, peak memory). No kernel
+   launched (K1 0: the path is dense attention); the phase's seconds;
+17d. moe (``EncoderConfig.bge_small(num_experts=4)``): the padded
    embedder into a bf16 index over 10,240 ``make_docs`` documents, then
    64 text queries (K1 = 12 x encoder dispatches, every top 10 against a
    plain scan, each copy's B=1 embedding within cosine 0.99 of its
@@ -381,7 +394,7 @@ non-zero, and no result line is printed):
    graphs captured, K1 with segment ids 12, K4 1; ragged vs padded cosine
    >= 0.99, bf16); then phase 17b's f32 hold and 10 bf16 steps on this
    config;
-17d. clip (``ClipConfig()``: 224-pixel images, 16-pixel patches, a ViT
+17e. clip (``ClipConfig()``: 224-pixel images, 16-pixel patches, a ViT
    of 6 x 192, a BGE-small-wide text tower, embed_dim 128):
    ``ClipEmbedder`` over 512 seeded images (ndarrays) and 512 texts
    (finite unit rows; images/s, texts/s); both towers, ``clip_loss`` and
@@ -7576,10 +7589,10 @@ def hold_losses(losses: list, label: str) -> None:
 
 
 def train_run(cfg, params: dict, steps: int, label: str, card: str,
-              flops_cfg=None) -> None:
+              flops_cfg=None) -> float:
     """bf16 contrastive training on one fixed batch of TRAIN_PAIRS pairs x
     TRAIN_SEQ tokens, AdamW at the JAX package's defaults: TRAIN_WARM
-    warm-up steps, then ``steps`` timed ones."""
+    warm-up steps, then ``steps`` timed ones. Returns the step p50 (ms)."""
     import torch
 
     from pathway_tpu_torch.models.encoder import encoder_cost
@@ -7617,18 +7630,245 @@ def train_run(cfg, params: dict, steps: int, label: str, card: str,
           f"{losses[TRAIN_WARM]:.6f}, last {losses[-1]:.6f}, all "
           f"{len(losses)} finite [{card}]", flush=True)
     profile_step(step, label, card)
+    return float(p50)
 
 
-def phase_train(seed: int, card: str) -> None:
+def phase_train(seed: int, card: str) -> float:
     """Contrastive fine-tuning of BGE-small: the f32 step on the card
-    against the CPU, then bf16 training steps."""
+    against the CPU, then bf16 training steps. Returns the step p50."""
     from pathway_tpu_torch.models.encoder import (EncoderConfig,
                                                   init_params_host)
 
     cfg = EncoderConfig.bge_small()
     params = init_params_host(seed, cfg)
     hold_train_step(cfg, params, "train", card)
-    train_run(cfg, params, TRAIN_STEPS, "train", card)
+    return train_run(cfg, params, TRAIN_STEPS, "train", card)
+
+
+# the training half of parallel/ (phase_parallel), on meshes of cuda:0
+PAR_B, PAR_S = 8, 512   # sequences of BGE's max length
+PAR_RING_SHARDS = 4     # ring over a data axis of 4
+PAR_ULYSSES_SHARDS = 2  # BGE-small's 6 heads: 2 or 3 divide, 512 % 3 != 0
+PIPE_STAGES, PIPE_MICRO = 4, 8     # 12 layers, 3 a stage; 8 micro-batches
+PIPE_MB, PIPE_SEQ = 8, 128         # of 8 x 128 tokens
+SHARDED_DATA, SHARDED_MODEL = 2, 2
+SHARDED_STEPS = 5       # bf16 steps timed, after one warm-up step
+
+
+def hold_sequence_parallel(card: str) -> None:
+    """Ring attention over a data axis of 4 and Ulysses over 2, at
+    BGE-small's heads and head width, B=8, S=512, f32 and bf16, causal
+    and not, against ``reference_attention`` on the card, with times."""
+    import torch
+
+    from pathway_tpu_torch.models.encoder import EncoderConfig
+    from pathway_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from pathway_tpu_torch.parallel.ring_attention import (
+        reference_attention, ring_attention, ulysses_attention)
+
+    cfg = EncoderConfig.bge_small()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    shape = (PAR_B, PAR_S, cfg.heads, cfg.head_dim)
+    # bf16: |out| < 4, two bf16 steps there (the ring rounds unnormalised
+    # probabilities, the reference normalised ones)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2 ** -5)):
+        q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+                   for _ in range(3))
+        for label, fn, n in (("ring", ring_attention, PAR_RING_SHARDS),
+                             ("ulysses", ulysses_attention,
+                              PAR_ULYSSES_SHARDS)):
+            mesh = make_mesh(MeshConfig(data=n), devices=[dev] * n)
+            for causal in (False, True):
+                ref = reference_attention(q, k, v, causal=causal)
+                out = fn(q, k, v, mesh=mesh, causal=causal)
+                err = float((out.float() - ref.float()).abs().max())
+                peak = float(ref.float().abs().max())
+                ms = cuda_ms(lambda: fn(q, k, v, mesh=mesh, causal=causal),
+                             10)
+                ref_ms = cuda_ms(lambda: reference_attention(
+                    q, k, v, causal=causal), 10)
+                name = str(dtype).replace("torch.", "")
+                print(f"[parallel] {label} over {n} shards of cuda:0, "
+                      f"{name}, causal={causal}, (B, S, H, D) = {shape}: "
+                      f"max|err| {err:.3e} against reference_attention "
+                      f"(tolerance {tol:.3e}, max|out| {peak:.3f}); "
+                      f"{ms:.4f} ms a call, reference {ref_ms:.4f} ms "
+                      f"(CUDA events) [{card}]", flush=True)
+                if not np.isfinite(err) or err > tol or \
+                        out.shape != ref.shape or out.dtype != dtype:
+                    fail(f"[parallel] {label} {name} causal={causal}: "
+                         f"max|err| {err:.3e} > {tol:.3e}")
+
+
+def hold_pipeline(seed: int, card: str) -> None:
+    """BGE-small's 12 blocks over a 4-stage pipe mesh of cuda:0, 8
+    micro-batches of 8 x 128 tokens, bf16, against the port's sequential
+    blocks on the card (bit for bit), with times."""
+    import torch
+
+    from pathway_tpu_torch.models.convert import tree_map
+    from pathway_tpu_torch.models.encoder import (EncoderConfig,
+                                                  init_params_host)
+    from pathway_tpu_torch.parallel.mesh import Mesh
+    from pathway_tpu_torch.parallel.pipeline import (
+        pipeline_encoder_blocks, sequential_encoder_blocks,
+        stack_stage_params)
+
+    cfg = EncoderConfig.bge_small()
+    dev = torch.device("cuda")
+    params = init_params_host(seed, cfg)
+    stacked = tree_map(lambda t: t.to(dev),
+                       stack_stage_params(params["layers"]))
+    layers = tree_map(lambda a: torch.from_numpy(a).to(dev),
+                      params["layers"])
+    run = pipeline_encoder_blocks(Mesh([dev] * PIPE_STAGES, ("pipe",)), cfg)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((PIPE_MICRO, PIPE_MB, PIPE_SEQ, cfg.hidden), device=dev,
+                    generator=gen)
+    lens = torch.randint(16, PIPE_SEQ + 1, (PIPE_MB,), device=dev,
+                         generator=gen)
+    mask = torch.arange(PIPE_SEQ, device=dev)[None, :] < lens[:, None]
+
+    def sequential():
+        return torch.stack([sequential_encoder_blocks(layers, x[i], mask, cfg)
+                            for i in range(PIPE_MICRO)])
+
+    out, seq = run(stacked, x, mask), sequential()
+    same = torch.equal(out, seq)
+    # host-bound: timed in turns, pipeline, sequential, sequential, pipeline
+    ms = {"pipeline": [], "sequential": []}
+    for name in ("pipeline", "sequential", "sequential", "pipeline"):
+        ms[name].append(cuda_ms(sequential if name == "sequential" else
+                                (lambda: run(stacked, x, mask)), 3))
+    bubble = (PIPE_STAGES - 1) / (PIPE_MICRO + PIPE_STAGES - 1)
+    print(f"[parallel] pipeline: {cfg.layers} layers over {PIPE_STAGES} "
+          f"stages of cuda:0 ({cfg.layers // PIPE_STAGES} each), "
+          f"{PIPE_MICRO} micro-batches of {PIPE_MB} x {PIPE_SEQ} tokens, "
+          f"bf16: {out.dtype}, equal to the sequential blocks bit for bit: "
+          f"{same}; a run {ms['pipeline'][0]:.3f} / {ms['pipeline'][1]:.3f}"
+          f" ms, sequential {ms['sequential'][0]:.3f} / "
+          f"{ms['sequential'][1]:.3f} ms (CUDA events, in turns); bubble "
+          f"(S-1)/(M+S-1) = {PIPE_STAGES - 1}/"
+          f"{PIPE_MICRO + PIPE_STAGES - 1} = {bubble:.4f} of the stage-steps "
+          f"(no micro-batch there: skipped) [{card}]", flush=True)
+    if not same or not torch.isfinite(out.float()).all():
+        fail("[parallel] pipeline: not equal to the sequential blocks")
+
+
+def hold_sharded_step(seed: int, card: str, train_p50: float) -> None:
+    """The sharded train step on a (data 2, model 2) mesh of cuda:0,
+    dense and 4-expert MoE: one f32 step at HOLD_B x HOLD_S against the
+    port's single-device step on the card from the same weights, then
+    bf16 steps at TRAIN_PAIRS x TRAIN_SEQ."""
+    import dataclasses
+
+    import torch
+
+    from pathway_tpu_torch.models.convert import params_from_jax
+    from pathway_tpu_torch.models.encoder import (EncoderConfig,
+                                                  init_params_host)
+    from pathway_tpu_torch.models.train import (as_batch,
+                                                contrastive_train_step,
+                                                init_sharded_train_state,
+                                                init_train_state,
+                                                make_sharded_train_step)
+    from pathway_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    dev = torch.device("cuda")
+    mesh = make_mesh(MeshConfig(data=SHARDED_DATA, model=SHARDED_MODEL),
+                     devices=[dev] * (SHARDED_DATA * SHARDED_MODEL))
+    shape = f"(data {SHARDED_DATA}, model {SHARDED_MODEL}) mesh of cuda:0"
+    for experts in (0, MOE_EXPERTS):
+        cfg = EncoderConfig.bge_small(num_experts=experts)
+        label = f"[parallel] sharded step, {experts or 'no'} experts"
+        t0 = time.perf_counter()
+        params = init_params_host(seed, cfg)
+        t_params = time.perf_counter() - t0
+        cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        batch = train_batch(HOLD_B, HOLD_S, cfg.vocab_size, seed=11)
+        single = init_train_state(0, cfg32, params=params, device=dev)
+        single, l_single = contrastive_train_step(single, batch)
+        g_single = {n: p.grad.detach().cpu()
+                    for n, p in single.model.named_parameters()}
+        del single
+        state = init_sharded_train_state(0, mesh, cfg32, params=params)
+        step_fn, _, _ = make_sharded_train_step(mesh, cfg32)
+        state, l_sharded = step_fn(state, batch)
+        l_single, l_sharded = float(l_single), float(l_sharded)
+        rel = abs(l_sharded - l_single) / abs(l_single)
+        worst = hold_grads(params_from_jax(state.gather("grads")), g_single,
+                           label, 1e-3)
+        print(f"{label}: f32 at B={HOLD_B} S={HOLD_S} on a {shape} against "
+              f"the single-device step on the card: loss {l_sharded:.7f} vs "
+              f"{l_single:.7f} (rel {rel:.2e}, tolerance 1e-4); "
+              f"{len(g_single)} gradient tensors, worst max|err| / "
+              f"max|grad| {worst:.2e} (tolerance 1e-3, floor 1e-5 x the "
+              f"largest |grad|); weights drawn in {t_params:.1f} s, the two "
+              f"f32 steps {time.perf_counter() - t0 - t_params:.1f} s "
+              f"(host) [{card}]", flush=True)
+        if not np.isfinite(l_sharded) or rel > 1e-4:
+            fail(f"{label}: the sharded f32 loss differs from the "
+                 f"single-device step's")
+        del state
+        t0 = time.perf_counter()
+        state = init_sharded_train_state(0, mesh, cfg, params=params)
+        step_fn, _, _ = make_sharded_train_step(mesh, cfg)
+        b = as_batch(train_batch(TRAIN_PAIRS, TRAIN_SEQ, cfg.vocab_size,
+                                 seed=12), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, wall_ms = timed_steps(lambda: step_fn(state, b)[1], 1,
+                                          SHARDED_STEPS)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        hold_losses(losses, label)
+        beside = (f", [train]'s single-device p50 {train_p50:.3f} ms"
+                  if not experts else "")
+        print(f"{label}: bf16 AdamW on a {shape}, one batch of {TRAIN_PAIRS} "
+              f"pairs x {TRAIN_SEQ} tokens a side: step p50 "
+              f"{np.percentile(ms, 50):.3f} ms, max {max(ms):.3f} ms (CUDA "
+              f"events, {SHARDED_STEPS} steps after 1 warm-up){beside}; host "
+              f"wall {wall_ms:.3f} ms a step; peak device memory "
+              f"{peak_gb:.2f} GiB; losses {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f}; {time.perf_counter() - t0:.1f} s with the "
+              f"state's placement (host) [{card}]", flush=True)
+        if not experts:  # where the dense step's time goes (one step:
+            # the profiler's summary of ~10^4 host ops a step is slow)
+            profile_step(lambda: step_fn(state, b)[1], "parallel", card,
+                         reps=1)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_parallel(seed: int, card: str, train_p50: float) -> None:
+    """The training half of parallel/ at BGE-small's width, on meshes of
+    cuda:0: sequence-parallel attention, the GPipe pipeline, the sharded
+    train step. No hand-written kernel is on these paths (they are the
+    JAX package's dense attention and einsums): every launch count must
+    stay 0."""
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+
+    t0 = time.perf_counter()
+    for count in LAUNCH_COUNTS:
+        count.launches = 0
+    parts = []
+    for part, run in (("ring/ulysses", lambda: hold_sequence_parallel(card)),
+                      ("pipeline", lambda: hold_pipeline(seed, card)),
+                      ("sharded step", lambda: hold_sharded_step(
+                          seed, card, train_p50))):
+        t1 = time.perf_counter()
+        run()
+        parts.append(f"{part} {time.perf_counter() - t1:.1f} s")
+    launched = {c.name: c.launches for c in LAUNCH_COUNTS if c.launches}
+    print(f"[parallel] K1 launches {ATTENTION.launches} (the path is dense "
+          f"attention); phase {time.perf_counter() - t0:.1f} s ("
+          f"{', '.join(parts)}) [{card}]",
+          flush=True)
+    if launched:
+        fail(f"[parallel] kernels launched on the parallel paths: "
+             f"{launched}")
 
 
 def routed(forward) -> tuple:
@@ -8071,8 +8311,10 @@ def main() -> None:
     phase_profile(card)
     gc.collect()  # the profiled embedders
     torch.cuda.empty_cache()
-    phase_train(args.seed, card)
+    train_p50 = phase_train(args.seed, card)
     done("train")
+    phase_parallel(args.seed, card, train_p50)
+    done("parallel")
     k1["launches_moe"], k1_seg["launches_moe"] = phase_moe(args.seed, card)
     done("moe")
     phase_clip(args.seed, card)

@@ -1,6 +1,8 @@
 """pathway_tpu_torch.models — port of pathway_tpu.models: the encoder
-(BGE-small's shape by default, an optional mixture-of-experts MLP), its
-contrastive training step, the CLIP dual encoder and the tokenizers."""
+(BGE-small's shape by default, an optional mixture-of-experts MLP, its
+tensor-parallel partition specs), its contrastive training step (on one
+device, or sharded over a mesh), the CLIP dual encoder and the
+tokenizers."""
 
 from pathway_tpu_torch.models.clip import (
     ClipConfig,
@@ -15,6 +17,7 @@ from pathway_tpu_torch.models.encoder import (
     EncoderConfig,
     encode,
     init_params_host,
+    param_pspecs,
 )
 from pathway_tpu_torch.models.tokenizer import HashTokenizer
 from pathway_tpu_torch.models.train import (
@@ -34,6 +37,7 @@ __all__ = [
     "encode_text",
     "init_clip_params",
     "init_params_host",
+    "param_pspecs",
     "HashTokenizer",
     "contrastive_train_step",
     "init_train_state",

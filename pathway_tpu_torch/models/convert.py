@@ -46,6 +46,20 @@ def layers_state(layers: list, prefix: str = "") -> dict[str, torch.Tensor]:
     return state
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (nested dicts and lists; any
+    other value, tuples included, is a leaf) and the nodes at the same
+    place in each of ``rest``: ``jax.tree.map`` over the JAX tree's
+    containers."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
 def params_from_jax(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
     """State dict (float32 CPU tensors) for ``Encoder.load_state_dict``,
     which casts each entry to its parameter's dtype and device; every key

@@ -27,12 +27,21 @@ them). ``encode`` is the serving entry (no autograd); calling the module
 runs the same forward with autograd, and training passes
 ``dense_attention``, since K1 has no backward.
 
-Not ported yet: tensor-parallel partition specs (ROADMAP).
+``param_pspecs`` names, leaf by leaf, the mesh axis each dim of the
+parameter tree is split over (Megatron-style tensor parallelism over the
+``model`` axis: the query, key, value and up projections split by output
+columns, the output and down projections by input rows, MoE experts by
+expert), as tuples of axis names (``Placement.spec``'s form).
+``encode_tensor_parallel`` is the forward those specs imply: each model
+shard computes with its own columns, rows or experts (1/M of each
+matrix) on its own device, and the partial results are summed over the
+shards before the replicated bias and layer norm.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Any, Callable
 
 import numpy as np
@@ -41,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.parallel.mesh import MODEL_AXIS, all_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +157,65 @@ def init_params_host(seed: int, config: EncoderConfig) -> dict:
                              * DENSE_INIT_SCALE).astype(np.float32),
         zeros=lambda shape: np.zeros(shape, np.float32),
         ones=lambda shape: np.ones(shape, np.float32))
+
+
+def param_pspecs(config: EncoderConfig) -> dict:
+    """The partition spec of every leaf of the parameter tree, for tensor
+    parallelism over the ``model`` axis: the JAX package's
+    ``param_pspecs`` with each ``P(...)`` as the tuple of its axis names
+    (``P(None, M)`` -> ``(None, "model")``)."""
+    M = MODEL_AXIS
+    emb = {
+        "token": (None, None),
+        "position": (None, None),
+        "token_type": (None, None),
+        "ln_scale": (None,),
+        "ln_bias": (None,),
+    }
+    layers = []
+    for _ in range(config.layers):
+        layer = {
+            "attn": {
+                # QKV split on the head (output) dim, out-proj on input dim
+                "wq": (None, M), "bq": (M,),
+                "wk": (None, M), "bk": (M,),
+                "wv": (None, M), "bv": (M,),
+                "wo": (M, None), "bo": (None,),
+                "ln_scale": (None,), "ln_bias": (None,),
+            },
+        }
+        if config.num_experts > 0:
+            layer["moe"] = {
+                "router": (None, None),
+                # expert-parallel: experts sharded over the model axis
+                "w1": (M, None, None), "b1": (M, None),
+                "w2": (M, None, None), "b2": (M, None),
+                "ln_scale": (None,), "ln_bias": (None,),
+            }
+        else:
+            layer["mlp"] = {
+                "w1": (None, M), "b1": (M,),
+                "w2": (M, None), "b2": (None,),
+                "ln_scale": (None,), "ln_bias": (None,),
+            }
+        layers.append(layer)
+    return {"embeddings": emb, "layers": layers}
+
+
+def check_tensor_parallel(config: EncoderConfig, n_model: int) -> None:
+    """Raise ``ValueError`` unless a ``model`` axis of ``n_model`` shards
+    divides what it splits: the heads, and the intermediate width (dense
+    MLP) or the experts (MoE)."""
+    split = [("heads", config.heads)]
+    if config.num_experts > 0:
+        split.append(("num_experts", config.num_experts))
+    else:
+        split.append(("intermediate", config.intermediate))
+    for what, n in split:
+        if n % n_model:
+            raise ValueError(
+                f"tensor parallelism: {what}={n} is not divisible by the "
+                f"{n_model}-way {MODEL_AXIS!r} axis")
 
 
 # ---------------------------------------------------------------------------
@@ -260,6 +329,30 @@ class Encoder(nn.Module):
 # forward
 # ---------------------------------------------------------------------------
 
+_BIASES = {"wq": "bq", "wk": "bk", "wv": "bv", "wo": "bo",
+           "w1": "b1", "w2": "b2"}
+
+
+def block_view(p: dict) -> SimpleNamespace:
+    """A dense block of the JAX-layout tree (``attn`` or ``mlp``) as the
+    attributes the blocks read: each (in, out) weight as an (out, in)
+    view beside its bias, the layer norm as ``ln``. Nothing is copied."""
+    view = SimpleNamespace(ln=SimpleNamespace(weight=p["ln_scale"],
+                                              bias=p["ln_bias"]))
+    for w, b in _BIASES.items():
+        if w in p:
+            setattr(view, w, SimpleNamespace(weight=p[w].T, bias=p[b]))
+    return view
+
+
+def _embeddings_view(e: dict) -> SimpleNamespace:
+    return SimpleNamespace(
+        token=SimpleNamespace(weight=e["token"]),
+        position=SimpleNamespace(weight=e["position"]),
+        token_type=SimpleNamespace(weight=e["token_type"]),
+        ln=SimpleNamespace(weight=e["ln_scale"], bias=e["ln_bias"]))
+
+
 def _layer_norm(x, scale, bias, eps, out_dtype=None):
     """Statistics in float32 (population variance), the result cast back
     to ``out_dtype`` (the residual stream stays in the compute dtype)."""
@@ -325,11 +418,15 @@ def _use_tanh_gelu(config: EncoderConfig) -> bool:
     return config.gelu == "tanh"
 
 
+def _gelu(h, config: EncoderConfig):
+    return F.gelu(h, approximate="tanh" if _use_tanh_gelu(config)
+                  else "none")
+
+
 def _mlp_block(x, p: MlpBlock, config: EncoderConfig):
     cd = config.compute_dtype
     xc = x.to(cd)
-    h = F.gelu(_linear(xc, p.w1, cd),
-               approximate="tanh" if _use_tanh_gelu(config) else "none")
+    h = _gelu(_linear(xc, p.w1, cd), config)
     out = _linear(h, p.w2, cd)
     return _layer_norm(xc + out, p.ln.weight, p.ln.bias,
                        config.layer_norm_eps, out_dtype=cd)
@@ -351,34 +448,43 @@ def _moe_block(x, p: MoeBlock, config: EncoderConfig):
     router learns through ``gate_val``; the argmax and one-hot carry no
     gradient, as in JAX."""
     cd = config.compute_dtype
-    E = config.num_experts
-    gates, top = _moe_route(x, p.router)
-    # a comparison, not F.one_hot, which reads the indices' range back to
-    # the host (a sync, fatal inside a CUDA graph capture)
-    onehot = (top[..., None] == torch.arange(E, device=x.device)).to(cd)
-    gate_val = (gates * onehot.float()).sum(dim=-1)
+    onehot, gate_val = _moe_gates(x, p.router, config)
     xc = x.to(cd)
-    h = torch.einsum("bsh,ehi->bsei", xc, p.w1.to(cd)) \
-        + p.b1.to(cd)[None, None]
-    if _use_tanh_gelu(config):
-        h = F.gelu(h, approximate="tanh")
-    else:
-        h = F.gelu(h.float()).to(cd)
-    out = torch.einsum("bsei,eih->bseh", h, p.w2.to(cd)) \
-        + p.b2.to(cd)[None, None]
-    out = torch.einsum("bseh,bse->bsh", out, onehot)
+    out = _experts(xc, p.w1, p.b1, p.w2, p.b2, onehot, config)
     out = (out.float() * gate_val[..., None]).to(cd)
     return _layer_norm(xc + out, p.ln.weight, p.ln.bias,
                        config.layer_norm_eps, out_dtype=cd)
 
 
-def _forward(model: Encoder, token_ids, mask, *, attn_fn: Callable,
-             position_ids=None, token_type_ids=None):
-    """Embedding + transformer stack -> (B, S, H) final hidden states.
-    ``position_ids=None`` keeps positions 0..S-1; the ragged path passes
-    per-token positions that restart at 0 for each packed document."""
-    config = model.config
-    emb = model.embeddings
+def _moe_gates(x, router, config: EncoderConfig):
+    """(onehot, gate_val): each token's expert as a one-hot (B, S, E) in
+    the compute dtype and its router probability (B, S) in float32."""
+    gates, top = _moe_route(x, router)
+    # a comparison, not F.one_hot, which reads the indices' range back to
+    # the host (a sync, fatal inside a CUDA graph capture)
+    experts = torch.arange(config.num_experts, device=x.device)
+    onehot = (top[..., None] == experts).to(config.compute_dtype)
+    return onehot, (gates * onehot.float()).sum(dim=-1)
+
+
+def _experts(xc, w1, b1, w2, b2, onehot, config: EncoderConfig):
+    """Every expert of ``w1`` / ``w2`` (E, H, I) / (E, I, H) on every
+    token of ``xc``, each token's output kept from the expert its
+    ``onehot`` (B, S, E) picks: (B, S, H) in the compute dtype."""
+    cd = config.compute_dtype
+    h = torch.einsum("bsh,ehi->bsei", xc, w1.to(cd)) + b1.to(cd)[None, None]
+    if _use_tanh_gelu(config):
+        h = F.gelu(h, approximate="tanh")
+    else:
+        h = F.gelu(h.float()).to(cd)
+    out = torch.einsum("bsei,eih->bseh", h, w2.to(cd)) + b2.to(cd)[None, None]
+    return torch.einsum("bseh,bse->bsh", out, onehot)
+
+
+def _embed(emb, token_ids, config: EncoderConfig, position_ids=None,
+           token_type_ids=None):
+    """The embedding sum and its layer norm -> (B, S, H) in the compute
+    dtype."""
     S = token_ids.shape[1]
     cd = config.compute_dtype
     # gather float32 rows, then cast only what was read
@@ -391,8 +497,18 @@ def _forward(model: Encoder, token_ids, mask, *, attn_fn: Callable,
         x = x + emb.token_type.weight[0][None, None].to(cd)
     else:
         x = x + emb.token_type.weight[token_type_ids].to(cd)
-    x = _layer_norm(x, emb.ln.weight, emb.ln.bias, config.layer_norm_eps,
-                    out_dtype=cd)
+    return _layer_norm(x, emb.ln.weight, emb.ln.bias, config.layer_norm_eps,
+                       out_dtype=cd)
+
+
+def _forward(model: Encoder, token_ids, mask, *, attn_fn: Callable,
+             position_ids=None, token_type_ids=None):
+    """Embedding + transformer stack -> (B, S, H) final hidden states.
+    ``position_ids=None`` keeps positions 0..S-1; the ragged path passes
+    per-token positions that restart at 0 for each packed document."""
+    config = model.config
+    x = _embed(model.embeddings, token_ids, config, position_ids,
+               token_type_ids)
     for layer in model.layers:
         x = _attention_block(x, layer.attn, mask, config, attn_fn)
         if config.num_experts > 0:
@@ -416,10 +532,14 @@ def _encode(model: Encoder, token_ids, attention_mask, *,
         from pathway_tpu_torch.ops.attention import flash_attention
 
         attn_fn = flash_attention
-    config = model.config
     mask = attention_mask.to(torch.bool)
     x = _forward(model, token_ids, mask, attn_fn=attn_fn,
                  token_type_ids=token_type_ids)
+    return _pool(x, mask, model.config)
+
+
+def _pool(x, mask, config: EncoderConfig):
+    """cls or mean pooling in float32, then the optional L2 norm."""
     if config.pooling == "cls":
         pooled = x[:, 0].float()
     else:  # mean over valid tokens
@@ -442,6 +562,102 @@ def encode(model: Encoder, token_ids, attention_mask, *,
     tensor, its plain version on a CPU tensor)."""
     return _encode(model, token_ids, attention_mask, attn_fn=attn_fn,
                    token_type_ids=token_type_ids)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel forward
+# ---------------------------------------------------------------------------
+
+def _model_sum(parts: list, device: torch.device):
+    """``psum`` over the model axis: the shards' partial results, summed
+    on ``device``."""
+    return all_gather(parts, device).sum(dim=0)
+
+
+def _tp_attention_block(x, p: dict, mask, config: EncoderConfig,
+                        attn_fn: Callable):
+    """``_attention_block`` split by heads: model shard m projects onto its
+    columns of wq / wk / wv (heads [m h/M, (m+1) h/M)), attends over
+    them, and multiplies by its rows of wo; the partials are summed, then
+    the replicated bo is added once."""
+    cd = config.compute_dtype
+    xc = x.to(cd)
+    B, S, H = x.shape
+    n = len(p["wq"])
+    shp = (B, S, config.heads // n, config.head_dim)
+    parts = []
+    for m, wq in enumerate(p["wq"]):
+        dev = wq.device
+        xm = xc.to(dev)
+        q, k, v = (F.linear(xm, p[w][m].T.to(cd), p[b][m].to(cd))
+                   for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+        out = attn_fn(q.view(shp), k.view(shp), v.view(shp), mask.to(dev))
+        parts.append(F.linear(out.reshape(B, S, H // n).to(cd),
+                              p["wo"][m].T.to(cd)))
+    out = _model_sum(parts, xc.device) + p["bo"].to(cd)
+    return _layer_norm(xc + out, p["ln_scale"], p["ln_bias"],
+                       config.layer_norm_eps, out_dtype=cd)
+
+
+def _tp_mlp_block(x, p: dict, config: EncoderConfig):
+    """``_mlp_block`` split by the intermediate width: shard m's columns of
+    w1 and b1, GELU, its rows of w2; the partials summed, then b2."""
+    cd = config.compute_dtype
+    xc = x.to(cd)
+    parts = []
+    for m, w1 in enumerate(p["w1"]):
+        h = _gelu(F.linear(xc.to(w1.device), w1.T.to(cd),
+                           p["b1"][m].to(cd)), config)
+        parts.append(F.linear(h, p["w2"][m].T.to(cd)))
+    out = _model_sum(parts, xc.device) + p["b2"].to(cd)
+    return _layer_norm(xc + out, p["ln_scale"], p["ln_bias"],
+                       config.layer_norm_eps, out_dtype=cd)
+
+
+def _tp_moe_block(x, p: dict, config: EncoderConfig):
+    """``_moe_block`` split by experts: the replicated router picks each
+    token's expert once (the first maximum), model shard m runs its
+    experts masked by its slice of the one-hot, and the summed partials
+    take the float32 gate scaling."""
+    cd = config.compute_dtype
+    onehot, gate_val = _moe_gates(x, p["router"], config)
+    xc = x.to(cd)
+    parts = []
+    for m, w1 in enumerate(p["w1"]):
+        dev, e = w1.device, w1.shape[0]
+        parts.append(_experts(xc.to(dev), w1, p["b1"][m], p["w2"][m],
+                              p["b2"][m], onehot[..., m * e:(m + 1) * e]
+                              .to(dev), config))
+    out = _model_sum(parts, xc.device)
+    out = (out.float() * gate_val[..., None]).to(cd)
+    return _layer_norm(xc + out, p["ln_scale"], p["ln_bias"],
+                       config.layer_norm_eps, out_dtype=cd)
+
+
+def encode_tensor_parallel(params: dict, token_ids, attention_mask, *,
+                           config: EncoderConfig,
+                           attn_fn: Callable | None = None):
+    """The forward ``param_pspecs`` implies, with autograd, -> pooled,
+    (optionally) L2-normalised float32 embeddings.
+
+    ``params`` is the JAX-layout tree with every leaf that
+    ``param_pspecs`` splits over ``model`` as the list of its M pieces
+    (piece m on model shard m's device: 1/M of the columns, rows or
+    experts) and every other leaf whole on model shard 0's device, where
+    token_ids, attention_mask and the result lie. The embeddings, layer
+    norms, residual stream and router run there; each block's matrices
+    run on the shards. ``attn_fn`` defaults to ``dense_attention`` (the
+    JAX training step's)."""
+    attn_fn = attn_fn or dense_attention
+    mask = attention_mask.to(torch.bool)
+    x = _embed(_embeddings_view(params["embeddings"]), token_ids, config)
+    for layer in params["layers"]:
+        x = _tp_attention_block(x, layer["attn"], mask, config, attn_fn)
+        if "moe" in layer:
+            x = _tp_moe_block(x, layer["moe"], config)
+        else:
+            x = _tp_mlp_block(x, layer["mlp"], config)
+    return _pool(x, mask, config)
 
 
 def encoder_cost(config: EncoderConfig, batch: int,

@@ -10,11 +10,15 @@ Axis conventions:
 - ``data``  — batch / keyspace shards (the reference's worker shards,
   src/engine/dataflow/shard.rs:6-20)
 - ``model`` — tensor-parallel shards of model weights
+A sequence axis for ring/Ulysses attention reuses ``data`` by default; a
+pipeline runs on a mesh of its own (``pipe``).
 
-Ported: the mesh (``parallel/mesh.py``) and the mesh-sharded KNN index
-(``parallel/sharded_knn.py``). The training half — ``ring_attention``,
-``ulysses_attention`` and ``pipeline`` — is not ported yet and raises
-naming its ROADMAP item.
+Modules: the mesh, placements and collectives (``parallel/mesh.py``), the
+mesh-sharded KNN index (``parallel/sharded_knn.py``), sequence-parallel
+attention (``parallel/ring_attention.py``) and the GPipe encoder
+pipeline (``parallel/pipeline.py``). The sharded training step that
+places its state with these meshes is models/train.py's
+``make_sharded_train_step``.
 """
 
 from __future__ import annotations
@@ -35,19 +39,10 @@ from pathway_tpu_torch.parallel.sharded_knn import (
     PagedShardedKnnIndex,
     ShardedKnnIndex,
 )
-from pathway_tpu_torch.parallel import pipeline  # noqa: F401
-from pathway_tpu_torch.parallel.pipeline import _not_ported
-
-
-def ring_attention(*args, **kwargs):
-    """Sequence-parallel ring attention: not ported yet."""
-    raise _not_ported("parallel.ring_attention")
-
-
-def ulysses_attention(*args, **kwargs):
-    """All-to-all (Ulysses) sequence-parallel attention: not ported yet."""
-    raise _not_ported("parallel.ulysses_attention")
-
+from pathway_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+    ulysses_attention,
+)
 
 __all__ = [
     "Mesh",
@@ -64,5 +59,6 @@ __all__ = [
     "PagedShardedKnnIndex",
     "ring_attention",
     "ulysses_attention",
-    "pipeline",
 ]
+
+from pathway_tpu_torch.parallel import pipeline  # noqa: F401,E402

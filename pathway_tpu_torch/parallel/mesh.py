@@ -4,12 +4,14 @@ pathway_tpu/parallel/mesh.py.
 The JAX package's topology is a ``jax.sharding.Mesh`` over TPU chips,
 driven by one process: the ``data`` axis carries keyspace and batch shards
 (what the reference calls workers), the ``model`` axis tensor-parallel
-weight shards. The port keeps that single-controller model: a
-:class:`Mesh` is a (data, model) grid of ``torch.device``\\ s held by one
-process, and a device may appear more than once in it —
+weight shards, and a pipeline runs on a mesh of its own (``pipe``). The
+port keeps that single-controller model: a :class:`Mesh` is a grid of
+``torch.device``\\ s held by one process, one grid dimension a named axis,
+and a device may appear more than once in it —
 ``make_mesh(MeshConfig(data=4), devices=[torch.device("cuda")] * 4)`` is
 four shards on one card, ``devices=[torch.device("cpu")] * 8`` the CPU
-tests' eight-shard mesh. Env vars, as in the JAX package:
+tests' eight-shard mesh, ``Mesh([torch.device("cuda")] * 4, ("pipe",))``
+a four-stage pipeline on one card. Env vars, as in the JAX package:
 
 - ``PATHWAY_DATA_PARALLEL``  — size of the data axis (default: all devices)
 - ``PATHWAY_MODEL_PARALLEL`` — size of the model axis (default 1)
@@ -18,19 +20,24 @@ The default mesh (``make_mesh()`` / ``get_mesh()``) spans the
 ``torch.cuda.device_count()`` cards; without a card it raises unless the
 caller passes devices. On one card its data axis is 1.
 
-Collectives are plain functions on tensors (``all_gather``): each shard's
-tensor is moved to the device that merges (a peer-to-peer copy between
-cards, nothing on one card) and stacked or concatenated there, where JAX
-runs ``lax.all_gather`` inside ``shard_map``. A multi-process backend can
-replace them without touching their callers. ``shard_map`` and
-``validate_shard_specs`` are JAX shims (a version switch and a
-PartitionSpec check) and have no counterpart here: the port's sharded code
-loops over shards itself.
+A :class:`Placement` cuts a tensor over the mesh as a JAX
+``NamedSharding`` does (``shard_batch``: the batch over ``data``;
+``replicated``: whole on every device); the sharded training step places
+its state and batches with them. Collectives are plain functions on
+tensors (``all_gather``): each shard's tensor is moved to the device that
+merges (a peer-to-peer copy between cards, nothing on one card) and
+stacked or concatenated there, where JAX runs ``lax.all_gather`` inside
+``shard_map``; a stacked gather summed over its new dim is ``psum``. A
+multi-process backend can replace them without touching their callers.
+``shard_map`` and ``validate_shard_specs`` are JAX shims (a version
+switch and a PartitionSpec check) and have no counterpart here: the
+port's sharded code loops over shards itself.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 from dataclasses import dataclass
 
@@ -96,34 +103,75 @@ class MeshConfig:
 
 
 class Mesh:
-    """A (data, model) grid of torch devices, driven by one process.
-    ``shape`` maps each axis name to its size, in axis order, as a JAX
-    mesh's does; ``devices[d][m]`` is the device of data shard ``d`` and
-    model shard ``m``."""
+    """A grid of torch devices, one dimension a named axis, driven by one
+    process. ``shape`` maps each axis name to its size, in axis order, as
+    a JAX mesh's does; ``devices`` is the grid as nested tuples, so
+    ``devices[d][m]`` is the device of data shard ``d`` and model shard
+    ``m`` on the default (data, model) axes."""
 
-    axis_names = (DATA_AXIS, MODEL_AXIS)
-
-    def __init__(self, devices: list[list[torch.device]]):
-        self.devices = tuple(tuple(row) for row in devices)
-        self.shape = {DATA_AXIS: len(self.devices),
-                      MODEL_AXIS: len(self.devices[0])}
+    def __init__(self, devices, axis_names=(DATA_AXIS, MODEL_AXIS)):
+        self.axis_names = tuple(axis_names)
+        self.devices = _grid(devices, len(self.axis_names))
+        sizes, node = [], self.devices
+        for _ in self.axis_names:
+            sizes.append(len(node))
+            node = node[0]
+        self.shape = dict(zip(self.axis_names, sizes))
 
     @property
     def size(self) -> int:
-        return self.shape[DATA_AXIS] * self.shape[MODEL_AXIS]
+        return math.prod(self.shape.values())
+
+    def device_at(self, index: dict) -> torch.device:
+        """The device at ``index`` (axis name -> position; an axis it does
+        not name is at 0)."""
+        node = self.devices
+        for name in self.axis_names:
+            node = node[index.get(name, 0)]
+        return node
+
+    def devices_along(self, axis: str) -> list[torch.device]:
+        """The device of each position on ``axis``, every other axis at 0:
+        where a shard of ``axis`` computes what the other axes replicate."""
+        return [self.device_at({axis: i}) for i in range(self.shape[axis])]
 
     def shard_devices(self) -> list[torch.device]:
         """The device of each data shard (its first model shard's)."""
-        return [row[0] for row in self.devices]
+        return self.devices_along(DATA_AXIS)
+
+    def flat_devices(self) -> list[torch.device]:
+        def walk(node):
+            if isinstance(node, tuple):
+                return [d for child in node for d in walk(child)]
+            return [node]
+
+        return walk(self.devices)
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.shape[DATA_AXIS]}x{self.shape[MODEL_AXIS]}, "
-                f"devices={[str(d) for row in self.devices for d in row]})")
+        sizes = "x".join(str(n) for n in self.shape.values())
+        return (f"Mesh({sizes}, axes={self.axis_names}, "
+                f"devices={[str(d) for d in self.flat_devices()]})")
+
+
+def _grid(devices, depth: int):
+    """``devices`` as nested tuples ``depth`` deep, every level's rows of
+    one length, each device checked (``resolve_device``)."""
+    if depth == 0:
+        return resolve_device(devices)
+    rows = tuple(_grid(row, depth - 1) for row in devices)
+    if not rows:
+        raise ValueError("a mesh axis needs at least one device")
+    if depth > 1 and len({len(row) for row in rows}) != 1:
+        raise ValueError(
+            f"mesh devices are not a grid: rows of "
+            f"{sorted({len(row) for row in rows})} devices")
+    return rows
 
 
 def make_mesh(config: MeshConfig | None = None, *, devices=None) -> Mesh:
     """Build a (data, model) mesh over the given (or all the cards')
-    devices. A device may repeat: several shards then share it."""
+    devices. A device may repeat: several shards then share it. A mesh
+    with other axes is ``Mesh(devices, axis_names)``."""
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
@@ -176,22 +224,15 @@ class Placement:
     mesh: Mesh
     spec: tuple = ()
 
-    def place(self, t: torch.Tensor) -> list[list[torch.Tensor]]:
-        """``t``'s pieces, ``[d][m]`` on device ``mesh.devices[d][m]``: a
-        dim split over an axis is cut into that axis's size of near-equal
-        pieces (``torch.tensor_split``), any other is whole."""
-        out = []
-        for d, row in enumerate(self.mesh.devices):
-            out.append([self._piece(t, d, m).to(dev)
-                        for m, dev in enumerate(row)])
-        return out
-
-    def _piece(self, t: torch.Tensor, d: int, m: int) -> torch.Tensor:
-        index = {DATA_AXIS: d, MODEL_AXIS: m}
+    def piece(self, t: torch.Tensor, index: dict) -> torch.Tensor:
+        """The piece of ``t`` at ``index`` (axis name -> position; an axis
+        it does not name is at 0), where it lies: a dim split over an axis
+        is cut into that axis's size of near-equal pieces
+        (``torch.tensor_split``), any other is whole."""
         for dim, axis in enumerate(self.spec):
             if axis is not None:
                 t = torch.tensor_split(t, self.mesh.shape[axis],
-                                       dim=dim)[index[axis]]
+                                       dim=dim)[index.get(axis, 0)]
         return t
 
 

@@ -125,30 +125,39 @@ def test_all_gather_matches_numpy(n_shards, tiled):
     np.testing.assert_array_equal(got.numpy(), shard_major)
 
 
+def _place(placement, x):
+    """Every (data, model) shard's piece of ``x``."""
+    mesh = placement.mesh
+    return [[placement.piece(x, {"data": d, "model": m})
+             for m in range(mesh.shape["model"])]
+            for d in range(mesh.shape["data"])]
+
+
 @pytest.mark.parametrize("data,model", [(4, 2), (8, 1), (3, 1)])
 def test_placements_cut_like_named_shardings(data, model):
-    """shard_batch / replicated place a (24, 6) array as JAX's
+    """shard_batch / replicated cut a (24, 6) array as JAX's
     NamedSharding puts it on the devices of the same mesh shape; a size
     the axis does not divide (JAX refuses it) is cut as numpy.array_split
     cuts it."""
     import jax
 
     x = np.arange(144, dtype=np.float32).reshape(24, 6)
-    uneven = tmesh.shard_batch(tmesh.make_mesh(
-        tmesh.MeshConfig(data=data), devices=CPU8)).place(
+    uneven = _place(tmesh.shard_batch(tmesh.make_mesh(
+        tmesh.MeshConfig(data=data), devices=CPU8)),
         torch.from_numpy(x[:10]))
     for d, want in enumerate(np.array_split(x[:10], data)):
         np.testing.assert_array_equal(uneven[d][0].numpy(), want)
     t = tmesh.make_mesh(tmesh.MeshConfig(data=data, model=model),
                         devices=CPU8)
-    pieces = tmesh.shard_batch(t).place(torch.from_numpy(x))
-    rep = tmesh.replicated(t).place(torch.from_numpy(x))
+    pieces = _place(tmesh.shard_batch(t), torch.from_numpy(x))
+    rep = _place(tmesh.replicated(t), torch.from_numpy(x))
     want = np.array_split(x, data, axis=0)
     for d in range(data):
         for m in range(model):
             np.testing.assert_array_equal(pieces[d][m].numpy(), want[d])
             np.testing.assert_array_equal(rep[d][m].numpy(), x)
-    split = tmesh.shard_batch(t, tmesh.MODEL_AXIS).place(torch.from_numpy(x))
+    split = _place(tmesh.shard_batch(t, tmesh.MODEL_AXIS),
+                   torch.from_numpy(x))
     for d in range(data):
         for m in range(model):
             np.testing.assert_array_equal(
@@ -165,3 +174,51 @@ def test_placements_cut_like_named_shardings(data, model):
             for m in range(model):
                 np.testing.assert_array_equal(
                     by_device[j.devices[d, m]], tpieces[d][m].numpy())
+
+
+@pytest.mark.parametrize("axes,shape", [(("pipe",), (4,)),
+                                        (("data", "model"), (2, 2)),
+                                        (("a", "b", "c"), (2, 1, 2))])
+def test_named_axes_match_jax(axes, shape):
+    """A mesh over any axis names, as jax.sharding.Mesh(devices, names):
+    the same shape dict in axis order; ``device_at`` / ``devices_along``
+    index the grid as the JAX mesh's device array is indexed."""
+    import jax
+
+    n = int(np.prod(shape))
+    j = jax.sharding.Mesh(np.asarray(jax.devices()[:n]).reshape(shape),
+                          axes)
+    labels = [torch.device("cpu", i) for i in range(n)]  # distinct ids
+    grid = np.empty(n, dtype=object)
+    grid[:] = labels
+    t = tmesh.Mesh(grid.reshape(shape).tolist(), axes)
+    assert list(t.shape.items()) == list(j.shape.items())
+    assert t.size == n == j.size
+    assert t.flat_devices() == labels
+    for flat, index in enumerate(np.ndindex(*shape)):
+        at = dict(zip(axes, index))
+        assert t.device_at(at) == labels[flat]
+        assert j.devices[index] == jax.devices()[flat]
+    for k, axis in enumerate(axes):
+        stride = int(np.prod(shape[k + 1:]))
+        assert t.devices_along(axis) == [labels[i * stride]
+                                         for i in range(shape[k])]
+
+
+def test_mesh_rows_must_form_a_grid():
+    with pytest.raises(ValueError, match="not a grid"):
+        tmesh.Mesh([["cpu", "cpu"], ["cpu"]])
+    with pytest.raises(ValueError, match="at least one device"):
+        tmesh.Mesh([], ("pipe",))
+
+
+def test_placement_on_a_pipe_mesh_splits_the_layer_stack():
+    """The pipeline's placement of a stacked (L, ...) parameter: layers
+    [s L/S, (s+1) L/S) on stage s."""
+    m = tmesh.Mesh([torch.device("cpu")] * 4, ("pipe",))
+    x = torch.arange(24.0).reshape(8, 3)
+    split = tmesh.Placement(m, ("pipe",))
+    for s in range(4):
+        assert torch.equal(split.piece(x, {"pipe": s}), x[2 * s:2 * s + 2])
+    # an axis the index does not name is at 0
+    assert torch.equal(split.piece(x, {}), x[:2])

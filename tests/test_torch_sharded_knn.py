@@ -583,15 +583,3 @@ def test_index_operator_warns_on_a_foreign_mesh_like_jax(meshes, caplog):
     assert logs["torch"] == logs["jax"]
     assert [len(g) for g in logs["torch"]] == [0, 0, 1]
 
-
-def test_training_half_raises_naming_step_5b():
-    from pathway_tpu_torch import parallel
-
-    for call in (lambda: parallel.ring_attention(None, None, None),
-                 lambda: parallel.ulysses_attention(None, None, None),
-                 lambda: parallel.pipeline.pipeline_encoder_blocks(None),
-                 lambda: parallel.pipeline.make_pipeline_fn):
-        with pytest.raises(NotImplementedError,
-                           match=r"queue 1, step 5b \(item 5\)"):
-            call()
-

@@ -364,9 +364,3 @@ def test_flash_attention_raises_under_autograd():
     b = ttrain.as_batch(_batch(), CPU)
     with pytest.raises(RuntimeError, match="no backward"):
         state.model(b["q_ids"], b["q_mask"])
-
-
-def test_sharded_training_raises_naming_its_roadmap_item():
-    for fn in (ttrain.train_state_pspecs, ttrain.make_sharded_train_step):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            fn(None)
