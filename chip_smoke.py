@@ -209,7 +209,9 @@ non-zero, and no result line is printed):
    bridge in the bridged runs. Prints
    bench.py's keys (``framework_docs_per_s``,
    ``framework_device_inflight``, ``framework_bridge_legs``,
-   ``framework_bridge_overlap_ratio``, ``framework_bridge_queue_wait_ms``),
+   ``framework_bridge_overlap_ratio``, ``framework_bridge_queue_wait_ms``,
+   ``framework_autojit_enabled``, ``_programs``, ``_compiles``,
+   ``_demotions``, ``_bucket_count``),
    the window-1 and HashTokenizer docs/s, the direct docs/s, host ms a
    tick by leg (calling thread and bridge worker), the host's waits in
    ``submit`` and ``barrier``, host time by operator, the garbage
@@ -224,6 +226,25 @@ non-zero, and no result line is printed):
    by rank, the launches as the code gives them, and the 4-worker peak
    device memory within the one-worker run's plus half the model's
    bytes. Prints docs/s at 1 and 4 workers, launches and peak memory;
+10a. autojit (bench.py's ``bench_autojit``, bench.py:2053-2302, at its
+   size): 16 ticks of 2048 rows ``(x, y)`` from ``default_rng(3)``
+   through bench's seven UDFs in one select (six fuse into one auto-jit
+   program: ``boost`` and ``gate`` on the card as one CUDA graph replay a
+   tick, ``mix``, ``norm``, ``damp`` and ``step`` on numpy; ``tag`` is
+   host-only, split onto the host thread) and the batch device ``embed``
+   UDF (bench's payload in torch on the card: ``tanh(emb[ids] @ w1) @ w2``
+   and the row norm over f32 parameters from ``default_rng(12)``), raw /
+   tier on / tier off interleaved, best of 3, each framework run after
+   ``pw.warmup``. Checks: the three outputs byte-identical; one program on
+   the ``torch`` backend on the card, 0 demotions, one device and one
+   vector dispatch a tick, no fallback; warm-up walked and captured the 9
+   buckets 8 .. 2048; 0 captures and 0 implicit host syncs in the timed
+   runs; no hand-written kernel. Prints bench.py's keys
+   (``framework_vs_raw_ratio``, ``framework_vs_raw_ratio_nojit``, the
+   ``autojit_*`` keys, the bridge overlap), the device partition's
+   CUDA-event ms a tick beside the numpy partition's host ms, the stage
+   breakdown and the phase's seconds. Every phase that builds Table
+   graphs prints the tier's counters after it (``[<phase>] auto-jit``);
 10c. config 5 (BASELINE.md:30, multi-worker KNN over a Kafka stream):
    50,000 ``make_docs`` documents produced as JSON to a 4-partition topic
    of ``LogBroker`` (a one-node broker on 127.0.0.1 on the port's wire
@@ -3570,6 +3591,7 @@ def framework_run(emb, dtype: str, rows: list, qspec: list, widths: list,
     from pathway_tpu_torch.engine.device_bridge import \
         device_inflight_from_env
     from pathway_tpu_torch.engine.index_ops import ExternalIndexOperator
+    from pathway_tpu_torch.internals import autojit
     from pathway_tpu_torch.internals.runner import GraphRunner
     from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
     from pathway_tpu_torch.stdlib.indexing import \
@@ -3590,6 +3612,7 @@ def framework_run(emb, dtype: str, rows: list, qspec: list, widths: list,
             chunks.text, chunks, embedder=emb,
             dimensions=emb.get_embedding_dimension(),
             reserved_space=n_docs + 64, dtype=dtype))
+    autojit.reset_stats()
     runner = GraphRunner()
     cap = runner.capture(store.retrieve_query(queries))
     index = next(n.op.index for n in runner.graph.nodes
@@ -3659,7 +3682,8 @@ def framework_run(emb, dtype: str, rows: list, qspec: list, widths: list,
             "captures": compiles() - captures0,
             "replays": (step.replays if step is not None else 0) - replays0,
             "inflight": inflight,
-            "bridge": runner._scheduler.bridge_stats()}
+            "bridge": runner._scheduler.bridge_stats(),
+            "autojit": autojit.autojit_stats()}
 
 
 def framework_direct(emb, dtype: str, texts: list[str], keys: list,
@@ -4019,8 +4043,11 @@ def phase_framework(n_docs: int, seed: int, card: str) -> dict:
               f"framework_device_inflight {first['inflight']}, "
               f"framework_bridge_legs {br['legs_resolved']}, "
               f"framework_bridge_overlap_ratio {br['overlap_ratio']:.3f}, "
-              f"framework_bridge_queue_wait_ms {br['queue_wait_ms']} "
-              f"[{card}]", flush=True)
+              f"framework_bridge_queue_wait_ms {br['queue_wait_ms']}, "
+              + ", ".join(f"framework_autojit_{k} {first['autojit'][k]}"
+                          for k in ("enabled", "programs", "compiles",
+                                    "demotions", "bucket_count"))
+              + f" [{card}]", flush=True)
         engine_s = first["wall"] + second["wall"]
         direct_s = direct["wall"] + direct2["wall"]
         print(f"[{label}] in the order bridged, direct, direct, bridged, "
@@ -4468,6 +4495,358 @@ class LogBroker:
                 conn.close()
             except OSError:
                 pass
+
+
+# -- auto-jit: bench.py's autojit leg (bench.py:2053-2302) -------------------
+AUTOJIT_DOCS = 16 * 2048  # bench.py's AUTOJIT_DOCS
+AUTOJIT_TICK = 2048       # bench.py's AUTOJIT_TICK
+AUTOJIT_DIMS = (4096, 768, 1536, 1280)  # vocabulary, embedding, h1, h2
+AUTOJIT_TRIALS = 3        # bench.py's best of 3, the modes interleaved
+AUTOJIT_LADDER = 9        # pw.warmup's buckets 8, 16, ..., 2048
+
+
+def autojit_line(label: str, reset: bool = False) -> None:
+    """Print the auto-jit tier's counters for the phase just run (and zero
+    them for the next when ``reset``): a graph that newly fuses a program
+    shows here, and a fused map rides the device leg."""
+    from pathway_tpu_torch.internals import autojit
+
+    stats = autojit.autojit_stats()
+    print(f"[{label}] auto-jit (on: {stats['enabled']}): programs "
+          f"{stats['programs']} {stats['live_programs']}, compiles "
+          f"{stats['compiles']}, demotions {stats['demotions']}, device "
+          f"dispatches {stats['device_dispatches']}, vector dispatches "
+          f"{stats['vector_dispatches']}, fallback batches "
+          f"{stats['fallback_batches']}", flush=True)
+    if reset:
+        autojit.reset_stats()
+
+
+def autojit_payload(dev):
+    """bench.py's ``_autojit_payload`` (bench.py:2061-2083) on the card:
+    ``embed(ids int32[n]) -> float64[n]`` = the row norm of ``tanh(emb[ids]
+    @ w1) @ w2`` over bench's f32 parameters from ``default_rng(12)``, in
+    float32 (no TF32), the result fetched as bench fetches it."""
+    import torch
+
+    from pathway_tpu_torch._device import upload
+    from pathway_tpu_torch.engine import device_sanitizer
+
+    vocab, e, h1, h2 = AUTOJIT_DIMS
+    rng = np.random.default_rng(12)
+    params = tuple(
+        torch.from_numpy((np.asarray(rng.standard_normal(s), np.float32)
+                          / np.sqrt(s[0])).astype(np.float32)).to(dev)
+        for s in ((vocab, e), (e, h1), (h1, h2)))
+
+    def embed(ids: np.ndarray) -> np.ndarray:
+        emb, w1, w2 = params
+        x = upload(torch.from_numpy(np.ascontiguousarray(ids, np.int32)),
+                   dev).long()
+        o = torch.tanh(emb[x] @ w1) @ w2
+        out = torch.sqrt((o * o).sum(dim=1))
+        with device_sanitizer.explicit_sync("autojit embed result"):
+            return out.cpu().numpy().astype(np.float64)
+
+    return embed
+
+
+def autojit_rows(n_docs: int) -> list:
+    rng = np.random.default_rng(3)
+    xs = rng.integers(0, 1_000_000, size=n_docs)
+    ys = rng.random(size=n_docs)
+    return [(int(x), float(y), i // AUTOJIT_TICK, 1)
+            for i, (x, y) in enumerate(zip(xs, ys))]
+
+
+def phase_autojit(card: str, n_docs: int = AUTOJIT_DOCS) -> dict:
+    """bench.py's ``bench_autojit`` in the port: the same doc-scoring
+    pipeline as (a) raw kernels + a hand-written loop, (b) the Table path
+    with the auto-jit tier on, (c) with it off. Six sync scalar UDFs fuse
+    into one program (boost and gate on the card as one CUDA graph replay
+    a tick, mix, norm, damp and step on numpy), the host-only ``tag`` is
+    split out onto the host thread, and a batch device UDF (bench's embed
+    payload, torch on the card) rides the bridge. Each framework run builds
+    its graph, runs ``pw.warmup`` (the tier's bucket ladder) and primes
+    the payload, then times ``run_batch`` under a flight recorder. The
+    three modes run interleaved, best of AUTOJIT_TRIALS (bench's 3).
+    Checks: the three outputs byte-identical (bench.py:2276-2281); the
+    tier on the ``torch`` backend on the card, zero demotions, one device
+    dispatch a tick; the warm-up captured the ladder (9 graphs) and the
+    timed runs captured none and made no implicit host sync; no hand-written
+    kernel launched. Prints bench.py's keys under their names, the device
+    partition's CUDA-event ms a tick beside the numpy partition's host ms,
+    and the phase's seconds."""
+    import math
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch._device import resolve_device
+    from pathway_tpu_torch.debug import table_from_rows
+    from pathway_tpu_torch.engine import device_sanitizer
+    from pathway_tpu_torch.engine.flight_recorder import FlightRecorder
+    from pathway_tpu_torch.internals import autojit
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.runner import GraphRunner
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+
+    label = "autojit"
+    t_phase = time.perf_counter()
+    n_docs -= n_docs % AUTOJIT_TICK
+    n_ticks = n_docs // AUTOJIT_TICK
+    vocab = AUTOJIT_DIMS[0]
+    embed_kernel = autojit_payload(resolve_device("cuda"))
+
+    @pw.udf
+    def boost(x: int) -> int:
+        return x * 3 + 7
+
+    @pw.udf
+    def gate(y: float) -> float:
+        return y if y < 0.75 else 0.75
+
+    @pw.udf
+    def mix(x: int, y: float) -> float:
+        return x * 0.0001 + y * 0.5
+
+    @pw.udf
+    def norm(y: float) -> float:
+        return math.sqrt(y) + 1.0
+
+    @pw.udf
+    def damp(y: float) -> float:
+        return y * 0.5 + 0.25
+
+    @pw.udf
+    def step(x: int) -> int:
+        return (x % 7) + (x // 3)
+
+    @pw.udf(deterministic=True)
+    def tag(x: int) -> str:
+        return f"doc-{x % 97}"
+
+    @pw.udf(batch=True, device=True, deterministic=True, return_type=float)
+    def embed(xs):
+        ids = np.asarray(xs, np.int64) % vocab
+        return embed_kernel(ids.astype(np.int32)).tolist()
+
+    rows = autojit_rows(n_docs)
+    schema = pw.schema_from_types(x=int, y=float)
+    captures = device_sanitizer.install_compile_counter()
+
+    def run_framework() -> dict:
+        G.clear()
+        gc.collect()  # earlier trials' programs leave the registry
+        autojit.reset_stats()
+        t = table_from_rows(schema, rows, is_stream=True)
+        t1 = t.select(sb=boost(t.x), sg=gate(t.y), sm=mix(t.x, t.y),
+                      sn=norm(t.y), sd=damp(t.y), st=step(t.x),
+                      tg=tag(t.x))
+        t2 = t1.select(emb=embed(t1.sb), tg=t1.tg, sg=t1.sg, sm=t1.sm,
+                       sn=t1.sn, sd=t1.sd, st=t1.st)
+        runner = GraphRunner()
+        cap = runner.capture(t2)
+        progs = [p for n in runner.graph.nodes
+                 for p in (getattr(getattr(n.op, "fn", None), "autojit",
+                                   None) or ())]
+        c0 = captures()
+        warm = pw.warmup(cache=False)
+        embed_kernel(np.zeros(AUTOJIT_TICK, np.int32))
+        torch.cuda.synchronize()
+        warm_captures = captures() - c0
+        rec = FlightRecorder()
+        rec.enabled = True
+        for count in LAUNCH_COUNTS:
+            count.launches = 0
+        c1 = captures()
+        with device_sanitizer.count_syncs() as syncs, GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            runner.run_batch(n_workers=1, recorder=rec)
+            dt = time.perf_counter() - t0
+        stages = [
+            {"op": s["name"], "op_class": s["op_class"],
+             "ms": round(s["sum_ms"], 1), "steps": s["count"],
+             "rows_in": s["rows_in"]}
+            for s in sorted(rec.op_stats(), key=lambda s: -s["sum_ms"])]
+        out = {
+            "dt": dt, "rows": [r for _, r, _, d in cap.events if d > 0],
+            "gc": (gc_clock.s, gc_clock.n),
+            "bridge": runner._scheduler.bridge_stats(),
+            "stats": autojit.autojit_stats(), "stages": stages,
+            "warm_entries": sum(1 for kind, _ in warm["compiled"]
+                                if kind == "autojit"),
+            "warm_captures": warm_captures,
+            "run_captures": captures() - c1, "syncs": syncs.count,
+            "launches": sum(c.launches for c in LAUNCH_COUNTS),
+            "programs": [(p.backend, p.device, p.label, len(p.graphs),
+                          p.device_ms, p.numpy_ms, p._device_part,
+                          p._np_part, p.verify_ms) for p in progs],
+            "lowering": [(n.name.split(":")[0], type(n.op).__name__,
+                          bool(getattr(n.op, "device_bound", False)))
+                         for n in runner.graph.nodes],
+        }
+        G.clear()
+        return out
+
+    def run_raw() -> tuple[float, list]:
+        t0 = time.perf_counter()
+        out = []
+        for tk in range(n_ticks):
+            lo = tk * AUTOJIT_TICK
+            chunk = rows[lo:lo + AUTOJIT_TICK]
+            xa = np.fromiter((r[0] for r in chunk), np.int64, len(chunk))
+            ya = np.fromiter((r[1] for r in chunk), np.float64, len(chunk))
+            sb = xa * 3 + 7
+            sg = np.minimum(ya, 0.75)
+            sm = xa * 0.0001 + ya * 0.5
+            sn = np.sqrt(ya) + 1.0
+            sd = ya * 0.5 + 0.25
+            st = (xa % 7) + (xa // 3)
+            tg = [f"doc-{int(v) % 97}" for v in xa.tolist()]
+            emb = embed_kernel((sb % vocab).astype(np.int32))
+            out.extend(zip(emb.tolist(), tg, sg.tolist(), sm.tolist(),
+                           sn.tolist(), sd.tolist(), st.tolist()))
+        return time.perf_counter() - t0, out
+
+    prev = os.environ.get("PATHWAY_AUTO_JIT")
+    on_runs, off_runs, raw_runs = [], [], []
+    try:
+        embed_kernel(np.zeros(AUTOJIT_TICK, np.int32))
+        for _ in range(AUTOJIT_TRIALS):
+            raw_runs.append(run_raw())
+            os.environ["PATHWAY_AUTO_JIT"] = "1"
+            on_runs.append(run_framework())
+            os.environ["PATHWAY_AUTO_JIT"] = "0"
+            off_runs.append(run_framework())
+    finally:
+        os.environ.pop("PATHWAY_AUTO_JIT", None)
+        if prev is not None:
+            os.environ["PATHWAY_AUTO_JIT"] = prev
+    # the same tier-on run with every operator on the calling thread
+    # (window 1): the bridged run's device leg shares the interpreter lock
+    # with the host thread, and this is the run without that
+    os.environ["PATHWAY_AUTO_JIT"] = "1"
+    os.environ["PATHWAY_DEVICE_INFLIGHT"] = "1"
+    try:
+        serial = run_framework()
+    finally:
+        os.environ.pop("PATHWAY_DEVICE_INFLIGHT", None)
+        os.environ.pop("PATHWAY_AUTO_JIT", None)
+        if prev is not None:
+            os.environ["PATHWAY_AUTO_JIT"] = prev
+    raw_dt, raw_out = min(raw_runs, key=lambda r: r[0])
+    on = min(on_runs, key=lambda r: r["dt"])
+    off = min(off_runs, key=lambda r: r["dt"])
+    # byte-identity across all three paths (bench.py:2276-2281; sorted:
+    # the source's consolidation may reorder within a tick)
+    for r in on_runs + off_runs:
+        if sorted(r["rows"]) != sorted(off_runs[0]["rows"]):
+            fail(f"{label}: auto-jit changed the framework output")
+    if sorted(serial["rows"]) != sorted(raw_out):
+        fail(f"{label}: the window-1 run's output diverged")
+    if sorted(on["rows"]) != sorted(raw_out):
+        fail(f"{label}: the framework output diverged from the raw "
+             "comparator")
+    if len(raw_out) != n_docs:
+        fail(f"{label}: {len(raw_out)} raw rows, not {n_docs}")
+    for r in on_runs:
+        st = r["stats"]
+        backends = {(b, str(d)) for b, d, *_ in r["programs"]}
+        if st["programs"] != 1 or len(r["programs"]) != 1 \
+                or backends != {("torch", str(resolve_device("cuda")))}:
+            fail(f"{label}: expected one fused program on the torch "
+                 f"backend on the card, got {r['programs']} ({st})")
+        if st["demotions"] or st["device_dispatches"] != n_ticks \
+                or st["vector_dispatches"] != n_ticks \
+                or st["fallback_batches"]:
+            fail(f"{label}: tier counters {st}, expected 0 demotions and "
+                 f"{n_ticks} device and vector dispatches")
+        if r["warm_entries"] != AUTOJIT_LADDER \
+                or r["warm_captures"] != AUTOJIT_LADDER \
+                or r["programs"][0][3] != AUTOJIT_LADDER:
+            fail(f"{label}: warm-up walked {r['warm_entries']} buckets and "
+                 f"captured {r['warm_captures']} graphs, expected "
+                 f"{AUTOJIT_LADDER} (8 .. 2048)")
+        if ("map_dev", "MapOperator", True) not in r["lowering"]:
+            fail(f"{label}: no device-bound map_dev node: {r['lowering']}")
+    for r in on_runs + off_runs:
+        if r["run_captures"] or r["syncs"]:
+            fail(f"{label}: {r['run_captures']} graphs captured and "
+                 f"{r['syncs']} implicit host syncs in a timed run_batch")
+        if r["launches"]:
+            fail(f"{label}: {r['launches']} hand-written kernel launches")
+    for r in off_runs:
+        if r["stats"]["programs"] or r["warm_entries"]:
+            fail(f"{label}: the tier built programs with it off")
+    (backend, device, plabel, n_graphs, dev_ms, np_ms, dpart, npart,
+     verify_ms) = on["programs"][0]
+    st = on["stats"]
+    br = on["bridge"]
+    keys = {
+        "autojit_n_docs": n_docs,
+        "autojit_raw_docs_per_s": round(n_docs / raw_dt, 1),
+        "autojit_framework_docs_per_s": round(n_docs / on["dt"], 1),
+        "autojit_framework_docs_per_s_nojit": round(n_docs / off["dt"], 1),
+        "framework_vs_raw_ratio": round(raw_dt / on["dt"], 3),
+        "framework_vs_raw_ratio_nojit": round(raw_dt / off["dt"], 3),
+        "autojit_programs": st["programs"],
+        "autojit_compiles": st["compiles"],
+        "autojit_demotions": st["demotions"],
+        "autojit_bucket_count": st["bucket_count"],
+        "autojit_device_dispatches": st["device_dispatches"],
+        "autojit_vector_dispatches": st["vector_dispatches"],
+        "autojit_fallback_batches": st["fallback_batches"],
+        "autojit_warmup_compiles": on["warm_entries"],
+        "autojit_bridge_overlap_ratio": round(br["overlap_ratio"], 3)
+        if br else None,
+    }
+    print(f"[{label}] bench.py's keys ({n_docs} docs in {n_ticks} ticks of "
+          f"{AUTOJIT_TICK}; raw, tier on, tier off interleaved, best of "
+          f"{AUTOJIT_TRIALS}): {json.dumps(keys)} [{card}]", flush=True)
+    print(f"[{label}] unrounded: raw {raw_dt:.6f} s, on {on['dt']:.6f} s, "
+          f"off {off['dt']:.6f} s a run; every trial (raw / on / off s): "
+          + ", ".join(f"{r[0]:.4f} / {a['dt']:.4f} / {b['dt']:.4f}"
+                      for r, a, b in zip(raw_runs, on_runs, off_runs))
+          + f"; garbage collector in the best on / off run "
+          f"{on['gc'][0]:.3f} s ({on['gc'][1]} collections) / "
+          f"{off['gc'][0]:.3f} s ({off['gc'][1]}) [{card}]", flush=True)
+    print(f"[{label}] the tier: program {plabel}, backend {backend} on "
+          f"{device}; device partition trees {dpart}, numpy partition trees "
+          f"{npart}; warm-up walked {on['warm_entries']} buckets and "
+          f"captured {on['warm_captures']} CUDA graphs (ladder "
+          f"{AUTOJIT_LADDER}), {n_graphs} held; in the timed runs: "
+          f"{on['run_captures']} captures, {on['syncs']} implicit host "
+          f"syncs; device partition {dev_ms / n_ticks:.4f} ms a tick "
+          f"(CUDA events, graph replay), numpy partition "
+          f"{np_ms / n_ticks:.4f} ms a tick (host); the first tick's "
+          f"verification against the interpreter {verify_ms:.3f} ms "
+          f"[{card}]", flush=True)
+    print(f"[{label}] autojit_stage_breakdown (ms over the run, top 8): on "
+          f"{json.dumps(on['stages'][:8])}; off "
+          f"{json.dumps(off['stages'][:8])}", flush=True)
+    print(f"[{label}] lowering (on): {on['lowering']}", flush=True)
+
+    def tick_ms(r, op):
+        return sum(x["ms"] for x in r["stages"]
+                   if x["op"].split(":")[0] == op) / n_ticks
+
+    print(f"[{label}] tier on at window 1 (no bridge, one run): "
+          f"{n_docs / serial['dt']:.1f} docs/s, framework_vs_raw_ratio "
+          f"{raw_dt / serial['dt']:.3f}; ms a tick by node, bridged best "
+          f"run / window 1: map_dev {tick_ms(on, 'map_dev'):.3f} / "
+          f"{tick_ms(serial, 'map_dev'):.3f}, map_host "
+          f"{tick_ms(on, 'map_host'):.3f} / {tick_ms(serial, 'map_host'):.3f}"
+          f", device partition {dev_ms / n_ticks:.4f} / "
+          f"{serial['programs'][0][4] / n_ticks:.4f} [{card}]", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"[{label}] holds: raw == on == off byte for byte (sorted rows, "
+          f"{n_docs}); one program on torch/cuda, 0 demotions, {n_ticks} "
+          f"device dispatches; ladder captured in warm-up, 0 captures and 0 "
+          f"implicit syncs timed; no hand-written kernel; phase {secs:.1f} s "
+          f"[{card}]", flush=True)
+    autojit.reset_stats()
+    return keys
 
 
 def phase_config5(seed: int, card: str) -> dict:
@@ -8223,16 +8602,21 @@ def main() -> None:
     resolve_device("cuda")  # f32 products of the plain versions: no TF32
     t0 = time.perf_counter()
 
-    def done(what):
+    def done(what, graphs: bool = False):
         print(f"[time] {what} done at {time.perf_counter() - t0:.1f} s",
               flush=True)
+        if graphs:  # the phase built Table graphs: the tier's counters
+            autojit_line(what, reset=True)
 
+    from pathway_tpu_torch.internals import autojit
+
+    autojit.reset_stats()
     phase_etl(card)
-    done("etl")
+    done("etl", graphs=True)
     phase_etl_windowed(card)
-    done("etl windowed")
+    done("etl windowed", graphs=True)
     phase_etl_sharded(card)
-    done("etl sharded")
+    done("etl sharded", graphs=True)
 
     k1 = phase_attention(card)
     k1_seg = phase_segments(card)
@@ -8252,23 +8636,25 @@ def main() -> None:
     done("path 1")
     k1["launches_engine"], k1_seg["launches_engine"] = phase_engine(
         min(args.docs, FRAMEWORK_DOCS), args.seed, card)
-    done("engine")
+    done("engine", graphs=True)
     fw = phase_framework(min(args.docs, FRAMEWORK_DOCS), args.seed, card)
     for rec, key in ((k1, (ATTENTION, False)), (k1_seg, (ATTENTION, True)),
                      (k2, TOPK_BF16), (k2_score, SCORE_BF16),
                      (k3_topk, TOPK_I8), (k3, SCORE_I8),
                      (k4, QUANTIZE_SCATTER)):
         rec["launches_framework"] = fw[key]
-    done("framework")
+    done("framework", graphs=True)
     sharded = phase_framework_sharded(args.docs, args.seed, card)
     k1["launches_sharded"], k2["launches_sharded"] = (sharded["k1"],
                                                       sharded["k2"])
-    done("framework sharded")
+    done("framework sharded", graphs=True)
+    phase_autojit(card)
+    done("autojit")
     c5 = phase_config5(args.seed, card)
     for rec, key in ((k1, ATTENTION), (k2, TOPK_BF16), (k2_score, SCORE_BF16),
                      (k3_topk, TOPK_I8)):
         rec["launches_config5"] = c5.get(key, 0)
-    done("config 5")
+    done("config 5", graphs=True)
     # graph B over SERVING_B_DOCS documents (cut from SERVING_N for the
     # script's clock: its statistics step is O(documents) a tick)
     served = [phase_serving_knn(card), phase_serving_rag(
@@ -8276,17 +8662,17 @@ def main() -> None:
     for rec, key in ((k1, ATTENTION), (k2, TOPK_BF16),
                      (k2_score, SCORE_BF16)):
         rec["launches_serving"] = sum(run[key] for run in served)
-    done("serving")
+    done("serving", graphs=True)
     rag = phase_adaptive_rag(args.seed, card)
     k1["launches_adaptive_rag"], k2["launches_adaptive_rag"] = (
         rag[ATTENTION], rag[TOPK_BF16])
-    done("adaptive rag")
+    done("adaptive rag", graphs=True)
     phase_knn_index(args.seed, card)
     gc.collect()  # graph B's and the RAG phase's indexes and encoders
     torch.cuda.empty_cache()
-    done("knn index")
+    done("knn index", graphs=True)
     phase_array_sum(args.seed, card)
-    done("array_sum")
+    done("array_sum", graphs=True)
     (k1_seg["launches"], k3_topk_path2, k3["launches"],
      k4["launches"]) = phase_ragged_int8(args.seed, card)
     done("path 2")
@@ -8324,7 +8710,7 @@ def main() -> None:
     # last: its 21 graphs leave ~200,000 memoized keys and twice the
     # objects the collector scans, which slowed the timed phases after it
     phase_temporal(card)
-    done("temporal")
+    done("temporal", graphs=True)
     print(json.dumps({"kernels": [k1, k1_seg, k2, k3_topk, k3, k4,
                                   k2_score]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,8 @@ native passes of the inner bilinear join and of the columnar groupby
 (``native/fastjoin.cpp``, ``native/fastgroup.cpp``, built with g++ at first
 use; when a build fails, a warning is logged, ``NATIVE_ERRORS`` says why
 and the Python loops run). Also ``SortOperator`` (``Table.sort``: prev/next
-pointers); the temporal behaviors' operators are in engine/temporal_ops.py.
+pointers) and ``ZipAlignedOperator`` (auto-jit's host/device map split);
+the temporal behaviors' operators are in engine/temporal_ops.py.
 
 Sharded execution (engine/graph.py, ``n_workers > 1``): each operator
 states one ``Exchange`` spec per input and is replicated once per worker
@@ -157,6 +158,58 @@ class MapOperator(Operator):
             (k, nr, d)
             for (k, _, d), nr in zip(delta.entries, new_rows)
         ])
+
+
+class ZipAlignedOperator(Operator):
+    """Stateless zip of two 1:1 projections of the SAME upstream delta.
+
+    Built by the lowering's auto-jit host/device map split
+    (internals/runner.py): both inputs are MapOperators over one input
+    node, so each tick they emit the same keys with the same diffs in the
+    same order — the recombination needs no arrangements, just a
+    positional merge per the column spec ((side, pos), ...) with side 0 =
+    left row, 1 = right row. Alignment is asserted, not assumed: a key or
+    diff mismatch means an engine invariant broke, and wrong-but-plausible
+    output would be strictly worse than a crash.
+
+    Sharded (engine/graph.py, n workers): neither input is exchanged, so
+    each worker's replica zips the host map's and the device map's
+    outputs over that worker's own rows, which are aligned as at one
+    worker; the replicas share nothing, so they may step on the pool."""
+
+    arity = 2
+    parallel_safe = True
+
+    def __init__(self, spec: tuple):
+        self.spec = tuple(spec)
+        # the merge runs per row on the hot path: compile it once to a
+        # C-level tuple build instead of interpreting the spec per cell
+        cells = ", ".join(f"{'l' if side == 0 else 'r'}[{pos}]"
+                          for side, pos in self.spec)
+        self._combine = eval(  # noqa: S307 — generated from the int spec
+            f"lambda l, r: ({cells}{',' if self.spec else ''})")
+
+    def exchange_specs(self):
+        return [None, None]
+
+    def step(self, time, in_deltas):
+        dl, dr = in_deltas
+        if not dl and not dr:
+            return Delta()
+        if len(dl.entries) != len(dr.entries):
+            raise RuntimeError(
+                "auto-jit map split lost alignment: "
+                f"{len(dl.entries)} host rows vs {len(dr.entries)} device "
+                "rows in one tick")
+        combine = self._combine
+        out = []
+        for (lk, lrow, ld), (rk, rrow, rd) in zip(dl.entries, dr.entries):
+            if lk != rk or ld != rd:
+                raise RuntimeError(
+                    "auto-jit map split lost alignment: "
+                    f"({lk!r}, {ld}) vs ({rk!r}, {rd})")
+            out.append((lk, combine(lrow, rrow), ld))
+        return Delta(out)
 
 
 def _stable_row_fp(row: tuple) -> int:

@@ -1,16 +1,16 @@
 """Expression AST → batched evaluators — port of
-pathway_tpu/internals/expression_compiler.py, without the auto-jit tier.
+pathway_tpu/internals/expression_compiler.py.
 
 Evaluation is *batched*: each compiled node maps a whole delta's column to
 a result column. Sync UDFs run once per batch; async UDFs gather the whole
 batch on one event loop. Numeric columns use numpy fast paths; object
 columns fall back to per-row Python with ERROR-sentinel propagation per
-cell. The reference's auto-jit tier (internals/autojit.py, an XLA fusion of
-traceable UDF chains) is not ported (ROADMAP queue 1, step 8: auto-jit):
-every expression runs interpreted, which is the reference's own result
-with ``PATHWAY_AUTO_JIT=0``.
+cell. With the auto-jit tier on (internals/autojit.py, the default;
+``PATHWAY_AUTO_JIT=0`` turns it off), the traceable-UDF chains of a map
+program also compile into one fused dispatch a batch, torch ops on the
+card for the trees its exactness gate admits and numpy for the rest; the
+interpreted functions stay its fallback and verifier.
 """
-
 from __future__ import annotations
 
 import asyncio
@@ -105,17 +105,72 @@ class ExpressionCompiler:
         # device_bound, so it runs in the tick's device leg (the device
         # bridge's worker when PATHWAY_DEVICE_INFLIGHT >= 2)
         self.has_device = False
+        # the fused auto-jit programs compiled for the last
+        # compile_program call, if any (internals/autojit.py)
+        self.autojit = None
 
     # -- public -------------------------------------------------------------
     def compile(self, expr: ex.ColumnExpression) -> Callable[[list, list], Batch]:
         return self._compile(expr)
 
     def compile_program(self, exprs: list[ex.ColumnExpression]):
-        """Compile many output expressions into fn(keys, rows) -> list[tuple]."""
-        fns = [self._compile(e) for e in exprs]
+        """Compile many output expressions into fn(keys, rows) -> list[tuple].
+
+        With auto-jit on (internals/autojit.py, PATHWAY_AUTO_JIT), output
+        expressions whose trees are fusable traceable-UDF chains compile
+        additionally into ONE vectorized dispatch; the per-expression
+        interpreted fns stay as the fallback/verification path, so the
+        fused tier can never change results — only skip per-row calls.
+        """
+        fns = []
+        nondet_idx = set()
+        for i, e in enumerate(exprs):
+            outer = self.has_non_deterministic
+            self.has_non_deterministic = False
+            fns.append(self._compile(e))
+            if self.has_non_deterministic:
+                nondet_idx.add(i)
+            self.has_non_deterministic = outer or self.has_non_deterministic
+        from pathway_tpu_torch.internals import autojit
+
+        try:
+            fused = autojit.fuse_program(exprs, self.ctx)
+        except autojit.AutojitDeviceError:
+            raise  # device trees and no card: never run them elsewhere
+        except Exception:
+            fused = []
+        self.autojit = fused or None
+        if fused and nondet_idx <= {i for g in fused for i in g.expr_idx}:
+            # Every "non-deterministic" expression fused. Fusion only
+            # admits UDFs the classifier proved to be straight-line
+            # numeric code (no host calls, no RNG-bearing modules), so
+            # they are deterministic in fact — the default
+            # deterministic=False merely declares them UNVERIFIED. The
+            # caching DeterministicMapOperator (per-row blake2b
+            # fingerprints) exists to replay values for genuinely
+            # non-deterministic fns; here it would cost more than the fused
+            # dispatch itself, so the lowering may use the plain map:
+            # recomputation at retraction time reproduces the same bytes.
+            self.has_non_deterministic = False
+        if not fused:
+            def program(keys, rows):
+                cols = [fn(keys, rows) for fn in fns]
+                return list(zip(*cols)) if cols else [() for _ in keys]
+
+            return program
+
+        plan = [(grp, [fns[i] for i in grp.expr_idx]) for grp in fused]
 
         def program(keys, rows):
-            cols = [fn(keys, rows) for fn in fns]
+            cols: list = [None] * len(fns)
+            for grp, fallbacks in plan:
+                fcols = grp.dispatch(keys, rows, fallbacks)
+                if fcols is not None:
+                    for i, c in zip(grp.expr_idx, fcols):
+                        cols[i] = c
+            for i, fn in enumerate(fns):
+                if cols[i] is None:
+                    cols[i] = fn(keys, rows)
             return list(zip(*cols)) if cols else [() for _ in keys]
 
         return program
@@ -746,7 +801,11 @@ _PENDING = _Pending()
 def compile_map_program(exprs, ctx: CompileContext):
     comp = ExpressionCompiler(ctx)
     program = comp.compile_program(list(exprs))
-    # carried as a function attribute so the lowering can mark the hosting
-    # MapOperator device_bound without changing every call site
-    program.device_bound = comp.has_device
+    # carried as function attributes so the lowering can mark the hosting
+    # MapOperator device_bound without changing every call site. An
+    # auto-jit fused program joins the device leg exactly like an explicit
+    # device=True batch UDF: its dispatches belong on the bridge worker so
+    # the host thread can start the next tick's host-side work.
+    program.autojit = comp.autojit
+    program.device_bound = comp.has_device or comp.autojit is not None
     return program, comp.has_non_deterministic

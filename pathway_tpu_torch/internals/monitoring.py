@@ -4,8 +4,9 @@ calls.
 
 ``pw.run(monitoring_level=...)`` gates a monitor that, once a second,
 prints per-operator rows (insertions, retractions, last step latency),
-the device bridge's counters and the request tracker's serving quantiles
-to stderr as plain ``[monitor]`` lines. The JAX package renders the same
+the device bridge's counters, the auto-jit tier's dispatch mix and the
+request tracker's serving quantiles to stderr as plain ``[monitor]``
+lines. The JAX package renders the same
 rows as a ``rich`` live dashboard; ``rich`` is not a dependency of the
 port, so the plain lines are its only form here.
 """
@@ -78,8 +79,25 @@ class StatsMonitor:
                 f"overlap {bridge['overlap_ratio']:.0%}  "
                 f"queue-wait {bridge['queue_wait_ms']:.0f}ms  "
                 f"exec {bridge['exec_ms']:.0f}ms")
+        self._lines += self._autojit_lines()
         self._lines += self._serving_lines(scheduler)
         self._render(now_time)
+
+    @staticmethod
+    def _autojit_lines() -> list[str]:
+        """Fused-program dispatches (internals/autojit.py): whether the
+        auto-jit tier carries batches and on which backend — a demotion
+        shows here live."""
+        from pathway_tpu_torch.internals.autojit import autojit_stats
+
+        ajs = autojit_stats()
+        if not ajs["programs"]:
+            return []
+        return [f"auto-jit: {ajs['programs']} fused program(s)  "
+                f"torch {ajs['device_dispatches']} / "
+                f"vector {ajs['vector_dispatches']} dispatches  "
+                f"compiles {ajs['compiles']}  "
+                f"demotions {ajs['demotions']}"]
 
     def _serving_lines(self, scheduler) -> list[str]:
         """The request tracker's serving snapshot: e2e quantiles, burn

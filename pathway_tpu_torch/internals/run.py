@@ -36,6 +36,14 @@ def run(*, debug: bool = False, monitoring_level=None,
     run and re-raises here; with ``False`` it lands in the global error
     log.
 
+    The auto-jit tier (internals/autojit.py) is on by default: when the
+    graph is lowered, the traceable / vmappable sync UDF chains of each
+    select compile into one fused dispatch a batch, byte-identical to the
+    interpreted path — torch ops on the card (a CUDA graph replay a
+    batch) for the trees its exactness gate admits, numpy on the host for
+    the rest. A graph with such device trees raises without a card.
+    ``PATHWAY_AUTO_JIT=0`` turns the tier off.
+
     Not ported, each raising ``NotImplementedError`` naming its ROADMAP
     item when set: ``persistence_config`` (also through
     ``PATHWAY_PERSISTENT_STORAGE`` / ``PATHWAY_REPLAY_STORAGE``),

@@ -16,8 +16,10 @@ every selected expression is a plain column or id), sort, dedupe, ix (a
 ``JoinOperator`` keyed by the left id), the temporal behaviors' buffer /
 forget / freeze / forget_immediately / filter_out_forgetting
 (engine/temporal_ops.py) and external_index (the as-of-now index
-operator, engine/index_ops.py). Not ported: auto-jit's host/device map
-split, iterate and gradual_broadcast — a plan of those kinds raises
+operator, engine/index_ops.py). A map whose select carries both auto-jit
+fusable UDF chains and host-only UDFs lowers into a host map, a device
+map and a ``ZipAlignedOperator`` (``_lower_map_split``). Not ported:
+iterate and gradual_broadcast — a plan of those kinds raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -244,9 +246,59 @@ class GraphRunner:
         base = plan.params["base"]
         exprs = plan.params["exprs"]
         node, ctx = self._row_space(base, exprs)
+        split_node = self._lower_map_split(table, exprs, node, ctx)
+        if split_node is not None:
+            return split_node
         program, nondet = compile_map_program(exprs, ctx)
         return self.graph.add_node(_map_op_for(program, nondet), [node],
                                    f"map:{table._name}")
+
+    def _lower_map_split(self, table: Table, exprs, node, ctx) -> Node | None:
+        """Host/device split (internals/autojit.py): a select that carries
+        BOTH auto-jit-fusable UDF chains and host-only UDFs lowers into two
+        map operators over the same input — the fused part marked
+        device_bound so it rides the device leg, the host-only part
+        stepped on the host thread *while* a previous tick's device leg is
+        still in flight — recombined by a stateless aligned zip. One
+        operator would serialize the host-only UDF time before the device
+        dispatch every tick."""
+        from pathway_tpu_torch.internals.autojit import (discard_programs,
+                                                         split_map_exprs)
+
+        split = split_map_exprs(exprs)
+        if split is None:
+            return None
+        dev_idx, host_idx = split
+        dev_program, dev_nd = compile_map_program(
+            [exprs[i] for i in dev_idx], ctx)
+        host_program, host_nd = compile_map_program(
+            [exprs[i] for i in host_idx], ctx)
+        if dev_program.autojit is None or dev_nd or host_nd or \
+                host_program.device_bound:
+            # fusion did not engage after all, or a side needs the
+            # caching DeterministicMapOperator (which reorders entries —
+            # the aligned zip requires order preservation), or the "host"
+            # side carries a device=True batch UDF (both maps would ride
+            # the device leg: the split is pure overhead). One node: the
+            # full-program compile builds its own FusedProgram, so back
+            # the split's out of the registry and the counter
+            discard_programs(dev_program.autojit)
+            discard_programs(host_program.autojit)
+            return None
+        spec = [None] * len(exprs)
+        for j, i in enumerate(host_idx):
+            spec[i] = (0, j)
+        for j, i in enumerate(dev_idx):
+            spec[i] = (1, j)
+        host_node = self.graph.add_node(
+            eng.MapOperator(host_program), [node],
+            f"map_host:{table._name}")
+        dev_node = self.graph.add_node(
+            _map_op_for(dev_program, dev_nd), [node],
+            f"map_dev:{table._name}")
+        return self.graph.add_node(
+            eng.ZipAlignedOperator(tuple(spec)), [host_node, dev_node],
+            f"map:{table._name}")
 
     def _lower_filter(self, table: Table, plan: Plan) -> Node:
         base = plan.params["base"]

@@ -19,8 +19,12 @@ The JAX package's persistent XLA compilation cache has no counterpart:
 eager PyTorch compiles nothing that a cache could keep, so
 ``enable_compilation_cache`` and ``maybe_enable_compilation_cache``
 return None, the JAX function's own answer when its runtime has no
-persistent cache. Auto-jit is not ported (ROADMAP queue 1, step 8), so no
-fused program registers and ``autojit_max_bucket`` walks nothing.
+persistent cache.
+
+First of all the walk takes every live auto-jit program's bucket ladder
+(internals/autojit.py ``warm_registered``): 8, 16, ... up to
+``autojit_max_bucket`` (default ``PATHWAY_AUTO_JIT_WARM_MAX``, 2048), one
+CUDA graph captured a bucket on the card.
 """
 
 from __future__ import annotations
@@ -69,13 +73,14 @@ def warmup(embedder: Any = None, *, index: Any = None,
     non-empty index also runs its search for each fan-out in ``ks``, and a
     non-empty ``ks`` runs the plain encoder too (text queries dispatch it).
 
-    ``cache`` and ``autojit_max_bucket`` are the JAX signature's; neither
-    has anything to act on in the port (module docstring).
+    ``autojit_max_bucket``: the largest bucket of the auto-jit ladder walk
+    (module docstring). ``cache`` is the JAX signature's; it has nothing to
+    act on in the port.
 
     Returns ``{"cache_dir", "compiled", "seconds"}``; ``compiled`` lists
-    the (kind, shape) pairs walked, the JAX package's names: ``encode``,
-    ``fused_ingest``, ``ragged_encode``, ``ragged_fused_ingest``,
-    ``search``.
+    the (kind, shape) pairs walked, the JAX package's names: ``autojit``
+    (``(label, bucket)``), ``encode``, ``fused_ingest``, ``ragged_encode``,
+    ``ragged_fused_ingest``, ``search``.
 
     Under ``PATHWAY_DEVICE_SANITIZER`` the call brackets the sanitizer's
     warm-up window and declares steady state when it ends; warming an
@@ -96,11 +101,13 @@ def _warmup_impl(embedder: Any = None, *, index: Any = None,
                  batch_size: int | None = None, ks: tuple[int, ...] = (),
                  cache: bool = True,
                  autojit_max_bucket: int | None = None) -> dict:
-    del autojit_max_bucket  # no auto-jit program registers in the port
     t0 = _time.perf_counter()
     out: dict = {"cache_dir": None, "compiled": []}
     if cache:
         out["cache_dir"] = enable_compilation_cache()
+    from pathway_tpu_torch.internals.autojit import warm_registered
+
+    out["compiled"].extend(warm_registered(autojit_max_bucket))
     if embedder is None and index is None:
         out["seconds"] = round(_time.perf_counter() - t0, 3)
         return out

@@ -356,29 +356,33 @@ def test_framework_graph_window_2_equals_jax_window_1(monkeypatch):
 
 
 def test_reference_auto_jit_fuses_nothing_in_framework_graph(monkeypatch):
-    """The port runs every expression interpreted (no auto-jit). On
-    bench_embed_framework's graph that is also what the JAX package does
-    with its auto-jit tier on (the default): the tier builds no program,
-    so the port's measurement of the graph differs from bench.py's by no
-    fused tier."""
+    """On bench_embed_framework's graph the auto-jit tier builds no
+    program, in the JAX package with its tier on (the default) and in the
+    port with its own: neither measurement of the graph has a fused
+    tier, and no map of it moves to the device leg for one."""
+    import torch
     from test_torch_vector_store import _queries_table, _server
 
-    from pathway_tpu.internals.autojit import (autojit_enabled,
-                                               autojit_stats, reset_stats)
+    from pathway_tpu.internals import autojit as jaj
     from pathway_tpu.internals.runner import GraphRunner as JRunner
+    from pathway_tpu_torch.internals import autojit as taj
     from pathway_tpu_torch.models.encoder import init_params_host
 
     monkeypatch.delenv("PATHWAY_AUTO_JIT", raising=False)
     monkeypatch.setenv("PATHWAY_RESULT_CACHE", "0")
     monkeypatch.setenv("PATHWAY_DEVICE_INFLIGHT", "1")
-    assert autojit_enabled()
-    reset_stats()
-    pw, store = _server("jax", init_params_host(0, EncoderConfig.tiny()),
-                        False, "bfloat16", False)
-    runner = JRunner()
-    cap = runner.capture(store.retrieve_query(_queries_table(pw)))
-    _bounded(lambda: runner.run_batch(n_workers=1))
-    assert len(cap.events) == 11
-    stats = autojit_stats()
-    assert stats["programs"] == 0 and stats["compiles"] == 0
-    assert stats["device_dispatches"] == stats["vector_dispatches"] == 0
+    # a program with device trees would raise here without the patch
+    monkeypatch.setattr(taj, "_autojit_device", lambda: torch.device("cpu"))
+    params = init_params_host(0, EncoderConfig.tiny())
+    for side, aj, Runner in (("jax", jaj, JRunner), ("torch", taj,
+                                                     GraphRunner)):
+        assert aj.autojit_enabled()
+        aj.reset_stats()
+        pw, store = _server(side, params, False, "bfloat16", False)
+        runner = Runner()
+        cap = runner.capture(store.retrieve_query(_queries_table(pw)))
+        _bounded(lambda: runner.run_batch(n_workers=1))
+        assert len(cap.events) == 11
+        stats = aj.autojit_stats()
+        assert stats["programs"] == 0 and stats["compiles"] == 0
+        assert stats["device_dispatches"] == stats["vector_dispatches"] == 0
