@@ -18,7 +18,9 @@ codec), graph A of bench_embed_framework at four sharded workers, its temporal l
 other temporal entry point, host code) and the model layer's training
 paths (contrastive fine-tuning, its sharded form over a device mesh with
 ring and Ulysses attention and a GPipe pipeline, a mixture-of-experts
-encoder served and trained, the CLIP dual encoder), at BGE-small's full width with random weights from a seed,
+encoder served and trained, the CLIP dual encoder), the continuous
+profiler live on the framework graph and ``pw.stdlib.ml`` (k-means on the
+card, LSH clustering through the engine, the bucketed classifier), at BGE-small's full width with random weights from a seed,
 and checks every kernel of those paths against its plain PyTorch version
 on the card. Phases (each failure exits
 non-zero, and no result line is printed):
@@ -216,6 +218,20 @@ non-zero, and no result line is printed):
    tick by leg (calling thread and bridge worker), the host's waits in
    ``submit`` and ``barrier``, host time by operator, the garbage
    collector's time and peak device memory;
+10d. profiler live (the continuous profiler, engine/profiler.py):
+   phase 10's graph with ``PATHWAY_PROFILER=1`` (``Profiler.from_env()``
+   installed and sampling just before ``run_batch``): configuration A with
+   the profiler off, then on; B on. Checks: A's outputs and index equal
+   on and off; each kernel family's dispatches against the run's launches
+   (K1 = 12 x ``encoder_forward`` / ``segment_attention``, K2 or K3 top-k
+   + score = ``knn_search``, B's K4 = ``ingest_scatter`` = graph
+   replays); every record re-timed inside a leg timed by CUDA events, the
+   families' ms summing to the legs' within 1%; the sampler's overhead
+   ratio < 0.02; 0 implicit host syncs on and off; a
+   ``start_device_capture`` / ``stop_device_capture`` over two ingest
+   ticks and a search writes a Chrome trace holding K1. Prints each
+   family's dispatches, device ms, MFU, HBM use and roofline class, the
+   rolling MFU and HBM use, the sampler's numbers and docs/s on and off;
 10b. framework sharded: graph A of phase 10 (padded embedder, bf16 cos
    index; K1, K2, K2 score) over 8 ticks of 2048 documents at
    ``run_batch(n_workers=1)`` and at 4 workers (the index operator's
@@ -424,6 +440,17 @@ non-zero, and no result line is printed):
    collapse to chance from random init) at B=64 in bf16 on one batch of
    pairs (image i lights cell i of an 8 x 8 grid over noise, text i an
    8-word caption), finite and falling (step ms, peak memory);
+17f. ml (``pw.stdlib.ml``): ``kmeans_labels`` at 262,144 x 384 float32
+   points from 1,024 seeded blobs, k = 1024, 25 steps, weights 1-4, on the
+   card (0 implicit syncs, no kernel launched), its labels against a
+   float64 Lloyd run on the card from the same initial centres (>= 99.9%
+   equal) and a second run, the partition against the blobs (NMI >= 0.9);
+   the loop's CUDA-event ms beside the wall; ``clustering_via_lsh``
+   through the engine over 20,000 x 384 vectors from 64 blobs (L = 8, M
+   = 3, k = 64: every vector labelled once, one k-means on the card, NMI
+   >= 0.8); the bucketed LSH classifier (M = 4) over the same vectors,
+   128 fresh queries, every label equal to a direct computation of the
+   vote, accuracy against the blob labels >= 0.9;
 18. temporal (host only, on a machine without pandas; last, since its
    graphs leave memoized keys and objects behind): sliding(50, 100)
    over bench's rows; tumbling(100) under ``common_behavior(delay=50,
@@ -444,6 +471,7 @@ The second-to-last line is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -3566,7 +3594,8 @@ def framework_warm(index, emb, widths: list[int]) -> None:
 
 
 def framework_run(emb, dtype: str, rows: list, qspec: list, widths: list,
-                  window: int | None) -> dict:
+                  window: int | None, before_run=None,
+                  count_syncs: bool = False) -> dict:
     """bench.py's ``bench_embed_framework`` graph through the port:
     ``VectorStoreServer(docs, embedder=emb, index_builder=...
     default_brute_force_knn_document_index(chunks.text, chunks,
@@ -3576,7 +3605,10 @@ def framework_run(emb, dtype: str, rows: list, qspec: list, widths: list,
     the index's ``drain()`` timed as bench.py times them, with
     ``PATHWAY_DEVICE_INFLIGHT`` unset (``window`` None: the device bridge
     at its default window, 2) or set to ``window``; every launch count set
-    to 0 just before the run and read just after. Each operator's step is
+    to 0 just before the run and read just after, and ``before_run()``
+    called just before it (after the warm-up); with ``count_syncs`` the
+    run's implicit host syncs are counted (``device_sanitizer.
+    count_syncs``, report mode for the run). Each operator's step is
     timed on the host clock by the thread it ran on (the calling thread's
     host leg, the bridge worker's device leg), the index's ``add_batch``
     and searches too; each search's queries and replies are kept for the
@@ -3665,7 +3697,11 @@ def framework_run(emb, dtype: str, rows: list, qspec: list, widths: list,
             count.launches = 0
         emb.dispatches = 0
         torch.cuda.synchronize()
-        with GcClock() as gc_clock:
+        if before_run is not None:
+            before_run()
+        sync_count = device_sanitizer.count_syncs() if count_syncs \
+            else contextlib.nullcontext()
+        with GcClock() as gc_clock, sync_count as syncs:
             t0 = time.perf_counter()
             runner.run_batch(n_workers=1)
             index.drain()
@@ -3682,6 +3718,7 @@ def framework_run(emb, dtype: str, rows: list, qspec: list, widths: list,
             "captures": compiles() - captures0,
             "replays": (step.replays if step is not None else 0) - replays0,
             "inflight": inflight,
+            "syncs": syncs.count if count_syncs else None,
             "bridge": runner._scheduler.bridge_stats(),
             "autojit": autojit.autojit_stats()}
 
@@ -3911,11 +3948,12 @@ def phase_framework(n_docs: int, seed: int, card: str) -> dict:
     max_len 128 into a bf16 cos index (K1, K2, K2 score); B, the ragged
     embedder (sequences of 512) into an int8 cos index (K1 with segment
     ids, K4 inside each chunk's graph replay, K3 top-k, K3 score). Each
-    runs bridged, direct, direct, bridged, then at window 1, then the
+    runs bridged, direct, direct, bridged, then at window 1, then bridged
+    once more with the live profiler on (``framework_profiled``), then the
     embedder's default HashTokenizer at window 1 beside its own direct
-    index. Returns each
-    kernel's launches in the counted (first bridged) runs, by
-    LaunchCount."""
+    index. Returns each kernel's launches in the counted (first bridged)
+    runs, by LaunchCount, and in the profiled runs, by ("profiled",
+    LaunchCount)."""
     import torch
 
     from pathway_tpu_torch.internals.json import Json
@@ -3949,6 +3987,7 @@ def phase_framework(n_docs: int, seed: int, card: str) -> dict:
     ticks = [docs[b:b + FRAMEWORK_BATCH]
              for b in range(0, n_docs, FRAMEWORK_BATCH)]
     counted = {}
+    profiled = {}
     for label, ragged, dtype, max_len, kernels in (
             ("framework A", False, "bfloat16", BENCH_SEQ,
              (ATTENTION, TOPK_BF16, SCORE_BF16)),
@@ -3970,7 +4009,8 @@ def phase_framework(n_docs: int, seed: int, card: str) -> dict:
             # (ragged: a chunk); each search over one extent of <= 2^19 rows
             # takes the top-k kernel once, except the last tick's batch,
             # whose k = 80 query makes the whole batch fetch 80: the score
-            # kernel once, then the key selection
+            # kernel once, then the key selection. framework_run's warm-up
+            # then walks the padded widths, or every ragged chunk bucket
             if ragged:
                 widths = []
                 ingest = sum(len(emb.pack_ragged(t)) for t in ticks)
@@ -3997,17 +4037,17 @@ def phase_framework(n_docs: int, seed: int, card: str) -> dict:
         widths, ingest, query, expect = stated["wordpiece"]
         hwidths, hingest, hquery, hexpect = stated["hash"]
 
-        def run(e, w, window, tag):
-            return dict(framework_run(e, dtype, rows, qspec, w, window),
-                        tag=tag)
+        def run(e, w, window, tag, count_syncs=False):
+            return dict(framework_run(e, dtype, rows, qspec, w, window,
+                                      count_syncs=count_syncs), tag=tag)
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # bridged, direct, direct, bridged (host-clock times drift between
         # consecutive runs, so each side is timed twice in mirrored order),
         # then the same at window 1; the first bridged run is the counted
-        # one
-        first = run(emb, widths, None, "bridged")
+        # one, and the profiler-off run the profiled one is held against
+        first = run(emb, widths, None, "bridged", count_syncs=True)
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         direct = framework_direct(emb, dtype, docs, keys, widths)
         direct2 = framework_direct(emb, dtype, docs, keys, widths)
@@ -4019,6 +4059,9 @@ def phase_framework(n_docs: int, seed: int, card: str) -> dict:
             framework_holds(r, direct["index"], expect, ingest, query, emb,
                             docs, keys, qspec, f"{label} {r['tag']}")
             del r["index"]
+        profiled[ragged] = framework_profiled(
+            emb, dtype, rows, qspec, widths, first, direct["index"], expect,
+            ingest, query, docs, keys, seed, label, card)
         del direct["index"]
         hash_run = run(hemb, hwidths, 1, "HashTokenizer, window 1")
         hash_direct = framework_direct(hemb, dtype, docs, keys, hwidths)
@@ -4090,7 +4133,214 @@ def phase_framework(n_docs: int, seed: int, card: str) -> dict:
         del emb, hemb, embs
         gc.collect()
         torch.cuda.empty_cache()
+    for ragged, launches in profiled.items():
+        for c, n in launches.items():
+            key = (c, ragged) if c is ATTENTION else c
+            counted[("profiled", key)] = counted.get(("profiled", key), 0) + n
     return counted
+
+
+PROFILER_OVERHEAD = 0.02  # the sampler's contract (tests/profiling_canary.py)
+
+
+def profiler_capture(prof, index, seed: int) -> dict:
+    """``start_device_capture`` / ``stop_device_capture`` around two more
+    ticks of ingest and a search on ``index``, run as one profiler leg on
+    this thread (``begin_leg`` / ``end_leg``, flushed before the capture
+    stops). Fails unless exactly one non-empty trace holding K1 was
+    written (the directory is removed after), or if the trace's K1 kernel
+    time exceeds what the profiler gave the forward family over the same
+    leg: K1 is a part of every forward, so a bytes split that gives the
+    forward less than its K1 is wrong. Returns the trace's bytes, the leg's
+    CUDA-event ms, the trace's kernel-busy ms and K1 ms, and each family's
+    ms of the leg."""
+    import shutil
+    import tempfile
+
+    from pathway_tpu_torch.internals.keys import Pointer
+
+    fam0 = prof.family_stats()
+    leg0 = prof.leg_stats()["ms_total"]
+    cap_dir = tempfile.mkdtemp(prefix="pathway-capture-")
+    try:
+        prof.start_device_capture(cap_dir)
+        prof.begin_leg(-1)
+        t0 = time.perf_counter()
+        extra = make_docs(2 * FRAMEWORK_BATCH, seed=seed + 7)
+        for b in range(2):
+            part = extra[b * FRAMEWORK_BATCH:(b + 1) * FRAMEWORK_BATCH]
+            index.add_batch([Pointer((1 << 61) + b * FRAMEWORK_BATCH + i)
+                             for i in range(len(part))], part)
+        index.search([(Pointer(1 << 60), extra[0], 3, None)])
+        prof.end_leg((time.perf_counter() - t0) * 1e3)
+        prof.flush()
+        if prof.stop_device_capture() != cap_dir:
+            fail("[profiler live] the capture wrote elsewhere")
+        traces = [os.path.join(cap_dir, f) for f in os.listdir(cap_dir)]
+        if len(traces) != 1:
+            fail(f"[profiler live] the capture wrote {traces}")
+        with open(traces[0]) as f:
+            text = f.read()
+    finally:
+        shutil.rmtree(cap_dir, ignore_errors=True)
+    kernels = [e for e in json.loads(text).get("traceEvents", [])
+               if e.get("cat") == "kernel"]
+    k1_ms = sum(e["dur"] for e in kernels
+                if any(n in e["name"] for n in K1_BF16)) / 1e3
+    fam1 = prof.family_stats()
+    fam_ms = {f: s["attributed_device_ms_total"]
+              - fam0.get(f, {}).get("attributed_device_ms_total", 0.0)
+              for f, s in fam1.items()}
+    got = {"bytes": len(text), "leg_ms": prof.leg_stats()["ms_total"] - leg0,
+           "busy_ms": sum(e["dur"] for e in kernels) / 1e3, "k1_ms": k1_ms,
+           "fam_ms": fam_ms}
+    if not text or not k1_ms or k1_ms > fam_ms.get("encoder_forward", 0.0):
+        fail(f"[profiler live] the capture's trace: {len(text)} B, "
+             f"{len(kernels)} kernels, K1 {k1_ms:.3f} ms against the "
+             f"forward family's {fam_ms.get('encoder_forward', 0.0):.3f} ms "
+             f"of the leg")
+    return got
+
+
+def framework_profiled(emb, dtype: str, rows: list, qspec: list,
+                       widths: list, first: dict, direct, expect: dict,
+                       ingest: int, query: int, docs: list[str], keys: list,
+                       seed: int, label: str, card: str) -> dict:
+    """The configuration's graph once more, bridged at window 2, with
+    ``PATHWAY_PROFILER=1``: ``Profiler.from_env()`` installed and sampling
+    just before ``run_batch`` (after the warm-up). Held as every run of
+    phase_framework is (``framework_holds``), its outputs equal to the
+    counted run's (``first``, profiler off), and: each family's
+    dispatches against the run's launches (K1 = 12 x the forward
+    family's, K2 / K3 top-k + score = ``knn_search``'s, B's K4 =
+    ``ingest_scatter``'s = graph replays; A's fused writes one a tick);
+    every record re-timed inside a leg and every leg timed by CUDA events;
+    the sampler's overhead below 0.02; 0 implicit host syncs with it on,
+    as in the counted run. The families' ms summing to the legs' is an
+    invariant of the split (its weights sum to 1), checked as one; the
+    measured reading beside it is A's capture (``profiler_capture``): a
+    ``start_device_capture`` / ``stop_device_capture`` over two ticks of
+    ingest and a search. Returns the run's launches by LaunchCount."""
+    from pathway_tpu_torch.engine import profiler as profiling
+    from pathway_tpu_torch.ops.attention import ATTENTION
+    from pathway_tpu_torch.ops.knn_kernels import (QUANTIZE_SCATTER,
+                                                   SCORE_BF16, SCORE_I8,
+                                                   TOPK_BF16, TOPK_I8)
+
+    tag = f"[profiler live {label[-1]}]"
+    t_prof = time.perf_counter()
+    family = "segment_attention" if emb.ragged else "encoder_forward"
+    topk, score = (TOPK_I8, SCORE_I8) if emb.ragged else (TOPK_BF16,
+                                                          SCORE_BF16)
+    live = []
+
+    def install():
+        prof = profiling.Profiler.from_env()
+        if prof is None or prof.device.type != "cuda":
+            fail(f"{tag} PATHWAY_PROFILER=1 gave {prof}, not a profiler on "
+                 f"the card")
+        profiling.install_profiler(prof)
+        prof.start()
+        live.append(prof)
+
+    saved = os.environ.get("PATHWAY_PROFILER")
+    os.environ["PATHWAY_PROFILER"] = "1"
+    try:
+        on = framework_run(emb, dtype, rows, qspec, widths, None,
+                           before_run=install, count_syncs=True)
+        prof = live[0]
+        prof.flush()
+        st = prof.stats()
+        overhead = prof.overhead_ratio()
+        collapsed = prof.collapsed()
+        # the outputs, before the capture adds rows to the index
+        if repr(on["events"]) != repr(first["events"]):
+            fail(f"{tag} the outputs differ with the profiler on")
+        framework_holds(on, direct, expect, ingest, query, emb, docs, keys,
+                        qspec, f"{label} profiler on")
+        capture = None if emb.ragged else profiler_capture(
+            prof, on["index"], seed)
+        prof.stop()
+    finally:
+        profiling.install_profiler(None)
+        os.environ.pop("PATHWAY_PROFILER", None)
+        if saved is not None:
+            os.environ["PATHWAY_PROFILER"] = saved
+    fams = st["families"]
+    launches = {c: n for c, n in on["launches"].items() if n}
+    want = {family: on["dispatches"],
+            "knn_search": launches.get(topk, 0) + launches.get(score, 0),
+            "ingest_scatter": launches.get(QUANTIZE_SCATTER, 0)
+            if emb.ragged else ingest}
+    got = {f: s["dispatches"] for f, s in fams.items()}
+    if got != want or launches.get(ATTENTION) != \
+            N_LAYERS * got.get(family, -1):
+        fail(f"{tag} family dispatches {got}, stated from the launches "
+             f"{want} (K1 {launches.get(ATTENTION)} = 12 x the forward "
+             f"family)")
+    if emb.ragged and got["ingest_scatter"] != on["replays"]:
+        fail(f"{tag} {got['ingest_scatter']} ingest records, "
+             f"{on['replays']} graph replays")
+    unattributed = {f: s["dispatches"] - s["attributed_dispatches"]
+                    for f, s in fams.items()
+                    if s["dispatches"] != s["attributed_dispatches"]}
+    legs = st["legs"]
+    fam_ms = sum(s["attributed_device_ms_total"] for s in fams.values())
+    if unattributed or legs["pending"] or \
+            legs["timed"] != legs["committed"] or not legs["committed"]:
+        fail(f"{tag} records outside a timed leg {unattributed}; legs "
+             f"{legs}")
+    if abs(fam_ms - legs["ms_total"]) > 0.01 * legs["ms_total"]:
+        fail(f"{tag} invariant: the families' {fam_ms:.3f} ms differ from "
+             f"the legs' CUDA-event {legs['ms_total']:.3f} ms by > 1%")
+    if not st["host"]["samples_total"] or overhead >= PROFILER_OVERHEAD:
+        fail(f"{tag} sampler: {st['host']['samples_total']} samples, "
+             f"overhead ratio {overhead:.5f} (contract < "
+             f"{PROFILER_OVERHEAD})")
+    if on["syncs"] or first["syncs"]:
+        fail(f"{tag} implicit host syncs in the run: profiler on "
+             f"{on['syncs']}, off {first['syncs']}")
+    n_docs, n_ticks = len(rows), -(-len(rows) // FRAMEWORK_BATCH)
+    fam_line = "; ".join(
+        f"{f} {s['dispatches']} dispatches ({s['attributed_dispatches']} "
+        f"re-timed), {s['attributed_device_ms_total']:.3f} ms, "
+        f"{s['flops_total']:.4g} FLOP, {s['bytes_total']:.4g} B, MFU "
+        f"{s['mfu']:.4f}, HBM use {s['hbm_bw_util']:.4f}, "
+        f"{s['roofline']['bound_by']}-bound (AI "
+        f"{s['roofline']['arithmetic_intensity']:.1f})"
+        for f, s in sorted(fams.items()))
+    print(f"{tag} {n_docs} docs in {n_ticks} ticks, bridge at window "
+          f"{on['inflight']} ({on['bridge']['legs_resolved']} legs): "
+          f"{fam_line} [{card}]", flush=True)
+    print(f"{tag} legs timed by CUDA events {legs['timed']} of "
+          f"{legs['committed']} with records, {legs['ms_total']:.3f} ms; "
+          f"invariant: the families' sum {fam_ms:.3f} ms (ratio "
+          f"{fam_ms / legs['ms_total']:.6f}); rolling MFU "
+          f"{st['mfu_rolling']:.6f}, HBM use {st['hbm_bw_util']:.6f}; "
+          f"sampler {st['host']['samples_total']} samples every "
+          f"{st['host']['sample_interval_ms']} ms, "
+          f"{st['host']['device_attributed_samples']} in a device leg, "
+          f"overhead ratio {overhead:.6f}, "
+          f"{st['host']['distinct_stacks']} stacks, top frame "
+          f"{st['host']['top_frame']!r}; implicit syncs on {on['syncs']}, "
+          f"off {first['syncs']} [{card}]", flush=True)
+    roles = sorted({ln.split(";", 1)[0] for ln in collapsed.splitlines()})
+    print(f"{tag} docs/s with the profiler on {n_docs / on['wall']:.1f}, "
+          f"off (the counted run) {n_docs / first['wall']:.1f}; sampled "
+          f"thread roles {roles}", flush=True)
+    if capture is not None:
+        print(f"{tag} capture over 2 ingest ticks and a search, one leg of "
+              f"{capture['leg_ms']:.3f} ms by CUDA events: a "
+              f"{capture['bytes']} B Chrome trace; its kernels busy "
+              f"{capture['busy_ms']:.3f} ms (busy share "
+              f"{capture['busy_ms'] / capture['leg_ms']:.4f}), K1 "
+              f"{capture['k1_ms']:.3f} ms; the profiler's split of the "
+              f"leg: " + ", ".join(f"{f} {ms:.3f} ms" for f, ms in
+                                   sorted(capture["fam_ms"].items()))
+              + f" (K1 <= the forward's, required) [{card}]", flush=True)
+    print(f"{tag} the profiled run and its checks "
+          f"{time.perf_counter() - t_prof:.1f} s", flush=True)
+    return launches
 
 
 SHARDED_TICKS = 8       # phase_framework_sharded: 8 ticks of 2048 docs
@@ -8581,6 +8831,283 @@ def clip_batch(cfg, B: int, seed: int) -> dict:
     return {"pixels": px, "ids": ids, "mask": mask}
 
 
+ML_DIM = 384             # BGE-small's width
+KMEANS_N = 262_144       # points (402 MB of float32)
+KMEANS_K = 1024          # centres, one a blob
+KMEANS_ITERS = 25        # kmeans_labels' default
+KMEANS_AGREE = 0.999     # labels shared with the float64 Lloyd run
+LSH_N = 20_000           # clustering_via_lsh's vectors
+LSH_BLOBS = 64           # ... drawn from 64 blobs, clustered into k = 64
+LSH_QUERIES = 128        # the bucketed classifier's queries
+LSH_L, LSH_M, LSH_A = 8, 3, 0.5  # bands, projections a band, bucket width
+# the classifier's projections a band: at M = 3 a query's bands hold
+# ~1,100 candidates (most from other blobs), at 4 ~300 (its host time
+# is the candidate pairs)
+CLASSIFY_M = 4
+LSH_SPREAD = 0.1         # the LSH blobs' spread around their centres
+
+
+def ml_blobs(n: int, k: int, spread: float, seed: int) -> tuple:
+    """(points (n, 384) f32, weights 1-4 f32, blob ids): ``k`` centres
+    from ``standard_normal``, each point a centre plus ``spread`` x noise."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((k, ML_DIM)).astype(np.float32)
+    blob = rng.integers(0, k, n)
+    pts = centers[blob]
+    pts += spread * rng.standard_normal((n, ML_DIM), dtype=np.float32)
+    return pts, rng.integers(1, 5, n).astype(np.float32), blob
+
+
+def kmeans_f64(pts, w, init, iters: int):
+    """A plain weighted Lloyd run in float64 on the card, from the same
+    initial centres: argmin of ``|c|^2 - 2 P C^T`` (the row's |p|^2 does
+    not move it), ``index_add_`` sums, empty clusters kept."""
+    import torch
+
+    p = pts.double()
+    wd = w.double()
+    c = p[init]
+    k = c.shape[0]
+    for step in range(iters + 1):
+        assign = torch.argmin((c * c).sum(1)[None, :] - 2.0 * (p @ c.T),
+                              dim=1)
+        if step == iters:
+            return assign
+        wsum = torch.zeros_like(c).index_add_(0, assign, p * wd[:, None])
+        wtot = torch.zeros(k, dtype=torch.float64,
+                           device=p.device).index_add_(0, assign, wd)
+        c = torch.where(wtot[:, None] > 0, wsum / wtot.clamp(min=1e-9)[:, None],
+                        c)
+
+
+def partition_scores(labels: np.ndarray, blob: np.ndarray) -> tuple:
+    """(purity, normalized mutual information, blobs that are some
+    cluster's majority) of a partition against the blobs."""
+    lab = np.unique(labels, return_inverse=True)[1]
+    bl = np.unique(blob, return_inverse=True)[1]
+    table = np.zeros((lab.max() + 1, bl.max() + 1), np.int64)
+    np.add.at(table, (lab, bl), 1)
+    n = len(labels)
+    purity = table.max(axis=1).sum() / n
+
+    def entropy(counts):
+        p = counts[counts > 0] / n
+        return float(-(p * np.log(p)).sum())
+
+    h_joint = entropy(table.ravel())
+    mi = entropy(table.sum(1)) + entropy(table.sum(0)) - h_joint
+    nmi = mi / np.sqrt(entropy(table.sum(1)) * entropy(table.sum(0)))
+    return float(purity), float(nmi), len(set(table.argmax(axis=1)))
+
+
+def plain_lsh_votes(bucketer, train, labels, queries, k: int) -> list:
+    """The bucketed classifier's answer computed directly: a query's
+    candidates are the training rows sharing one of its band codes; the
+    k nearest by squared distance (float64; ties by label, as the
+    classifier's sorted (distance, label) tuples), then the most frequent
+    label (ties: the larger label string), None without candidates."""
+    codes = np.stack([bucketer(v) for v in train])  # (n, L)
+    index: dict = {}
+    for i, row in enumerate(codes):
+        for band, code in enumerate(row):
+            index.setdefault((band, int(code)), []).append(i)
+    out = []
+    for q in queries:
+        cand = sorted({i for band, code in enumerate(bucketer(q))
+                       for i in index.get((band, int(code)), ())})
+        if not cand:
+            out.append(None)
+            continue
+        diff = train[cand].astype(np.float64) - q.astype(np.float64)
+        ranked = sorted(zip((diff * diff).sum(1).tolist(),
+                            [labels[i] for i in cand]))[:k]
+        counts: dict = {}
+        for _d, lbl in ranked:
+            counts[lbl] = counts.get(lbl, 0) + 1
+        out.append(max(counts.items(), key=lambda kv: (kv[1], str(kv[0])))[0])
+    return out
+
+
+def phase_ml(seed: int, card: str, kmeans_n: int = KMEANS_N,
+             kmeans_k: int = KMEANS_K) -> None:
+    """``pw.stdlib.ml`` on the card: ``kmeans_labels`` at ``kmeans_n`` x 384
+    float32 points from ``kmeans_k`` seeded blobs (k = ``kmeans_k``, 25
+    Lloyd steps, weights 1-4) held against a float64 Lloyd run from the
+    same initial centres; ``clustering_via_lsh`` through the engine over
+    20,000 x 384 vectors from 64 blobs (L = 8, M = 3, k = 64); the bucketed
+    LSH classifier over the same vectors against a direct computation of
+    its vote."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import device_sanitizer
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.runner import run_tables
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+    from pathway_tpu_torch.stdlib.ml import classifiers
+    from pathway_tpu_torch.stdlib.ml.classifiers import _clustering
+
+    t_phase = time.perf_counter()
+    dev = torch.device(card if card == "cpu" else "cuda")
+    # -- k-means at BGE-small's width --------------------------------------
+    pts, w, blob = ml_blobs(kmeans_n, kmeans_k, 0.25, seed + 11)
+    for count in LAUNCH_COUNTS:
+        count.launches = 0
+    t0 = time.perf_counter()
+    with device_sanitizer.count_syncs() as syncs:
+        labels = np.asarray(classifiers.kmeans_labels(
+            pts, w, kmeans_k, iters=KMEANS_ITERS, seed=seed, device=dev))
+    wall = time.perf_counter() - t0
+    if syncs.count:
+        fail(f"[ml] kmeans_labels made {syncs.count} implicit host syncs")
+    if any(c.launches for c in LAUNCH_COUNTS):
+        fail("[ml] kmeans_labels launched a hand-written kernel")
+    # the loop alone on the card, CUDA events, from the same initial centres
+    n, k = len(pts), min(kmeans_k, len(pts))
+    init = np.random.default_rng(seed).choice(
+        n, size=k, replace=False, p=w / w.sum())
+    pts_d = torch.from_numpy(pts).to(dev)
+    w_d = torch.from_numpy(w).to(dev)
+    init_d = torch.from_numpy(init.astype(np.int64)).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        again = _clustering._kmeans_fn(pts_d, w_d, init_d, KMEANS_ITERS)
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        loop_ms = start.elapsed_time(end)
+    else:
+        t0 = time.perf_counter()
+        again = _clustering._kmeans_fn(pts_d, w_d, init_d, KMEANS_ITERS)
+        loop_ms = host_ms = (time.perf_counter() - t0) * 1e3
+    same = float((again.cpu().numpy() == labels).mean())
+    t0 = time.perf_counter()
+    ref = kmeans_f64(pts_d, w_d, init_d, KMEANS_ITERS).cpu().numpy()
+    ref_s = time.perf_counter() - t0
+    agree = float((ref == labels).mean())
+    purity, nmi, found = partition_scores(labels, blob)
+    seeded = len(set(blob[init].tolist()))
+    flops = (2 * KMEANS_ITERS + 1) * 2.0 * n * k * ML_DIM
+    print(f"[ml] kmeans_labels {n} x {ML_DIM} f32, k={k}, "
+          f"{KMEANS_ITERS} steps, {kmeans_k} blobs: wall {wall:.3f} s "
+          f"(host packing, upload, loop, fetch); the loop {loop_ms:.2f} ms "
+          f"of CUDA events ({flops / loop_ms / 1e9:.1f} TFLOP/s of f32 "
+          f"products; host {host_ms:.2f} ms to queue it); "
+          f"0 implicit syncs; {card}", flush=True)
+    print(f"[ml] kmeans labels: {agree:.6f} equal to the float64 Lloyd run "
+          f"on the card ({ref_s:.2f} s), {same:.6f} to a second run; "
+          f"purity {purity:.4f}, NMI {nmi:.4f}, {found} of {kmeans_k} blobs "
+          f"a cluster's majority ({seeded} held an initial centre)",
+          flush=True)
+    if agree < KMEANS_AGREE or same < KMEANS_AGREE:
+        fail(f"[ml] kmeans labels agree with the float64 run on {agree:.6f} "
+             f"of points and with a second run on {same:.6f} (< "
+             f"{KMEANS_AGREE})")
+    if nmi < 0.9 or found < 0.9 * seeded:
+        fail(f"[ml] the partition does not recover the blobs: NMI {nmi:.4f} "
+             f"(< 0.9), {found} blobs a majority of {seeded} seeded")
+    del pts_d, w_d, init_d, again, pts
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- clustering_via_lsh through the engine -----------------------------
+    vecs, _w, vblob = ml_blobs(LSH_N + LSH_QUERIES, LSH_BLOBS, LSH_SPREAD,
+                               seed + 12)
+    bucketer = classifiers.generate_euclidean_lsh_bucketer(
+        ML_DIM, M=LSH_M, L=LSH_L, A=LSH_A, seed=seed)
+    calls = []
+    kmeans_fn = _clustering._kmeans_fn
+
+    def counted(points, *args):
+        calls.append((points.device.type, tuple(points.shape)))
+        return kmeans_fn(points, *args)
+
+    G.clear()
+    data = pw.debug.table_from_rows(
+        pw.schema_from_types(data=np.ndarray, idx=int),
+        [(vecs[i], i) for i in range(LSH_N)])
+    res = classifiers.clustering_via_lsh(data, bucketer, LSH_BLOBS,
+                                         device=dev)
+    out = res.select(res.label, idx=data.ix(res.id, context=res).idx)
+    _clustering._kmeans_fn = counted
+    try:
+        t0 = time.perf_counter()
+        [cap] = run_tables(out)
+        cl_s = time.perf_counter() - t0
+    finally:
+        _clustering._kmeans_fn = kmeans_fn
+    rows = list(cap.snapshot().values())
+    idx = sorted(r[1] for r in rows)
+    if idx != list(range(LSH_N)):
+        fail(f"[ml] clustering_via_lsh labelled {len(rows)} rows, not each "
+             f"of the {LSH_N} vectors once")
+    if len(calls) != 1 or calls[0][0] != dev.type:
+        fail(f"[ml] clustering_via_lsh's k-means ran as {calls}, not once "
+             f"on {dev.type}")
+    cl_labels = np.empty(LSH_N, np.int64)
+    for lbl, i in rows:
+        cl_labels[i] = lbl
+    if cl_labels.min() < 0 or cl_labels.max() >= LSH_BLOBS:
+        fail(f"[ml] clustering_via_lsh labels outside [0, {LSH_BLOBS})")
+    c_purity, c_nmi, c_found = partition_scores(cl_labels, vblob[:LSH_N])
+    print(f"[ml] clustering_via_lsh {LSH_N} x {ML_DIM} (L={LSH_L}, "
+          f"M={LSH_M}, A={LSH_A}, k={LSH_BLOBS}, {LSH_BLOBS} blobs) under "
+          f"run_tables: {cl_s:.2f} s, {LSH_N / cl_s:.1f} vectors/s; "
+          f"{calls[0][1][0]} bucket representatives into k-means on "
+          f"{calls[0][0]}; {len(set(cl_labels.tolist()))} clusters, purity "
+          f"{c_purity:.4f}, NMI {c_nmi:.4f}, {c_found} blobs a majority",
+          flush=True)
+    if c_nmi < 0.8:
+        fail(f"[ml] clustering_via_lsh's partition does not follow the "
+             f"blobs: NMI {c_nmi:.4f} (< 0.8)")
+
+    # -- the bucketed LSH classifier over the same vectors -----------------
+    G.clear()
+    names = [f"b{b}" for b in vblob]
+    train = pw.debug.table_from_rows(
+        pw.schema_from_types(data=np.ndarray, label=str),
+        [(vecs[i], names[i]) for i in range(LSH_N)])
+    queries = pw.debug.table_from_rows(
+        pw.schema_from_types(data=np.ndarray, qi=int),
+        [(vecs[LSH_N + j], j) for j in range(LSH_QUERIES)])
+    classify = classifiers.knn_lsh_euclidean_classifier_train(
+        train, d=ML_DIM, M=CLASSIFY_M, L=LSH_L, A=LSH_A)
+    pred = classifiers.knn_lsh_classify(classify, queries, k=3)
+    out = pred.select(pred.predicted_label,
+                      qi=queries.ix(pred.id, context=pred).qi)
+    t0 = time.perf_counter()
+    [cap] = run_tables(out)
+    cls_s = time.perf_counter() - t0
+    got = [None] * LSH_QUERIES
+    for lbl, qi in cap.snapshot().values():
+        got[qi] = lbl
+    # the classifier draws its own projections from the same seed
+    plain = plain_lsh_votes(
+        classifiers.generate_euclidean_lsh_bucketer(
+            ML_DIM, M=CLASSIFY_M, L=LSH_L, A=LSH_A), vecs[:LSH_N], names,
+        vecs[LSH_N:], 3)
+    if got != plain:
+        bad = sum(a != b for a, b in zip(got, plain))
+        fail(f"[ml] the bucketed classifier's labels differ from the direct "
+             f"vote on {bad} of {LSH_QUERIES} queries")
+    acc = sum(g == names[LSH_N + j] for j, g in enumerate(got)) / LSH_QUERIES
+    print(f"[ml] bucketed LSH classifier (d={ML_DIM}, M={CLASSIFY_M}, "
+          f"L={LSH_L}, "
+          f"A={LSH_A}, k=3) over the {LSH_N} vectors, {LSH_QUERIES} fresh "
+          f"queries: {cls_s:.2f} s, accuracy {acc:.4f} against the blob "
+          f"labels, every label equal to the direct vote", flush=True)
+    if acc < 0.9:
+        fail(f"[ml] the bucketed classifier's accuracy {acc:.4f} < 0.9")
+    G.clear()
+    print(f"[ml] phase {time.perf_counter() - t_phase:.1f} s; {card}",
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--docs", type=int, default=100_000,
@@ -8643,6 +9170,7 @@ def main() -> None:
                      (k3_topk, TOPK_I8), (k3, SCORE_I8),
                      (k4, QUANTIZE_SCATTER)):
         rec["launches_framework"] = fw[key]
+        rec["launches_profiler_live"] = fw.get(("profiled", key), 0)
     done("framework", graphs=True)
     sharded = phase_framework_sharded(args.docs, args.seed, card)
     k1["launches_sharded"], k2["launches_sharded"] = (sharded["k1"],
@@ -8707,6 +9235,8 @@ def main() -> None:
     done("clip")
     gc.collect()
     torch.cuda.empty_cache()
+    phase_ml(args.seed, card)
+    done("ml", graphs=True)
     # last: its 21 graphs leave ~200,000 memoized keys and twice the
     # objects the collector scans, which slowed the timed phases after it
     phase_temporal(card)

@@ -32,7 +32,9 @@ Files come in through ``pw.io.fs`` (and ``pw.io.csv``,
 classic ``pw.stdlib.ml.KNNIndex`` and the Adaptive-RAG template
 (``xpacks.llm.question_answering.AdaptiveRAGQuestionAnswerer`` with its
 splitter, chats, rerankers and REST server) run BASELINE.md's configs 1
-and 3.
+and 3. The rest of ``pw.ml`` runs too: the kNN and LSH classifiers,
+``clustering_via_lsh`` with its k-means on the card, HMM decoding and
+the fuzzy joins.
 ``pw.warmup(embedder, index=...)`` walks the serving shapes before the
 first tick and, under ``PATHWAY_DEVICE_SANITIZER``, declares the steady
 state that engine/device_sanitizer.py guards.
@@ -76,6 +78,8 @@ _LAZY = {
     "UDF": ("pathway_tpu_torch.internals.udfs", "UDF"),
     "udfs": ("pathway_tpu_torch.internals.udfs", None),
     "reducers": ("pathway_tpu_torch.internals.reducers_frontend", None),
+    "BaseCustomAccumulator": ("pathway_tpu_torch.internals.reducers_frontend",
+                              "BaseCustomAccumulator"),
     "Json": ("pathway_tpu_torch.internals.json", "Json"),
     "Pointer": ("pathway_tpu_torch.internals.keys", "Pointer"),
     "DType": ("pathway_tpu_torch.internals.dtype", "DType"),
@@ -83,6 +87,7 @@ _LAZY = {
                          "global_error_log"),
     "debug": ("pathway_tpu_torch.debug", None),
     "stdlib": ("pathway_tpu_torch.stdlib", None),
+    "ml": ("pathway_tpu_torch.stdlib.ml", None),
     "temporal": ("pathway_tpu_torch.stdlib.temporal", None),
     "window": ("pathway_tpu_torch.stdlib.temporal", None),
     "io": ("pathway_tpu_torch.io", None),

@@ -45,9 +45,12 @@ The window is configured with ``PATHWAY_DEVICE_INFLIGHT`` (default 2 —
 double buffering; ``1`` disables pipelining entirely). With a flight
 recorder (engine/flight_recorder.py) each leg records its queue wait and
 execution, its in-flight marker names the tick while it runs, and a leg
-that raises carries the recorder's tail as a note on its exception. Not
-ported: the fault-injection points and the profiler's leg re-timing
-(ROADMAP queue 1, item 5).
+that raises carries the recorder's tail as a note on its exception. With
+a profiler installed (engine/profiler.py), each leg runs between
+``begin_leg`` and ``end_leg``: the kernel dispatches recorded inside it
+are re-timed to the leg's CUDA-event time on the card (its host wall on
+the CPU). Not ported: the fault-injection points (ROADMAP queue 1,
+step 7, item 6i).
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from collections import deque
 from typing import Callable
 
 from pathway_tpu_torch.engine.locking import create_condition
+from pathway_tpu_torch.engine.profiler import current_profiler
 
 # live bridges (weak: a bridge dies with its scheduler): out-of-band
 # observers read depth and the in-flight leg without a reference threaded
@@ -266,10 +270,19 @@ class DeviceBridge:
             recording = rec is not None and rec.enabled
             if recording:
                 rec.mark_leg(tick)
+            # profiler leg context: dispatches recorded while fn() runs are
+            # buffered on this thread and re-timed to the leg's measured
+            # time at end_leg (CUDA events on the card), not to their
+            # asynchronous call-site walls
+            prof = current_profiler()
+            if prof is not None:
+                prof.begin_leg(tick)
             started = _time.perf_counter()
             try:
                 fn()
             except BaseException as e:  # noqa: BLE001 — must cross threads
+                if prof is not None:
+                    prof.end_leg(None)  # failed leg: no measured time
                 if recording:
                     # the poison carries the recorder's tail: the host
                     # thread re-raises this exact object, so the report
@@ -291,6 +304,8 @@ class DeviceBridge:
                     self._cv.notify_all()
                 continue  # keep serving barrier wake-ups until close
             finished = _time.perf_counter()
+            if prof is not None:
+                prof.end_leg((finished - started) * 1e3)
             if recording:
                 rec.record_leg(tick, (started - submitted_at) * 1e3,
                                (finished - started) * 1e3)

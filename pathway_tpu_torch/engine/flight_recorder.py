@@ -18,7 +18,10 @@ Consumers:
 - ``torch.profiler`` — each device leg runs inside
   ``record_function("pathway.device_leg.t<tick>")``
   (:meth:`FlightRecorder.device_annotation`), so a profile of the card
-  lines up with the framework's ticks.
+  lines up with the framework's ticks;
+- the profiler's host sampler (engine/profiler.py) — ``live_inflight_by_
+  thread`` tags each sampled stack with the operator its thread is
+  stepping.
 
 Cost model: **disabled is the default and costs one branch per operator
 step, no allocation** (the Scheduler holds ``recorder=None``). Enabled,
@@ -38,6 +41,7 @@ import json
 import os
 import threading
 import time
+import weakref
 
 # Prometheus-style latency buckets (ms). +Inf is implicit as the last
 # cumulative bucket. Chosen to straddle both sub-ms host operators and
@@ -117,6 +121,25 @@ class _OpStats:
         self.rows_out += rows_out
 
 
+# live enabled recorders (weak: a recorder dies with its scheduler/run).
+# Lets out-of-band observers — the profiler's host sampler — find the
+# run's in-flight operators without a reference threaded through every
+# layer.
+_LIVE: "weakref.WeakSet[FlightRecorder]" = weakref.WeakSet()
+
+
+def live_inflight_by_thread() -> dict:
+    """{thread ident: (leg, operator name)} for every live enabled
+    recorder's in-flight operators — the profiler's host sampler reads
+    this to tag samples with the operator the sampled thread was
+    stepping (engine/profiler.py). Empty dict when nothing records."""
+    out: dict = {}
+    for rec in list(_LIVE):
+        if rec.enabled:
+            out.update(rec.inflight_by_thread())
+    return out
+
+
 class FlightRecorder:
     """Ring-buffered span recorder for one scheduler (see module doc)."""
 
@@ -176,6 +199,7 @@ class FlightRecorder:
         from pathway_tpu_torch.engine.request_tracker import RequestTracker
 
         rec.requests = RequestTracker()
+        _LIVE.add(rec)
         return rec
 
     def set_telemetry(self, telemetry) -> None:
@@ -275,6 +299,21 @@ class FlightRecorder:
         if st is None:
             return (f"op{op_id}", None)
         return (st.name, st.frame)
+
+    def inflight_by_thread(self) -> dict:
+        """{thread ident: (leg, operator name)} of operators currently
+        being stepped, keyed by the stepping thread. Read lock-free by
+        the profiler's sampler: _inflight_op is only ever mutated by
+        single-item dict ops, so a racy read sees either the old or the
+        new entry, both of which were true moments ago."""
+        out = {}
+        for ident, slot in list(self._inflight_op.items()):
+            try:
+                _tick, leg, node, _t0 = slot
+            except (TypeError, ValueError):
+                continue
+            out[ident] = (leg, node.name or type(node.op).__name__)
+        return out
 
     def inflight_summary(self) -> dict | None:
         """The operator currently stepping (plus its leg/frame) — the

@@ -30,8 +30,12 @@ one-worker run's. The device bridge stays single-worker: a sharded tick is
 one host leg. ``PATHWAY_WORKER_THREADS=1`` steps the replicas of
 ``parallel_safe`` operators on a thread pool.
 
+With a profiler installed (engine/profiler.py), sync mode's one worker
+steps each device node as its own leg (``begin_leg`` / ``end_leg``), as
+the bridge does for a pipelined tick.
+
 Not ported: the multi-process cluster (``cluster=``, ROADMAP queue 1 item
-6f), iteration, the snapshot sanitizer and the profiler hooks.
+6f), iteration and the snapshot sanitizer.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from pathway_tpu_torch.engine.device_bridge import (DeviceBridge,
                                                     device_inflight_from_env)
 from pathway_tpu_torch.engine.operators import (Exchange, Operator,
                                                 SourceOperator)
+from pathway_tpu_torch.engine.profiler import current_profiler
 from pathway_tpu_torch.internals.config import _env_int
 from pathway_tpu_torch.internals.keys import hash_values
 from pathway_tpu_torch.internals.trace import add_trace_note
@@ -348,12 +353,27 @@ class Scheduler:
         # while requests are in flight.
         requests = self._tracked_requests()
         host_pending = requests is not None
+        prof = current_profiler()
         for node in self._topo:
             if host_pending and node.id in self._trace_device_ids:
                 requests.host_done(time)
                 host_pending = False
             in_deltas = [outputs.get(up.id, _EMPTY) for up in node.inputs]
-            delta = self._step_op(node, node.op, time, in_deltas, flush)
+            if prof is not None and node.id in self._trace_device_ids:
+                # sync mode has no bridge leg to measure: each device
+                # node's step is its own leg, so the dispatches inside are
+                # re-timed to its measured time (engine/profiler.py)
+                prof.begin_leg(time)
+                t0 = _time.perf_counter()
+                try:
+                    delta = self._step_op(node, node.op, time, in_deltas,
+                                          flush)
+                except BaseException:
+                    prof.end_leg(None)
+                    raise
+                prof.end_leg((_time.perf_counter() - t0) * 1e3)
+            else:
+                delta = self._step_op(node, node.op, time, in_deltas, flush)
             outputs[node.id] = delta
             self._count(node.id, delta)
         if host_pending:

@@ -18,7 +18,10 @@ through the device bridge (engine/device_bridge.py) at
 computed on the bridge worker while the commit loop drains the next tick.
 With a flight recorder on (``PATHWAY_FLIGHT_RECORDER=1`` or a trace
 path), serving sources get the run's request tracker
-(engine/request_tracker.py) and each query's stages are stamped.
+(engine/request_tracker.py) and each query's stages are stamped. With
+``PATHWAY_PROFILER=1`` the run installs a continuous profiler
+(engine/profiler.py, on ``PATHWAY_PROFILER_DEVICE``, default cuda),
+samples its threads while it runs and removes it at the end.
 
 Reader threads are the sources' own (``DataSource.start``): a reader that
 raises closes its session with the error, and the runtime stops and
@@ -126,6 +129,20 @@ class StreamingRuntime:
 
         self.recorder = FlightRecorder.from_env(
             trace_path=trace_path, auto_on=self.monitor.enabled())
+        # continuous profiler (engine/profiler.py): on with
+        # PATHWAY_PROFILER=1 (no surface of the port shows its data by
+        # itself yet); installed process-wide so the kernel cost-model
+        # hooks and the legs find it with one global load. Sampling starts
+        # when the run does.
+        from pathway_tpu_torch.engine.profiler import (Profiler,
+                                                       current_profiler,
+                                                       install_profiler)
+
+        self.profiler = Profiler.from_env()
+        self._installed_profiler = False
+        if self.profiler is not None and current_profiler() is None:
+            install_profiler(self.profiler)
+            self._installed_profiler = True
         self.scheduler = Scheduler(runner.graph, n_workers=n_workers,
                                    recorder=self.recorder)
         self.sessions = []
@@ -241,6 +258,8 @@ class StreamingRuntime:
 
     def run(self) -> None:
         _ACTIVE_RUNTIMES.add(self)
+        if self.profiler is not None:
+            self.profiler.start()
         time_counter = 1
         try:
             for _node, session, datasource in self.sessions:
@@ -317,6 +336,18 @@ class StreamingRuntime:
                         self.recorder.trace_path, exc_info=True)
             self.monitor.close()
             self.scheduler.close()
+            if self.profiler is not None:
+                # stop the sampler and any capture, commit the legs still
+                # timed on the card; release the module-global hook only
+                # if this run installed it (a profiler installed by the
+                # caller outlives the run)
+                self.profiler.stop()
+                if self._installed_profiler:
+                    from pathway_tpu_torch.engine.profiler import (
+                        current_profiler, install_profiler)
+
+                    if current_profiler() is self.profiler:
+                        install_profiler(None)
         if self.fatal_error is not None:
             # the connector's own exception (its reader-thread traceback
             # is attached) from pw.run, after a full clean teardown

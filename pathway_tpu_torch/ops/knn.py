@@ -37,6 +37,13 @@ fetches (a search's results, ``drain()``, a host read of the mirror),
 each inside ``device_sanitizer.explicit_sync`` so a steady-state guard
 (engine/device_sanitizer.py) lets them through.
 
+Profiling (engine/profiler.py): with a profiler installed, a search is
+one ``knn_search`` dispatch costed over the established extents' rows,
+and every slab write one ``ingest_scatter`` dispatch (the two-step
+path's ``_scatter``, each fused step's write, each graphed step's K4),
+as in the JAX package; with none, each site costs one global load and a
+None check.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: this unsharded index's contiguous slab (``paged=False``; the
 mesh-sharded index in parallel/sharded_knn.py has one), string (jmespath)
@@ -59,6 +66,9 @@ from pathway_tpu_torch.engine import device_sanitizer
 from pathway_tpu_torch.engine.locking import create_rlock
 from pathway_tpu_torch.engine.paged_store import (DevicePagePool,
                                                   paged_store_enabled)
+from pathway_tpu_torch.engine.profiler import (current_profiler,
+                                               ingest_scatter_cost,
+                                               knn_search_cost)
 from pathway_tpu_torch.internals.keys import Pointer
 from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 from pathway_tpu_torch.ops.knn_kernels import (K_MAX, key_rows, key_scores,
@@ -234,14 +244,20 @@ def _fused_step_fn(producer: Callable, dtype: str, device: torch.device):
 
         def step_i8(ext, slots, *args) -> None:
             out = producer(*args)
+            prof = current_profiler()
+            t0 = time.perf_counter() if prof is not None else 0.0
             loc = upload(torch.from_numpy(slots), device)
             quantize_scatter(out.float().contiguous(), loc, None,
                              ext.vectors, ext.scales, ext.vsq, ext.valid)
+            if prof is not None:
+                _record_write(prof, ext, slots, t0)
 
         return step_i8
 
     def step(ext, slots, *args) -> None:
         out = producer(*args)
+        prof = current_profiler()
+        t0 = time.perf_counter() if prof is not None else 0.0
         keep = slots < ext.rows
         if not keep.all():
             idx = np.flatnonzero(keep)
@@ -250,8 +266,22 @@ def _fused_step_fn(producer: Callable, dtype: str, device: torch.device):
         loc = upload(torch.from_numpy(slots), ext.vectors.device)
         ext.vectors.index_copy_(0, loc, out.to(ext.vectors.dtype))
         ext.valid.index_fill_(0, loc, True)
+        if prof is not None:
+            _record_write(prof, ext, slots, t0)
 
     return step
+
+
+def _record_write(prof, ext, slots: np.ndarray, t0: float) -> None:
+    """One fused write of a chunk's real rows (slots below the extent's
+    rows) into ``prof`` as an ``ingest_scatter`` dispatch: the cost
+    model's slab write, the one a fused step does in place of the
+    two-step path's ``_scatter``."""
+    flops, nbytes = ingest_scatter_cost(
+        int((slots < ext.rows).sum()), int(ext.vectors.shape[1]),
+        itemsize=ext.vectors.element_size())
+    prof.record_dispatch("ingest_scatter", flops, nbytes,
+                         (time.perf_counter() - t0) * 1e3)
 
 
 # pinned upload sets of a graphed ingest step, per chunk shape: enough for
@@ -288,12 +318,19 @@ class GraphedIngestStep(ReplicaShared):
     themselves count nothing. ``captures`` and ``replays`` count graphs
     captured and replayed; each capture is also reported to
     ``device_sanitizer.note_capture``, where it is warm-up or, after steady
-    state, a violation."""
+    state, a violation.
+
+    Profiling (engine/profiler.py): with a profiler installed, each call
+    records one ``ingest_scatter`` dispatch (K4's write of the chunk's
+    real rows) and, through ``record_forward(profiler, ids_shape,
+    wall_ms)``, the forward's own family — one record of each per
+    replay, none for the warm-up or the capture."""
 
     def __init__(self, forward: Callable, device: torch.device,
-                 counters: tuple = ()):
+                 counters: tuple = (), record_forward: Callable | None = None):
         self.forward = forward
         self.counters = tuple(counters)
+        self.record_forward = record_forward
         self.staging = PinnedStaging(device, depth=_STAGING_DEPTH)
         self.graphs: dict[tuple, tuple] = {}
         self.captures = 0
@@ -314,6 +351,16 @@ class GraphedIngestStep(ReplicaShared):
         self._body(model, ext, self._stage(slots, arrays))
 
     def __call__(self, ext, slots, model, *arrays) -> None:
+        prof = current_profiler()
+        t0 = time.perf_counter() if prof is not None else 0.0
+        self._run(ext, slots, model, arrays)
+        if prof is not None:
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            if self.record_forward is not None:
+                self.record_forward(prof, arrays[0].shape, wall_ms)
+            _record_write(prof, ext, slots, time.perf_counter())
+
+    def _run(self, ext, slots, model, arrays) -> None:
         dev = self._stage(slots, arrays)
 
         def body() -> None:
@@ -534,16 +581,19 @@ class BruteForceKnnIndex(ReplicaShared):
         return self._ingest_fn(_fused_step_fn(producer, self.dtype,
                                               self.device))
 
-    def make_graphed_ingest(self, forward: Callable, counters: tuple = ()):
+    def make_graphed_ingest(self, forward: Callable, counters: tuple = (),
+                            record_forward: Callable | None = None):
         """The int8 fused ingest of a staged producer, each chunk one
         replay of a CUDA graph (:class:`GraphedIngestStep`, whose object is
         the returned function's ``step``). ``forward(model, *device
         arrays)`` is the producer's device half; the returned ``ingest(keys,
         model, *host_arrays, n_rows=None) -> bool`` behaves as
-        :meth:`make_fused_ingest`'s."""
+        :meth:`make_fused_ingest`'s; ``record_forward`` feeds the
+        profiler the forward of each step."""
         if not self._is_int8:
             raise ValueError("the graphed ingest step writes int8 extents")
-        step = GraphedIngestStep(forward, self.device, counters)
+        step = GraphedIngestStep(forward, self.device, counters,
+                                 record_forward)
         ingest = self._ingest_fn(step)
         ingest.step = step
         return ingest
@@ -629,7 +679,7 @@ class BruteForceKnnIndex(ReplicaShared):
                  for q in queries])), self.device)
 
             while True:
-                top_scores, top_idx = self._device_topk_parts(qmat, fetch_k)
+                top_scores, top_idx = self._device_topk(qmat, fetch_k)
 
                 out = []
                 exhausted = True
@@ -816,7 +866,21 @@ class PagedKnnIndex(BruteForceKnnIndex):
     def _scatter(self, idxs: np.ndarray, vals: torch.Tensor,
                  valid_vals: torch.Tensor) -> None:
         """Write rows (device tensors) at global slots ``idxs``, in place;
-        int8 quantizes them through K4."""
+        int8 quantizes them through K4. With a profiler installed, one
+        ``ingest_scatter`` dispatch over every row written."""
+        prof = current_profiler()
+        if prof is None:
+            self._scatter_extents(idxs, vals, valid_vals)
+            return
+        t0 = time.perf_counter()
+        self._scatter_extents(idxs, vals, valid_vals)
+        flops, nbytes = ingest_scatter_cost(
+            len(idxs), self.dim, itemsize=self._slab_dtype.itemsize)
+        prof.record_dispatch("ingest_scatter", flops, nbytes,
+                             (time.perf_counter() - t0) * 1e3)
+
+    def _scatter_extents(self, idxs: np.ndarray, vals: torch.Tensor,
+                         valid_vals: torch.Tensor) -> None:
         groups = list(self._pool.split_by_extent(idxs))
         for ext, local, pos in groups:
             self._establish_extent(ext)
@@ -883,6 +947,27 @@ class PagedKnnIndex(BruteForceKnnIndex):
         if self._is_int8:
             return (ext.scales, ext.vsq)
         return ()
+
+    def _device_topk(self, qmat, fetch_k: int):
+        """:meth:`_device_topk_parts`, recorded as one ``knn_search``
+        dispatch when a profiler is installed: the scan costed over the
+        established extents' rows, the rows the kernels read (each part's
+        result copy waits for the card, so the call-site wall is device
+        time even outside a leg)."""
+        prof = current_profiler()
+        if prof is None:
+            return self._device_topk_parts(qmat, fetch_k)
+        t0 = time.perf_counter()
+        out = self._device_topk_parts(qmat, fetch_k)
+        rows = sum(e.rows for e in self._pool.extents if e.established)
+        if rows:
+            flops, nbytes = knn_search_cost(
+                int(qmat.shape[0]), rows, self.dim,
+                itemsize=self._slab_dtype.itemsize,
+                extra_row_bytes=8 if self._is_int8 else 0)
+            prof.record_dispatch("knn_search", flops, nbytes,
+                                 (time.perf_counter() - t0) * 1e3)
+        return out
 
     def _device_topk_parts(self, qmat, fetch_k: int):
         """(scores, global slots) as host arrays, exactly ``fetch_k``
@@ -1024,9 +1109,12 @@ class DeviceEmbeddingKnnIndex(ReplicaShared):
         if self._ragged and inner.dtype == "int8" and \
                 hasattr(embedder, "ragged_device_forward"):
             # one graph replay per chunk (the JAX package's donated step)
+            record = getattr(embedder, "record_forward", None)
             self._fused = inner.make_graphed_ingest(
                 embedder.ragged_device_forward,
-                counters=((embedder, "dispatches"),))
+                counters=((embedder, "dispatches"),),
+                record_forward=None if record is None else (
+                    lambda prof, shape, ms: record(prof, True, shape, ms)))
         elif self._ragged and hasattr(embedder, "ragged_device_producer"):
             self._fused = inner.make_fused_ingest(
                 embedder.ragged_device_producer)

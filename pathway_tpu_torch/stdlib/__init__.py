@@ -1,13 +1,15 @@
 """Port counterpart of the same-named pathway_tpu subpackage.
 
-``indexing``, ``ml``, ``ordered``, ``statistical`` and ``temporal`` load on
-first attribute access (``pw.stdlib.temporal``)."""
+``indexing``, ``ml``, ``ordered``, ``stateful``, ``statistical``,
+``temporal`` and ``utils`` load on first attribute access
+(``pw.stdlib.temporal``)."""
 
 from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("indexing", "ml", "ordered", "statistical", "temporal")
+_SUBMODULES = ("indexing", "ml", "ordered", "stateful", "statistical",
+               "temporal", "utils")
 
 
 def __getattr__(name: str):

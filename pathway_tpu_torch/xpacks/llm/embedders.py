@@ -12,6 +12,11 @@ engine runs once per tick over the whole column. Direct callers use
 in the local HF cache or a directory): weights, config and WordPiece
 tokenizer through models/hf_loader.py.
 
+With a profiler installed (engine/profiler.py), each forward records one
+dispatch of its cost-model family: ``encoder_forward`` for a padded
+forward, ``segment_attention`` for a ragged one, including one a replay
+of the int8 index's graphed ingest step (ops/knn.py).
+
 ``ClipEmbedder`` embeds texts (the UDF itself) and images (its
 ``image()`` UDF) into one space with the CLIP dual encoder
 (models/clip.py), so one index serves cross-modal retrieval.
@@ -22,12 +27,16 @@ from __future__ import annotations
 import asyncio
 import os
 import threading
+import time
 
 import numpy as np
 import torch
 
 from pathway_tpu_torch._device import resolve_device, upload
 from pathway_tpu_torch.engine import device_sanitizer
+from pathway_tpu_torch.engine.profiler import (current_profiler,
+                                               encoder_cost,
+                                               segment_attention_cost)
 from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.config import _env_int
 from pathway_tpu_torch.models import clip as _clip
@@ -155,12 +164,32 @@ class EncoderEmbedder(BaseEmbedder):
         mask is rebuilt on the device from ``lens``. The index's fused
         ingest (ops/knn.py) writes the result straight into its device
         extent."""
+        prof = current_profiler()
+        t0 = time.perf_counter() if prof is not None else 0.0
         ids_d = upload(torch.from_numpy(ids), self.device)
         lens_d = upload(torch.from_numpy(lens), self.device)
         mask = torch.arange(ids_d.shape[1], device=self.device)[None, :] \
             < lens_d[:, None]
         self.dispatches += 1
-        return encode(model, ids_d.long(), mask)
+        out = encode(model, ids_d.long(), mask)
+        if prof is not None:
+            self.record_forward(prof, False, ids.shape,
+                                (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def record_forward(self, prof, ragged: bool, ids_shape: tuple,
+                       wall_ms: float) -> None:
+        """One forward over ``ids_shape`` = (sequences, width) token ids
+        into ``prof``: ``segment_attention`` if ``ragged``, else
+        ``encoder_forward``, costed at this embedder's config."""
+        cfg = self.config
+        b, s = (int(v) for v in ids_shape)
+        cost = segment_attention_cost if ragged else encoder_cost
+        flops, nbytes = cost(b, s, hidden=cfg.hidden,
+                             intermediate=cfg.intermediate, layers=cfg.layers)
+        prof.record_dispatch(
+            "segment_attention" if ragged else "encoder_forward", flops,
+            nbytes, wall_ms)
 
     def ragged_device_forward(self, model: Encoder, ids, doc_map, pos_ids,
                               doc_seq, doc_off) -> torch.Tensor:
@@ -179,10 +208,17 @@ class EncoderEmbedder(BaseEmbedder):
         :meth:`pack_ragged`) -> (n_docs_padded, hidden) f32 embeddings on
         the device: the arrays go up through pinned memory without a host
         wait (``_device.upload``), then :meth:`ragged_device_forward` runs
-        eagerly. (The graphed ingest step stages its own fixed tensors.)"""
-        return self.ragged_device_forward(model, *(
+        eagerly. (The graphed ingest step stages its own fixed tensors,
+        and records its forward itself.)"""
+        prof = current_profiler()
+        t0 = time.perf_counter() if prof is not None else 0.0
+        out = self.ragged_device_forward(model, *(
             upload(torch.from_numpy(a), self.device)
             for a in (ids, doc_map, pos_ids, doc_seq, doc_off)))
+        if prof is not None:
+            self.record_forward(prof, True, ids.shape,
+                                (time.perf_counter() - t0) * 1e3)
+        return out
 
     def ragged_buckets(self) -> list[int]:
         """Sequence-count buckets the ragged path dispatches: powers of two

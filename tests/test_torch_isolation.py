@@ -329,6 +329,101 @@ def test_config5_runs_without_jax_or_a_kafka_package():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+_ML_AND_PROFILER = """
+import os
+import sys
+import tempfile
+
+BLOCKED = ("jax", "pathway_tpu", "networkx", "sklearn", "pandas")
+for name in BLOCKED:  # importing any of them raises; find_spec says absent
+    sys.modules[name] = None
+import numpy as np
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.engine.profiler import Profiler, install_profiler
+from pathway_tpu_torch.internals.runner import run_tables
+from pathway_tpu_torch.stdlib.ml import classifiers, hmm
+from pathway_tpu_torch.stdlib.ml.datasets import classification
+
+prof = Profiler(sample_interval_ms=2.0, device="cpu")
+install_profiler(prof)
+prof.start()
+out_dir = prof.start_device_capture(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+pts = np.concatenate([c * 10.0 + rng.standard_normal((20, 6)) * 0.3
+                      for c in np.eye(3, 6)])
+labels = [f"c{i // 20}" for i in range(60)]
+data = pw.debug.table_from_rows(
+    pw.schema_from_types(data=np.ndarray, label=str),
+    [(pts[i], labels[i]) for i in range(60)])
+queries = pw.debug.table_from_rows(pw.schema_from_types(data=np.ndarray),
+                                   [(pts[5],), (pts[25],), (pts[45],)])
+bucketed = classifiers.knn_lsh_classify(
+    classifiers.knn_lsh_euclidean_classifier_train(data, d=6, M=4, L=12,
+                                                   A=2.0), queries, k=3)
+exact = classifiers.knn_lsh_classify(
+    classifiers.knn_lsh_classifier_train(data, n_dimensions=6,
+                                         device="cpu"), queries, k=3)
+clusters = classifiers.clustering_via_lsh(
+    data.select(data.data),
+    classifiers.generate_euclidean_lsh_bucketer(6, M=3, L=8, A=4.0), 3,
+    device="cpu")
+
+
+class Nodes(dict):
+    def __call__(self):
+        return list(self)
+
+
+class Graph:
+    def __init__(self):
+        self.nodes, self.graph = Nodes(), {"start_nodes": ["a"]}
+
+    def edges(self, data=False):
+        return [("a", "a", {"log_transition_ppb": 0.0})]
+
+
+g = Graph()
+g.nodes["a"] = {"calc_emission_log_ppb": lambda obs: -1.0}
+obs = pw.debug.table_from_rows(pw.schema_from_types(o=str), [("x",)])
+decoded = obs.reduce(s=pw.reducers.udf_reducer(
+    hmm.create_hmm_reducer(g))(obs.o))
+fuzzy = pw.ml.fuzzy_match(data.label, data.label)
+caps = run_tables(bucketed, exact, clusters, decoded, fuzzy)
+got = [sorted(v[0] for v in c.snapshot().values()) for c in caps[:2]]
+assert got == [["c0", "c1", "c2"]] * 2, got
+assert len(set(v[0] for v in caps[2].snapshot().values())) == 3
+assert list(caps[3].snapshot().values()) == [(("a",),)]
+try:
+    classification.load_digits_sample(50)
+except ImportError as e:
+    print("DIGITS", e)
+prof.stop_device_capture()
+prof.stop()
+install_profiler(None)
+fams = prof.family_stats()
+assert fams["knn_search"]["dispatches"] >= 1, fams
+assert os.listdir(out_dir), out_dir
+print("LOADED", sorted(m for m, mod in sys.modules.items()
+                      if mod is not None and m.split(".")[0] in BLOCKED))
+"""
+
+
+def test_ml_and_profiler_run_without_jax_networkx_sklearn_or_pandas():
+    """``pw.stdlib.ml`` (the bucketed and exact classifiers, LSH clustering
+    with its k-means, HMM decoding on a duck-typed graph, the fuzzy join)
+    and the profiler (sampler, dispatch records, a torch.profiler capture)
+    run on the CPU in a process where importing jax, pathway_tpu,
+    networkx, sklearn or pandas raises, and none of them is loaded; the
+    digits loader fails in its own call, naming scikit-learn."""
+    proc = subprocess.run([sys.executable, "-c", _ML_AND_PROFILER],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "DIGITS load_digits_sample needs scikit-learn" in proc.stdout, \
+        proc.stdout
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
 def _is_forbidden(name: str) -> bool:
     return name.split(".")[0] in FORBIDDEN
 
@@ -483,10 +578,12 @@ def test_port_modules_import_with_optax_and_pil_blocked():
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
+    from pathway_tpu_torch.engine.profiler import Profiler
     from pathway_tpu_torch.models import clip, train
     from pathway_tpu_torch.models.encoder import (Encoder, EncoderConfig,
                                                   init_params_host)
     from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+    from pathway_tpu_torch.stdlib.ml.classifiers import kmeans_labels
     from pathway_tpu_torch.xpacks.llm.embedders import (ClipEmbedder,
                                                         EncoderEmbedder)
 
@@ -504,6 +601,8 @@ def test_entry_points_default_to_cuda():
         lambda: clip.ClipModel.from_params(clip.init_clip_params(0, ccfg),
                                            ccfg),
         lambda: ClipEmbedder(config=ccfg),
+        lambda: kmeans_labels([[0.0, 1.0]] * 4, [1.0] * 4, 2),
+        lambda: Profiler(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
