@@ -303,8 +303,9 @@ non-zero, and no result line is printed):
    document both answer the left join's empty row) and
    ``VectorStoreClient`` against the raw POST; retrieve latencies, the
    tracker's stages, ingest docs/s, launches (K1, K2, K2 score) and peak
-   memory. Both runs stop through ``stop_all()``, and an error in a run
-   fails the phase;
+   memory. Graph A runs with its index's semantic result cache on (the
+   default), whose counters print beside ``knn_p50_e2e_ms``. Both runs
+   stop through ``stop_all()``, and an error in a run fails the phase;
 11b. adaptive rag (BASELINE.md config 3, the Adaptive-RAG template):
    5,000 text files of 6 ``make_docs`` texts each, written in batches of
    1,000 while ``pw.io.fs.read(plaintext_by_file, streaming,
@@ -321,9 +322,12 @@ non-zero, and no result line is printed):
    index's rows, the geometric strategy on the host); ``/v1/retrieve``,
    ``/v1/statistics`` (file_count = files written) and ``RAGClient``
    against the raw POSTs; ``EncoderReranker`` and ``rerank_topk_filter``
-   under ``run_batch`` against the plain encoder's cosines. Prints answer
-   latency, chunks indexed a second, chat calls a question, K1 and K2
-   launches (``launches_adaptive_rag``), peak memory and seconds;
+   under ``run_batch`` against the plain encoder's cosines; a
+   ``/v1/retrieve`` with ``filepath_globpattern`` and one with a
+   ``metadata_filter`` (string filters, evaluated by jmespath-lite), each
+   equal to the same filter over a plain scan of the index's rows. Prints
+   answer latency, chunks indexed a second, chat calls a question, K1 and
+   K2 launches (``launches_adaptive_rag``), peak memory and seconds;
 11c. knn index (BASELINE.md config 1, the classic ``stdlib.ml``
    KNNIndex, batch mode): a 10,000-row CSV of an id and 384 floats read
    with ``pw.io.csv.read(static)``; ``KNNIndex`` cosine and euclidean
@@ -333,6 +337,28 @@ non-zero, and no result line is printed):
    ``collapse_rows=False``, each against an exact float64 scan with ties
    held as tests/test_torch_knn_bf16.py holds them. Prints rows ingested
    a second, the search's p50 for one query and seconds;
+11d. result cache (the semantic result cache, on by default): a paged
+   cos index a dtype (bf16, int8, float32) of 100,000 x 384 seeded rows
+   driven through the as-of-now operator under ``run_batch`` by a
+   deterministic replay: 4,096 queries drawn by Zipf(1.1) from a
+   96-vector pool (bench.py's SEM_POOL, SEM_ZIPF_S), k=3, 8 a tick, 64
+   inserted rows every 16th tick (the store grows mid-replay) and 8
+   deletions of served rows every 64th tick, with the cache off, then
+   on. Holds: replies byte-identical on and off, hits and invalidations
+   > 0, covered float32 inserts surviving the beat test, each tick's
+   search launches (K2 / K3 top-k) equal on and off unless its queries
+   all hit, 0 implicit host syncs. Prints the cache's counters, hit
+   ratio, invalidations a tick, launches and seconds
+   (``launches_result_cache``);
+11e. paging (the contiguous slab beside the paged store): bench.py's
+   ``bench_paging`` leg in the port (65,536 x 256 float32 rows in chunks
+   of 4,096, both layouts; identical top-k, both grow, the canary's
+   amplification gates, <= 6 ragged warm-up shapes), then 1,048,576 x
+   384 bf16 and int8 rows from a reservation of 131,072 in chunks of
+   65,536 on both layouts (the stall at each growth, B=1 / B=64 search
+   p50, the top 10 equal), then two tenants' paged int8 indexes past
+   their page quotas: ``PageQuotaExceeded`` from ``add_batch`` and from
+   the graphed ingest (``launches_paging``);
 12. array_sum (``GroupByOperator``'s device segment sum, off by default):
    ``device_segsum`` on the card bit for bit against the sequential numpy
    loop; then ``groupby(g).reduce(g, a=npsum(v))`` over two ticks of each
@@ -5584,13 +5610,15 @@ def phase_serving_knn(card: str, n_vecs: int = SERVING_N) -> dict:
     flight recorder on. 8 warm-up and 48 timed POSTs of ``rng(2)``
     vectors, k=10, through urllib. Prints bench.py's keys; holds every
     reply's n_matches, the spans' stage sums, the ingested rows, K2's
-    launches and no graph captured in the timed window. Returns the
-    run's launches by LaunchCount."""
+    launches and no graph captured in the timed window; prints the index's
+    result cache counters (the cache is on by default). Returns the run's
+    launches by LaunchCount."""
     import threading
 
     import torch
 
     import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.index_ops import ExternalIndexOperator
     from pathway_tpu_torch.internals import dtype as dt
     from pathway_tpu_torch.internals.parse_graph import G
     from pathway_tpu_torch.io.http import PathwayWebserver, rest_connector
@@ -5665,10 +5693,15 @@ def phase_serving_knn(card: str, n_vecs: int = SERVING_N) -> dict:
         tracker = rt.recorder.requests
         ingested = ingested_rows(rt, "serving_ingest")
         bridge = rt.scheduler.bridge_stats()
+        caches = [n.op.index.result_cache for n in rt.runner.graph.nodes
+                  if isinstance(n.op, ExternalIndexOperator)]
     finally:
         served.stop()
     launches = {c: c.launches for c in LAUNCH_COUNTS}
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    if len(caches) != 1 or caches[0] is None:
+        fail(f"{label}: the index carries no result cache (on by default)")
+    cache_stats = caches[0].stats()
     # one column written back: each reply is its n_matches value
     bad = [r for r in replies if r != 10]
     if bad:
@@ -5704,6 +5737,9 @@ def phase_serving_knn(card: str, n_vecs: int = SERVING_N) -> dict:
     print(f"[{label}] the timed window by operator (flight recorder; host "
           f"clock, a device-leg step includes its waits on the card): "
           f"{where} [{card}]", flush=True)
+    print(f"[{label}] result cache (on, the default) beside knn_p50_e2e_ms "
+          f"{keys['knn_p50_e2e_ms']}: " + json.dumps(cache_stats)
+          + f" [{card}]", flush=True)
     return launches
 
 
@@ -6000,6 +6036,10 @@ RAG_QUESTIONS = 64       # aimed in turn at 2, 4, 8 documents and never
 RAG_NEW_FILES = 500      # written while the server runs
 RAG_NEW_QUESTIONS = 16   # whose marker only a new file holds
 RAG_RETRIEVES = 4
+# the filtered retrieves: the first ten files by path glob, the next ten
+# by a jmespath-lite metadata filter
+RAG_FILTERS = (("filepath_globpattern", "**/f0000?.txt"),
+               ("metadata_filter", "contains(path, '/f0001')"))
 RAG_BASE_WORDS = 60      # a question: 60 words of one chunk + a marker
 RAG_RERANK_K = 4
 # EncoderReranker's cosines through K1 against the plain attention in
@@ -6186,10 +6226,10 @@ def tap_index(index) -> dict:
 
 def index_rows(inner) -> tuple:
     """(key of each slot or -1, the slab's rows, their valid flags) over
-    an index's established extents."""
+    an index's established extents (the slab's one)."""
     import torch
 
-    exts = [e for e in inner._pool.extents if e.established]
+    exts = [e for e in inner._extents() if e.established]
     slots = np.concatenate([e.base + np.arange(e.rows) for e in exts])
     keys_of = np.array([int(inner._slot_to_key.get(int(s), -1))
                         for s in slots])
@@ -6240,6 +6280,7 @@ def phase_adaptive_rag(seed: int, card: str) -> dict:
 
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.engine.index_ops import ExternalIndexOperator
+    from pathway_tpu_torch.internals.jmespath_lite import evaluate_filter
     from pathway_tpu_torch.internals.parse_graph import G
     from pathway_tpu_torch.internals.runner import GraphRunner
     from pathway_tpu_torch.models.encoder import EncoderConfig, init_params_host
@@ -6289,7 +6330,8 @@ def phase_adaptive_rag(seed: int, card: str) -> dict:
         index_builder=lambda chunks: default_brute_force_knn_document_index(
             chunks.text, chunks, embedder=emb,
             dimensions=emb.get_embedding_dimension(),
-            reserved_space=n_chunks + n_new_chunks + 64, dtype="bfloat16"))
+            reserved_space=n_chunks + n_new_chunks + 64, dtype="bfloat16",
+            metadata_column=chunks.metadata))
     chat = marker_chat()
     rag = AdaptiveRAGQuestionAnswerer(chat, store, n_starting_documents=n0,
                                       factor=factor, max_iterations=iters)
@@ -6400,6 +6442,13 @@ def phase_adaptive_rag(seed: int, card: str) -> dict:
             "query": q, "k": top_n, **ask_none})[0]
             for q in questions[:RAG_RETRIEVES]]
         retrieve_searches = ret_searches[s2:]
+        # string filters: a path glob and a jmespath-lite metadata filter
+        s3 = len(ret_searches)
+        filtered = [post_json(base + "/v1/retrieve", {
+            "query": questions[RAG_RETRIEVES + i], "k": top_n,
+            **ask_none, field: value})[0]
+            for i, (field, value) in enumerate(RAG_FILTERS)]
+        filtered_searches = ret_searches[s3:]
         stats = post_json(base + "/v1/statistics", {})[0]
         client = RAGClient(url=base, timeout=120)
         via_client = (client.retrieve(questions[0], k=top_n),
@@ -6502,6 +6551,37 @@ def phase_adaptive_rag(seed: int, card: str) -> dict:
             if m["text"] not in [c for c, _ in file_chunks[f]]:
                 fail(f"{label} retrieve {qi}: a match's path is not its "
                      "file's")
+    r_filter_data = {int(k): v for k, v in
+                     inners[1 - ans_tap]._filter_data.items()}
+    text_key = {t: k for k, t in key_text.items()}
+    if len(filtered_searches) != len(RAG_FILTERS):
+        fail(f"{label}: {len(RAG_FILTERS)} filtered retrieves made "
+             f"{len(filtered_searches)} searches")
+    n_passing = []
+    for (field, value), reply, (batch, _) in zip(
+            RAG_FILTERS, filtered, filtered_searches):
+        filt = batch[0][3]
+        if not isinstance(filt, str) or value not in filt:
+            fail(f"{label}: the {field} retrieve reached the index with "
+                 f"filter {filt!r}")
+        passing = np.array([k >= 0 and evaluate_filter(
+            filt, r_filter_data.get(int(k))) for k in r_rows[0]])
+        n_passing.append(int(passing.sum()))
+        rs = bf16_scan(np.asarray(batch[0][1], np.float64)[None, :],
+                       r_rows[1], r_rows[2] & torch.from_numpy(passing).to(
+                           r_rows[2].device))
+        got = [(text_key[m["text"]], m["dist"]) for m in reply]
+        if len(got) != min(top_n, n_passing[-1]) or n_passing[-1] < top_n:
+            fail(f"{label}: the {field} retrieve gave {len(got)} matches, "
+                 f"{n_passing[-1]} rows pass its filter")
+        check_top10([got], rs, r_rows[0], f"{label} {field} retrieve",
+                    n=top_n)
+        cols = [int(np.flatnonzero(r_rows[0] == int(k))[0]) for k, _ in got]
+        err = float(np.abs(np.array([d for _, d in got])
+                           - (1.0 - rs[0, cols].cpu().numpy())).max())
+        if not err <= 1e-5:
+            fail(f"{label}: the {field} retrieve's dist is off the filtered "
+                 f"scan by {err:.3e}")
     if stats.get("file_count") != RAG_FILES + RAG_NEW_FILES:
         fail(f"{label}: /v1/statistics file_count {stats.get('file_count')}"
              f", {RAG_FILES + RAG_NEW_FILES} files written")
@@ -6561,7 +6641,10 @@ def phase_adaptive_rag(seed: int, card: str) -> dict:
           f"strategy on the host); the {len(new_questions)} questions on the "
           f"new files all answered a tick after their files; "
           f"{len(retrieved)} /v1/retrieve k={top_n} equal the scan (dist "
-          f"within 1e-5); /v1/statistics file_count {stats['file_count']} = "
+          f"within 1e-5); /v1/retrieve with "
+          + " and with ".join(f"{f} {v!r} ({n} rows pass)" for (f, v), n in
+                              zip(RAG_FILTERS, n_passing))
+          + f" equal the same filter over the scan; /v1/statistics file_count {stats['file_count']} = "
           f"files written; RAGClient = the raw POSTs; EncoderReranker over "
           f"{len(pairs)} pairs within {rerank_err:.3e} of the plain "
           f"encoder's cosine (<= {RERANK_TOL}), rerank_topk_filter keeps "
@@ -6788,6 +6871,565 @@ def phase_knn_index(seed: int, card: str) -> None:
           f"(distances within 1e-5, euclidean within {l2_tol:.3e}; ids in "
           f"rank order outside groups of distances within those of each "
           f"other); phase {seconds:.1f} s [{card}]", flush=True)
+
+
+SEM_POOL = 96           # bench.py's SEM_POOL: distinct query vectors
+SEM_ZIPF_S = 1.1        # bench.py's SEM_ZIPF_S: their Zipf draw
+RC_QUERIES = 4096       # the replay's queries, RC_TICK a tick
+RC_TICK = 8
+RC_K = 3
+RC_TRICKLE = (16, 64)   # every 16th tick, 64 inserted rows
+RC_DELETES = (64, 8)    # every 64th tick, 8 deletions of served rows
+RC_DTYPES = ("bfloat16", "int8", "float32")
+
+
+class PrebuiltFactory:
+    """An index factory whose ``build()`` is an index made beforehand, so
+    a phase can read the index the as-of-now operator runs on."""
+
+    def __init__(self, index):
+        self.index = index
+
+    def build(self):
+        return self.index
+
+
+def stream_table(schema, keys: list, rows: list, times: list, diffs: list):
+    """A streamed static table of the given keys: ``table_from_rows``'s
+    plan with keys of the caller's (a retraction carries its insertion's
+    key)."""
+    from pathway_tpu_torch.internals.table import Plan, Table
+    from pathway_tpu_torch.internals.universe import Universe
+
+    return Table(Plan("static", keys=keys, rows=rows, times=times,
+                      diffs=diffs), schema, Universe())
+
+
+def rc_workload(n_rows: int, dim: int, seed: int, device: str) -> dict:
+    """The replay's inputs, all from ``seed``: ``n_rows`` uniform rows in
+    [-1, 1), the pool of ``SEM_POOL`` query vectors, ``RC_QUERIES`` Zipf
+    draws from it, the trickled rows, and the deleted rows: the rows a
+    plain cosine scan serves the hottest pool vectors first (their top
+    ``RC_K``), ``RC_DELETES[1]`` at every deletion tick."""
+    import torch
+
+    rng = np.random.default_rng(seed + 51)
+    base = rng.random((n_rows, dim), np.float32) * 2.0 - 1.0
+    pool = rng.random((SEM_POOL, dim), np.float32) * 2.0 - 1.0
+    draws = np.minimum(rng.zipf(SEM_ZIPF_S, RC_QUERIES) - 1, SEM_POOL - 1)
+    n_ticks = RC_QUERIES // RC_TICK
+    every, n_add = RC_TRICKLE
+    trickle = rng.random((n_ticks // every, n_add, dim), np.float32) * 2 - 1
+    b = torch.from_numpy(base).to(device)
+    p = torch.from_numpy(pool).to(device)
+    sims = (p / p.norm(dim=1, keepdim=True)) @ (
+        b / b.norm(dim=1, keepdim=True)).T
+    top = torch.topk(sims, RC_K, dim=1).indices.cpu().numpy()
+    hot = np.argsort(-np.bincount(draws, minlength=SEM_POOL), kind="stable")
+    served = list(dict.fromkeys(int(r) for q in hot for r in top[q]))
+    n_del = (n_ticks // RC_DELETES[0]) * RC_DELETES[1]
+    return {"base": base, "pool": pool, "draws": draws, "trickle": trickle,
+            "deleted": served[:n_del], "n_ticks": n_ticks}
+
+
+def rc_replay(work: dict, dtype: str, cache_on: bool, device: str) -> dict:
+    """One replay of ``work`` through the as-of-now operator under
+    ``GraphRunner.run_batch`` (the port's runtime, one worker): a data
+    table (the rows at time 0, then the trickle and the deletions) and a
+    query table (``RC_TICK`` a tick, k = ``RC_K``) into
+    ``_external_index_as_of_now`` over a paged cos index of ``dtype``,
+    with the result cache on or off (``PATHWAY_RESULT_CACHE`` at the
+    index's construction). Returns the output events, each search call's
+    query keys and kernel launches, the cache's statistics, the covered
+    inserts the beat test let survive, the run's launches by LaunchCount,
+    its implicit host syncs and seconds."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import device_sanitizer as ds
+    from pathway_tpu_torch.internals.keys import hash_values_uncached
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.runner import GraphRunner
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+
+    base, dim = work["base"], work["base"].shape[1]
+    saved = os.environ.get("PATHWAY_RESULT_CACHE")
+    os.environ["PATHWAY_RESULT_CACHE"] = "1" if cache_on else "0"
+    try:
+        index = BruteForceKnnIndex(dim, reserved_space=len(base),
+                                   metric="cos", dtype=dtype, device=device)
+    finally:
+        if saved is None:
+            os.environ.pop("PATHWAY_RESULT_CACHE")
+        else:
+            os.environ["PATHWAY_RESULT_CACHE"] = saved
+    calls, survived = [], [0]
+    search = index.search
+
+    def counted_search(batch):
+        before = sum(c.launches for c in LAUNCH_COUNTS)
+        out = search(batch)
+        calls.append((frozenset(int(q[0]) for q in batch),
+                      sum(c.launches for c in LAUNCH_COUNTS) - before))
+        return out
+
+    index.search = counted_search
+    cache = index.result_cache
+    if cache is not None:
+        on_insert = cache.on_insert_batch
+
+        def counted_insert(slots, keys, vecs=None):
+            before = len(cache._entries)
+            on_insert(slots, keys, vecs)
+            if before:
+                survived[0] += len(cache._entries)
+
+        cache.on_insert_batch = counted_insert
+
+    dkeys = [hash_values_uncached("rc", i) for i in range(len(base))]
+    drows = [(v,) for v in base]
+    dtimes, ddiffs = [0] * len(base), [1] * len(base)
+    qkeys, qrows, qtimes = [], [], []
+    qkey_index = {}
+    every, _ = RC_TRICKLE
+    del_every, n_del = RC_DELETES
+    deleted = iter(work["deleted"])
+    for t in range(work["n_ticks"]):
+        if t % every == every - 1:
+            for v in work["trickle"][t // every]:
+                dkeys.append(hash_values_uncached("rc", len(drows)))
+                drows.append((v,))
+                dtimes.append(t + 1)
+                ddiffs.append(1)
+        if t % del_every == del_every - 1:
+            for _ in range(n_del):
+                r = next(deleted)
+                dkeys.append(dkeys[r])
+                drows.append((base[r],))
+                dtimes.append(t + 1)
+                ddiffs.append(-1)
+        for j in range(t * RC_TICK, (t + 1) * RC_TICK):
+            key = hash_values_uncached("rcq", j)
+            qkey_index[int(key)] = j
+            qkeys.append(key)
+            qrows.append((work["pool"][work["draws"][j]], RC_K))
+            qtimes.append(t + 1)
+    G.clear()
+    data = stream_table(pw.schema_from_types(v=np.ndarray), dkeys, drows,
+                        dtimes, ddiffs)
+    queries = stream_table(pw.schema_from_types(q=np.ndarray, k=int), qkeys,
+                           qrows, qtimes, [1] * len(qkeys))
+    res = data._external_index_as_of_now(
+        queries, index_factory=PrebuiltFactory(index),
+        query_responses_limit_column=queries.k)
+    runner = GraphRunner()
+    cap = runner.capture(res)
+    for count in LAUNCH_COUNTS:
+        count.launches = 0
+    with ds.count_syncs() as syncs:
+        t0 = time.perf_counter()
+        runner.run_batch(n_workers=1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    events = sorted((time_, int(key), diff,
+                     tuple((int(mk), s) for mk, s in row[0]))
+                    for key, row, time_, diff in cap.events)
+    return {"events": events, "calls": calls, "qkey_index": qkey_index,
+            "stats": None if cache is None else cache.stats(),
+            "survived": survived[0], "syncs": syncs.count,
+            "seconds": seconds, "index": index,
+            "launches": {c: c.launches for c in LAUNCH_COUNTS}}
+
+
+def rc_account(off: dict, on: dict, label: str) -> tuple[int, int]:
+    """The launch accounting of a cache-on replay against its cache-off
+    twin: tick by tick (each search call maps to the tick of its query
+    keys), the on run's search launches equal the off run's, or the on
+    run made no search because every query of the tick was a hit.
+    Returns (searches saved, launches saved)."""
+    def by_tick(run):
+        out = {}
+        for keys, n in run["calls"]:
+            ticks = {run["qkey_index"][k] // RC_TICK for k in keys}
+            if len(ticks) != 1 or ticks & out.keys():
+                fail(f"{label}: a search call spans ticks {sorted(ticks)}")
+            out[ticks.pop()] = (keys, n)
+        return out
+
+    off_t, on_t = by_tick(off), by_tick(on)
+    if len(off_t) != RC_QUERIES // RC_TICK:
+        fail(f"{label}: the cache-off replay searched on {len(off_t)} ticks, "
+             f"not {RC_QUERIES // RC_TICK}")
+    saved_searches = saved_launches = 0
+    for t, (keys, n) in off_t.items():
+        if t in on_t:
+            if on_t[t][1] != n:
+                fail(f"{label}: tick {t}'s search launched {on_t[t][1]} "
+                     f"kernels with the cache on, {n} with it off")
+            if not on_t[t][0] <= keys:
+                fail(f"{label}: tick {t} searched queries of another tick")
+        else:
+            saved_searches += 1
+            saved_launches += n
+    total_off = sum(n for _, n in off["calls"])
+    total_on = sum(n for _, n in on["calls"])
+    if total_on != total_off - saved_launches:
+        fail(f"{label}: {total_on} search launches with the cache on, not "
+             f"{total_off} - {saved_launches}")
+    return saved_searches, saved_launches
+
+
+def phase_result_cache(seed: int, card: str, n_rows: int = SERVING_N,
+                       device: str = "cuda") -> dict:
+    """The semantic result cache on the card: one paged cos index a dtype
+    (bf16 as bench_serving's, int8, float32) of ``n_rows`` x 384 rows
+    (bench's SERVING_N and SERVING_DIM) from ``seed``, driven through the
+    as-of-now operator by a deterministic replay (``rc_replay``):
+    ``RC_QUERIES`` queries drawn by Zipf(``SEM_ZIPF_S``) from a
+    ``SEM_POOL``-vector pool, k = 3, ``RC_TICK`` a tick, 64 inserted rows
+    every 16th tick (past the reservation: the store grows mid-replay) and
+    8 deletions of served rows every 64th tick, once with the cache off,
+    then on. Holds: the two replays' outputs equal byte for byte; hits > 0
+    and invalidations > 0; on float32, covered inserts that survive the
+    beat test; the launch accounting exact (``rc_account``); no implicit
+    host sync in either replay. Prints the cache's counters, the hit
+    ratio, invalidations a tick, K2 / K3 launches on and off and the
+    seconds of each replay. Returns the cache-on replays' launches by
+    LaunchCount, summed."""
+    import torch
+
+    label = "result cache"
+    t_phase = time.perf_counter()
+    work = rc_workload(n_rows, SERVING_DIM, seed, device)
+    launches: dict = {}
+    for dtype in RC_DTYPES:
+        off = rc_replay(work, dtype, False, device)
+        on = rc_replay(work, dtype, True, device)
+        st = on["stats"]
+        tag = f"{label} {dtype}"
+        if on["events"] != off["events"]:
+            diff = next(i for i, (a, b) in enumerate(zip(on["events"],
+                                                        off["events"]))
+                        if a != b)
+            fail(f"{tag}: the cache-on replay's output differs from the "
+                 f"cache-off one's at event {diff}: {on['events'][diff]} vs "
+                 f"{off['events'][diff]}")
+        n_replies = sum(1 for e in on["events"] if e[2] > 0)
+        if n_replies != RC_QUERIES or any(len(e[3]) != RC_K
+                                          for e in on["events"]):
+            fail(f"{tag}: {n_replies} replies, not {RC_QUERIES} of {RC_K}")
+        if not (st["hits"] > 0 and st["invalidations"] > 0):
+            fail(f"{tag}: hits {st['hits']}, invalidations "
+                 f"{st['invalidations']}: each must be > 0")
+        if dtype == "float32" and not on["survived"]:
+            fail(f"{tag}: no covered insert survived the beat test")
+        if on["syncs"] or off["syncs"]:
+            fail(f"{tag}: {on['syncs']} / {off['syncs']} implicit host "
+                 "syncs in the cache-on / off replay")
+        saved_searches, saved_launches = rc_account(off, on, tag)
+        for c, n in on["launches"].items():
+            launches[c] = launches.get(c, 0) + n
+        lookups = st["hits"] + st["misses"]
+        reused = RC_QUERIES - sum(len(k) for k, _ in on["calls"])
+        search_kinds = ", ".join(
+            f"{c.name} {on['launches'][c]} on / {off['launches'][c]} off"
+            for c in off["launches"]
+            if on["launches"][c] or off["launches"][c])
+        print(f"[{tag}] {n_rows} x {SERVING_DIM} {dtype} cos index (paged, "
+              f"grown to {on['index'].capacity} rows), {RC_QUERIES} queries "
+              f"(Zipf {SEM_ZIPF_S} over {SEM_POOL}, k={RC_K}, {RC_TICK} a "
+              f"tick) through the as-of-now operator under run_batch: hits "
+              f"{st['hits']}, misses {st['misses']}, fills {st['fills']}, "
+              f"invalidations {st['invalidations']} "
+              f"({st['invalidations'] / work['n_ticks']:.3f} a tick), "
+              f"evictions {st['evictions']}, hit ratio "
+              f"{st['hits'] / lookups:.4f}; queries that reached no search "
+              f"{reused} (hits + duplicate misses), searches saved "
+              f"{saved_searches}, launches saved {saved_launches}; "
+              f"launches: {search_kinds or 'none'}; "
+              f"covered inserts surviving the beat test {on['survived']}; "
+              f"replay {on['seconds']:.3f} s on, {off['seconds']:.3f} s off; "
+              f"implicit host syncs {on['syncs']} on, {off['syncs']} off "
+              f"[{card}]", flush=True)
+        del on, off
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    print(f"[{label}] holds: bf16, int8 and float32 replies byte-identical "
+          f"with the cache on and off ({RC_QUERIES} each), hits > 0 and "
+          f"invalidations > 0 on each, covered float32 inserts surviving "
+          f"the beat test, every tick's search launches equal on and off "
+          f"or saved by hits, 0 implicit host syncs; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
+
+
+PAGING_DIM = 256            # bench.py's BENCH_PAGING_DIM
+PAGING_CHUNK = 4096         # BENCH_PAGING_CHUNK
+PAGING_ROWS = 16 * 4096     # BENCH_PAGING_ROWS
+FULL_PAGING_CHUNK = 65_536  # the full-width run: BGE-small's 384 dims,
+FULL_PAGING_RESERVED = 131_072  # from this reservation ...
+FULL_PAGING_ROWS = 1 << 20      # ... to this many rows
+QUOTA_ROWS = {"a": 2048, "b": 4096}
+
+
+def paging_ingest(index, vecs: np.ndarray, chunk: int) -> tuple:
+    """bench_paging's ingest loop (bench.py:2466-2483): each chunk of rows
+    ``add_batch`` + ``flush_device`` + ``drain``, its wall time in ms, and
+    the chunks that grew the index. Returns (chunk ms, [(ms, capacity
+    after)] of the growing chunks)."""
+    from pathway_tpu_torch.internals.keys import Pointer
+
+    chunk_ms, grows = [], []
+    for base in range(0, len(vecs), chunk):
+        m = min(chunk, len(vecs) - base)
+        keys = [Pointer(base + i) for i in range(m)]
+        cap_before = index.capacity
+        t0 = time.perf_counter()
+        index.add_batch(keys, vecs[base:base + m])
+        index.flush_device()
+        index.drain()
+        ms = (time.perf_counter() - t0) * 1e3
+        chunk_ms.append(ms)
+        if index.capacity > cap_before:
+            grows.append((ms, index.capacity))
+    return chunk_ms, grows
+
+
+def bench_paging(dim: int = PAGING_DIM, chunk: int = PAGING_CHUNK,
+                 total: int = PAGING_ROWS, device: str = "cuda") -> dict:
+    """bench.py's ``bench_paging`` (bench.py:2438-2525) in the port, with
+    its keys: ``total`` rows of ``dim`` uniform float32 (``default_rng(
+    0)``) ingested ``chunk`` at a time into a float32 cos index reserved
+    for 2 chunks, paged and contiguous (``paging_ingest``), each searched
+    once for row 7 (k=5); then ``pw.warmup`` of a tiny ragged embedder
+    (max_len 512) through a fused paged index, its shapes counted against
+    the embedder's padded bucket widths."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.keys import Pointer
+    from pathway_tpu_torch.models.encoder import EncoderConfig
+    from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
+                                           DeviceEmbeddingKnnIndex, KnnMetric)
+    from pathway_tpu_torch.xpacks.llm.embedders import EncoderEmbedder
+
+    rng = np.random.default_rng(0)
+    vecs = rng.random((total, dim), np.float32) * 2.0 - 1.0
+
+    def run_mode(paged: bool):
+        index = BruteForceKnnIndex(dim, reserved_space=2 * chunk,
+                                   metric=KnnMetric.COS, paged=paged,
+                                   device=device)
+        chunk_ms, grows = paging_ingest(index, vecs, chunk)
+        res = index.search([(Pointer(10**9), vecs[7], 5, None)])
+        return {
+            "ingest_p50_ms": round(float(np.percentile(chunk_ms, 50)), 2),
+            "ingest_p99_ms": round(float(np.percentile(chunk_ms, 99)), 2),
+            "grow_stall_ms": round(max(ms for ms, _ in grows), 2)
+            if grows else None,
+            "grow_events": len(grows),
+            "upload_amplification": round(index.upload_rows_total / total,
+                                          3),
+        }, res
+
+    paged, res_p = run_mode(True)
+    slab, res_s = run_mode(False)
+    out = {"paging_rows": total, "paging_dim": dim, "paging_chunk": chunk,
+           "paging_identical_topk": res_p == res_s}
+    for k, v in paged.items():
+        out[f"paging_{k}_paged"] = v
+    for k, v in slab.items():
+        out[f"paging_{k}_slab"] = v
+    cfg = EncoderConfig.tiny(max_len=512)
+    emb = EncoderEmbedder(config=cfg, ragged=True, max_len=512,
+                          device=device)
+    idx = DeviceEmbeddingKnnIndex(emb, BruteForceKnnIndex(
+        cfg.hidden, metric=KnnMetric.COS, paged=True, device=device))
+    t0 = time.perf_counter()
+    warm = pw.warmup(emb, index=idx, cache=False)
+    out["paging_warmup_compiles_ragged"] = len(warm["compiled"])
+    out["paging_warmup_seconds_ragged"] = round(time.perf_counter() - t0, 2)
+    out["paging_warmup_bucket_shapes"] = len(emb.bucket_widths())
+    return out
+
+
+def phase_paging(seed: int, card: str, device: str = "cuda",
+                 full_rows: int = FULL_PAGING_ROWS,
+                 full_chunk: int = FULL_PAGING_CHUNK,
+                 full_reserved: int = FULL_PAGING_RESERVED) -> dict:
+    """The contiguous slab beside the paged store on the card. (1)
+    ``bench_paging`` at bench's sizes; holds (tests/paging_canary.py's):
+    identical top-k, both layouts grow, the paged upload amplification at
+    most 1.5 and the slab's at least 0.5 above it, at most 6 ragged
+    warm-up shapes. (2) The same ingest at
+    BGE-small's width: 384 dims, bf16 and int8 cos indexes from
+    ``full_reserved`` to ``full_rows`` rows in chunks of ``full_chunk``
+    (``default_rng(seed + 61)``), each layout's stall at every growth, then
+    16 searches of one query and 4 of 64 (k=10) timed on the host clock
+    (results on the host) on both layouts over the same rows; holds: the
+    same grow events, the paged amplification at least 0.5 below the slab's, and the
+    top 10 of 64 queries equal on both layouts (keys, distances within
+    1e-6), the int8 paged amplification exactly 1.0. (3) Quotas: two tenants' paged int8 indexes under
+    ``QUOTA_ROWS``; tenant a's ``add_batch`` past its quota and tenant b's
+    graphed ingest (one capture, four replays) past its quota raise
+    ``PageQuotaExceeded`` and leave their index as it was. Returns the
+    launches of (2) and (3) by LaunchCount."""
+    import torch
+
+    from pathway_tpu_torch.engine.paged_store import PageQuotaExceeded
+    from pathway_tpu_torch.internals.keys import Pointer
+    from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+
+    label = "paging"
+    t_phase = time.perf_counter()
+    out = bench_paging(device=device)
+    # tests/paging_canary.py's gates: the paged store may count one dense
+    # upload of a fresh extent's empty rows (1.125 here, as in the JAX
+    # package), the slab re-ships every occupied row at each growth
+    if not (out["paging_identical_topk"] and out["paging_grow_events_paged"]
+            >= 1 and out["paging_grow_events_slab"] >= 1
+            and out["paging_upload_amplification_paged"] <= 1.5
+            and out["paging_upload_amplification_slab"]
+            >= out["paging_upload_amplification_paged"] + 0.5
+            and out["paging_warmup_compiles_ragged"] <= 6):
+        fail(f"{label}: bench_paging's holds fail: {json.dumps(out)}")
+    print(f"[{label}] bench.py's keys (bench_paging in the port: "
+          f"{PAGING_ROWS} x {PAGING_DIM} float32 cos rows in chunks of "
+          f"{PAGING_CHUNK}, paged vs contiguous slab): " + json.dumps(out)
+          + f"; bench leg {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+
+    t_full = time.perf_counter()
+    rng = np.random.default_rng(seed + 61)
+    vecs = rng.random((full_rows, SERVING_DIM), np.float32) * 2.0 - 1.0
+    qs = rng.random((64, SERVING_DIM), np.float32) * 2.0 - 1.0
+    for count in LAUNCH_COUNTS:
+        count.launches = 0
+    for dtype in ("bfloat16", "int8"):
+        runs = {}
+        for paged in (True, False):
+            index = BruteForceKnnIndex(
+                SERVING_DIM, reserved_space=full_reserved, metric="cos",
+                dtype=dtype, paged=paged, device=device)
+            chunk_ms, grows = paging_ingest(index, vecs, full_chunk)
+            one = [(Pointer(-1), qs[i], 10, None) for i in range(64)]
+            times_1, times_64 = [], []
+            for i in range(16):
+                t0 = time.perf_counter()
+                index.search([one[i]])
+                times_1.append((time.perf_counter() - t0) * 1e3)
+            for _ in range(4):
+                t0 = time.perf_counter()
+                top = index.search(one)
+                times_64.append((time.perf_counter() - t0) * 1e3)
+            runs[paged] = {
+                "grows": grows, "p50": float(np.percentile(chunk_ms, 50)),
+                "amp": index.upload_rows_total / full_rows,
+                "b1": float(np.percentile(times_1, 50)),
+                "b64": float(np.percentile(times_64, 50)), "top": top,
+                "type": type(index).__name__}
+            del index
+            gc.collect()
+        p, s = runs[True], runs[False]
+        tag = f"{label} {dtype}"
+        for qi, (a, b) in enumerate(zip(p["top"], s["top"])):
+            if [int(k) for k, _ in a] != [int(k) for k, _ in b] or max(
+                    abs(x - y) for (_, x), (_, y) in zip(a, b)) > 1e-6:
+                fail(f"{tag}: query {qi}'s top 10 differs between the "
+                     f"layouts: {a} vs {b}")
+        # int8 rows only ever go up by K4's scatter: each once. A bf16
+        # extent's first dense upload also ships its empty rows
+        if len(p["grows"]) != len(s["grows"]) or not s["grows"] or \
+                (dtype == "int8" and p["amp"] != 1.0) or p["amp"] > 1.5 \
+                or not s["amp"] >= p["amp"] + 0.5:
+            fail(f"{tag}: grow events {len(p['grows'])} / {len(s['grows'])}"
+                 f", amplification {p['amp']:.3f} / {s['amp']:.3f} "
+                 "(paged / slab)")
+        stalls = "; ".join(
+            f"to {cs} rows: paged {pm:.1f} ms, slab {sm:.1f} ms"
+            for (pm, _), (sm, cs) in zip(p["grows"], s["grows"]))
+        print(f"[{tag}] {full_rows} x {SERVING_DIM} {dtype} cos rows from "
+              f"a reservation of {full_reserved}, chunks of {full_chunk} "
+              f"({p['type']} vs {s['type']}): stall at each growth "
+              f"{stalls}; ingest p50 paged {p['p50']:.1f} ms, slab "
+              f"{s['p50']:.1f} ms a chunk; upload amplification paged "
+              f"{p['amp']:.3f}, slab {s['amp']:.3f}; search p50 (host "
+              f"clock, results on the host) B=1 paged {p['b1']:.3f} ms, "
+              f"slab {s['b1']:.3f} ms; B=64 paged {p['b64']:.3f} ms, slab "
+              f"{s['b64']:.3f} ms; top 10 of 64 queries equal on both "
+              f"[{card}]", flush=True)
+        del runs
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    del vecs
+    full_s = time.perf_counter() - t_full
+
+    quotas = {}
+    qrng = np.random.default_rng(seed + 62)
+    rows = {t: qrng.random((n, SERVING_DIM), np.float32) * 2.0 - 1.0
+            for t, n in QUOTA_ROWS.items()}
+    a = BruteForceKnnIndex(SERVING_DIM, reserved_space=QUOTA_ROWS["a"],
+                           metric="cos", dtype="int8", device=device,
+                           tenant="a", tenant_quotas=QUOTA_ROWS)
+    a.add_batch([Pointer(i) for i in range(QUOTA_ROWS["a"])], rows["a"])
+    try:
+        a.add_batch([Pointer(10**6)], rows["a"][:1])
+        fail(f"{label}: tenant a's add_batch past its quota did not raise")
+    except PageQuotaExceeded as e:
+        quotas["add_batch"] = str(e)
+    b = BruteForceKnnIndex(SERVING_DIM, reserved_space=QUOTA_ROWS["b"],
+                           metric="cos", dtype="int8", device=device,
+                           tenant="b", tenant_quotas=QUOTA_ROWS)
+    ingest = b.make_graphed_ingest(lambda model, x: x)
+    step_rows = 1024
+    for c0 in range(0, QUOTA_ROWS["b"], step_rows):
+        if not ingest([Pointer(c0 + i) for i in range(step_rows)], None,
+                      rows["b"][c0:c0 + step_rows]):
+            fail(f"{label}: tenant b's graphed ingest left its extent")
+    try:
+        ingest([Pointer(10**6 + i) for i in range(step_rows)], None,
+               rows["b"][:step_rows])
+        fail(f"{label}: tenant b's graphed ingest past its quota did not "
+             "raise")
+    except PageQuotaExceeded as e:
+        quotas["graphed ingest"] = str(e)
+    for idx, t in ((a, "a"), (b, "b")):
+        if len(idx) != QUOTA_ROWS[t] or idx.page_stats()["tenants"] != {
+                t: QUOTA_ROWS[t] // idx.page_stats()["page_rows"]}:
+            fail(f"{label}: tenant {t}'s index holds {len(idx)} rows, pages "
+                 f"{idx.page_stats()['tenants']} after the refused write")
+        got = idx.search([(Pointer(-1), rows[t][5], 1, None)])
+        if int(got[0][0][0]) != 5:
+            fail(f"{label}: tenant {t}'s row 5 is not its own nearest row")
+    step = ingest.step
+    if device == "cuda" and (step.captures, step.replays) != (1, 4):
+        fail(f"{label}: the graphed ingest captured {step.captures} and "
+             f"replayed {step.replays} graphs, not 1 and 4")
+    launches = {c: c.launches for c in LAUNCH_COUNTS}
+    print(f"[{label}] quotas ({QUOTA_ROWS} rows, paged int8 indexes of "
+          f"tenants a and b): PageQuotaExceeded from tenant a's add_batch "
+          f"({quotas['add_batch']}) and from tenant b's graphed ingest "
+          f"({quotas['graphed ingest']}; {step.captures} capture, "
+          f"{step.replays} replays before it), both indexes unchanged "
+          f"after the refusal [{card}]", flush=True)
+    print(f"[{label}] holds: bench_paging's identical top-k, grow events "
+          f"paged {out['paging_grow_events_paged']} / slab "
+          f"{out['paging_grow_events_slab']}, upload amplification "
+          f"{out['paging_upload_amplification_paged']} <= 1.5, slab "
+          f"{out['paging_upload_amplification_slab']}, ragged warm-up "
+          f"shapes {out['paging_warmup_compiles_ragged']} <= 6; at 384 "
+          f"dims bf16 and int8 the same grow events on both layouts, paged "
+          f"amplification at least 0.5 below the slab's (int8: 1.0), top 10 "
+          f"equal; "
+          f"PageQuotaExceeded on the card; launches (full width and "
+          f"quotas): " + ", ".join(f"{c.name} {n}" for c, n in
+                                   launches.items() if n)
+          + f"; full-width runs {full_s:.1f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
 
 
 # (D, rows a tick, groups a tick, rows of one large group): each case runs
@@ -9194,11 +9836,24 @@ def main() -> None:
     rag = phase_adaptive_rag(args.seed, card)
     k1["launches_adaptive_rag"], k2["launches_adaptive_rag"] = (
         rag[ATTENTION], rag[TOPK_BF16])
+    k2_score["launches_adaptive_rag"] = rag[SCORE_BF16]  # filtered fetches
     done("adaptive rag", graphs=True)
     phase_knn_index(args.seed, card)
     gc.collect()  # graph B's and the RAG phase's indexes and encoders
     torch.cuda.empty_cache()
     done("knn index", graphs=True)
+    rc = phase_result_cache(args.seed, card)
+    for rec, key in ((k2, TOPK_BF16), (k3_topk, TOPK_I8),
+                     (k4, QUANTIZE_SCATTER)):
+        rec["launches_result_cache"] = rc.get(key, 0)
+    done("result cache", graphs=True)
+    paging = phase_paging(args.seed, card)
+    for rec, key in ((k2, TOPK_BF16), (k3_topk, TOPK_I8),
+                     (k4, QUANTIZE_SCATTER)):
+        rec["launches_paging"] = paging.get(key, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("paging")
     phase_array_sum(args.seed, card)
     done("array_sum", graphs=True)
     (k1_seg["launches"], k3_topk_path2, k3["launches"],

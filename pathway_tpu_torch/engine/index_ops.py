@@ -12,10 +12,13 @@ The index is pluggable (protocol below); the device-resident brute-force
 KNN lives in pathway_tpu_torch/ops/knn.py. Under sharded execution
 (engine/graph.py) the data stream is broadcast and queries stay on the
 worker that holds them; the replicas share the one index object (one copy
-on the card) and only replica 0 maintains it. Not ported: the semantic
-result cache (ROADMAP queue 1, item 4), operator-state snapshots and the
-QoS coalescing counters. An index on a mesh other than the active one
-logs the PWT104 placement warning, as in the JAX package.
+on the card) and only replica 0 maintains it. An as-of-now operator
+answers through the index's semantic result cache
+(engine/result_cache.py) when it carries one: hits and duplicate misses
+never reach the device. Not ported: operator-state snapshots (ROADMAP
+queue 1, step 7a) and the QoS coalescing counters (step 7b). An index on
+a mesh other than the active one logs the PWT104 placement warning, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any, Protocol
 
 from pathway_tpu_torch.engine.delta import Delta
 from pathway_tpu_torch.engine.operators import Exchange, Operator
+from pathway_tpu_torch.engine.result_cache import fingerprint
 from pathway_tpu_torch.internals.error import ERROR, global_error_log
 from pathway_tpu_torch.internals.keys import Pointer
 
@@ -154,6 +158,12 @@ class ExternalIndexOperator(Operator):
                 flush_adds()  # preserve add/remove ordering within the batch
                 self.index.remove(key)
         flush_adds()
+        cache = (getattr(self.index, "result_cache", None)
+                 if not self.revise else None)
+        if cache is not None and data_changed and self._is_primary:
+            # one index-version bump a data tick: the replicas see the
+            # broadcast delta too, but share this index and its cache
+            cache.note_data_tick()
         if data_changed and self._is_primary and \
                 hasattr(self.index, "flush_device"):
             # push this tick's page writes to the device now, so that an
@@ -215,7 +225,7 @@ class ExternalIndexOperator(Operator):
             batch = [(k, v, l, f) for k, (v, l, f)
                      in self.live_queries.items()]
         if batch:
-            replies = self.index.search(batch)
+            replies = self._answer_batch(batch, cache)
             for (key, _, _, _), reply in zip(batch, replies):
                 reply = tuple(reply)
                 prev = self.answers.get(key)
@@ -226,3 +236,50 @@ class ExternalIndexOperator(Operator):
                 self.answers[key] = reply
                 out.append(key, (reply,), 1)
         return out
+
+    def _answer_batch(self, batch: list[tuple], cache) -> list[tuple]:
+        """Answer one tick's query batch, through the semantic result
+        cache when the index carries one (as-of-now only — revise mode
+        answers standing queries again, so its replies are not reusable).
+
+        The misses ride one search; hits and duplicate misses (the same
+        fingerprint again in this batch, which shares the first miss's
+        reply) never reach the device. Replies come back in the batch's
+        order, so a cache-on run emits exactly what a cache-off run does.
+        Filtered queries bypass the cache (filter payloads can change
+        without touching the vectors). The JAX package's two QoS
+        coalescing counters here wait for the QoS port (ROADMAP queue 1,
+        step 7b)."""
+        if cache is None:
+            return self.index.search(batch)
+        fps = [None if filt is not None else fingerprint(vec, limit)
+               for _key, vec, limit, filt in batch]
+        replies: list = [None] * len(batch)
+        to_search: list[int] = []
+        fp_first: dict[bytes, int] = {}
+        for i, fp in enumerate(fps):
+            if fp is not None:
+                hit = cache.lookup(fp)
+                if hit is not None:
+                    replies[i] = hit
+                    continue
+                if fp in fp_first:
+                    continue  # duplicate miss: shares the first's reply
+                fp_first[fp] = i
+            to_search.append(i)
+        if to_search:
+            searched = self.index.search([batch[i] for i in to_search])
+            pages = getattr(self.index, "last_search_coverage", None)
+            for i, reply in zip(to_search, searched):
+                reply = tuple(reply)
+                replies[i] = reply
+                fp = fps[i]
+                if fp is not None:
+                    _key, vec, limit, _filt = batch[i]
+                    kth = (reply[-1][1]
+                           if reply and len(reply) >= int(limit) else None)
+                    cache.fill(fp, reply, pages, kth, vec)
+        for i, fp in enumerate(fps):
+            if replies[i] is None:
+                replies[i] = replies[fp_first[fp]]
+        return replies

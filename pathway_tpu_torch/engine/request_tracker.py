@@ -1,6 +1,7 @@
 """Request-scoped serving-path tracing + SLO accounting — port of
-pathway_tpu/engine/request_tracker.py (pure Python, copied; the
-per-tenant aggregates and the router's stage names are not ported).
+pathway_tpu/engine/request_tracker.py (pure Python, copied, with the
+per-tenant aggregates a tenant-owning KNN index feeds; the router's stage
+names are not ported).
 
 The flight recorder (engine/flight_recorder.py) answers "what is each
 *operator* doing"; this module answers "where did each *query* spend its
@@ -32,7 +33,9 @@ Aggregation is streaming and bounded: P² quantile estimators
 window for the SLO burn rate, and a ring of the last N over-budget
 requests with their dominant stage. Completed spans also keep their raw
 stamps in a bounded ring (``trace_spans``), which bench.py's serving leg
-slices by count.
+slices by count. A span a tenant-owning index searched for
+(``attribute_tenant``) also feeds its tenant's aggregates
+(``tenant_summary``).
 
 The tracker is created iff the flight recorder is enabled; request ids
 never enter engine rows, so pipeline outputs are identical with tracing
@@ -43,6 +46,18 @@ from __future__ import annotations
 
 import collections
 import time
+import weakref
+
+# live trackers (weak: a tracker dies with its recorder/run). Lets the knn
+# index attribute its tenant id to in-flight spans by engine key without a
+# reference threaded through the operator graph.
+_LIVE: "weakref.WeakSet[RequestTracker]" = weakref.WeakSet()
+
+
+def live_trackers() -> list["RequestTracker"]:
+    """Every live request tracker (the tenant-attribution hook in
+    ops/knn.py iterates this; usually zero or one)."""
+    return list(_LIVE)
 
 # stage names, in hand-off order (see module doc)
 STAGES = ("ingress_wait", "admission_wait", "queue", "host", "device",
@@ -137,7 +152,7 @@ class RequestSpan:
     every stamp is a single attribute store, ordered by the pipeline's
     own hand-off sequence."""
 
-    __slots__ = ("rid", "route", "key", "tick", "t_ingress",
+    __slots__ = ("rid", "route", "key", "tick", "tenant", "t_ingress",
                  "t_admission", "t_enqueued", "t_tick_start", "t_host_done",
                  "t_resolved", "t_responded")
 
@@ -146,6 +161,7 @@ class RequestSpan:
         self.route = route
         self.key = None
         self.tick: int | None = None
+        self.tenant: str | None = None
         self.t_ingress = t_ingress
         self.t_admission: float | None = None
         self.t_enqueued: float | None = None
@@ -210,6 +226,12 @@ class RequestTracker:
                        0.99: P2Quantile(0.99)}
         self._stage_p50 = {s: P2Quantile(0.5) for s in STAGES}
         self._stage_sum = {s: 0.0 for s in STAGES}
+        # per-tenant aggregates, only for spans a tenant-owning index
+        # attributed (attribute_tenant): tenant -> state dict
+        self._tenants: dict[str, dict] = {}
+        self._tenant_window = max(
+            16, _env_int("PATHWAY_SLO_WINDOW", _DEFAULT_WINDOW))
+        _LIVE.add(self)
 
     # -- write side (stamping, in hand-off order) --------------------------
     def start(self, rid: str, route: str, t_ingress: float) -> RequestSpan:
@@ -268,6 +290,19 @@ class RequestTracker:
                 if span.t_host_done is None:
                     span.t_host_done = t
 
+    def attribute_tenant(self, keys, tenant: str) -> None:
+        """Attach ``tenant`` to the in-flight spans registered under
+        ``keys``. Called by the index that owns the tenant id (ops/knn.py
+        search — the query keys there are the engine keys registered at
+        enqueue); unknown keys are other sources' rows and are skipped.
+        First attribution wins: the tenant of the index a query actually
+        searched."""
+        with self._lock:
+            for key in keys:
+                span = self._by_key.get(key)
+                if span is not None and span.tenant is None:
+                    span.tenant = tenant
+
     def resolved(self, key) -> None:
         """response_writer resolved ``key`` (host thread in synchronous
         mode, bridge worker under pipelining)."""
@@ -298,6 +333,8 @@ class RequestTracker:
             "over_budget": e2e > self.slo_ms,
             "at": time.time(),
         }
+        if span.tenant is not None:
+            record["tenant"] = span.tenant
         with self._lock:
             self._discard_locked(span)
             self.count += 1
@@ -308,6 +345,20 @@ class RequestTracker:
             for s, ms in stages.items():
                 self._stage_sum[s] += ms
                 self._stage_p50[s].observe(ms)
+            if span.tenant is not None:
+                ts = self._tenants.get(span.tenant)
+                if ts is None:
+                    ts = self._tenants[span.tenant] = {
+                        "count": 0,
+                        "p50": P2Quantile(0.5),
+                        "p95": P2Quantile(0.95),
+                        "window": collections.deque(
+                            maxlen=self._tenant_window),
+                    }
+                ts["count"] += 1
+                ts["p50"].observe(e2e)
+                ts["p95"].observe(e2e)
+                ts["window"].append(e2e)
             self.completed.append(record)
             if record["over_budget"]:
                 self.violations += 1
@@ -354,6 +405,32 @@ class RequestTracker:
             viol = sum(1 for v in self._window if v > self.slo_ms)
             return (viol / len(self._window)) / self.error_budget
 
+    def tenant_summary(self) -> dict[str, dict]:
+        """Per-tenant serving aggregates: {tenant: {count, p50_ms, p95_ms,
+        burn_rate}}. Burn rate uses the tenant's own sliding window
+        against the shared SLO and error budget — one noisy tenant reads
+        above 1.0 while its neighbours stay at 0."""
+        out: dict[str, dict] = {}
+        with self._lock:
+            for tenant, ts in self._tenants.items():
+                win = ts["window"]
+                viol = sum(1 for v in win if v > self.slo_ms)
+                burn = ((viol / len(win)) / self.error_budget
+                        if win else 0.0)
+                p50 = ts["p50"].value()
+                p95 = ts["p95"].value()
+                # independent P² estimators can cross transiently; keep
+                # the pair monotone as quantiles_ms does
+                if p50 is not None and p95 is not None and p95 < p50:
+                    p50, p95 = p95, p50
+                out[tenant] = {
+                    "count": ts["count"],
+                    "p50_ms": None if p50 is None else round(p50, 3),
+                    "p95_ms": None if p95 is None else round(p95, 3),
+                    "burn_rate": round(burn, 3),
+                }
+        return out
+
     def stage_summary(self) -> dict[str, dict]:
         with self._lock:
             return {
@@ -396,4 +473,7 @@ class RequestTracker:
                 s: (None if v["p50_ms"] is None else round(v["p50_ms"], 3))
                 for s, v in self.stage_summary().items()
             }
+        tenants = self.tenant_summary()
+        if tenants:
+            out["tenants"] = tenants
         return out

@@ -41,6 +41,7 @@ import weakref
 
 from pathway_tpu_torch.engine.delta import Delta
 from pathway_tpu_torch.engine.graph import Scheduler
+from pathway_tpu_torch.engine.result_cache import note_commit_ticks
 from pathway_tpu_torch.internals.monitoring import MonitoringLevel, StatsMonitor
 
 # ROADMAP queue 1 items of what the runtime leaves out
@@ -295,6 +296,9 @@ class StreamingRuntime:
                 # as-of-now retractions (delete_completed_queries)
                 self.scheduler.run_time(time_counter)
                 self._last_completed_tick = time_counter
+                # close every live result cache's invalidations-a-tick
+                # window (engine/result_cache.py)
+                note_commit_ticks()
                 self.monitor.update(self.scheduler, self.runner.graph,
                                     time_counter)
                 time_counter += 1

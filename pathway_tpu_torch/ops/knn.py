@@ -1,7 +1,8 @@
-"""Device-resident brute-force KNN index over the paged store — port of
-pathway_tpu/ops/knn.py.
+"""Device-resident brute-force KNN index — port of pathway_tpu/ops/knn.py.
 
-Vectors live in page-aligned device extents (engine/paged_store.py); a
+Vectors live in page-aligned device extents (engine/paged_store.py, the
+default) or in one contiguous slab (``paged=False`` /
+``PATHWAY_PAGED_STORE=0``, which the slab treats as a single extent); a
 host mirror, key maps and dirty/stale slot sets batch incremental adds
 and removes into few device writes. A search scores every established
 extent (a bf16 or int8 extent in one fused score + top-k kernel; a float32
@@ -44,15 +45,20 @@ path's ``_scatter``, each fused step's write, each graphed step's K4),
 as in the JAX package; with none, each site costs one global load and a
 None check.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: this unsharded index's contiguous slab (``paged=False``; the
-mesh-sharded index in parallel/sharded_knn.py has one), string (jmespath)
-filters, tenants/quotas (queue 1, step 6). The semantic result cache and
-operator snapshots are absent."""
+Every index carries the JAX package's semantic result cache
+(engine/result_cache.py; ``PATHWAY_RESULT_CACHE=0`` turns it off): host
+adds feed its beat test, device writes (``add_batch_device``, every fused
+or graphed ingest call) invalidate it whole, removes by page, and each
+search records the page set it scanned (``last_search_coverage``). String
+metadata filters evaluate through internals/jmespath_lite.py; ``tenant``
+/ ``tenant_quotas`` tag and cap a paged index's pages. Not ported:
+operator snapshots (``snapshot_state`` / ``restore_state``, ROADMAP queue
+1, step 7a)."""
 
 from __future__ import annotations
 
 import enum
+import logging
 import math
 import time
 from typing import Any, Callable
@@ -64,11 +70,15 @@ from pathway_tpu_torch._device import (PinnedStaging, ReplicaShared,
                                       resolve_device, upload)
 from pathway_tpu_torch.engine import device_sanitizer
 from pathway_tpu_torch.engine.locking import create_rlock
-from pathway_tpu_torch.engine.paged_store import (DevicePagePool,
+from pathway_tpu_torch.engine.paged_store import (DevicePagePool, Extent,
+                                                  PageQuotaExceeded,
                                                   paged_store_enabled)
 from pathway_tpu_torch.engine.profiler import (current_profiler,
                                                ingest_scatter_cost,
                                                knn_search_cost)
+from pathway_tpu_torch.engine.request_tracker import live_trackers
+from pathway_tpu_torch.engine.result_cache import maybe_result_cache
+from pathway_tpu_torch.internals.jmespath_lite import evaluate_filter
 from pathway_tpu_torch.internals.keys import Pointer
 from pathway_tpu_torch.ops.cuda_build import LAUNCH_COUNTS
 from pathway_tpu_torch.ops.knn_kernels import (K_MAX, key_rows, key_scores,
@@ -97,21 +107,17 @@ def _round_up(n: int, mult: int) -> int:
     return ((n + mult - 1) // mult) * mult
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to pathway_tpu_torch yet (ROADMAP.md, "
-        "queue 1, step 6: item 4, index features the engine reaches)")
-
-
 def passes_filter(filter_data: dict, key: Pointer, filt: Any) -> bool:
-    """The metadata-filter predicate: callable filters are fail-closed.
-    String (jmespath) filters are not ported yet."""
-    if not callable(filt):
-        raise _not_ported("string (jmespath) metadata filters")
-    try:
-        return bool(filt(filter_data.get(key)))
-    except Exception:
-        return False
+    """The one metadata-filter predicate every index variant dispatches
+    through: callable filters are fail-closed, string filters go through
+    the jmespath-lite engine (internals/jmespath_lite.py)."""
+    data = filter_data.get(key)
+    if callable(filt):
+        try:
+            return bool(filt(data))
+        except Exception:
+            return False
+    return evaluate_filter(filt, data)
 
 
 def planned_capacity(reserved_space: int) -> int:
@@ -440,18 +446,26 @@ class BruteForceKnnIndex(ReplicaShared):
 
     add/remove mutate a host mirror and enqueue dirty slots; search
     flushes pending updates to the device, then scores and ranks on the
-    device. ``BruteForceKnnIndex(...)`` constructs a
-    :class:`PagedKnnIndex`, the paged store being the only storage ported.
+    device. ``BruteForceKnnIndex(...)`` constructs a :class:`PagedKnnIndex`
+    (the default); ``paged=False`` or ``PATHWAY_PAGED_STORE=0`` gives this
+    class itself, the contiguous slab: one device allocation of
+    ``capacity`` rows (an :class:`Extent` at base 0), a LIFO free list,
+    and growth by doubling, which drops the device tensors and re-ships
+    every occupied slot at the next flush (the JAX package's ``_grow``).
+
+    Every index carries a semantic result cache
+    (engine/result_cache.py, ``result_cache``; None under
+    ``PATHWAY_RESULT_CACHE=0``), fed from the add and remove paths here
+    and filled by the as-of-now operator; ``last_search_coverage`` is the
+    page set the latest search scanned.
     """
 
     # read by ExternalIndexOperator.device_bound, as in the JAX package
     device_bound = True
 
     def __new__(cls, *args, **kwargs):
-        if cls is BruteForceKnnIndex:
-            if not paged_store_enabled(kwargs.get("paged")):
-                raise _not_ported("the contiguous slab (paged=False / "
-                                  "PATHWAY_PAGED_STORE=0)")
+        if cls is BruteForceKnnIndex and \
+                paged_store_enabled(kwargs.get("paged")):
             cls = PagedKnnIndex
         return object.__new__(cls)
 
@@ -462,8 +476,6 @@ class BruteForceKnnIndex(ReplicaShared):
                  paged: bool | None = None, page_rows: int | None = None,
                  tenant: Any = None,
                  tenant_quotas: dict[Any, int] | None = None):
-        if tenant is not None or tenant_quotas:
-            raise _not_ported("tenants and page quotas")
         if isinstance(metric, str):
             metric = KnnMetric(metric)
         self.dim = int(dimensions)
@@ -482,16 +494,159 @@ class BruteForceKnnIndex(ReplicaShared):
         self._filter_data: dict[Pointer, Any] = {}
         self._dirty: set[int] = set()    # host → device pending
         self._stale: set[int] = set()    # device → host pending
-        self._init_storage(reserved_space, page_rows=page_rows)
+        # rows written to device storage (writes + dense uploads): over the
+        # rows ingested, the re-upload amplification the paged store
+        # deletes (the slab re-ships every occupied slot after a growth)
+        self.upload_rows_total = 0
+        self._init_storage(reserved_space, page_rows=page_rows,
+                           tenant=tenant, tenant_quotas=tenant_quotas)
+        # the page geometry comes from storage, so the cache follows it
+        self.result_cache = maybe_result_cache(self)
+        # page-touch set of the latest search (None until one ran, or
+        # with the cache off)
+        self.last_search_coverage: frozenset | None = None
+
+    # ------------------------------------------------------------------
+    # storage: the contiguous slab (PagedKnnIndex swaps these hooks)
+    # ------------------------------------------------------------------
+    def _init_storage(self, reserved_space: int, *,
+                      page_rows: int | None = None, tenant: Any = None,
+                      tenant_quotas: dict[Any, int] | None = None) -> None:
+        if tenant_quotas:
+            # quota accounting lives in the page allocator; the slab has
+            # none. Loud, not silent: a quota nothing enforces is a
+            # configuration bug
+            logging.getLogger("pathway_tpu_torch.paged_store").warning(
+                "tenant_quotas are only enforced by the paged store — "
+                "the contiguous slab (PATHWAY_PAGED_STORE=0 / "
+                "paged=False) ignores them")
+        self.capacity = planned_capacity(reserved_space)
+        self._host_vectors = torch.zeros((self.capacity, self.dim),
+                                         dtype=self._mirror_dtype)
+        self._host_valid = torch.zeros((self.capacity,), dtype=torch.bool)
+        self._free: list[int] = list(range(self.capacity - 1, -1, -1))
+        self._slab = Extent(0, self.capacity)  # device tensors made lazily
+
+    def _extents(self) -> list:
+        return [self._slab]
+
+    def _split_by_extent(self, idxs: np.ndarray):
+        yield self._slab, idxs, np.arange(len(idxs))
+
+    def _ensure_free(self, n: int) -> None:
+        """Guarantee ``n`` subsequent ``_take_slot`` calls succeed."""
+        while len(self._free) < n:
+            self._grow()
+
+    def _take_slot(self) -> int:
+        return self._free.pop()
+
+    def _take_slots(self, n: int) -> list[int]:
+        """The slots of ``n`` successive ``_take_slot`` calls (n >= 1)."""
+        out = self._free[:-n - 1:-1]
+        del self._free[-n:]
+        return out
+
+    def _release_slot(self, slot: int) -> None:
+        self._free.append(slot)
+
+    def reserve_rows(self, n: int) -> None:
+        """Pre-size storage for ``n`` upcoming adds. Lock taken here —
+        call before add_batch."""
+        with self._lock:
+            self._ensure_free(n)
+
+    def _grow(self) -> None:
+        """Double the capacity (rounded to ``_CHUNK_ROWS`` past it): the
+        mirror grows on the host, the device tensors are dropped, and every
+        occupied slot re-ships at the next flush. A graphed ingest step's
+        graphs are keyed by the extent's rows and tensor addresses, so none
+        captured against the old slab replays against the new one."""
+        # device-authoritative rows land in the mirror before the realloc
+        self._sync_mirror()
+        old_cap = self.capacity
+        self.capacity = old_cap * 2
+        if self.capacity > _CHUNK_ROWS:
+            self.capacity = _round_up(self.capacity, _CHUNK_ROWS)
+        new_vec = torch.zeros((self.capacity, self.dim),
+                              dtype=self._mirror_dtype)
+        new_vec[:old_cap] = self._host_vectors
+        self._host_vectors = new_vec
+        new_valid = torch.zeros((self.capacity,), dtype=torch.bool)
+        new_valid[:old_cap] = self._host_valid
+        self._host_valid = new_valid
+        self._free.extend(range(self.capacity - 1, old_cap - 1, -1))
+        self._slab = Extent(0, self.capacity)
+        self._dirty.update(self._slot_to_key.keys())
+
+    def _flush_to_device(self) -> None:
+        ext = self._slab
+        if not ext.established:
+            if self._is_int8:
+                # rows are quantized on the device (K4), so there is no
+                # dense shortcut: zeros, then every live row by scatter
+                self._establish_extent(ext)
+                self._dirty.update(
+                    torch.nonzero(self._host_valid).flatten().tolist())
+            elif len(self._dirty) * 2 < self.capacity:
+                # sparse occupancy: zeros made on the device, then only
+                # the written rows go up
+                self._establish_extent(ext)
+            else:
+                with device_sanitizer.explicit_sync("bulk slab upload"):
+                    ext.vectors = self._host_vectors.to(self.device)
+                    ext.valid = self._host_valid.to(self.device)
+                self.upload_rows_total += self.capacity
+                self._dirty.clear()
+                return
+        if self._dirty:
+            idxs = np.fromiter(self._dirty, dtype=np.int64)
+            self._dirty.clear()
+            r = torch.from_numpy(idxs)
+            self._scatter(idxs, upload(self._host_vectors[r], self.device),
+                          upload(self._host_valid[r], self.device))
+
+    def _coverage_pages(self) -> frozenset:
+        """Page-touch set of a search (lock held, device flushed): the
+        slab search scans the whole slab, so every page over its address
+        space (``slot // page_rows``, synthetic for the slab but the same
+        ids the add and remove hooks feed the cache)."""
+        pr = self.result_cache.page_rows
+        return frozenset(range(-(-self.capacity // pr)))
+
+    def _fused_ingest(self, step, keys: list[Pointer], args,
+                      n_rows: int | None) -> bool:
+        n_new = len({k for k in keys if k not in self._key_to_slot})
+        if len(self._free) < n_new:
+            raise ValueError(
+                "fused ingest cannot grow the slab (its device tensors are "
+                "written in place) — reserve capacity up front")
+        self._flush_to_device()
+        slots = self._fused_take_slots(keys)
+        step(self._slab, self._pad_slots(slots, n_rows, self.capacity),
+             *args)
+        self._host_valid[torch.from_numpy(slots)] = True
+        slot_list = slots.tolist()
+        self._stale.update(slot_list)
+        self._dirty.difference_update(slot_list)
+        return True
 
     # ------------------------------------------------------------------
     # maintenance (called on data diffs)
     # ------------------------------------------------------------------
     def _alloc_slots(self, keys: list[Pointer]) -> np.ndarray:
-        """Slot per key, allocating (and growing) for new keys. Lock held."""
-        n_new = len({k for k in keys if k not in self._key_to_slot})
-        self._ensure_free(n_new)
-        return self._fused_take_slots(keys)
+        """Slot per key, allocating (and growing) for new keys. Lock held.
+        The new keys, in first-seen order, get the slots of as many
+        successive ``_take_slot`` calls (``_take_slots``): the JAX
+        package's key-by-key allocation, in bulk."""
+        k2s = self._key_to_slot
+        new = list(dict.fromkeys(k for k in keys if k not in k2s))
+        self._ensure_free(len(new))
+        if new:
+            fresh = self._take_slots(len(new))
+            k2s.update(zip(new, fresh))
+            self._slot_to_key.update(zip(fresh, new))
+        return np.fromiter(map(k2s.__getitem__, keys), np.int64, len(keys))
 
     def add(self, key: Pointer, vector: Any,
             filter_data: Any | None = None) -> None:
@@ -536,6 +691,8 @@ class BruteForceKnnIndex(ReplicaShared):
             slot_list = slots.tolist()
             self._dirty.update(slot_list)
             self._stale.difference_update(slot_list)  # host write wins
+            if self.result_cache is not None:
+                self.result_cache.on_insert_batch(slots, keys, vecs)
 
     def add_batch_device(self, keys: list[Pointer], vectors: torch.Tensor,
                          filter_data: list[Any] | None = None) -> None:
@@ -564,6 +721,9 @@ class BruteForceKnnIndex(ReplicaShared):
             slot_list = slots.tolist()
             self._stale.update(slot_list)
             self._dirty.difference_update(slot_list)  # device write wins
+            if self.result_cache is not None:
+                # the rows never visit the host: no beat test possible
+                self.result_cache.invalidate_all()
 
     def make_fused_ingest(self, producer: Callable):
         """Fuse a producer (e.g. the encoder forward pass) with the
@@ -577,7 +737,11 @@ class BruteForceKnnIndex(ReplicaShared):
         two-step ``add_batch_device`` path. ``n_rows`` is the producer's
         row count when it exceeds ``len(keys)`` (a ragged chunk pads its
         documents): the padding rows get sentinel slots and are dropped.
-        New keys allocate pages in one extent, or a fresh extent."""
+        New keys allocate pages in one extent, or a fresh extent. On the
+        contiguous slab the capacity cannot grow under a fused write: a
+        batch with more new keys than free slots raises ValueError
+        (reserve up front). A tenant past its page quota raises
+        ``PageQuotaExceeded``."""
         return self._ingest_fn(_fused_step_fn(producer, self.dtype,
                                               self.device))
 
@@ -602,7 +766,12 @@ class BruteForceKnnIndex(ReplicaShared):
         def ingest(keys: list[Pointer], *args,
                    n_rows: int | None = None) -> bool:
             with self._lock:
-                return self._fused_ingest(step, keys, args, n_rows)
+                done = self._fused_ingest(step, keys, args, n_rows)
+                if done and self.result_cache is not None:
+                    # a device write, as add_batch_device's; this runs on
+                    # the host at every call, never inside a graph
+                    self.result_cache.invalidate_all()
+                return done
 
         return ingest
 
@@ -644,6 +813,8 @@ class BruteForceKnnIndex(ReplicaShared):
             self._release_slot(slot)
             self._dirty.add(slot)
             self._stale.discard(slot)
+            if self.result_cache is not None:
+                self.result_cache.on_delete(slot, key)
 
     def __len__(self) -> int:
         return len(self._key_to_slot)
@@ -654,19 +825,113 @@ class BruteForceKnnIndex(ReplicaShared):
             self._flush_to_device()
 
     # ------------------------------------------------------------------
+    # device state, per extent (the slab is one extent)
+    # ------------------------------------------------------------------
+    def _establish_extent(self, ext) -> None:
+        """Zero device tensors for one extent (allocated on the device, no
+        host transfer); rows arrive by in-place writes only. int8 extents
+        also carry per-row ``scales`` and ``vsq`` (float32)."""
+        if ext.established:
+            return
+        ext.vectors = torch.zeros((ext.rows, self.dim),
+                                  dtype=self._slab_dtype, device=self.device)
+        ext.valid = torch.zeros((ext.rows,), dtype=torch.bool,
+                                device=self.device)
+        if self._is_int8:
+            ext.scales = torch.zeros((ext.rows,), dtype=torch.float32,
+                                     device=self.device)
+            ext.vsq = torch.zeros((ext.rows,), dtype=torch.float32,
+                                  device=self.device)
+
+    def _scatter(self, idxs: np.ndarray, vals: torch.Tensor,
+                 valid_vals: torch.Tensor) -> None:
+        """Write rows (device tensors) at global slots ``idxs``, in place;
+        int8 quantizes them through K4. With a profiler installed, one
+        ``ingest_scatter`` dispatch over every row written."""
+        self.upload_rows_total += len(idxs)
+        prof = current_profiler()
+        if prof is None:
+            self._scatter_extents(idxs, vals, valid_vals)
+            return
+        t0 = time.perf_counter()
+        self._scatter_extents(idxs, vals, valid_vals)
+        flops, nbytes = ingest_scatter_cost(
+            len(idxs), self.dim, itemsize=self._slab_dtype.itemsize)
+        prof.record_dispatch("ingest_scatter", flops, nbytes,
+                             (time.perf_counter() - t0) * 1e3)
+
+    def _scatter_extents(self, idxs: np.ndarray, vals: torch.Tensor,
+                         valid_vals: torch.Tensor) -> None:
+        groups = list(self._split_by_extent(idxs))
+        for ext, local, pos in groups:
+            self._establish_extent(ext)
+            if len(groups) == 1:
+                vsub, valsub = vals, valid_vals
+            else:
+                p = upload(torch.from_numpy(pos), self.device)
+                vsub, valsub = vals[p], valid_vals[p]
+            loc = upload(torch.from_numpy(local), self.device)
+            if self._is_int8:
+                quantize_scatter(vsub.float().contiguous(), loc, valsub,
+                                 ext.vectors, ext.scales, ext.vsq, ext.valid)
+                continue
+            ext.vectors.index_copy_(0, loc, vsub.to(self._slab_dtype))
+            ext.valid.index_copy_(0, loc, valsub)
+
+    def _sync_mirror(self) -> None:
+        """Pull device-authoritative rows back into the host mirror (lock
+        held); needed before host-side exact reads and before the slab's
+        growth drops its device tensors."""
+        if not self._stale:
+            return
+        idxs = np.fromiter(self._stale, dtype=np.int64)
+        self._stale.clear()
+        for ext, local, pos in self._split_by_extent(idxs):
+            if not ext.established:
+                continue
+            loc = upload(torch.from_numpy(local), self.device)
+            rows = ext.vectors[loc]
+            if self._is_int8:  # dequantize: codes x scale, in float32
+                rows = rows.float() * ext.scales[loc][:, None]
+            with device_sanitizer.explicit_sync("host mirror read"):
+                self._host_vectors[torch.from_numpy(idxs[pos])] = rows.cpu()
+
+    def drain(self) -> None:
+        """Block until every queued device write has finished."""
+        with self._lock, device_sanitizer.explicit_sync("drain"):
+            for ext in self._extents():
+                if ext.established:
+                    ext.valid[:1].cpu()
+
+    # ------------------------------------------------------------------
     # search
     # ------------------------------------------------------------------
     def search(self, queries: list[tuple]) -> list[tuple]:
         """Batched search: [(qkey, vector, limit, filter)] →
         per query a tuple of (match_key, score) pairs, best first.
         Scores follow the reference convention: L2sq distance (lower=better,
-        reported as distance) or cosine distance 1-cos_sim."""
+        reported as distance) or cosine distance 1-cos_sim. An index with
+        a tenant attributes the queries' in-flight requests to it in every
+        live request tracker (engine/request_tracker.py)."""
         if not queries:
             return []
+        tenant = getattr(self, "_tenant", None)
+        if tenant is not None:
+            # the query keys are the engine keys the tracker registered at
+            # enqueue
+            for trk in live_trackers():
+                trk.attribute_tenant((q[0] for q in queries), tenant)
         with self._lock:
             if not self._key_to_slot:
+                # an empty scan touches nothing: an entry filled from it
+                # covers no pages, so any later insert invalidates it
+                if self.result_cache is not None:
+                    self.last_search_coverage = frozenset()
                 return [() for _ in queries]
             self._flush_to_device()
+            if self.result_cache is not None:
+                # after the flush: exactly the device state scanned below
+                self.last_search_coverage = self._coverage_pages()
             max_k = max(int(q[2] or 3) for q in queries)
             # over-fetch when filters present so post-filtering still fills
             # k; the chunked search's per-chunk top-k bounds the fetch
@@ -747,6 +1012,104 @@ class BruteForceKnnIndex(ReplicaShared):
         order = np.argsort(dists, kind="stable")[:limit]
         return tuple((keys[int(i)], float(dists[int(i)])) for i in order)
 
+    def _fetch_cap(self) -> int:
+        return min(self.capacity, _CHUNK_ROWS)
+
+    def _extent_extras(self, ext) -> tuple:
+        if self._is_int8:
+            return (ext.scales, ext.vsq)
+        return ()
+
+    def _device_topk(self, qmat, fetch_k: int):
+        """:meth:`_device_topk_parts`, recorded as one ``knn_search``
+        dispatch when a profiler is installed: the scan costed over the
+        established extents' rows, the rows the kernels read (each part's
+        result copy waits for the card, so the call-site wall is device
+        time even outside a leg)."""
+        prof = current_profiler()
+        if prof is None:
+            return self._device_topk_parts(qmat, fetch_k)
+        t0 = time.perf_counter()
+        out = self._device_topk_parts(qmat, fetch_k)
+        rows = sum(e.rows for e in self._extents() if e.established)
+        if rows:
+            flops, nbytes = knn_search_cost(
+                int(qmat.shape[0]), rows, self.dim,
+                itemsize=self._slab_dtype.itemsize,
+                extra_row_bytes=8 if self._is_int8 else 0)
+            prof.record_dispatch("knn_search", flops, nbytes,
+                                 (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _device_topk_parts(self, qmat, fetch_k: int):
+        """(scores, global slots) as host arrays, exactly ``fetch_k``
+        columns, best first. Lock held, device state flushed. Each
+        established extent (the slab: the one) is searched by
+        ``search_extent`` for its min(fetch_k, rows, ``_CHUNK_ROWS``) best;
+        several merge on the host by (score desc, slot asc)."""
+        parts = []
+        for ext in self._extents():
+            if not ext.established:
+                continue  # never written → no valid rows to score
+            k_e = min(fetch_k, ext.rows, _CHUNK_ROWS)
+            ts, ti = search_extent(qmat, ext.vectors, ext.valid, k_e,
+                                   self.metric, self._extent_extras(ext))
+            with device_sanitizer.explicit_sync("search results"):
+                parts.append((ts.cpu().numpy(), ti.cpu().numpy() + ext.base))
+        if not parts:
+            B = int(qmat.shape[0])
+            return (np.full((B, fetch_k), -np.inf, np.float32),
+                    np.zeros((B, fetch_k), np.int64))
+        if len(parts) == 1 and parts[0][0].shape[1] == fetch_k:
+            return parts[0]
+        # merge per-extent candidates: stable argsort on descending score
+        # keeps lowest-slot-first tie order (candidates are laid out in
+        # global slot order: extents by base, ties by ascending local slot)
+        cand_s = np.concatenate([p[0] for p in parts], axis=1)
+        cand_i = np.concatenate([p[1] for p in parts], axis=1)
+        order = np.argsort(-cand_s, axis=1, kind="stable")[:, :fetch_k]
+        top_s = np.take_along_axis(cand_s, order, axis=1)
+        top_i = np.take_along_axis(cand_i, order, axis=1)
+        if top_s.shape[1] < fetch_k:
+            # capacity counts not-yet-established extents, so the
+            # established candidates can undershoot an escalated fetch_k —
+            # pad to the contract width (-inf rows read as exhausted)
+            pad = fetch_k - top_s.shape[1]
+            top_s = np.pad(top_s, ((0, 0), (0, pad)),
+                           constant_values=-np.inf)
+            top_i = np.pad(top_i, ((0, 0), (0, pad)))
+        return top_s, top_i
+
+    def _probe_searcher(self, k: int):
+        """``(run, operands)``, ``run(q, operands) -> (scores, global
+        slots)``: the device side of one search of (B, dim) queries, as
+        ``latency_probe`` times it. Each established extent is searched for
+        its min(k, rows, ``_CHUNK_ROWS``) best, and the parts merge on the
+        device by a stable descending sort (``lax.top_k``'s order over
+        parts laid out in slot order); nothing syncs the host."""
+        exts = [e for e in self._extents() if e.established]
+        ks = [min(k, e.rows, _CHUNK_ROWS) for e in exts]
+        bases = [e.base for e in exts]
+        operands = tuple((e.vectors, self._extent_extras(e), e.valid)
+                         for e in exts)
+        metric = self.metric
+
+        def run(q, operands):
+            ts_all, ti_all = [], []
+            for k_e, base, (vectors, extras, valid) in zip(ks, bases,
+                                                          operands):
+                ts, ti = search_extent(q, vectors, valid, k_e, metric,
+                                       extras)
+                ts_all.append(ts)
+                ti_all.append(ti + base)
+            if len(ts_all) == 1:
+                return ts_all[0], ti_all[0]
+            cand_s = torch.cat(ts_all, dim=1)
+            cand_i = torch.cat(ti_all, dim=1)
+            return _topk_gather(cand_s, cand_i, min(k, cand_s.shape[1]))
+
+        return run, operands
+
     def latency_probe(self, *, batch_size: int = 1, k: int = 10,
                       reps: int = 32, seed: int = 0) -> float:
         """Device time per search batch, in ms: the JAX package's
@@ -792,7 +1155,7 @@ class BruteForceKnnIndex(ReplicaShared):
 
 
 class PagedKnnIndex(BruteForceKnnIndex):
-    """BruteForceKnnIndex over the paged device store.
+    """BruteForceKnnIndex over the paged device store (the default).
 
     Device memory is a :class:`DevicePagePool` of page-aligned extents; the
     host page table maps slots to (page, offset). Growth appends an extent
@@ -800,14 +1163,19 @@ class PagedKnnIndex(BruteForceKnnIndex):
     allocating pages in one extent or a fresh extent, frees return pages
     to the allocator, and search runs per extent with a host merge by
     (score desc, slot asc). The host mirror is one contiguous CPU tensor
-    indexed by global slot.
+    indexed by global slot. ``tenant`` / ``tenant_quotas`` tag this
+    index's pages in the allocator and cap them (``PageQuotaExceeded``
+    past the cap).
     """
 
     def _init_storage(self, reserved_space: int, *,
-                      page_rows: int | None = None) -> None:
+                      page_rows: int | None = None, tenant: Any = None,
+                      tenant_quotas: dict[Any, int] | None = None) -> None:
         self._pool = DevicePagePool(
             self.dim, reserved_space=reserved_space,
-            rows_per_page=page_rows, lock=self._lock)
+            rows_per_page=page_rows, tenant_quotas=tenant_quotas,
+            lock=self._lock)
+        self._tenant = tenant
         self._host_vectors = torch.zeros((self._pool.capacity, self.dim),
                                          dtype=self._mirror_dtype)
         self._host_valid = torch.zeros((self._pool.capacity,),
@@ -821,13 +1189,28 @@ class PagedKnnIndex(BruteForceKnnIndex):
         with self._lock:
             return self._pool.stats()
 
+    def _extents(self) -> list:
+        return self._pool.extents
+
+    def _split_by_extent(self, idxs: np.ndarray):
+        return self._pool.split_by_extent(idxs)
+
     # -- slot allocation through the page table -------------------------
     def _ensure_free(self, n: int) -> None:
-        self._pool.ensure_free(n)
+        self._pool.ensure_free(n, self._tenant)
         self._extend_mirror()
 
+    def reserve_rows(self, n: int) -> None:
+        # one right-sized extent instead of the doubling cascade
+        with self._lock:
+            self._pool.reserve_rows(n, self._tenant)
+            self._extend_mirror()
+
     def _take_slot(self) -> int:
-        return self._pool.allocator.take_slot()
+        return self._pool.allocator.take_slot(self._tenant)
+
+    def _take_slots(self, n: int) -> list[int]:
+        return self._pool.allocator.take_slots(n, self._tenant).tolist()
 
     def _release_slot(self, slot: int) -> None:
         self._pool.allocator.release_slot(slot)
@@ -847,56 +1230,6 @@ class PagedKnnIndex(BruteForceKnnIndex):
         self._host_valid = new_valid
 
     # -- device state per extent ----------------------------------------
-    def _establish_extent(self, ext) -> None:
-        """Zero device tensors for one extent (allocated on the device, no
-        host transfer); rows arrive by in-place writes only. int8 extents
-        also carry per-row ``scales`` and ``vsq`` (float32)."""
-        if ext.established:
-            return
-        ext.vectors = torch.zeros((ext.rows, self.dim),
-                                  dtype=self._slab_dtype, device=self.device)
-        ext.valid = torch.zeros((ext.rows,), dtype=torch.bool,
-                                device=self.device)
-        if self._is_int8:
-            ext.scales = torch.zeros((ext.rows,), dtype=torch.float32,
-                                     device=self.device)
-            ext.vsq = torch.zeros((ext.rows,), dtype=torch.float32,
-                                  device=self.device)
-
-    def _scatter(self, idxs: np.ndarray, vals: torch.Tensor,
-                 valid_vals: torch.Tensor) -> None:
-        """Write rows (device tensors) at global slots ``idxs``, in place;
-        int8 quantizes them through K4. With a profiler installed, one
-        ``ingest_scatter`` dispatch over every row written."""
-        prof = current_profiler()
-        if prof is None:
-            self._scatter_extents(idxs, vals, valid_vals)
-            return
-        t0 = time.perf_counter()
-        self._scatter_extents(idxs, vals, valid_vals)
-        flops, nbytes = ingest_scatter_cost(
-            len(idxs), self.dim, itemsize=self._slab_dtype.itemsize)
-        prof.record_dispatch("ingest_scatter", flops, nbytes,
-                             (time.perf_counter() - t0) * 1e3)
-
-    def _scatter_extents(self, idxs: np.ndarray, vals: torch.Tensor,
-                         valid_vals: torch.Tensor) -> None:
-        groups = list(self._pool.split_by_extent(idxs))
-        for ext, local, pos in groups:
-            self._establish_extent(ext)
-            if len(groups) == 1:
-                vsub, valsub = vals, valid_vals
-            else:
-                p = upload(torch.from_numpy(pos), self.device)
-                vsub, valsub = vals[p], valid_vals[p]
-            loc = upload(torch.from_numpy(local), self.device)
-            if self._is_int8:
-                quantize_scatter(vsub.float().contiguous(), loc, valsub,
-                                 ext.vectors, ext.scales, ext.vsq, ext.valid)
-                continue
-            ext.vectors.index_copy_(0, loc, vsub.to(self._slab_dtype))
-            ext.valid.index_copy_(0, loc, valsub)
-
     def _flush_to_device(self) -> None:
         if not self._dirty:
             return
@@ -914,6 +1247,7 @@ class PagedKnnIndex(BruteForceKnnIndex):
                 with device_sanitizer.explicit_sync("bulk extent upload"):
                     ext.vectors = self._host_vectors[rng].to(self.device)
                     ext.valid = self._host_valid[rng].to(self.device)
+                self.upload_rows_total += ext.rows
             else:
                 scatter_rows.append(idxs[pos])
         if scatter_rows:
@@ -922,130 +1256,15 @@ class PagedKnnIndex(BruteForceKnnIndex):
             self._scatter(rows, upload(self._host_vectors[r], self.device),
                           upload(self._host_valid[r], self.device))
 
-    def _sync_mirror(self) -> None:
-        """Pull device-authoritative rows back into the host mirror (lock
-        held); needed before host-side exact reads."""
-        if not self._stale:
-            return
-        idxs = np.fromiter(self._stale, dtype=np.int64)
-        self._stale.clear()
-        for ext, local, pos in self._pool.split_by_extent(idxs):
-            if not ext.established:
-                continue
-            loc = upload(torch.from_numpy(local), self.device)
-            rows = ext.vectors[loc]
-            if self._is_int8:  # dequantize: codes x scale, in float32
-                rows = rows.float() * ext.scales[loc][:, None]
-            with device_sanitizer.explicit_sync("host mirror read"):
-                self._host_vectors[torch.from_numpy(idxs[pos])] = rows.cpu()
-
-    # -- search over the page table --------------------------------------
-    def _fetch_cap(self) -> int:
-        return min(self.capacity, _CHUNK_ROWS)
-
-    def _extent_extras(self, ext) -> tuple:
-        if self._is_int8:
-            return (ext.scales, ext.vsq)
-        return ()
-
-    def _device_topk(self, qmat, fetch_k: int):
-        """:meth:`_device_topk_parts`, recorded as one ``knn_search``
-        dispatch when a profiler is installed: the scan costed over the
-        established extents' rows, the rows the kernels read (each part's
-        result copy waits for the card, so the call-site wall is device
-        time even outside a leg)."""
-        prof = current_profiler()
-        if prof is None:
-            return self._device_topk_parts(qmat, fetch_k)
-        t0 = time.perf_counter()
-        out = self._device_topk_parts(qmat, fetch_k)
-        rows = sum(e.rows for e in self._pool.extents if e.established)
-        if rows:
-            flops, nbytes = knn_search_cost(
-                int(qmat.shape[0]), rows, self.dim,
-                itemsize=self._slab_dtype.itemsize,
-                extra_row_bytes=8 if self._is_int8 else 0)
-            prof.record_dispatch("knn_search", flops, nbytes,
-                                 (time.perf_counter() - t0) * 1e3)
-        return out
-
-    def _device_topk_parts(self, qmat, fetch_k: int):
-        """(scores, global slots) as host arrays, exactly ``fetch_k``
-        columns, best first. Lock held, device state flushed."""
-        parts = []
-        for ext in self._pool.extents:
-            if not ext.established:
-                continue  # never written → no valid rows to score
-            k_e = min(fetch_k, ext.rows, _CHUNK_ROWS)
-            ts, ti = search_extent(qmat, ext.vectors, ext.valid, k_e,
-                                   self.metric, self._extent_extras(ext))
-            with device_sanitizer.explicit_sync("search results"):
-                parts.append((ts.cpu().numpy(), ti.cpu().numpy() + ext.base))
-        if not parts:
-            B = int(qmat.shape[0])
-            return (np.full((B, fetch_k), -np.inf, np.float32),
-                    np.zeros((B, fetch_k), np.int64))
-        if len(parts) == 1 and parts[0][0].shape[1] == fetch_k:
-            return parts[0]
-        # merge per-extent candidates: stable argsort on descending score
-        # keeps lowest-slot-first tie order (candidates are laid out in
-        # global slot order: extents by base, ties by ascending local slot)
-        cand_s = np.concatenate([p[0] for p in parts], axis=1)
-        cand_i = np.concatenate([p[1] for p in parts], axis=1)
-        order = np.argsort(-cand_s, axis=1, kind="stable")[:, :fetch_k]
-        top_s = np.take_along_axis(cand_s, order, axis=1)
-        top_i = np.take_along_axis(cand_i, order, axis=1)
-        if top_s.shape[1] < fetch_k:
-            # capacity counts not-yet-established extents, so the
-            # established candidates can undershoot an escalated fetch_k —
-            # pad to the contract width (-inf rows read as exhausted)
-            pad = fetch_k - top_s.shape[1]
-            top_s = np.pad(top_s, ((0, 0), (0, pad)),
-                           constant_values=-np.inf)
-            top_i = np.pad(top_i, ((0, 0), (0, pad)))
-        return top_s, top_i
-
-    def _probe_searcher(self, k: int):
-        """``(run, operands)``, ``run(q, operands) -> (scores, global
-        slots)``: the device side of one search of (B, dim) queries, as
-        ``latency_probe`` times it. Each established extent is searched for
-        its min(k, rows, ``_CHUNK_ROWS``) best, and the parts merge on the
-        device by a stable descending sort (``lax.top_k``'s order over
-        parts laid out in slot order); nothing syncs the host."""
-        exts = [e for e in self._pool.extents if e.established]
-        ks = [min(k, e.rows, _CHUNK_ROWS) for e in exts]
-        bases = [e.base for e in exts]
-        operands = tuple((e.vectors, self._extent_extras(e), e.valid)
-                         for e in exts)
-        metric = self.metric
-
-        def run(q, operands):
-            ts_all, ti_all = [], []
-            for k_e, base, (vectors, extras, valid) in zip(ks, bases,
-                                                          operands):
-                ts, ti = search_extent(q, vectors, valid, k_e, metric,
-                                       extras)
-                ts_all.append(ts)
-                ti_all.append(ti + base)
-            if len(ts_all) == 1:
-                return ts_all[0], ti_all[0]
-            cand_s = torch.cat(ts_all, dim=1)
-            cand_i = torch.cat(ti_all, dim=1)
-            return _topk_gather(cand_s, cand_i, min(k, cand_s.shape[1]))
-
-        return run, operands
-
-    def drain(self) -> None:
-        """Block until every queued device write has finished."""
-        with self._lock, device_sanitizer.explicit_sync("drain"):
-            for ext in self._pool.extents:
-                if ext.established:
-                    ext.valid[:1].cpu()
+    def _coverage_pages(self) -> frozenset:
+        # a paged search scans the established extents only
+        return self._pool.touched_page_ids()
 
     # -- fused ingest: grow by allocating pages/extents -------------------
     def _fused_ingest(self, step, keys: list[Pointer], args,
                       n_rows: int | None) -> bool:
         alloc = self._pool.allocator
+        tenant = self._tenant
         n_new = len({k for k in keys if k not in self._key_to_slot})
         ext_ids = {self._pool.extent_index_of(self._key_to_slot[k])
                    for k in keys if k in self._key_to_slot}
@@ -1053,26 +1272,35 @@ class PagedKnnIndex(BruteForceKnnIndex):
             # one step writes into ONE extent; a batch updating rows
             # already spread across extents takes the two-step path
             return False
+        capped = alloc.quota_capped_slots(tenant)
+        if capped is not None and capped < n_new:
+            # the quota, not the pool, is the limit: raised, never turned
+            # into the two-step path
+            raise PageQuotaExceeded(
+                f"tenant {tenant!r} needs {n_new} slots but its page "
+                f"quota caps it at {capped} more")
         if ext_ids:
             eidx = next(iter(ext_ids))
         else:
             eidx = max(range(len(self._pool.extents)),
-                       key=lambda e: alloc.free_slots_available(regions=[e]))
-            if alloc.free_slots_available(regions=[eidx]) < n_new:
+                       key=lambda e: alloc.free_slots_available(
+                           tenant, regions=[e]))
+            if alloc.free_slots_available(tenant, regions=[eidx]) < n_new:
                 # online growth: a fresh extent sized for the batch — the
                 # extents already written are untouched
                 self._pool.grow(min_rows=n_new)
                 self._extend_mirror()
                 eidx = len(self._pool.extents) - 1
-        if alloc.free_slots_available(regions=[eidx]) < n_new:
-            # updated rows pin an extent too full for the new ones: checked
+        if alloc.free_slots_available(tenant, regions=[eidx]) < n_new:
+            # updated rows pin an extent too full for the new ones (or the
+            # quota caps the batch below it even after a grow): checked
             # BEFORE any slot is assigned, so no key mapping leaks
             return False
         self._flush_to_device()
         ext = self._pool.extents[eidx]
         self._establish_extent(ext)
         slots = self._fused_take_slots(
-            keys, take=lambda: alloc.take_slot(regions=[eidx]))
+            keys, take=lambda: alloc.take_slot(tenant, regions=[eidx]))
         step(ext, self._pad_slots(slots - ext.base, n_rows, ext.rows), *args)
         self._host_valid[torch.from_numpy(slots)] = True
         slot_list = slots.tolist()
@@ -1140,12 +1368,20 @@ class DeviceEmbeddingKnnIndex(ReplicaShared):
     def add_batch(self, keys: list[Pointer], texts,
                   filter_data: list[Any] | None = None) -> None:
         texts = [str(t) for t in texts]
-        if self._fused is not None and self._add_fused(keys, texts):
-            self.inner.set_filter_data(keys, filter_data)
-            return
-        # the batch spans extents: encode, then the growable device add
-        # (it re-adds every key, so a partly fused ragged batch ends
-        # consistent)
+        if self._fused is not None:
+            try:
+                fused = self._add_fused(keys, texts)
+            except ValueError:
+                # a full contiguous slab cannot grow under a fused write
+                # (a tenant's PageQuotaExceeded is no ValueError: it
+                # escapes)
+                fused = False
+            if fused:
+                self.inner.set_filter_data(keys, filter_data)
+                return
+        # the batch spans extents, or fills the slab: encode, then the
+        # growable device add (it re-adds every key, so a partly fused
+        # ragged batch ends consistent)
         vecs = self.embedder.encode_batch_device(texts)
         self.inner.add_batch_device(keys, vecs, filter_data)
 

@@ -250,12 +250,46 @@ def _check_i8_operands(q, slab, scales, vsq, valid) -> tuple[int, int, int]:
     return B, N, D
 
 
+# the plain scores multiply queries in blocks of _QUERY_BLOCK rows (the last
+# padded with zeros) against the rows in tiles of _ROW_TILE (the last tile
+# ending at the last row, overlapping its neighbour; fewer rows than a tile
+# padded with zeros), so every product has one shape and a query's score of
+# a row is the same bits whatever else its batch holds and however long the
+# extent is: the semantic result cache takes its hits out of a batch, and
+# the paged store's extents are shorter than the slab, yet cache-on and
+# cache-off, paged and slab answers must be byte-identical (cuBLAS picks its
+# algorithm, and so its order of summation, by the product's shape)
+_QUERY_BLOCK = 8
+_ROW_TILE = 8192
+
+
+def _dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(B, N) f32 products of the queries q (B, D) f32 with the rows (N, D)
+    f32, each product of ``_QUERY_BLOCK`` queries by ``_ROW_TILE`` rows."""
+    B, N = q.shape[0], rows.shape[0]
+    pad = -B % _QUERY_BLOCK
+    if pad:
+        q = torch.cat([q, q.new_zeros((pad, q.shape[1]))])
+    if N < _ROW_TILE:
+        rows = torch.cat([rows, rows.new_zeros((_ROW_TILE - N,
+                                                rows.shape[1]))])
+    starts = list(range(0, max(N - _ROW_TILE, 0), _ROW_TILE))
+    starts.append(max(N - _ROW_TILE, 0))
+    out = q.new_empty((q.shape[0], max(N, _ROW_TILE)))
+    for s in starts:
+        tile = rows[s:s + _ROW_TILE].T
+        for b in range(0, q.shape[0], _QUERY_BLOCK):
+            out[b:b + _QUERY_BLOCK, s:s + _ROW_TILE] = \
+                q[b:b + _QUERY_BLOCK] @ tile
+    return out[:B, :N]
+
+
 def score_i8_reference(q, slab, scales, vsq, valid, metric: str):
     """The scores whose keys ``score_i8`` writes: the int8 rows widened to
     float32 (exact), one f32 product with the bf16 queries (exact products,
-    f32 sums), then the score block of the JAX package's
+    f32 sums; ``_dots``), then the score block of the JAX package's
     ``_shared_search_i8_fn``."""
-    dots = q.float() @ slab.float().T
+    dots = _dots(q.float(), slab.float())
     if metric == "cos":
         scores = dots * torch.rsqrt(vsq + 1e-12)[None, :]
     else:
@@ -388,9 +422,10 @@ def score_float_reference(q, vectors, valid, metric: str):
     """The score block of the JAX package's ``_shared_search_fn``, plainly:
     q (B, D) f32 already in the slab's precision, vectors (N, D) float32 or
     bfloat16 -> (B, N) f32 scores, ``dots * rsqrt(||v||^2 + 1e-12)`` for
-    cos, ``2 dots - ||v||^2`` for l2sq, -inf on invalid rows."""
+    cos, ``2 dots - ||v||^2`` for l2sq, -inf on invalid rows. The product
+    is ``_dots``'s, a query's scores the same in any batch."""
     vf = vectors.float()
-    dots = q @ vf.T
+    dots = _dots(q, vf)
     vn_sq = (vf * vf).sum(dim=1)
     if metric == "cos":
         scores = dots * torch.rsqrt(vn_sq + 1e-12)[None, :]

@@ -33,11 +33,15 @@ the port scores it with K2, whose queries are cast to bf16 and whose rows
 are scaled by ``rsqrt(||v||^2)`` — the unsharded port index's arithmetic,
 so a sharded and an unsharded bf16 index rank alike.
 
-Not ported: tenants and page quotas (ROADMAP queue 1, step 6), which raise.
+``tenant`` / ``tenant_quotas`` tag and cap the paged index's pages in its
+one allocator (``PageQuotaExceeded`` past the cap), as in the JAX package;
+the contiguous sharded slab has no allocator and warns that it ignores a
+quota.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Any
 
@@ -48,11 +52,13 @@ from pathway_tpu_torch._device import ReplicaShared, upload
 from pathway_tpu_torch.engine import device_sanitizer
 from pathway_tpu_torch.engine.locking import create_rlock
 from pathway_tpu_torch.engine.paged_store import (PageAllocator,
-                                                  paged_store_enabled)
+                                                  PageQuotaExceeded,
+                                                  paged_store_enabled,
+                                                  quota_pages)
 from pathway_tpu_torch.engine.paged_store import page_rows as _page_rows
 from pathway_tpu_torch.internals.keys import Pointer
-from pathway_tpu_torch.ops.knn import (_CHUNK_ROWS, KnnMetric, _not_ported,
-                                       _round_up, _topk_gather, passes_filter,
+from pathway_tpu_torch.ops.knn import (_CHUNK_ROWS, KnnMetric, _round_up,
+                                       _topk_gather, passes_filter,
                                        search_extent)
 from pathway_tpu_torch.parallel.mesh import DATA_AXIS, all_gather, get_mesh
 
@@ -162,8 +168,6 @@ class ShardedKnnIndex(ReplicaShared):
         if dtype not in _DTYPES:
             raise ValueError(f"unsupported sharded knn dtype {dtype!r} "
                              "(use 'float32', 'bfloat16' or 'int8')")
-        if tenant is not None or tenant_quotas:
-            raise _not_ported("tenants and page quotas")
         self.dim = int(dimensions)
         self.metric = metric
         self.dtype = dtype
@@ -175,10 +179,20 @@ class ShardedKnnIndex(ReplicaShared):
         self._slot_to_key: dict[int, Pointer] = {}
         self._filter_data: dict[Pointer, Any] = {}
         self._dirty: set[int] = set()
-        self._init_storage(reserved_space, page_rows=page_rows)
+        self._init_storage(reserved_space, page_rows=page_rows,
+                           tenant=tenant, tenant_quotas=tenant_quotas)
 
     def _init_storage(self, reserved_space: int, *,
-                      page_rows: int | None = None) -> None:
+                      page_rows: int | None = None, tenant: Any = None,
+                      tenant_quotas: dict[Any, int] | None = None) -> None:
+        if tenant_quotas:
+            # quota accounting lives in the page allocator; the contiguous
+            # slab has none. Loud, not silent: a quota nothing enforces is
+            # a configuration bug
+            logging.getLogger("pathway_tpu_torch.paged_store").warning(
+                "tenant_quotas are only enforced by the paged store — "
+                "the contiguous sharded slab (PATHWAY_PAGED_STORE=0) "
+                "ignores them")
         self.cap_per_shard = slab_cap_per_shard(self.n_shards,
                                                 reserved_space)
         cap = self.total_capacity
@@ -511,13 +525,21 @@ class PagedShardedKnnIndex(ShardedKnnIndex):
     shard's extents, and only then merges across shards."""
 
     def _init_storage(self, reserved_space: int, *,
-                      page_rows: int | None = None) -> None:
+                      page_rows: int | None = None, tenant: Any = None,
+                      tenant_quotas: dict[Any, int] | None = None) -> None:
         self._page_rows = _page_rows(page_rows)
+        self._tenant = tenant
+        quota_p = ({t: quota_pages(rows, self._page_rows)
+                    for t, rows in tenant_quotas.items()}
+                   if tenant_quotas else None)
         self.cap_per_shard = 0  # grows as extents are added
         self._extents: list[_ShardExtent] = []
-        self._allocator = PageAllocator(self._page_rows)
+        self._allocator = PageAllocator(self._page_rows, quota_p)
         # per-shard free-row counters: the emptiest-shard choice runs per
-        # key, and a full allocator scan there is O(S*E) work a row
+        # key, and a full allocator scan there is O(S*E) work a row. They
+        # are exact without quotas; with quotas the allocator's scan
+        # decides (quota headroom is global, a raw counter could overstate
+        # a shard's availability)
         self._shard_free_rows = [0] * self.n_shards
         self.grow_events = 0
         self._host_vectors = np.zeros((0, self.dim), dtype=np.float32)
@@ -574,8 +596,21 @@ class PagedShardedKnnIndex(ShardedKnnIndex):
                 return (slot - ext.base) // ext.cap_per_shard
         raise IndexError(slot)
 
+    def _shard_free(self, shard: int) -> int:
+        if self._allocator.tenant_quota_pages is None:
+            return self._shard_free_rows[shard]
+        return self._allocator.free_slots_available(
+            self._tenant, regions=self._shard_regions(shard))
+
     def _ensure_free(self, n: int) -> None:
-        while self._allocator.free_slots_available() < n:
+        capped = self._allocator.quota_capped_slots(self._tenant)
+        if capped is not None and capped < n:
+            # growth cannot help: the tenant's quota, not the pool, is
+            # the limit (and an unguarded loop would grow forever)
+            raise PageQuotaExceeded(
+                f"tenant {self._tenant!r} needs {n} slots but its page "
+                f"quota caps it at {capped} more")
+        while self._allocator.free_slots_available(self._tenant) < n:
             self._grow()
 
     def _release_slot(self, slot: int) -> None:
@@ -586,14 +621,13 @@ class PagedShardedKnnIndex(ShardedKnnIndex):
         slot = self._key_to_slot.get(key)
         if slot is None:
             # balance by emptiest shard, exactly like the slab path
-            free = self._shard_free_rows
-            shard = max(range(self.n_shards), key=free.__getitem__)
-            if free[shard] == 0:
+            shard = max(range(self.n_shards), key=self._shard_free)
+            if self._shard_free(shard) == 0:
                 self._ensure_free(1)
-                shard = max(range(self.n_shards), key=free.__getitem__)
+                shard = max(range(self.n_shards), key=self._shard_free)
             slot = self._allocator.take_slot(
-                regions=self._shard_regions(shard))
-            free[shard] -= 1
+                self._tenant, regions=self._shard_regions(shard))
+            self._shard_free_rows[shard] -= 1
             self._key_to_slot[key] = slot
             self._slot_to_key[slot] = key
         return slot
@@ -605,6 +639,9 @@ class PagedShardedKnnIndex(ShardedKnnIndex):
         the (free count, shard) pairs each shard passes through, ordered
         by count descending and shard ascending; each shard's slots are
         its regions' ``take_slots``. Lock held."""
+        if self._allocator.tenant_quota_pages is not None:
+            # quotas: the allocator decides each key's shard, key by key
+            return super()._alloc_slots(keys)
         k2s = self._key_to_slot
         new = list(dict.fromkeys(k for k in keys if k not in k2s))
         self._ensure_free(len(new))
@@ -621,7 +658,8 @@ class PagedShardedKnnIndex(ShardedKnnIndex):
                 at = np.flatnonzero(seq == s)
                 if len(at):
                     fresh[at] = self._allocator.take_slots(
-                        len(at), regions=self._shard_regions(s))
+                        len(at), self._tenant,
+                        regions=self._shard_regions(s))
                     free[s] -= len(at)
             fresh_list = fresh.tolist()
             k2s.update(zip(new, fresh_list))

@@ -1,7 +1,7 @@
 """Port counterpart of pathway_tpu/stdlib/indexing: DataIndex over the
 port's device KNN index. Not ported: the full-text (BM25) index, the
 retrievers, the sorting helpers and USearchKnn's native HNSW (ROADMAP
-queue 1, item 4); ``USearchKnn`` and ``default_usearch_knn_document_index``
+queue 1, step 6); ``USearchKnn`` and ``default_usearch_knn_document_index``
 raise, naming that item."""
 
 from pathway_tpu_torch.stdlib.indexing.data_index import (  # noqa: F401

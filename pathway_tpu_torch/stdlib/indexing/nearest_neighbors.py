@@ -9,8 +9,10 @@ the port's ``DeviceEmbeddingKnnIndex``, which takes raw text and embeds it
 on the device. With ``mesh`` set (or ``mesh='auto'`` and a mesh whose data
 axis is larger than 1) it builds the mesh-sharded index
 (parallel/sharded_knn.py) instead, fed vectors by the DataIndex's embedder
-UDF. Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-item: tenants and page quotas, and USearchKnn's native HNSW.
+UDF. ``tenant`` / ``tenant_quotas`` tag and cap the index's pages in its
+page allocator (paged store only), on the unsharded and the sharded
+index alike. Not ported: USearchKnn's native HNSW, which raises naming
+its ROADMAP step.
 """
 
 from __future__ import annotations
@@ -25,20 +27,12 @@ from pathway_tpu_torch.ops.knn import (BruteForceKnnIndex,
                                        DeviceEmbeddingKnnIndex, KnnMetric)
 from pathway_tpu_torch.stdlib.indexing.data_index import InnerIndex
 
-_TENANTS = "ROADMAP queue 1, item 4: tenants and quotas in the page allocator"
-_HNSW = "ROADMAP queue 1, item 4: USearchKnn's native HNSW"
+_HNSW = "ROADMAP queue 1, step 6: USearchKnn's native HNSW"
 
 
 class BruteForceKnnMetricKind:
     L2SQ = KnnMetric.L2SQ
     COS = KnnMetric.COS
-
-
-def _check_ported(tenant, tenant_quotas) -> None:
-    if tenant is not None or tenant_quotas:
-        raise NotImplementedError(
-            "BruteForceKnn(tenant=..., tenant_quotas=...) is not ported to "
-            f"pathway_tpu_torch yet ({_TENANTS})")
 
 
 @dataclass
@@ -66,12 +60,13 @@ class BruteForceKnnFactory:
     # embedders (set by DataIndex when a query-embedder override is in
     # play: the fused text path could not honor it)
     fuse: bool = True
+    # paged store only: this index's page-allocator tenant tag and
+    # per-tenant row quotas (rounded up to whole pages)
     tenant: Any = None
     tenant_quotas: dict | None = None
     device: str = "cuda"
 
     def build(self):
-        _check_ported(self.tenant, self.tenant_quotas)
         dim = self.dimensions
         if dim is None:
             dim = _probe_embedder_dimension(self.embedder)
@@ -81,10 +76,13 @@ class BruteForceKnnFactory:
 
             return ShardedKnnIndex(dim, mesh=mesh,
                                    reserved_space=self.reserved_space,
-                                   metric=self.metric, dtype=self.dtype)
+                                   metric=self.metric, dtype=self.dtype,
+                                   tenant=self.tenant,
+                                   tenant_quotas=self.tenant_quotas)
         inner = BruteForceKnnIndex(
             dim, reserved_space=self.reserved_space, metric=self.metric,
-            dtype=self.dtype,
+            dtype=self.dtype, tenant=self.tenant,
+            tenant_quotas=self.tenant_quotas,
             device=getattr(self.embedder, "device", None) or self.device)
         # device-capable embedder: the engine index takes raw text and
         # embeds on the device; embeddings never visit the host. The gate
@@ -130,13 +128,14 @@ class BruteForceKnn(InnerIndex):
                  tenant: Any = None, tenant_quotas: dict | None = None,
                  device: str = "cuda"):
         super().__init__(data_column, metadata_column)
-        _check_ported(tenant, tenant_quotas)
         self.dimensions = dimensions
         self.reserved_space = reserved_space
         self.metric = metric
         self.embedder = embedder
         self.mesh = mesh
         self.dtype = dtype
+        self.tenant = tenant
+        self.tenant_quotas = tenant_quotas
         # the index's device when there is no embedder (with one, the
         # embedder's device wins)
         self.device = device
@@ -145,7 +144,8 @@ class BruteForceKnn(InnerIndex):
         return BruteForceKnnFactory(
             dimensions=self.dimensions, reserved_space=self.reserved_space,
             metric=self.metric, embedder=self.embedder, mesh=self.mesh,
-            dtype=self.dtype, device=self.device)
+            dtype=self.dtype, tenant=self.tenant,
+            tenant_quotas=self.tenant_quotas, device=self.device)
 
     @property
     def query_embedder(self):

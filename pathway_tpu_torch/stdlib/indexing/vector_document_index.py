@@ -1,7 +1,7 @@
 """Sugar factories for document indexes — port of
 pathway_tpu/stdlib/indexing/vector_document_index.py (reference:
 stdlib/indexing/vector_document_index.py:34-210). The full-text (BM25)
-factory is not ported; the usearch one raises (ROADMAP queue 1, item 4).
+factory is not ported; the usearch one raises (ROADMAP queue 1, step 6).
 """
 
 from __future__ import annotations
@@ -44,7 +44,8 @@ def default_brute_force_knn_document_index(
     ``dtype='int8'`` halves them again (quantized on the device, or on the
     host for a sharded index; host mirror exact f32). The index lives on
     the embedder's device, else on ``device`` (default "cuda").
-    ``tenant``/``tenant_quotas`` are not ported and raise."""
+    ``tenant``/``tenant_quotas`` tag and cap the index's pages in the page
+    allocator (rows rounded up to whole pages)."""
     inner = BruteForceKnn(
         data_column, metadata_column, dimensions=dimensions,
         reserved_space=reserved_space, metric=metric, embedder=embedder,

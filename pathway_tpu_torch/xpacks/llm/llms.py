@@ -14,6 +14,7 @@ from __future__ import annotations
 import asyncio
 from typing import Any
 
+from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.json import Json
 from pathway_tpu_torch.xpacks.llm._utils import _import_or_raise
@@ -102,12 +103,14 @@ class CohereChat(BaseChat):
 
 
 class HFPipelineChat(BaseChat):
-    """Local HuggingFace transformers pipeline (reference llms.py:438) —
-    runs on host CPU/torch; batches serialize through one pipeline."""
+    """Local HuggingFace transformers pipeline (reference llms.py:438);
+    batches serialize through one pipeline. It runs on the card unless the
+    caller asks for the CPU (``device="cpu"``), and raises without one."""
 
-    def __init__(self, model: str | None = None, device: str = "cpu",
+    def __init__(self, model: str | None = None, device: str = "cuda",
                  call_kwargs: dict = {}, **kwargs):
         super().__init__(model=None, **kwargs)
+        device = resolve_device(device)
         transformers = _import_or_raise("transformers", "HFPipelineChat")
         self.pipeline = transformers.pipeline(
             "text-generation", model=model, device=device)

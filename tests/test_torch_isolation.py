@@ -586,6 +586,7 @@ def test_entry_points_default_to_cuda():
     from pathway_tpu_torch.stdlib.ml.classifiers import kmeans_labels
     from pathway_tpu_torch.xpacks.llm.embedders import (ClipEmbedder,
                                                         EncoderEmbedder)
+    from pathway_tpu_torch.xpacks.llm.llms import HFPipelineChat
 
     cfg = EncoderConfig.tiny()
     ccfg = clip.ClipConfig.tiny()
@@ -593,6 +594,7 @@ def test_entry_points_default_to_cuda():
     calls = [
         lambda: EncoderEmbedder(config=cfg),
         lambda: BruteForceKnnIndex(8),
+        lambda: BruteForceKnnIndex(8, paged=False),
         lambda: Encoder.from_params(params, cfg),
         lambda: Encoder.from_params(params, cfg, trainable=True),
         lambda: train.init_train_state(0, cfg),
@@ -603,6 +605,7 @@ def test_entry_points_default_to_cuda():
         lambda: ClipEmbedder(config=ccfg),
         lambda: kmeans_labels([[0.0, 1.0]] * 4, [1.0] * 4, 2),
         lambda: Profiler(),
+        lambda: HFPipelineChat(model="a-local-model"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

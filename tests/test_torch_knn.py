@@ -37,7 +37,7 @@ def _layout(idx):
     pages = [(p.pid, p.base, p.region, p.live) for p in pool.allocator.pages]
     extents = [(e.base, e.rows, e.established) for e in pool.extents]
     return ({int(k): s for k, s in idx._key_to_slot.items()}, pages, extents,
-            {k: v for k, v in pool.stats().items() if k != "tenants"})
+            pool.stats())
 
 
 def _same_results(rj, rt, dtype):
@@ -157,15 +157,26 @@ def test_fused_ingest_grows_like_jax():
 
 
 def test_unported_options_raise_and_page_rows_checks():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tknn.BruteForceKnnIndex(DIM, paged=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tknn.BruteForceKnnIndex(DIM, tenant="a", device="cpu")
-    t = tknn.BruteForceKnnIndex(DIM, device="cpu")
-    t.add_batch([Pointer(1)], np.ones((1, DIM), np.float32),
-                filter_data=[{"a": 1}])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.search([(Pointer(2), np.ones(DIM, np.float32), 1, "a == `1`")])
+    """The options this test once saw raise are the JAX package's now:
+    ``paged=False`` gives the contiguous slab class itself, a tenant tags
+    its pages, and a string filter evaluates through jmespath-lite — each
+    as in the JAX package. page_rows is still checked."""
+    assert type(tknn.BruteForceKnnIndex(DIM, paged=False, device="cpu")) \
+        is tknn.BruteForceKnnIndex
+    assert type(jknn.BruteForceKnnIndex(DIM, paged=False)) \
+        is jknn.BruteForceKnnIndex
+    j, t = _pair("l2sq", "float32", tenant="a")
+    rng = np.random.default_rng(5)
+    vecs = rng.normal(size=(40, DIM)).astype(np.float32)
+    meta = [{"a": i % 3, "path": f"docs/{i % 4}/f{i}.txt"} for i in range(40)]
+    j.add_batch([JPointer(i) for i in range(40)], vecs, filter_data=meta)
+    t.add_batch([Pointer(i) for i in range(40)], vecs, filter_data=meta)
+    assert t.page_stats()["tenants"] == j.page_stats()["tenants"] == {"a": 1}
+    q = rng.normal(size=DIM).astype(np.float32)
+    for filt in ("a == `1`", "a != `1` && globmatch('docs/2/*', path)",
+                 "contains(path, 'f1')"):
+        _same_results(j.search([(JPointer(99), q, 3, filt)]),
+                      t.search([(Pointer(99), q, 3, filt)]), "float32")
     for bad in (100, 96, 1 << 20, 0):
         with pytest.raises(ValueError):
             page_rows(bad)

@@ -467,3 +467,20 @@ def test_encoder_reranker_equals_reference(tiny_params):
     np.testing.assert_allclose(got["torch"][2], got["jax"][2], rtol=0,
                                atol=1e-5)
     assert np.all(np.abs(got["torch"][0]) <= 1 + 1e-6)
+
+
+def test_hf_pipeline_chat_runs_on_the_card_by_default():
+    """``HFPipelineChat`` follows the port's rule for entry points: the
+    card unless the caller asks for the CPU, and a raise without a card
+    (before transformers is imported)."""
+    import inspect
+
+    import torch
+
+    from pathway_tpu_torch.xpacks.llm.llms import HFPipelineChat
+
+    sig = inspect.signature(HFPipelineChat.__init__)
+    assert sig.parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            HFPipelineChat(model="a-local-model")

@@ -1,8 +1,9 @@
 """The port's profiler (pathway_tpu_torch/engine/profiler.py) against the
-JAX package's: its machine parameters, and the live side — every
-non-tenant test of tests/test_profiler.py run against the port's
-``Profiler`` (on ``device="cpu"``), the family records of both packages'
-KNN indexes for the same adds and searches, and the port's own hooks
+JAX package's: its machine parameters, and the live side — every test of
+tests/test_profiler.py run against the port's ``Profiler`` (on
+``device="cpu"``) and, for the per-tenant ones, its request tracker and
+tenant index, the family records of both packages' KNN indexes for the
+same adds and searches, and the port's own hooks
 (the embedder's forwards, the fused and graphed ingest steps, the device
 bridge's and sync mode's legs, ``pw.run``'s install and removal, the
 deferred CUDA-event commit, the torch.profiler capture).
@@ -87,7 +88,7 @@ def test_chip_smoke_bounds_refuse_a_peak_override(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the live side: tests/test_profiler.py's non-tenant tests, on the port
+# the live side: tests/test_profiler.py's tests, on the port
 # ---------------------------------------------------------------------------
 
 import re  # noqa: E402
@@ -490,7 +491,7 @@ def _knn_roundtrip(side: str, dtype: str, paged: bool, n: int, q: int,
     else:
         from pathway_tpu_torch.internals.keys import Pointer
         from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
-        kw = {"device": "cpu"}
+        kw = {"device": "cpu", "paged": paged}
     rng = np.random.default_rng(7)
     vecs = rng.normal(size=(n, 8)).astype(np.float32)
     idx = BruteForceKnnIndex(8, metric=metric, dtype=dtype, **kw)
@@ -511,12 +512,10 @@ def _family_records(prof) -> dict:
 @pytest.mark.parametrize("paged", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_knn_family_records_equal_jax(dtype, paged, n, q, monkeypatch):
-    """The same adds, searches and removal through the JAX index
-    (contiguous slab or paged store) and the port's (paged): the same
+    """The same adds, searches and removal through the JAX index and the
+    port's, each the contiguous slab or the paged store: the same
     families, dispatch counts, ``flops_total`` and ``bytes_total``,
-    exactly. (The port has no unsharded contiguous slab: ROADMAP queue 1,
-    step 6; the slab costs its searches over its capacity, which at
-    these sizes is the paged store's one extent.)"""
+    exactly."""
     from pathway_tpu.engine import profiler as jprof
 
     monkeypatch.setenv("PATHWAY_RESULT_CACHE", "0")
@@ -707,23 +706,80 @@ def test_pw_run_installs_and_removes_the_profiler(monkeypatch):
 # per-tenant serving metrics and the tenant-attributing search
 # ---------------------------------------------------------------------------
 
-_TENANTS = ("tenants and quotas wait for ROADMAP queue 1, step 6: the "
-            "port's index and request tracker carry no tenant yet")
+def _finish_query(tr, rid, key, ms, tenant=None):
+    """tests/test_profiler.py's helper: a synthetic span on the real clock
+    whose e2e is about ``ms``, attributed to ``tenant`` when given."""
+    base = time.perf_counter()
+    span = tr.start(rid, "/q", t_ingress=base)
+    span.key = key
+    tr._by_key[key] = span
+    span.t_enqueued = base
+    if tenant is not None:
+        tr.attribute_tenant([key], tenant)
+    span.t_resolved = base + ms / 1e3
+    tr.finish(span)
 
 
-@pytest.mark.skip(reason=_TENANTS)
 def test_tenant_summary_tracks_per_tenant_quantiles_and_burn():
-    """tests/test_profiler.py's test of ``RequestTracker.tenant_summary``."""
+    """tests/test_profiler.py's test of ``RequestTracker.tenant_summary``,
+    on both packages' trackers: the same counts and burn rates."""
+    from pathway_tpu.engine.request_tracker import RequestTracker as JTracker
+    from pathway_tpu_torch.engine.request_tracker import RequestTracker
+
+    out = {}
+    for name, cls in (("jax", JTracker), ("torch", RequestTracker)):
+        tr = cls(slo_ms=50.0)
+        for i in range(40):
+            _finish_query(tr, f"a{i}", ("a", i), 10.0, tenant="acme")
+        for i in range(40):
+            _finish_query(tr, f"b{i}", ("b", i), 100.0, tenant="bigco")
+        for i in range(5):
+            _finish_query(tr, f"n{i}", ("n", i), 10.0)  # unattributed
+        ts = tr.tenant_summary()
+        assert set(ts) == {"acme", "bigco"}
+        assert ts["acme"]["count"] == 40
+        assert ts["acme"]["p50_ms"] <= ts["acme"]["p95_ms"]
+        assert ts["acme"]["burn_rate"] == 0.0
+        assert ts["bigco"]["burn_rate"] > 1.0
+        assert tr.summary()["tenants"] == ts
+        out[name] = {t: (v["count"], v["burn_rate"]) for t, v in ts.items()}
+    assert out["torch"] == out["jax"]
 
 
-@pytest.mark.skip(reason=_TENANTS)
 def test_attribute_tenant_first_attribution_wins():
     """tests/test_profiler.py's test of ``attribute_tenant``."""
+    from pathway_tpu_torch.engine.request_tracker import RequestTracker
+
+    tr = RequestTracker(slo_ms=50.0)
+    span = tr.start("r1", "/q", t_ingress=0.0)
+    span.key = "k1"
+    tr._by_key["k1"] = span
+    tr.attribute_tenant(["k1", "missing-key"], "first")
+    tr.attribute_tenant(["k1"], "second")
+    assert span.tenant == "first"
 
 
-@pytest.mark.skip(reason=_TENANTS)
-def test_knn_search_attributes_tenant_to_live_trackers():
-    """tests/test_profiler.py's test of a tenant index's search."""
+@pytest.mark.parametrize("paged", [False, True])
+def test_knn_search_attributes_tenant_to_live_trackers(paged):
+    """tests/test_profiler.py's test of a tenant index's search (the slab
+    there; the paged index takes its tenant from the constructor)."""
+    from pathway_tpu_torch.engine.request_tracker import RequestTracker
+    from pathway_tpu_torch.internals.keys import Pointer
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+
+    tr = RequestTracker(slo_ms=50.0)  # registers itself as live
+    qkey = Pointer(501)
+    span = tr.start("r1", "/q", t_ingress=0.0)
+    span.key = qkey
+    tr._by_key[qkey] = span
+    if paged:
+        idx = BruteForceKnnIndex(4, paged=True, tenant="acme", device="cpu")
+    else:
+        idx = BruteForceKnnIndex(4, paged=False, device="cpu")
+        idx._tenant = "acme"
+    idx.add_batch([Pointer(0)], np.ones((1, 4), np.float32))
+    idx.search([(qkey, np.ones(4, np.float32), 1, None)])
+    assert span.tenant == "acme"
 
 
 # ---------------------------------------------------------------------------

@@ -93,8 +93,7 @@ def test_stage_sums_and_aggregates_equal(monkeypatch):
     assert tt.violations == jt.violations > 0
     assert [r["request_id"] for r in tt.slow_queries()] == \
         [r["request_id"] for r in jt.slow_queries()]
-    sj = {k: v for k, v in jt.summary().items() if k != "tenants"}
-    assert tt.summary() == sj
+    assert tt.summary() == jt.summary()
 
 
 def test_picked_up_host_done_resolved_finish_equal():

@@ -125,8 +125,7 @@ def book(idx) -> dict:
            "total": idx.total_capacity, "n": len(idx),
            "filters": {int(k): v for k, v in idx._filter_data.items()}}
     if hasattr(idx, "_allocator"):
-        out["stats"] = {k: v for k, v in idx.page_stats().items()
-                        if k != "tenants"}
+        out["stats"] = idx.page_stats()
         out["pages"] = [(p.pid, p.base, p.region, p.live, list(p.free))
                         for p in idx._allocator.pages]
         out["shard_free"] = list(idx._shard_free_rows)
@@ -321,16 +320,38 @@ def test_sharded_paged_grow_without_remap(meshes):
     same_device_rows(p)
 
 
-def test_sharded_paged_tenant_quota_raises_naming_step_6(meshes):
-    """test_paged_store.py:379's tenants and quotas are not ported: the
-    port raises, naming its ROADMAP step."""
-    _, tm = meshes[4]
-    for kw in ({"tenant": "acme", "tenant_quotas": {"acme": 512}},
-               {"tenant": "acme"}, {"tenant_quotas": {"acme": 512}}):
-        for paged in (True, False):
-            with pytest.raises(NotImplementedError, match="step 6"):
-                tsk.ShardedKnnIndex(8, mesh=tm, reserved_space=8,
-                                    page_rows=128, paged=paged, **kw)
+def test_sharded_paged_tenant_quota_enforced(meshes):
+    """test_paged_store.py:379 in both packages: a tenant's page quota caps
+    the paged sharded index (PageQuotaExceeded past it, nothing placed),
+    freeing its rows frees the pages, and the books — the tenant's pages
+    included — stay the JAX package's throughout."""
+    from pathway_tpu.engine.paged_store import \
+        PageQuotaExceeded as JPageQuotaExceeded
+    from pathway_tpu_torch.engine.paged_store import PageQuotaExceeded
+
+    p = Pair(meshes, 4, 8, reserved_space=8, page_rows=128, paged=True,
+             tenant="acme", tenant_quotas={"acme": 512})  # 4 pages
+    rng = np.random.default_rng(13)
+    p.add_batch(list(range(512)),
+                rng.normal(size=(512, 8)).astype(np.float32))
+    assert p.t.page_stats()["tenants"] == p.j.page_stats()["tenants"]
+    p.same_books()
+    one = rng.normal(size=(1, 8)).astype(np.float32)
+    with pytest.raises(JPageQuotaExceeded):
+        p.j.add_batch([JPointer(9000)], one)
+    with pytest.raises(PageQuotaExceeded):
+        p.t.add_batch([Pointer(9000)], one)
+    p.same_books()
+    for i in range(512):
+        p.remove(i)
+    p.add_batch([9000], one)
+    assert len(p.t) == len(p.j) == 1
+    p.same_books()
+    assert p.t.page_stats()["tenants"] == p.j.page_stats()["tenants"]
+    # the contiguous sharded slab has no allocator: a quota is ignored
+    # there, with a warning, in both packages
+    for kw in ({"tenant": "acme"}, {"tenant_quotas": {"acme": 512}}):
+        Pair(meshes, 4, 8, reserved_space=8, paged=False, **kw)
 
 
 def test_sharded_paged_matches_contiguous(meshes):

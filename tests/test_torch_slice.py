@@ -86,8 +86,7 @@ def test_text_queries_match_jax_index(pair):
         if i < N_QUERIES // 2:
             assert int(b[0][0]) == i  # a copy finds its own document
     assert len(tidx) == len(jidx) == N_DOCS
-    assert tidx.inner.page_stats() == {
-        k: v for k, v in jidx.inner.page_stats().items() if k != "tenants"}
+    assert tidx.inner.page_stats() == jidx.inner.page_stats()
 
 
 def test_wordpiece_and_keys_match_jax():

@@ -236,19 +236,33 @@ def test_statistics_and_inputs_lower_to_join_left(params, endpoint):
 
 
 def test_unported_parts_raise_naming_their_item(params):
-    """The default usearch index, USearchKnn and tenant quotas raise; they
-    never fall back to another index or to the CPU. (The server and its
-    client are ported: tests/test_torch_serving.py; the mesh-sharded index
-    too: tests/test_torch_sharded_knn.py.)"""
+    """The default usearch index and USearchKnn raise, naming ROADMAP queue
+    1, step 6; they never fall back to another index or to the CPU.
+    Tenant quotas are the JAX package's: the factory's engine index tags
+    its pages with the tenant and caps them as JAX's does. (The server and
+    its client are ported: tests/test_torch_serving.py; the mesh-sharded
+    index too: tests/test_torch_sharded_knn.py.)"""
     from pathway_tpu_torch.stdlib.indexing import USearchKnn
 
     emb = _embedder("torch", params, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="step 6"):
         TVectorStoreServer(_docs_table(tpw), embedder=emb)
     pw, store = _server("torch", params, False, "float32", False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="step 6"):
         USearchKnn(store._graph["chunks"].text, embedder=emb)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdefault_index(store._graph["chunks"].text, store._graph["chunks"],
-                       embedder=emb, tenant="acme",
-                       tenant_quotas={"acme": 1024})
+    built = {}
+    for side in ("jax", "torch"):
+        _, store = _server(side, params, False, "float32", False)
+        chunks = store._graph["chunks"]
+        index = SIDES[side][3](
+            chunks.text, chunks, embedder=_embedder(side, params, False),
+            dimensions=64, tenant="acme", tenant_quotas={"acme": 1500})
+        built[side] = index.inner_index.factory().build().inner
+    for idx in built.values():
+        idx.add_batch([0], np.ones((1, 64), np.float32))
+    j, t = built["jax"], built["torch"]
+    assert t._tenant == j._tenant == "acme"
+    assert t._pool.allocator.tenant_quota_pages == \
+        j._pool.allocator.tenant_quota_pages == {"acme": 2}
+    assert t.page_stats()["tenants"] == j.page_stats()["tenants"] \
+        == {"acme": 1}
